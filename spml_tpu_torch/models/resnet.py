@@ -1,0 +1,156 @@
+"""ResNet backbone (deeplab-style 3x3x3 stem, dilated), NCHW inside.
+
+Port of spml_tpu/models/resnet.py (reference:
+spml/models/backbones/resnet.py in twke18/SPML). Module names are the
+reference's torch state-dict names (conv1.conv1.{0,3,6} + conv1.bn1 stem,
+res{2..5}.{i}.conv{1,2,3}/bn{1,2,3}/downsample.{0,1}), so a converted
+state dict loads with strict=True.
+
+* 3-conv stem (3->64->64->128) stride 2 + maxpool 3x3/2 pad 1;
+* stride on the 3x3 conv of each stage's first block;
+* the first block of a stage gets reduced dilation (stage dilation 1|2
+  -> 1, 4 -> 2), the others the full stage dilation;
+* r101 = [3,4,23,3], strides [1,2,1,1], dilations [1,1,2,4]: stride 8.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_MOMENTUM = 3e-4  # torch convention; flax momentum 1 - 3e-4
+BN_EPS = 1e-5
+
+RESNET_DEPTHS = {
+    10: (1, 1, 1, 1),  # debug/test-only tiny variant
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+}
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's (flax) train-mode statistics.
+
+    Train mode normalizes with the batch statistics and updates the
+    running statistics with the BIASED batch variance, as flax does
+    (torch's own BatchNorm2d uses the unbiased one). momentum is the
+    torch convention: running = (1 - m) * running + m * batch.
+
+    The batch statistics come out of the normalization itself: it runs
+    with zeroed scratch running buffers and momentum 1, which leaves the
+    batch mean and unbiased variance there, so no second pass reads the
+    input.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps)
+        batch_mean, batch_var = torch.zeros(
+            2, self.num_features, dtype=self.running_mean.dtype,
+            device=x.device)
+        out = F.batch_norm(x, batch_mean, batch_var, self.weight, self.bias,
+                           True, 1.0, self.eps)
+        with torch.no_grad():
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(batch_mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(batch_var,
+                                                alpha=m * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def conv_bn(cin, cout, kernel, stride=1, dilation=1, momentum=BN_MOMENTUM):
+    pad = dilation * (kernel - 1) // 2
+    return (nn.Conv2d(cin, cout, kernel, stride, pad, dilation, bias=False),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=momentum))
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3(stride, dilation) -> 1x1(x4) with projection shortcut."""
+
+    def __init__(self, cin, planes, stride=1, dilation=1,
+                 has_downsample=False, momentum=BN_MOMENTUM):
+        super().__init__()
+        self.conv1, self.bn1 = conv_bn(cin, planes, 1, momentum=momentum)
+        self.conv2, self.bn2 = conv_bn(planes, planes, 3, stride, dilation,
+                                       momentum)
+        self.conv3, self.bn3 = conv_bn(planes, planes * 4, 1,
+                                       momentum=momentum)
+        if has_downsample:
+            self.downsample = nn.Sequential(
+                *conv_bn(cin, planes * 4, 1, stride, momentum=momentum))
+        else:
+            self.downsample = None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class Stem(nn.Module):
+    """3x 3x3 conv stem + maxpool (reference resnet.py:66-110)."""
+
+    def __init__(self, momentum=BN_MOMENTUM):
+        super().__init__()
+        c1, b1 = conv_bn(3, 64, 3, stride=2, momentum=momentum)
+        c2, b2 = conv_bn(64, 64, 3, momentum=momentum)
+        c3, self.bn1 = conv_bn(64, 128, 3, momentum=momentum)
+        self.conv1 = nn.Sequential(c1, b1, nn.ReLU(), c2, b2, nn.ReLU(), c3)
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        return F.max_pool2d(x, 3, 2, 1)
+
+
+def make_stage(cin, planes, blocks, stride, dilation, momentum):
+    first_dil = 1 if dilation in (1, 2) else 2
+    layers = [Bottleneck(cin, planes, stride, first_dil,
+                         has_downsample=(stride != 1 or cin != planes * 4),
+                         momentum=momentum)]
+    layers += [Bottleneck(planes * 4, planes, 1, dilation, momentum=momentum)
+               for _ in range(1, blocks)]
+    return nn.Sequential(*layers)
+
+
+class ResnetBackbone(nn.Module):
+    """NCHW images -> (res2, res3, res4, res5) feature maps."""
+
+    def __init__(self, blocks, strides=(1, 2, 1, 1), dilations=(1, 1, 2, 4),
+                 momentum=BN_MOMENTUM):
+        super().__init__()
+        self.conv1 = Stem(momentum)
+        cin = 128
+        for i, planes in enumerate((64, 128, 256, 512)):
+            setattr(self, f"res{i + 2}",
+                    make_stage(cin, planes, blocks[i], strides[i],
+                               dilations[i], momentum))
+            cin = planes * 4
+
+    def forward(self, x):
+        x = self.conv1(x)
+        res2 = self.res2(x)
+        res3 = self.res3(res2)
+        res4 = self.res4(res3)
+        res5 = self.res5(res4)
+        return res2, res3, res4, res5
+
+
+def init_backbone_(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialization: conv kernels normal(0,
+    sqrt(2 / fan_out)) (torch kaiming_normal fan_out), BN scale 1, bias 0,
+    running mean 0, var 1."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            with torch.no_grad():
+                m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5,
+                                 generator=generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()

@@ -1,0 +1,315 @@
+"""The SPML train step.
+
+Port of the segsort branch of spml_tpu/train/step.py (behavioral
+reference in twke18/SPML: pyscripts/train/train.py:154-293 plus
+spml/models/predictions/segsort_softmax.py:103-242): embedding forward ->
+per-image vMF k-means (no gradient through the assignments) -> prototypes
+joined with the memory bank -> CE + SegSort sem_ann, SetSegSort sem_occ
+(one fused sweep through the CUDA kernels of ops/segsort_loss.py, or the
+dense losses) and per-image img_sim -> backward -> SGD -> memory-bank
+push.
+
+Loss reduction: tpu.loss_reduction='per_device_mean' groups the batch
+into train.batch_size-image groups and means each group's pixels, then
+the groups (the reference's per-GPU mean, train.py:211-219).
+
+Not ported yet: the softmax_classifier baseline and the DensePose
+branches; the hard-label-only and tag-only fused losses (sem_occ or
+sem_ann off with tpu.use_fused_loss), whose kernels are still to port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from spml_tpu_torch.models.embeddings import (build_classifier_head,
+                                              build_embedding_model)
+from spml_tpu_torch.models.spp import resize_bilinear
+from spml_tpu_torch.ops import common, kmeans, knn, losses
+from spml_tpu_torch.ops.segsort_loss import fused_joint_losses
+from spml_tpu_torch.train import optim
+from spml_tpu_torch.train.state import MemoryBank, TrainState
+from spml_tpu_torch.utils.device import resolve_device
+
+LOC_DIM = 2  # location features of the DeepLab models
+
+
+def _compute_dtype(config) -> torch.dtype:
+    return (torch.bfloat16 if config.tpu.compute_dtype == "bfloat16"
+            else torch.float32)
+
+
+def build_models(config, device="cuda", generator=None):
+    """(embedding model, classifier head) on `device`, weights drawn from
+    `generator` (seeded with train.seed when None)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(config.train.seed)
+    dtype = _compute_dtype(config)
+    emb_model = build_embedding_model(
+        config.network.backbone_types, config.network.embedding_dim,
+        compute_dtype=dtype, bn_momentum=config.network.bn_momentum,
+        generator=generator)
+    cls_model = build_classifier_head(
+        config.dataset.num_classes, config.network.embedding_dim,
+        dropout_rate=0.75, compute_dtype=dtype, generator=generator)
+    fmt = torch.channels_last
+    return (emb_model.to(device, memory_format=fmt),
+            cls_model.to(device, memory_format=fmt))
+
+
+def init_state(config, seed: int, sample_image, device="cuda") -> TrainState:
+    """Models, optimizer state and memory bank.
+
+    sample_image: [B_global, H, W, 3]; only its batch size is read. The
+    frozen groups (stem, res2) get requires_grad=False: their update is
+    zero either way, and the backward pass then stops at res3.
+    """
+    device = resolve_device(device)
+    emb_model, cls_model = build_models(
+        config, device, torch.Generator().manual_seed(seed))
+    for name, p in emb_model.named_parameters():
+        if optim.label_param(name) == optim.FROZEN:
+            p.requires_grad_(False)
+    memory = MemoryBank.create(
+        max(config.train.memory_bank_size, 1),
+        sample_image.shape[0] * config.tpu.segment_capacity,
+        config.network.embedding_dim, LOC_DIM, config.tpu.tag_width, device)
+    return TrainState(step=0, emb_model=emb_model, cls_model=cls_model,
+                      momentum={}, memory=memory,
+                      generator=torch.Generator(device).manual_seed(seed))
+
+
+def _grouped_masked_mean(values, mask, n_groups=1):
+    """Mean over each group's masked entries, then over non-empty groups
+    (n_groups=1: plain masked mean)."""
+    v = values.reshape(n_groups, -1).float()
+    m = mask.reshape(n_groups, -1).float()
+    gsum = torch.sum(v * m, dim=1)
+    gcnt = torch.sum(m, dim=1)
+    gmean = gsum / torch.clamp(gcnt, min=1.0)
+    has = (gcnt > 0).float()
+    return torch.sum(gmean * has) / torch.clamp(torch.sum(has), min=1.0)
+
+
+def _cross_entropy(logits, labels, num_classes, n_groups=1):
+    """Softmax CE over pixels with labels < num_classes."""
+    valid = labels < num_classes
+    safe = torch.where(valid, labels, 0)
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return _grouped_masked_mean(nll, valid, n_groups)
+
+
+def _named_params(state: TrainState):
+    yield from (("embedding." + n, p)
+                for n, p in state.emb_model.named_parameters())
+    yield from (("prediction." + n, p)
+                for n, p in state.cls_model.named_parameters())
+
+
+def make_train_step(config):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    batch: image [B, H, W, 3] float, semantic_label / instance_label
+    [B, H, W] integer (uint8 widens here), semantic_tag [B, tag_width],
+    all on the state's device. The models and momentum buffers are
+    updated in place.
+
+    Sets torch.backends.{cuda.matmul,cudnn}.allow_tf32 = False: the
+    k-means E-step, the top-5 ranking and the dense losses stay full
+    float32, because exp(kappa * x) amplifies logit error.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    if config.network.prediction_types != "segsort":
+        raise NotImplementedError(
+            f"prediction_types {config.network.prediction_types!r} is not "
+            "ported yet")
+    if config.train.optimizer != "sgd":
+        raise NotImplementedError(
+            f"train.optimizer {config.train.optimizer!r} is not ported yet")
+    C = config.dataset.num_classes
+    P = config.tpu.segment_capacity
+    ignore = config.dataset.semantic_ignore_index
+    n_clusters = tuple(config.network.kmeans_num_clusters)
+    km_iters = config.network.kmeans_iterations
+    mem_size = config.train.memory_bank_size
+    tcfg = config.train
+    use_sem_ann = tcfg.sem_ann_loss_types != "none"
+    use_sem_occ = tcfg.sem_occ_loss_types != "none"
+    use_img_sim = tcfg.img_sim_loss_types != "none"
+    fused = config.tpu.use_fused_loss
+    if fused and use_sem_ann != use_sem_occ:
+        raise NotImplementedError(
+            "the hard-label-only and tag-only fused losses are not ported "
+            "yet; set tpu.use_fused_loss=False")
+    schedule = optim.make_schedule(tcfg)
+
+    def _n_groups(b):
+        bs = tcfg.batch_size
+        if (config.tpu.loss_reduction != "per_device_mean"
+                or bs <= 0 or b % bs != 0):
+            return 1
+        return b // bs
+
+    def forward_and_losses(state: TrainState, batch, compute_metrics):
+        """Total loss and (metrics, current prototypes) for one batch.
+        Runs the models in their current mode (train_step sets train)."""
+        images = batch["image"]
+        sem_full = batch["semantic_label"].long()
+        inst_full = batch["instance_label"].long()
+        tags = batch["semantic_tag"].long()
+        B = images.shape[0]
+        dev = images.device
+
+        emb, loc = state.emb_model(images)
+        h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
+        N = h * w
+        sem = common.resize_labels(sem_full, (h, w))
+        inst = common.resize_labels(inst_full, (h, w))
+
+        # ---- clustering (no gradient through assignments) ----
+        with torch.no_grad():
+            segs, _, _ = kmeans.segment_batch(
+                emb.detach(), loc, sem, inst, n_clusters, P, km_iters,
+                ignore, label_cap=config.tpu.label_cap)
+
+        # ---- differentiable pixel embeddings & prototypes ----
+        emb_flat = common.normalize_embedding(emb.float()).reshape(B, N, D)
+        emb_loc = common.normalize_embedding(
+            torch.cat([emb_flat, loc.reshape(B, N, -1).float()], dim=-1))
+        weights = segs.pixel_valid.float()
+        protos = kmeans.calculate_prototypes_from_labels(
+            emb_flat, segs.pixel_segment_ids, P, weights)
+        protos_loc = kmeans.calculate_prototypes_from_labels(
+            emb_loc, segs.pixel_segment_ids, P, weights)
+
+        img_idx = torch.arange(B, device=dev)
+        proto_sem = segs.segment_semantic.reshape(-1)
+        proto_valid = segs.segment_valid.reshape(-1)
+        proto_tag = tags.repeat_interleave(P, dim=0)
+        cur = dict(prototype=protos.reshape(B * P, D),
+                   prototype_with_loc=protos_loc.reshape(B * P, -1),
+                   semantic_label=proto_sem,
+                   instance_label=segs.segment_instance.reshape(-1),
+                   batch_index=img_idx.repeat_interleave(P),
+                   tag=proto_tag, valid=proto_valid)
+
+        # ---- join the memory bank (snapshots without gradient) ----
+        memory = state.memory
+        if mem_size > 0:
+            all_protos = torch.cat(
+                [cur["prototype"], memory.prototype.reshape(-1, D)])
+            all_sem = torch.cat(
+                [proto_sem, memory.semantic_label.reshape(-1)])
+            all_valid = torch.cat([proto_valid, memory.valid.reshape(-1)])
+            all_tag = torch.cat(
+                [proto_tag, memory.tag.reshape(-1, memory.tag.shape[-1])])
+        else:
+            all_protos, all_sem = cur["prototype"], proto_sem
+            all_valid, all_tag = proto_valid, proto_tag
+
+        pix_sem = sem.reshape(-1)
+        pix_own = (segs.pixel_segment_ids + img_idx[:, None] * P).reshape(-1)
+        pix_valid = segs.pixel_valid.reshape(-1)
+        metrics = {}
+
+        # ---- semantic annotation: CE on the detached embeddings ----
+        cls_in = common.normalize_embedding(emb.float()).detach()
+        logits = state.cls_model(cls_in, state.generator)
+        logits_up = resize_bilinear(logits, images.shape[1:3])
+        ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B))
+
+        # ---- sem_ann (SegSort) and sem_occ (SetSegSort) ----
+        occ_proto_tags = all_tag[:, 1:C]
+        occ_pix_tags = tags[:, 1:C].repeat_interleave(N, dim=0)
+        ann_pix_mask = pix_valid & (pix_sem < C)
+        ann_proto_mask = all_valid & (all_sem < C)
+        emb_rows = emb_flat.reshape(-1, D)
+        ann = occ = None
+        if fused and use_sem_ann:
+            ann_ll, occ_ll = fused_joint_losses(
+                emb_rows, pix_sem, pix_own, occ_pix_tags, all_protos,
+                torch.where(ann_proto_mask, all_sem, -1), occ_proto_tags,
+                tcfg.sem_ann_concentration, tcfg.sem_occ_concentration,
+                ann_pix_mask, pix_valid, all_valid, reduction="none")
+            ann = _grouped_masked_mean(ann_ll, ann_pix_mask, _n_groups(B))
+            occ = _grouped_masked_mean(occ_ll, pix_valid, _n_groups(B))
+        else:
+            if use_sem_ann:
+                ann_ll = losses.segsort_loss(
+                    emb_rows, pix_sem, pix_own, all_protos, all_sem,
+                    tcfg.sem_ann_concentration, ann_pix_mask,
+                    ann_proto_mask, reduction="none")
+                ann = _grouped_masked_mean(ann_ll, ann_pix_mask,
+                                           _n_groups(B))
+            if use_sem_occ:
+                occ_ll = losses.set_segsort_loss(
+                    emb_rows, occ_pix_tags, pix_own, all_protos,
+                    occ_proto_tags, tcfg.sem_occ_concentration, pix_valid,
+                    all_valid, reduction="none")
+                occ = _grouped_masked_mean(occ_ll, pix_valid, _n_groups(B))
+
+        sem_ann = (ce + ann) * tcfg.sem_ann_loss_weight \
+            if ann is not None else ce
+        metrics["sem_ann_loss"] = sem_ann
+        total = sem_ann
+        if occ is not None:
+            occ = occ * tcfg.sem_occ_loss_weight
+            metrics["sem_occ_loss"] = occ
+            total = total + occ
+
+        # ---- low-level image similarity (per image, emb ++ location) ----
+        if use_img_sim:
+            per_img = losses.segsort_loss(
+                emb_loc, inst.reshape(B, N), segs.pixel_segment_ids,
+                protos_loc, segs.segment_instance,
+                tcfg.img_sim_concentration, segs.pixel_valid,
+                segs.segment_valid)
+            img_sim = _grouped_masked_mean(
+                per_img, segs.pixel_valid.any(dim=-1), _n_groups(B))
+            img_sim = img_sim * tcfg.img_sim_loss_weight
+            metrics["img_sim_loss"] = img_sim
+            total = total + img_sim
+
+        # ---- top-5 prototype retrieval accuracy (logged steps only) ----
+        if compute_metrics:
+            with torch.no_grad():
+                acc = knn.top_k_ranking(all_protos, all_sem, all_protos,
+                                        all_sem, 5, all_valid, all_valid)[0]
+        else:
+            acc = torch.zeros((), device=dev)
+        metrics["accuracy"] = acc
+        metrics["num_segments"] = proto_valid.sum()
+        return total, (metrics, cur)
+
+    def train_step(state: TrainState, batch):
+        state.emb_model.train()
+        state.cls_model.train()
+        compute = (not config.tpu.lazy_metrics
+                   or state.step % tcfg.tensorboard_step == 0)
+        total, (metrics, cur) = forward_and_losses(state, batch, compute)
+        params = list(_named_params(state))
+        for _, p in params:
+            p.grad = None
+        total.backward()
+        lr = schedule(state.step)
+        optim.sgd_step(params, state.momentum, lr, tcfg.weight_decay,
+                       tcfg.momentum)
+        memory = state.memory.push(
+            cur["prototype"].detach(), cur["prototype_with_loc"].detach(),
+            cur["semantic_label"], cur["instance_label"],
+            cur["batch_index"], cur["tag"], cur["valid"],
+            batch["image"].shape[0])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = total.detach()
+        metrics["learning_rate"] = lr
+        return dataclasses.replace(state, step=state.step + 1,
+                                   memory=memory), metrics
+
+    return train_step
