@@ -110,6 +110,10 @@ class TpuConfig:
     loss_reduction: str = "per_device_mean"
     # compute the top-5 retrieval accuracy only on logged steps
     lazy_metrics: bool = True
+    # DensePose: the reference constructs the feat_aff loss but never
+    # calls it; True adds it (the NN-propagated tag set loss at the
+    # feat_aff concentration and weight)
+    apply_feat_aff: bool = False
 
 
 @dataclass

@@ -1,45 +1,60 @@
-// Joint SegSort statistics and their gradients: the fused sem_ann + sem_occ
-// loss sweep of the SPML train step, for NVIDIA Hopper (sm_90a).
+// SegSort statistics and their gradients: the fused loss sweeps of the SPML
+// train step, for NVIDIA Hopper (sm_90a). One source serves two loss
+// families, a compile-time parameter of every kernel:
 //
-// Replaces the TPU kernels of spml_tpu/ops/pallas/segsort_loss.py:
-//   K1 segsort_joint_stats      <- _joint_stats_kernel
-//   K2 segsort_joint_grad_emb   <- _joint_grad_kernel(transpose=False)
-//   K3 segsort_joint_grad_proto <- _joint_grad_kernel(transpose=True)
+//   JOINT: sem_ann (hard labels) + sem_occ (tag sets) in one sweep, six
+//          row sums at two concentrations. Replaces, in
+//          spml_tpu/ops/pallas/segsort_loss.py:
+//     K1 segsort_joint_stats      <- _joint_stats_kernel (:664)
+//     K2 segsort_joint_grad_emb   <- _joint_grad_kernel(transpose=False) (:716)
+//     K3 segsort_joint_grad_proto <- _joint_grad_kernel(transpose=True) (:716)
+//   HARD:  sem_ann alone (the DensePose point recipe, sem_occ off), three
+//          row sums at one concentration. Replaces:
+//     K4 segsort_hard_stats       <- _stats_kernel (:130)
+//     K5 segsort_hard_grad_emb    <- _grad_coeff_kernel (:200)
+//     K6 segsort_hard_grad_proto  <- _grad_proto_kernel (:240)
 //
 // For N pixels and the first num_valid of P prototypes (sorted valid-first
 // by the wrapper; rows past num_valid contribute exactly zero), with
 // l = E[n].P[k], s_a = exp(kappa_a l), s_o = exp(kappa_o l) (s_a^2 when
 // kappa_o == 2 kappa_a, as the TPU kernel does):
-//   K1: six row sums over k of s_a / s_o under the own, same-label,
-//       different-label, tag-intersect and tag-disjoint masks;
-//   K2: dE[n] = sum_k c[n,k] P[k],   c = kappa_a s_a g_a + kappa_o s_o g_o,
+//   stats: row sums over k of s_a (and, JOINT, s_o) under the own
+//       (k == own[n], not gated by the label), same-label and
+//       different-label masks (prototype label >= 0), and, JOINT, the
+//       tag-intersect and tag-disjoint masks (prototype valid);
+//   dE[n] = sum_k c[n,k] P[k],   c = kappa_a s_a g_a (+ kappa_o s_o g_o),
 //       g_a / g_o the incoming row cotangents picked by the same masks;
-//   K3: dP[k] = sum_n c[n,k] E[n].
+//   dP[k] = sum_n c[n,k] E[n].
 //
 // What bounds them on this card: operations, not bytes. Each (pixel,
 // prototype) pair costs a D-long dot product (2D flops), one or two exps
 // and the masked sums; the inputs are O((N + P) D) and read once. At the
-// flagship shapes (N = 131072, P = 6144, D = 64) one sweep over a full
-// prototype set is ~1e11 flops against ~40 MB of inputs. These kernels use
-// float32 FMAs on the CUDA cores (67 TFLOP/s), not the tensor cores: the
-// logits feed exp(12 l), which amplifies TF32 or bf16 operand rounding.
+// flagship shapes (N = 131072, P = 6144, D = 64) one JOINT sweep over a
+// full prototype set is ~1e11 flops against ~40 MB of inputs. At the
+// DensePose point shapes (N = 65536, P = 2048, D = 32, ~10-25% of the
+// prototype rows live) a HARD sweep is ~1e9 flops, a bound of ~0.02 ms:
+// there the kernels are launch- and latency-bound, and the design keeps
+// them to one launch each (two for dP) with no host round trip. These
+// kernels use float32 FMAs on the CUDA cores (67 TFLOP/s), not the tensor
+// cores: the logits feed exp(kappa l), which amplifies TF32 or bf16
+// operand rounding.
 //
 // Design. The [N, P] similarity matrix never reaches device memory.
-//   K1, K2: one thread per pixel row keeps E[n] (and, in K2, dE[n]) in
+//   stats, dE: one thread per pixel row keeps E[n] (and, for dE, dE[n]) in
 //     registers; the block stages tiles of TP prototypes, labels and tag
 //     bits in shared memory, read as warp-wide broadcasts. The loop stops
 //     at num_valid, read from device memory, so the host never waits for
-//     it. K1 sums each tile into its own partials before adding them to
-//     the running sums (two-level summation keeps the 6144-term sums
-//     accurate to ~1e-6).
-//   K3: one thread per prototype row keeps P[k] and dP[k] in registers;
+//     it. The stats kernel sums each tile into its own partials before
+//     adding them to the running sums (two-level summation keeps the
+//     6144-term sums accurate to ~1e-6).
+//   dP: one thread per prototype row keeps P[k] and dP[k] in registers;
 //     blocks also split the pixels into chunks (`chunk` rows, 2048 from
-//     the wrapper), so that a few
-//     hundred prototypes still fill the 132 SMs. Each chunk writes its
-//     partial dP to scratch and a second kernel adds the chunks in a fixed
-//     order: the result does not depend on the run (no float atomics).
+//     the wrapper), so that a few hundred prototypes still fill the 132
+//     SMs. Each chunk writes its partial dP to scratch and a second kernel
+//     adds the chunks in a fixed order: the result does not depend on the
+//     run (no float atomics).
 //   Every kernel computes the dot products in the same order, so the
-//   three agree on each logit bit for bit.
+//   three of a family agree on each logit bit for bit.
 // Left for later: wgmma / TMA tiles, bf16 operands, skipping pixels whose
 // cotangents are all zero.
 
@@ -47,9 +62,16 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // pixels (K1, K2) or prototypes (K3) a block
-constexpr int TP = 64;        // prototypes per shared tile (K1, K2)
-constexpr int TN = 64;        // pixels per shared tile (K3)
+constexpr int JOINT = 0;
+constexpr int HARD = 1;
+
+__host__ __device__ constexpr int n_stats(int family) {
+  return family == JOINT ? 6 : 3;
+}
+
+constexpr int THREADS = 128;  // pixels (stats, dE) or prototypes (dP) a block
+constexpr int TP = 64;        // prototypes per shared tile (stats, dE)
+constexpr int TN = 64;        // pixels per shared tile (dP)
 constexpr int REDUCE_THREADS = 256;
 
 // Four independent FMA chains (lanes d mod 4), added pairwise at the end:
@@ -103,14 +125,53 @@ __device__ __forceinline__ PairMasks pair_masks(int k, int own_k, int lab,
   return m;
 }
 
+template <int F>
 __device__ __forceinline__ void sims(float l, float kappa_a, float kappa_o,
                                      int square, float& sa, float& so) {
   sa = expf(l * kappa_a);
-  so = square ? sa * sa : expf(l * kappa_o);
+  if constexpr (F == JOINT) {
+    so = square ? sa * sa : expf(l * kappa_o);
+  } else {
+    so = 0.f;
+  }
 }
 
-// Stages prototypes [t0, t0 + cnt) of a valid-first sorted set.
-template <int D>
+// Adds one pair's similarities to the family's row sums: JOINT (own_a,
+// same_a, diff_a, own_o, same_o, diff_o), HARD (own, same, diff).
+template <int F>
+__device__ __forceinline__ void add_pair(float (&acc)[n_stats(F)],
+                                         const PairMasks& m, float sa,
+                                         float so) {
+  acc[0] += m.own ? sa : 0.f;
+  acc[1] += m.same_a ? sa : 0.f;
+  acc[2] += m.diff_a ? sa : 0.f;
+  if constexpr (F == JOINT) {
+    acc[3] += m.own ? so : 0.f;
+    acc[4] += m.same_o ? so : 0.f;
+    acc[5] += m.diff_o ? so : 0.f;
+  }
+}
+
+// c[n, k] of one pair from the row cotangents g (laid out as the stats).
+template <int F>
+__device__ __forceinline__ float pair_coeff(const PairMasks& m,
+                                            const float (&g)[n_stats(F)],
+                                            float sa, float so,
+                                            float kappa_a, float kappa_o) {
+  const float ga = (m.own ? g[0] : 0.f) + (m.same_a ? g[1] : 0.f) +
+                   (m.diff_a ? g[2] : 0.f);
+  if constexpr (F == JOINT) {
+    const float go = (m.own ? g[3] : 0.f) + (m.same_o ? g[4] : 0.f) +
+                     (m.diff_o ? g[5] : 0.f);
+    return kappa_a * sa * ga + kappa_o * so * go;
+  } else {
+    return kappa_a * sa * ga;
+  }
+}
+
+// Stages prototypes [t0, t0 + cnt) of a valid-first sorted set (HARD reads
+// no tag bits or validity).
+template <int D, int F>
 __device__ __forceinline__ void stage_protos(
     float* sp, int* slab, int* stag, int* sval, const float* protos,
     const int* proto_lab, const int* proto_tag, const int* proto_valid,
@@ -120,19 +181,25 @@ __device__ __forceinline__ void stage_protos(
   for (int i = threadIdx.x; i < cnt * D / 4; i += blockDim.x) dst[i] = src[i];
   for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
     slab[i] = proto_lab[t0 + i];
-    stag[i] = proto_tag[t0 + i];
-    sval[i] = proto_valid[t0 + i];
+    if constexpr (F == JOINT) {
+      stag[i] = proto_tag[t0 + i];
+      sval[i] = proto_valid[t0 + i];
+    } else {
+      stag[i] = 0;
+      sval[i] = 0;
+    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) joint_stats_kernel(
+template <int D, int F>
+__global__ void __launch_bounds__(THREADS) stats_kernel(
     const float* __restrict__ emb, const int* __restrict__ pix_lab,
     const int* __restrict__ own, const int* __restrict__ pix_tag,
     const float* __restrict__ protos, const int* __restrict__ proto_lab,
     const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
     const int* __restrict__ num_valid, int n, int p, float kappa_a,
     float kappa_o, int square, float* __restrict__ out) {
+  constexpr int NS = n_stats(F);
   __shared__ __align__(16) float sp[TP * D];
   __shared__ int slab[TP], stag[TP], sval[TP];
   const int row = blockIdx.x * THREADS + threadIdx.x;
@@ -143,43 +210,42 @@ __global__ void __launch_bounds__(THREADS) joint_stats_kernel(
     load_row<D>(e, emb + (size_t)row * D);
     lab = pix_lab[row];
     own_k = own[row];
-    tag = pix_tag[row];
+    if constexpr (F == JOINT) tag = pix_tag[row];
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) e[d] = 0.f;
   }
   const int nv = min(*num_valid, p);
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = 0.f;
   for (int t0 = 0; t0 < nv; t0 += TP) {
     const int cnt = min(TP, nv - t0);
     __syncthreads();
-    stage_protos<D>(sp, slab, stag, sval, protos, proto_lab, proto_tag,
-                    proto_valid, t0, cnt);
+    stage_protos<D, F>(sp, slab, stag, sval, protos, proto_lab, proto_tag,
+                       proto_valid, t0, cnt);
     __syncthreads();
-    float part[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float part[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) part[s] = 0.f;
     for (int j = 0; j < cnt; ++j) {
       float sa, so;
-      sims(dot_row<D>(e, sp + j * D), kappa_a, kappa_o, square, sa, so);
+      sims<F>(dot_row<D>(e, sp + j * D), kappa_a, kappa_o, square, sa, so);
       const PairMasks m = pair_masks(t0 + j, own_k, lab, tag, slab[j],
                                      stag[j], sval[j]);
-      part[0] += m.own ? sa : 0.f;
-      part[1] += m.same_a ? sa : 0.f;
-      part[2] += m.diff_a ? sa : 0.f;
-      part[3] += m.own ? so : 0.f;
-      part[4] += m.same_o ? so : 0.f;
-      part[5] += m.diff_o ? so : 0.f;
+      add_pair<F>(part, m, sa, so);
     }
 #pragma unroll
-    for (int s = 0; s < 6; ++s) acc[s] += part[s];
+    for (int s = 0; s < NS; ++s) acc[s] += part[s];
   }
   if (live) {
 #pragma unroll
-    for (int s = 0; s < 6; ++s) out[(size_t)s * n + row] = acc[s];
+    for (int s = 0; s < NS; ++s) out[(size_t)s * n + row] = acc[s];
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) joint_grad_emb_kernel(
+template <int D, int F>
+__global__ void __launch_bounds__(THREADS) grad_emb_kernel(
     const float* __restrict__ emb, const int* __restrict__ pix_lab,
     const int* __restrict__ own, const int* __restrict__ pix_tag,
     const float* __restrict__ protos, const int* __restrict__ proto_lab,
@@ -187,20 +253,23 @@ __global__ void __launch_bounds__(THREADS) joint_grad_emb_kernel(
     const int* __restrict__ num_valid, int n, int p, float kappa_a,
     float kappa_o, int square, const float* __restrict__ grads,
     float* __restrict__ d_emb) {
+  constexpr int NS = n_stats(F);
   __shared__ __align__(16) float sp[TP * D];
   __shared__ int slab[TP], stag[TP], sval[TP];
   const int row = blockIdx.x * THREADS + threadIdx.x;
   const bool live = row < n;
   float e[D], acc[D];
-  float g[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float g[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) g[s] = 0.f;
   int lab = -1, own_k = -1, tag = 0;
   if (live) {
     load_row<D>(e, emb + (size_t)row * D);
     lab = pix_lab[row];
     own_k = own[row];
-    tag = pix_tag[row];
+    if constexpr (F == JOINT) tag = pix_tag[row];
 #pragma unroll
-    for (int s = 0; s < 6; ++s) g[s] = grads[(size_t)s * n + row];
+    for (int s = 0; s < NS; ++s) g[s] = grads[(size_t)s * n + row];
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) e[d] = 0.f;
@@ -211,20 +280,16 @@ __global__ void __launch_bounds__(THREADS) joint_grad_emb_kernel(
   for (int t0 = 0; t0 < nv; t0 += TP) {
     const int cnt = min(TP, nv - t0);
     __syncthreads();
-    stage_protos<D>(sp, slab, stag, sval, protos, proto_lab, proto_tag,
-                    proto_valid, t0, cnt);
+    stage_protos<D, F>(sp, slab, stag, sval, protos, proto_lab, proto_tag,
+                       proto_valid, t0, cnt);
     __syncthreads();
     for (int j = 0; j < cnt; ++j) {
       const float* pk = sp + j * D;
       float sa, so;
-      sims(dot_row<D>(e, pk), kappa_a, kappa_o, square, sa, so);
+      sims<F>(dot_row<D>(e, pk), kappa_a, kappa_o, square, sa, so);
       const PairMasks m = pair_masks(t0 + j, own_k, lab, tag, slab[j],
                                      stag[j], sval[j]);
-      const float ga = (m.own ? g[0] : 0.f) + (m.same_a ? g[1] : 0.f) +
-                       (m.diff_a ? g[2] : 0.f);
-      const float go = (m.own ? g[3] : 0.f) + (m.same_o ? g[4] : 0.f) +
-                       (m.diff_o ? g[5] : 0.f);
-      const float c = kappa_a * sa * ga + kappa_o * so * go;
+      const float c = pair_coeff<F>(m, g, sa, so, kappa_a, kappa_o);
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         const float4 v = *reinterpret_cast<const float4*>(pk + d);
@@ -245,8 +310,8 @@ __global__ void __launch_bounds__(THREADS) joint_grad_emb_kernel(
 
 // grid (ceil(P / THREADS), n_chunks): partial[c][k] = sum over the pixels
 // [c * chunk, (c + 1) * chunk) of c[n, k] E[n].
-template <int D>
-__global__ void __launch_bounds__(THREADS) joint_grad_proto_kernel(
+template <int D, int F>
+__global__ void __launch_bounds__(THREADS) grad_proto_kernel(
     const float* __restrict__ emb, const int* __restrict__ pix_lab,
     const int* __restrict__ own, const int* __restrict__ pix_tag,
     const float* __restrict__ protos, const int* __restrict__ proto_lab,
@@ -254,9 +319,10 @@ __global__ void __launch_bounds__(THREADS) joint_grad_proto_kernel(
     const int* __restrict__ num_valid, int n, int p, float kappa_a,
     float kappa_o, int square, const float* __restrict__ grads, int chunk,
     float* __restrict__ partial) {
+  constexpr int NS = n_stats(F);
   __shared__ __align__(16) float se[TN * D];
   __shared__ int slab[TN], sown[TN], stag[TN];
-  __shared__ float sg[6][TN];
+  __shared__ float sg[NS][TN];
   const int nv = min(*num_valid, p);
   const int k0 = blockIdx.x * THREADS;
   if (k0 >= nv) return;  // uniform over the block
@@ -267,8 +333,10 @@ __global__ void __launch_bounds__(THREADS) joint_grad_proto_kernel(
   if (live) {
     load_row<D>(pr, protos + (size_t)k * D);
     plab = proto_lab[k];
-    ptag = proto_tag[k];
-    pval = proto_valid[k];
+    if constexpr (F == JOINT) {
+      ptag = proto_tag[k];
+      pval = proto_valid[k];
+    }
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) pr[d] = 0.f;
@@ -286,22 +354,21 @@ __global__ void __launch_bounds__(THREADS) joint_grad_proto_kernel(
     for (int i = threadIdx.x; i < cnt; i += THREADS) {
       slab[i] = pix_lab[t0 + i];
       sown[i] = own[t0 + i];
-      stag[i] = pix_tag[t0 + i];
+      stag[i] = F == JOINT ? pix_tag[t0 + i] : 0;
 #pragma unroll
-      for (int s = 0; s < 6; ++s) sg[s][i] = grads[(size_t)s * n + t0 + i];
+      for (int s = 0; s < NS; ++s) sg[s][i] = grads[(size_t)s * n + t0 + i];
     }
     __syncthreads();
     for (int i = 0; i < cnt; ++i) {
       const float* ei = se + i * D;
       float sa, so;
-      sims(dot_row<D>(pr, ei), kappa_a, kappa_o, square, sa, so);
+      sims<F>(dot_row<D>(pr, ei), kappa_a, kappa_o, square, sa, so);
       const PairMasks m = pair_masks(k, sown[i], slab[i], stag[i], plab,
                                      ptag, pval);
-      const float ga = (m.own ? sg[0][i] : 0.f) + (m.same_a ? sg[1][i] : 0.f) +
-                       (m.diff_a ? sg[2][i] : 0.f);
-      const float go = (m.own ? sg[3][i] : 0.f) + (m.same_o ? sg[4][i] : 0.f) +
-                       (m.diff_o ? sg[5][i] : 0.f);
-      const float c = kappa_a * sa * ga + kappa_o * so * go;
+      float gi[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) gi[s] = sg[s][i];
+      const float c = pair_coeff<F>(m, gi, sa, so, kappa_a, kappa_o);
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         const float4 v = *reinterpret_cast<const float4*>(ei + d);
@@ -338,18 +405,18 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ partial,
   d_protos[idx] = s;
 }
 
-template <template <int> class Launch, typename... Args>
+template <int F, template <int, int> class Launch, typename... Args>
 int dispatch_d(int d, Args... args) {
   switch (d) {
-    case 16: Launch<16>::run(args...); break;
-    case 32: Launch<32>::run(args...); break;
-    case 64: Launch<64>::run(args...); break;
+    case 16: Launch<16, F>::run(args...); break;
+    case 32: Launch<32, F>::run(args...); break;
+    case 64: Launch<64, F>::run(args...); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int F>
 struct LaunchStats {
   static void run(const float* emb, const int* pix_lab, const int* own,
                   const int* pix_tag, const float* protos,
@@ -358,13 +425,13 @@ struct LaunchStats {
                   float kappa_a, float kappa_o, int square, float* out,
                   cudaStream_t stream) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    joint_stats_kernel<D><<<blocks, THREADS, 0, stream>>>(
+    stats_kernel<D, F><<<blocks, THREADS, 0, stream>>>(
         emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
         proto_valid, num_valid, n, p, kappa_a, kappa_o, square, out);
   }
 };
 
-template <int D>
+template <int D, int F>
 struct LaunchGradEmb {
   static void run(const float* emb, const int* pix_lab, const int* own,
                   const int* pix_tag, const float* protos,
@@ -373,14 +440,14 @@ struct LaunchGradEmb {
                   float kappa_a, float kappa_o, int square,
                   const float* grads, float* d_emb, cudaStream_t stream) {
     const int blocks = (n + THREADS - 1) / THREADS;
-    joint_grad_emb_kernel<D><<<blocks, THREADS, 0, stream>>>(
+    grad_emb_kernel<D, F><<<blocks, THREADS, 0, stream>>>(
         emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
         proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
         d_emb);
   }
 };
 
-template <int D>
+template <int D, int F>
 struct LaunchGradProto {
   static void run(const float* emb, const int* pix_lab, const int* own,
                   const int* pix_tag, const float* protos,
@@ -391,7 +458,7 @@ struct LaunchGradProto {
                   int n_chunks, float* d_protos, cudaStream_t stream) {
     if (n_chunks > 0) {
       const dim3 grid((p + THREADS - 1) / THREADS, n_chunks);
-      joint_grad_proto_kernel<D><<<grid, THREADS, 0, stream>>>(
+      grad_proto_kernel<D, F><<<grid, THREADS, 0, stream>>>(
           emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
           proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
           chunk, partial);
@@ -415,10 +482,10 @@ int segsort_joint_stats(const float* emb, const int* pix_lab, const int* own,
                         int p, int d, float kappa_a, float kappa_o,
                         int square, float* out, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<LaunchStats>(d, emb, pix_lab, own, pix_tag, protos,
-                                 proto_lab, proto_tag, proto_valid,
-                                 num_valid, n, p, kappa_a, kappa_o, square,
-                                 out, (cudaStream_t)stream);
+  return dispatch_d<JOINT, LaunchStats>(
+      d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
+      proto_valid, num_valid, n, p, kappa_a, kappa_o, square, out,
+      (cudaStream_t)stream);
 }
 
 // grads: [6, n] cotangents of the six rows of segsort_joint_stats.
@@ -430,10 +497,10 @@ int segsort_joint_grad_emb(const float* emb, const int* pix_lab,
                            float kappa_a, float kappa_o, int square,
                            const float* grads, float* d_emb, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<LaunchGradEmb>(d, emb, pix_lab, own, pix_tag, protos,
-                                   proto_lab, proto_tag, proto_valid,
-                                   num_valid, n, p, kappa_a, kappa_o, square,
-                                   grads, d_emb, (cudaStream_t)stream);
+  return dispatch_d<JOINT, LaunchGradEmb>(
+      d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
+      proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads, d_emb,
+      (cudaStream_t)stream);
 }
 
 // partial: scratch [n_chunks, p, d], n_chunks = ceil(n / chunk).
@@ -446,10 +513,49 @@ int segsort_joint_grad_proto(const float* emb, const int* pix_lab,
                              const float* grads, int chunk, float* partial,
                              int n_chunks, float* d_protos, void* stream) {
   if (p == 0) return 0;
-  return dispatch_d<LaunchGradProto>(
+  return dispatch_d<JOINT, LaunchGradProto>(
       d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
       proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads, chunk,
       partial, n_chunks, d_protos, (cudaStream_t)stream);
+}
+
+// out: [3, n] rows own, same, diff at concentration kappa.
+int segsort_hard_stats(const float* emb, const int* pix_lab, const int* own,
+                       const float* protos, const int* proto_lab,
+                       const int* num_valid, int n, int p, int d,
+                       float kappa, float* out, void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<HARD, LaunchStats>(
+      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
+      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
+      0, out, (cudaStream_t)stream);
+}
+
+// grads: [3, n] cotangents of the three rows of segsort_hard_stats.
+int segsort_hard_grad_emb(const float* emb, const int* pix_lab,
+                          const int* own, const float* protos,
+                          const int* proto_lab, const int* num_valid, int n,
+                          int p, int d, float kappa, const float* grads,
+                          float* d_emb, void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<HARD, LaunchGradEmb>(
+      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
+      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
+      0, grads, d_emb, (cudaStream_t)stream);
+}
+
+// partial: scratch [n_chunks, p, d], n_chunks = ceil(n / chunk).
+int segsort_hard_grad_proto(const float* emb, const int* pix_lab,
+                            const int* own, const float* protos,
+                            const int* proto_lab, const int* num_valid,
+                            int n, int p, int d, float kappa,
+                            const float* grads, int chunk, float* partial,
+                            int n_chunks, float* d_protos, void* stream) {
+  if (p == 0) return 0;
+  return dispatch_d<HARD, LaunchGradProto>(
+      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
+      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
+      0, grads, chunk, partial, n_chunks, d_protos, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
-"""Atrous spatial pyramid head and the bilinear resize.
+"""Spatial pyramid heads (ASPP, PSPP) and the bilinear resize.
 
 Port of spml_tpu/models/spp.py (reference: spml/models/heads/spp.py in
 twke18/SPML). As an SPML embedding head, ASPP runs without BN or ReLU
 (resnet_deeplab.py:37-40): the SUM of four biased 3x3 convs at dilations
-6/12/18/24. PSPP is not ported yet.
+6/12/18/24. PSPP (spp.py:46, resnet_pspnet.py:36-40): adaptive average
+pools to 1/2/3/6 bins, each a 1x1 conv -> BN -> ReLU resized back,
+concatenated with the input and fused by a 3x3 conv -> BN -> ReLU.
 """
 
 from __future__ import annotations
@@ -11,6 +13,13 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from spml_tpu_torch.models.resnet import BN_EPS, BatchNorm2d
+
+# PSPP's BatchNorms use the reference's momentum whatever
+# network.bn_momentum says (the JAX package hard-codes flax 1 - 3e-4)
+PSPP_BN_MOMENTUM = 3e-4
+PSPP_BINS = (1, 2, 3, 6)
 
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -45,3 +54,35 @@ class ASPP(nn.Module):
     def forward(self, x):
         return (self.aspp_1(x) + self.aspp_2(x) + self.aspp_3(x)
                 + self.aspp_4(x))
+
+
+def _conv_bn_relu(cin, cout, kernel):
+    return [nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=PSPP_BN_MOMENTUM),
+            nn.ReLU()]
+
+
+class PSPP(nn.Module):
+    """Pyramid pooling (NCHW). Module names are the reference's:
+    pspp_{i} = (adaptive pool, 1x1 conv, BN, ReLU), conv = (3x3 conv,
+    BN, ReLU). nn.AdaptiveAvgPool2d's bin i spans
+    [floor(i H / s), ceil((i + 1) H / s)), as the JAX package's
+    adaptive_avg_pool, also where s > H (overlapping bins)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        for i, s in enumerate(PSPP_BINS):
+            setattr(self, f"pspp_{i + 1}", nn.Sequential(
+                nn.AdaptiveAvgPool2d(s),
+                *_conv_bn_relu(in_channels, out_channels, 1)))
+        self.conv = nn.Sequential(*_conv_bn_relu(
+            in_channels + len(PSPP_BINS) * out_channels, out_channels, 3))
+
+    def forward(self, x):
+        size = x.shape[2:]
+        xs = [x]
+        for i in range(len(PSPP_BINS)):
+            v = getattr(self, f"pspp_{i + 1}")(x)
+            xs.append(F.interpolate(v, size=size, mode="bilinear",
+                                    align_corners=False, antialias=False))
+        return self.conv(torch.cat(xs, dim=1))

@@ -39,6 +39,15 @@ SIGNATURES = {
         # n_chunks, d_protos [P, D], stream
         "segsort_joint_grad_proto":
             [P] * 9 + [I, I, I, F, F, I, P, I, P, I, P, P],
+        # emb, pix_lab, own, protos, proto_lab, num_valid, n, p, d, kappa,
+        # out [3, N], stream
+        "segsort_hard_stats": [P] * 6 + [I, I, I, F, P, P],
+        # ... the same 10 + grads [3, N], d_emb [N, D], stream
+        "segsort_hard_grad_emb": [P] * 6 + [I, I, I, F, P, P, P],
+        # ... the same 10 + grads [3, N], chunk, partial [C, P, D],
+        # n_chunks, d_protos [P, D], stream
+        "segsort_hard_grad_proto":
+            [P] * 6 + [I, I, I, F, P, I, P, I, P, P],
     },
 }
 

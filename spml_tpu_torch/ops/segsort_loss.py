@@ -1,14 +1,19 @@
-"""Fused joint SegSort loss: sem_ann (hard labels) + sem_occ (tag sets)
-statistics in one sweep over pixel-prototype pairs.
+"""Fused SegSort losses: the pixel-to-prototype statistics in one sweep.
 
-Port of the joint family of spml_tpu/ops/pallas/segsort_loss.py
-(``joint_segsort_stats``, ``fused_joint_losses`` and the shared wrapper
-pieces). The hot op is sims = exp(kappa * E @ P^T) over [N pixels,
-P prototypes] followed by masked row sums; the dense formulation
-materializes the ~3 GB matrix at flagship scale. The CUDA kernels of
-csrc/segsort_joint.cu stream prototype tiles instead and emit only six
-[N] statistics; the backward pass recomputes the tiles (dE and dP
-kernels), so peak memory is O(N + P).
+Port of spml_tpu/ops/pallas/segsort_loss.py, two families:
+
+* hard labels (``segsort_stats`` / ``fused_segsort_loss``): the sem_ann
+  loss alone, three statistics (own, same, diff) at one concentration;
+* joint (``joint_segsort_stats`` / ``fused_joint_losses``): sem_ann (hard
+  labels) + sem_occ (tag sets) together, six statistics at two
+  concentrations.
+
+The hot op is sims = exp(kappa * E @ P^T) over [N pixels, P prototypes]
+followed by masked row sums; the dense formulation materializes the ~3 GB
+matrix at flagship scale. The CUDA kernels of csrc/segsort_joint.cu
+stream prototype tiles instead and emit only the [N] statistics; the
+backward pass recomputes the tiles (dE and dP kernels), so peak memory is
+O(N + P).
 
 Valid-prototype compaction, as in the JAX package: the prototype array is
 fixed-capacity but real labels fill a fraction of it, so the wrapper
@@ -20,7 +25,8 @@ exactly zero to every statistic of a masked pixel.
 
 Dispatch: a CUDA tensor goes to the kernels (a failed build or launch
 raises); a CPU tensor goes to the plain version
-``joint_segsort_stats_reference``, differentiated by autograd.
+(``segsort_stats_reference`` / ``joint_segsort_stats_reference``),
+differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -31,10 +37,15 @@ from spml_tpu_torch.ops import _cuda
 
 KERNEL_SOURCE = "segsort_joint"
 SUPPORTED_DIMS = (16, 32, 64)
-CHUNK = 2048  # pixels per partial dP sum of the dP kernel
+CHUNK = 2048  # pixels per partial dP sum of the dP kernels
+
+# family -> (statistics per pixel, position of the prototypes among the
+# kernel inputs, which are in the C functions' argument order)
+_FAMILIES = {"joint": (6, 4), "hard": (3, 3)}
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"joint_stats": 0, "joint_grad_emb": 0, "joint_grad_proto": 0}
+LAUNCHES = {f"{family}_{kind}": 0 for family in _FAMILIES
+            for kind in ("stats", "grad_emb", "grad_proto")}
 
 
 def reset_launch_counts() -> None:
@@ -96,8 +107,36 @@ def _ll_from_stats(own_s, same_s, diff_s, pixel_mask, reduction="mean"):
 
 
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
+
+def _rowsum(mask, s):
+    return torch.sum(torch.where(mask, s, 0.0), dim=1)
+
+
+def _label_masks(emb, pix_lab, own_idx, proto_lab, num_valid):
+    """Masks shared by both families: own (not gated by the label), same
+    and different label (prototype label >= 0), all cut at num_valid."""
+    cols = torch.arange(proto_lab.shape[0], device=emb.device)
+    live = cols < num_valid.reshape(())
+    lab_ok = (proto_lab >= 0) & live
+    same = (pix_lab[:, None] == proto_lab[None, :]) & lab_ok
+    diff = (pix_lab[:, None] != proto_lab[None, :]) & lab_ok
+    own = (own_idx[:, None] == cols[None, :]) & live
+    return own, same, diff, live
+
+
+def segsort_stats_reference(emb, pix_lab, own_idx, protos, proto_lab,
+                            num_valid, kappa):
+    """Dense [N, P] form of the hard-label statistics, with the kernels'
+    masks; prototype rows at or past num_valid contribute nothing.
+    Returns a [3, N] tensor (own, same, diff)."""
+    own, same, diff, _ = _label_masks(emb, pix_lab, own_idx, proto_lab,
+                                      num_valid)
+    s = torch.exp((emb @ protos.T) * kappa)
+    return torch.stack([_rowsum(own, s), _rowsum(same, s),
+                        _rowsum(diff, s)])
+
 
 def joint_segsort_stats_reference(emb, pix_lab, own_idx, pix_tags, protos,
                                   proto_lab, proto_tags, proto_valid,
@@ -105,82 +144,66 @@ def joint_segsort_stats_reference(emb, pix_lab, own_idx, pix_tags, protos,
     """Dense [N, P] form of the six statistics, with the kernels' masks;
     prototype rows at or past num_valid contribute nothing. Returns a
     [6, N] tensor (own_a, same_a, diff_a, own_o, same_o, diff_o)."""
-    cols = torch.arange(protos.shape[0], device=emb.device)
-    live = cols < num_valid.reshape(())
+    own, same_a, diff_a, live = _label_masks(emb, pix_lab, own_idx,
+                                             proto_lab, num_valid)
     logits = emb @ protos.T
     s_a = torch.exp(logits * kappa_a)
     s_o = s_a * s_a if kappa_o == 2.0 * kappa_a else torch.exp(
         logits * kappa_o)
-    lab_ok = (proto_lab >= 0) & live
-    same_a = (pix_lab[:, None] == proto_lab[None, :]) & lab_ok
-    diff_a = (pix_lab[:, None] != proto_lab[None, :]) & lab_ok
     inter = (pix_tags[:, None] & proto_tags[None, :]) != 0
     tag_ok = (proto_valid > 0) & live
     same_o = inter & tag_ok
     diff_o = ~inter & tag_ok
-    own = (own_idx[:, None] == cols[None, :]) & live
-
-    def rowsum(mask, s):
-        return torch.sum(torch.where(mask, s, 0.0), dim=1)
-
-    return torch.stack([rowsum(own, s_a), rowsum(same_a, s_a),
-                        rowsum(diff_a, s_a), rowsum(own, s_o),
-                        rowsum(same_o, s_o), rowsum(diff_o, s_o)])
+    return torch.stack([_rowsum(own, s_a), _rowsum(same_a, s_a),
+                        _rowsum(diff_a, s_a), _rowsum(own, s_o),
+                        _rowsum(same_o, s_o), _rowsum(diff_o, s_o)])
 
 
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _kernel_args(emb, pix_lab, own_idx, pix_tags, protos, proto_lab,
-                 proto_tags, proto_valid, num_valid, kappa_a, kappa_o):
-    n, d = emb.shape
-    p = protos.shape[0]
-    ptrs = [t.data_ptr() for t in (emb, pix_lab, own_idx, pix_tags, protos,
-                                   proto_lab, proto_tags, proto_valid,
-                                   num_valid)]
-    square = int(kappa_o == 2.0 * kappa_a)
-    return ptrs + [n, p, d, float(kappa_a), float(kappa_o), square]
+def _c_args(family, inputs):
+    """(pointers of the inputs, n, p, d) as the C functions take them."""
+    emb, protos = inputs[0], inputs[_FAMILIES[family][1]]
+    ptrs = [t.data_ptr() for t in inputs]
+    return ptrs + [emb.shape[0], protos.shape[0], emb.shape[1]]
 
 
-def _launch_stats(inputs, kappa_a, kappa_o):
+def _launch(family, kind, inputs, scalars, *tail):
+    """Calls segsort_{family}_{kind} on PyTorch's current stream; raises on
+    a launch error and counts the launch."""
+    name = f"segsort_{family}_{kind}"
+    fn = getattr(_cuda.load(KERNEL_SOURCE), name)
+    err = fn(*_c_args(family, inputs), *scalars, *tail,
+             _cuda.stream_handle(inputs[0].device))
+    _cuda.check(err, name)
+    LAUNCHES[f"{family}_{kind}"] += 1
+
+
+def _launch_stats(family, inputs, scalars):
     emb = inputs[0]
-    out = torch.empty((6, emb.shape[0]), dtype=torch.float32,
-                      device=emb.device)
-    lib = _cuda.load(KERNEL_SOURCE)
-    err = lib.segsort_joint_stats(
-        *_kernel_args(*inputs, kappa_a, kappa_o), out.data_ptr(),
-        _cuda.stream_handle(emb.device))
-    _cuda.check(err, "segsort_joint_stats")
-    LAUNCHES["joint_stats"] += 1
+    out = torch.empty((_FAMILIES[family][0], emb.shape[0]),
+                      dtype=torch.float32, device=emb.device)
+    _launch(family, "stats", inputs, scalars, out.data_ptr())
     return out
 
 
-def _launch_grad_emb(inputs, kappa_a, kappa_o, grads):
-    emb = inputs[0]
-    d_emb = torch.empty_like(emb)
-    lib = _cuda.load(KERNEL_SOURCE)
-    err = lib.segsort_joint_grad_emb(
-        *_kernel_args(*inputs, kappa_a, kappa_o), grads.data_ptr(),
-        d_emb.data_ptr(), _cuda.stream_handle(emb.device))
-    _cuda.check(err, "segsort_joint_grad_emb")
-    LAUNCHES["joint_grad_emb"] += 1
+def _launch_grad_emb(family, inputs, scalars, grads):
+    d_emb = torch.empty_like(inputs[0])
+    _launch(family, "grad_emb", inputs, scalars, grads.data_ptr(),
+            d_emb.data_ptr())
     return d_emb
 
 
-def _launch_grad_proto(inputs, kappa_a, kappa_o, grads):
-    emb, protos = inputs[0], inputs[4]
+def _launch_grad_proto(family, inputs, scalars, grads):
+    emb, protos = inputs[0], inputs[_FAMILIES[family][1]]
     n_chunks = -(-emb.shape[0] // CHUNK)
     partial = torch.empty((n_chunks, *protos.shape), dtype=torch.float32,
                           device=emb.device)
     d_protos = torch.empty_like(protos)
-    lib = _cuda.load(KERNEL_SOURCE)
-    err = lib.segsort_joint_grad_proto(
-        *_kernel_args(*inputs, kappa_a, kappa_o), grads.data_ptr(), CHUNK,
-        partial.data_ptr(), n_chunks, d_protos.data_ptr(),
-        _cuda.stream_handle(emb.device))
-    _cuda.check(err, "segsort_joint_grad_proto")
-    LAUNCHES["joint_grad_proto"] += 1
+    _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(), CHUNK,
+            partial.data_ptr(), n_chunks, d_protos.data_ptr())
     return d_protos
 
 
@@ -190,29 +213,61 @@ def _kernel_operand(t, dtype):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-class _JointStats(torch.autograd.Function):
-    """Forward K1 (segsort_joint_stats); backward K2 (dE) and K3 (dP).
-    Gradients flow to the embeddings and prototypes only."""
+class _SegsortStats(torch.autograd.Function):
+    """Forward: the family's stats kernel (K1 joint, K4 hard); backward:
+    its dE (K2, K5) and dP (K3, K6) kernels. `inputs` are in the C
+    functions' argument order; gradients flow to the embeddings (first)
+    and the prototypes only."""
 
     @staticmethod
-    def forward(ctx, emb, protos, pix_lab, own_idx, pix_tags, proto_lab,
-                proto_tags, proto_valid, num_valid, kappa_a, kappa_o):
-        inputs = (emb, pix_lab, own_idx, pix_tags, protos, proto_lab,
-                  proto_tags, proto_valid, num_valid)
+    def forward(ctx, family, scalars, *inputs):
         ctx.save_for_backward(*inputs)
-        ctx.kappas = (kappa_a, kappa_o)
-        return _launch_stats(inputs, kappa_a, kappa_o)
+        ctx.family, ctx.scalars = family, scalars
+        return _launch_stats(family, inputs, scalars)
 
     @staticmethod
     def backward(ctx, grads):
         inputs = ctx.saved_tensors
+        family, scalars = ctx.family, ctx.scalars
+        at = _FAMILIES[family][1]
         grads = _kernel_operand(grads, torch.float32)
-        d_emb = d_protos = None
-        if ctx.needs_input_grad[0]:
-            d_emb = _launch_grad_emb(inputs, *ctx.kappas, grads)
-        if ctx.needs_input_grad[1]:
-            d_protos = _launch_grad_proto(inputs, *ctx.kappas, grads)
-        return (d_emb, d_protos) + (None,) * 9
+        out = [None] * (2 + len(inputs))
+        if ctx.needs_input_grad[2]:
+            out[2] = _launch_grad_emb(family, inputs, scalars, grads)
+        if ctx.needs_input_grad[2 + at]:
+            out[2 + at] = _launch_grad_proto(family, inputs, scalars, grads)
+        return tuple(out)
+
+
+def _kernel_inputs(emb, protos, ints):
+    d = emb.shape[1]
+    if d not in SUPPORTED_DIMS:
+        raise ValueError(f"embedding width {d} not in {SUPPORTED_DIMS}")
+    if emb.shape[0] >= 2**31 or protos.shape[0] * d >= 2**31:
+        raise ValueError("SegSort kernels take int32 sizes")
+    return (_kernel_operand(emb, torch.float32),
+            _kernel_operand(protos, torch.float32),
+            [_kernel_operand(t, torch.int32) for t in ints])
+
+
+def segsort_stats(emb, pix_lab, own_idx, protos, proto_lab, num_valid,
+                  kappa):
+    """(own, same, diff) of the hard-label loss as a [3, N] float32
+    tensor.
+
+    emb [N, D], protos [P, D]; pix_lab / own_idx [N] and proto_lab [P]
+    integers, a negative prototype label excluding the prototype from
+    the same / diff sums; num_valid [1]: rows at or past it contribute
+    nothing.
+    """
+    if not emb.is_cuda:
+        return segsort_stats_reference(emb.float(), pix_lab, own_idx,
+                                       protos.float(), proto_lab, num_valid,
+                                       kappa)
+    e, p, (lab, own, plab, nv) = _kernel_inputs(
+        emb, protos, (pix_lab, own_idx, proto_lab, num_valid))
+    return _SegsortStats.apply("hard", (float(kappa),), e, lab, own, p,
+                               plab, nv)
 
 
 def joint_segsort_stats(emb, pix_lab, own_idx, pix_tags, protos, proto_lab,
@@ -230,18 +285,41 @@ def joint_segsort_stats(emb, pix_lab, own_idx, pix_tags, protos, proto_lab,
         return joint_segsort_stats_reference(
             emb.float(), pix_lab, own_idx, pix_tags, protos.float(),
             proto_lab, proto_tags, proto_valid, num_valid, kappa_a, kappa_o)
-    d = emb.shape[1]
-    if d not in SUPPORTED_DIMS:
-        raise ValueError(f"embedding width {d} not in {SUPPORTED_DIMS}")
-    if emb.shape[0] >= 2**31 or protos.shape[0] * d >= 2**31:
-        raise ValueError("joint SegSort kernels take int32 sizes")
-    i32 = [_kernel_operand(t, torch.int32) for t in
-           (pix_lab, own_idx, pix_tags, proto_lab, proto_tags, proto_valid,
-            num_valid)]
-    return _JointStats.apply(
-        _kernel_operand(emb, torch.float32),
-        _kernel_operand(protos, torch.float32), *i32, float(kappa_a),
-        float(kappa_o))
+    e, p, (lab, own, tag, plab, ptag, pval, nv) = _kernel_inputs(
+        emb, protos, (pix_lab, own_idx, pix_tags, proto_lab, proto_tags,
+                      proto_valid, num_valid))
+    square = int(kappa_o == 2.0 * kappa_a)
+    return _SegsortStats.apply(
+        "joint", (float(kappa_a), float(kappa_o), square), e, lab, own, tag,
+        p, plab, ptag, pval, nv)
+
+
+def _num_valid_all(p, device):
+    return torch.full((1,), p, dtype=torch.int32, device=device)
+
+
+def fused_segsort_loss(embeddings, semantic_labels, own_segment_ids,
+                       prototypes, prototype_semantic_labels, concentration,
+                       pixel_mask, prototype_mask, reduction="mean",
+                       compact=True):
+    """The hard-label SegSort loss (losses.segsort_loss) in one fused
+    sweep: the masked mean, or the per-pixel [N] log likelihood with
+    reduction="none". Prototypes outside prototype_mask take label -1
+    and drop out of the same / diff sums."""
+    p0 = prototypes.shape[0]
+    protos = prototypes.float()
+    plab = torch.where(prototype_mask, prototype_semantic_labels.long(), -1)
+    own = own_segment_ids.long()
+    if compact:
+        touch = (plab >= 0) | _own_flag(own, pixel_mask, p0)
+        (protos, plab), own, num_valid = _compact_prototypes(
+            touch, [protos, plab], own)
+    else:
+        num_valid = _num_valid_all(p0, protos.device)
+    own_s, same_s, diff_s = segsort_stats(
+        embeddings.float(), semantic_labels.long(), own, protos, plab,
+        num_valid, float(concentration)).unbind(0)
+    return _ll_from_stats(own_s, same_s, diff_s, pixel_mask, reduction)
 
 
 def fused_joint_losses(embeddings, semantic_labels, own_segment_ids,
@@ -268,8 +346,7 @@ def fused_joint_losses(embeddings, semantic_labels, own_segment_ids,
         (protos, plab, qtags, pvalid), own, num_valid = _compact_prototypes(
             touch, [protos, plab, qtags, pvalid], own)
     else:
-        num_valid = torch.full((1,), p0, dtype=torch.int32,
-                               device=protos.device)
+        num_valid = _num_valid_all(p0, protos.device)
     stats = joint_segsort_stats(
         embeddings.float(), semantic_labels.long(), own,
         _pack_tag_bits(semantic_tags), protos, plab, qtags, pvalid,

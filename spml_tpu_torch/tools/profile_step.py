@@ -1,11 +1,14 @@
-"""Where the flagship train step's device time goes.
+"""Where a train step's device time goes.
 
-    python -m spml_tpu_torch.tools.profile_step [--steps 3] [--out DIR]
+    python -m spml_tpu_torch.tools.profile_step [--recipe flagship]
+        [--steps 3] [--out DIR]
 
-Needs one CUDA card. Builds the flagship configuration
-(spml_tpu_torch/train/flagship.py) from seed 0 on blobby synthetic labels,
-runs 3 warm-up steps, times 5 steps with CUDA events, then traces --steps
-steps with torch.profiler (CPU + CUDA activity) and prints:
+Needs one CUDA card. Builds the recipe's configuration from seed 0 —
+flagship (spml_tpu_torch/train/flagship.py, blobby synthetic labels) or
+densepose_point (spml_tpu_torch/train/densepose_point.py, synthetic point
+labels) — runs 3 warm-up steps, times 5 steps with CUDA events, then
+traces --steps steps with torch.profiler (CPU + CUDA activity) and
+prints:
 
 * step ms untraced and traced (CUDA events), images/s;
 * device busy ms per step (union of kernel, copy and set intervals) and
@@ -13,7 +16,7 @@ steps with torch.profiler (CPU + CUDA activity) and prints:
 * device ms per step by kernel category (name patterns below) and the
   15 kernels that take the most time.
 
-The Chrome trace goes to DIR/profile_step_trace.json (default
+The Chrome trace goes to DIR/profile_step_<recipe>_trace.json (default
 profile_out/).
 """
 
@@ -28,7 +31,9 @@ import subprocess
 import torch
 
 CATEGORIES = [  # first match wins; cuDNN's conv kernels also say "gemm"
-    ("segsort joint K1-K3", r"joint_stats|joint_grad|reduce_chunks"),
+    # the kernels of csrc/segsort_joint.cu (K1-K3 joint, K4-K6 hard)
+    ("segsort loss K1-K6", r"(stats|grad_emb|grad_proto)_kernel<|"
+                           r"reduce_chunks"),
     ("conv (cuDNN)", r"fprop|dgrad|wgrad|implicit|conv|cudnn|"
                      r"nchwToNhwc|nhwcToNchw"),
     ("matmul (cuBLAS)", r"gemm|gemv|Gemm|nvjet|splitK"),
@@ -73,6 +78,8 @@ def _time_steps(train_step, state, batch, n):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--recipe", choices=("flagship", "densepose_point"),
+                    default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args(argv)
@@ -80,11 +87,17 @@ def main(argv=None) -> int:
         raise SystemExit("profile_step: needs a CUDA card")
 
     from spml_tpu_torch.config import load_config
-    from spml_tpu_torch.train import flagship, step as step_lib
+    from spml_tpu_torch.train import densepose_point, flagship
+    from spml_tpu_torch.train import step as step_lib
 
-    cfg = load_config(overrides=flagship.OVERRIDES)
-    b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
-    batch = flagship.blobby_batch(b, crop, cfg.dataset.num_classes)
+    if args.recipe == "flagship":
+        cfg = load_config(overrides=flagship.OVERRIDES)
+        b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
+        batch = flagship.blobby_batch(b, crop, cfg.dataset.num_classes)
+    else:
+        cfg = load_config(overrides=densepose_point.OVERRIDES)
+        b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
+        batch = densepose_point.point_batch(b, crop, seed=0)
     state = step_lib.init_state(cfg, 0, batch["image"], device="cuda")
     train_step = step_lib.make_train_step(cfg)
     state, _ = _time_steps(train_step, state, batch, 3)
@@ -95,7 +108,7 @@ def main(argv=None) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         state, traced_ms = _time_steps(train_step, state, batch, args.steps)
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "profile_step_trace.json")
+    path = os.path.join(args.out, f"profile_step_{args.recipe}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -116,7 +129,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}")
+    print(f"recipe: {args.recipe}; card: {smi}; torch {torch.__version__}")
     print(f"step: {plain_ms:.2f} ms untraced ({b * 1000 / plain_ms:.2f} "
           f"imgs/s), {traced_ms:.2f} ms traced; device busy "
           f"{busy_ms:.2f} ms/step, idle share "

@@ -13,7 +13,7 @@ torch.optim.SGD applies the learning rate after the momentum buffer:
 
 Folding the LR into the buffer means old gradients decay at the LR of
 their own step. Groups: backbone res3-5 weights x1 / biases x2, heads
-(ASPP, classifier) weights x10 / biases x20, biases without weight decay;
+(ASPP or PSPP, classifier) weights x10 / biases x20, biases without weight decay;
 the stem and res2 are in no group: frozen. Adam is not ported yet.
 """
 

@@ -2,20 +2,28 @@
 
 Port of the segsort branch of spml_tpu/train/step.py (behavioral
 reference in twke18/SPML: pyscripts/train/train.py:154-293 plus
-spml/models/predictions/segsort_softmax.py:103-242): embedding forward ->
-per-image vMF k-means (no gradient through the assignments) -> prototypes
-joined with the memory bank -> CE + SegSort sem_ann, SetSegSort sem_occ
-(one fused sweep through the CUDA kernels of ops/segsort_loss.py, or the
-dense losses) and per-image img_sim -> backward -> SGD -> memory-bank
-push.
+spml/models/predictions/segsort_softmax.py:103-242 and, for DensePose,
+segsort_softmax_densepose.py): embedding forward -> per-image vMF k-means
+(no gradient through the assignments) -> prototypes joined with the
+memory bank -> CE + SegSort sem_ann, SetSegSort sem_occ (with
+tpu.use_fused_loss one fused sweep through the CUDA kernels of
+ops/segsort_loss.py: the joint kernels with both losses on, the
+hard-label kernels with sem_ann alone; else the dense losses), per-image
+img_sim and, DensePose with tpu.apply_feat_aff, the dense feat_aff set
+loss -> backward -> SGD -> memory-bank push.
+
+DensePose (backbone_types containing "densepose"): local features are
+[y, x, r, g, b]; the embeddings are scaled by 0.1 before joining them;
+img_sim uses the plain embeddings; tags are propagated from the nearest
+labelled prototype of the same image.
 
 Loss reduction: tpu.loss_reduction='per_device_mean' groups the batch
 into train.batch_size-image groups and means each group's pixels, then
 the groups (the reference's per-GPU mean, train.py:211-219).
 
-Not ported yet: the softmax_classifier baseline and the DensePose
-branches; the hard-label-only and tag-only fused losses (sem_occ or
-sem_ann off with tpu.use_fused_loss), whose kernels are still to port.
+Not ported yet: the softmax_classifier baseline and the tag-only fused
+loss (sem_ann off, sem_occ on with tpu.use_fused_loss), whose kernels
+are still to port.
 """
 
 from __future__ import annotations
@@ -29,12 +37,18 @@ from spml_tpu_torch.models.embeddings import (build_classifier_head,
                                               build_embedding_model)
 from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common, kmeans, knn, losses
-from spml_tpu_torch.ops.segsort_loss import fused_joint_losses
+from spml_tpu_torch.ops.segsort_loss import (fused_joint_losses,
+                                             fused_segsort_loss)
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import MemoryBank, TrainState
 from spml_tpu_torch.utils.device import resolve_device
 
-LOC_DIM = 2  # location features of the DeepLab models
+
+
+def loc_feature_dim(config) -> int:
+    """Local feature channels: [y, x, r, g, b] for DensePose, else
+    [y, x]."""
+    return 5 if "densepose" in config.network.backbone_types else 2
 
 
 def _compute_dtype(config) -> torch.dtype:
@@ -77,7 +91,8 @@ def init_state(config, seed: int, sample_image, device="cuda") -> TrainState:
     memory = MemoryBank.create(
         max(config.train.memory_bank_size, 1),
         sample_image.shape[0] * config.tpu.segment_capacity,
-        config.network.embedding_dim, LOC_DIM, config.tpu.tag_width, device)
+        config.network.embedding_dim, loc_feature_dim(config),
+        config.tpu.tag_width, device)
     return TrainState(step=0, emb_model=emb_model, cls_model=cls_model,
                       momentum={}, memory=memory,
                       generator=torch.Generator(device).manual_seed(seed))
@@ -128,8 +143,8 @@ def make_train_step(config):
 
     if config.network.prediction_types != "segsort":
         raise NotImplementedError(
-            f"prediction_types {config.network.prediction_types!r} is not "
-            "ported yet")
+            f"prediction_types {config.network.prediction_types!r} (the "
+            "fully supervised classifier baseline) is not ported yet")
     if config.train.optimizer != "sgd":
         raise NotImplementedError(
             f"train.optimizer {config.train.optimizer!r} is not ported yet")
@@ -143,11 +158,17 @@ def make_train_step(config):
     use_sem_ann = tcfg.sem_ann_loss_types != "none"
     use_sem_occ = tcfg.sem_occ_loss_types != "none"
     use_img_sim = tcfg.img_sim_loss_types != "none"
+    # feat_aff: constructed but never called by the reference
+    # (segsort_softmax_densepose.py:64-68 vs :195-254); tpu.apply_feat_aff
+    # adds it (the JAX package's paper-semantics term)
+    use_feat_aff = (tcfg.feat_aff_loss_types != "none"
+                    and config.tpu.apply_feat_aff)
+    densepose = "densepose" in config.network.backbone_types
     fused = config.tpu.use_fused_loss
-    if fused and use_sem_ann != use_sem_occ:
+    if fused and use_sem_occ and not use_sem_ann:
         raise NotImplementedError(
-            "the hard-label-only and tag-only fused losses are not ported "
-            "yet; set tpu.use_fused_loss=False")
+            "the tag-only fused loss (sem_ann off, sem_occ on: the set "
+            "kernels K7-K9) is not ported yet; set tpu.use_fused_loss=False")
     schedule = optim.make_schedule(tcfg)
 
     def _n_groups(b):
@@ -181,8 +202,11 @@ def make_train_step(config):
 
         # ---- differentiable pixel embeddings & prototypes ----
         emb_flat = common.normalize_embedding(emb.float()).reshape(B, N, D)
+        # DensePose squeezes the embedding's weight against the local
+        # features (resnet_pspnet_densepose.py:141-154)
+        emb_part = emb_flat * 0.1 if densepose else emb_flat
         emb_loc = common.normalize_embedding(
-            torch.cat([emb_flat, loc.reshape(B, N, -1).float()], dim=-1))
+            torch.cat([emb_part, loc.reshape(B, N, -1).float()], dim=-1))
         weights = segs.pixel_valid.float()
         protos = kmeans.calculate_prototypes_from_labels(
             emb_flat, segs.pixel_segment_ids, P, weights)
@@ -193,12 +217,13 @@ def make_train_step(config):
         proto_sem = segs.segment_semantic.reshape(-1)
         proto_valid = segs.segment_valid.reshape(-1)
         proto_tag = tags.repeat_interleave(P, dim=0)
+        proto_batch = img_idx.repeat_interleave(P)
         cur = dict(prototype=protos.reshape(B * P, D),
                    prototype_with_loc=protos_loc.reshape(B * P, -1),
                    semantic_label=proto_sem,
                    instance_label=segs.segment_instance.reshape(-1),
-                   batch_index=img_idx.repeat_interleave(P),
-                   tag=proto_tag, valid=proto_valid)
+                   batch_index=proto_batch, tag=proto_tag,
+                   valid=proto_valid)
 
         # ---- join the memory bank (snapshots without gradient) ----
         memory = state.memory
@@ -225,14 +250,39 @@ def make_train_step(config):
         logits_up = resize_bilinear(logits, images.shape[1:3])
         ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B))
 
+        # ---- semantic co-occurrence tags ----
+        # VOC: the dataset-level tags (segsort_softmax.py:146-151).
+        # DensePose: each prototype's tags come from its nearest labelled
+        # prototype of the same image over prototype_with_loc
+        # (segsort_softmax_densepose.py:174-193; top-1, threshold 0.95);
+        # prototypes without one get all ones (unconstrained).
+        if densepose and (use_sem_occ or use_feat_aff):
+            if mem_size > 0:
+                all_ploc = torch.cat([
+                    cur["prototype_with_loc"],
+                    memory.prototype_with_loc.reshape(
+                        -1, cur["prototype_with_loc"].shape[-1])])
+                all_pbatch = torch.cat(
+                    [proto_batch, memory.batch_index.reshape(-1)])
+            else:
+                all_ploc, all_pbatch = cur["prototype_with_loc"], proto_batch
+            with torch.no_grad():
+                nn_tags = knn.nearest_neighbor_multiset_labels(
+                    all_ploc, all_ploc, all_sem, all_pbatch, all_pbatch, C,
+                    top_k=1, threshold=0.95, prototype_mask=all_valid)
+                tagless = nn_tags.amax(dim=1, keepdim=True) == 0
+                occ_proto_tags = torch.where(tagless, 1, nn_tags)
+            occ_pix_tags = occ_proto_tags[pix_own]
+        else:
+            occ_proto_tags = all_tag[:, 1:C]
+            occ_pix_tags = tags[:, 1:C].repeat_interleave(N, dim=0)
+
         # ---- sem_ann (SegSort) and sem_occ (SetSegSort) ----
-        occ_proto_tags = all_tag[:, 1:C]
-        occ_pix_tags = tags[:, 1:C].repeat_interleave(N, dim=0)
         ann_pix_mask = pix_valid & (pix_sem < C)
         ann_proto_mask = all_valid & (all_sem < C)
         emb_rows = emb_flat.reshape(-1, D)
         ann = occ = None
-        if fused and use_sem_ann:
+        if fused and use_sem_ann and use_sem_occ:
             ann_ll, occ_ll = fused_joint_losses(
                 emb_rows, pix_sem, pix_own, occ_pix_tags, all_protos,
                 torch.where(ann_proto_mask, all_sem, -1), occ_proto_tags,
@@ -242,7 +292,10 @@ def make_train_step(config):
             occ = _grouped_masked_mean(occ_ll, pix_valid, _n_groups(B))
         else:
             if use_sem_ann:
-                ann_ll = losses.segsort_loss(
+                # the hard-label kernels or the dense loss: one signature
+                ann_loss = fused_segsort_loss if fused else \
+                    losses.segsort_loss
+                ann_ll = ann_loss(
                     emb_rows, pix_sem, pix_own, all_protos, all_sem,
                     tcfg.sem_ann_concentration, ann_pix_mask,
                     ann_proto_mask, reduction="none")
@@ -264,11 +317,14 @@ def make_train_step(config):
             metrics["sem_occ_loss"] = occ
             total = total + occ
 
-        # ---- low-level image similarity (per image, emb ++ location) ----
+        # ---- low-level image similarity (per image) ----
+        # emb ++ location for VOC (segsort_softmax.py:222), the plain
+        # embeddings for DensePose (segsort_softmax_densepose.py:236)
         if use_img_sim:
             per_img = losses.segsort_loss(
-                emb_loc, inst.reshape(B, N), segs.pixel_segment_ids,
-                protos_loc, segs.segment_instance,
+                emb_flat if densepose else emb_loc, inst.reshape(B, N),
+                segs.pixel_segment_ids, protos if densepose else protos_loc,
+                segs.segment_instance,
                 tcfg.img_sim_concentration, segs.pixel_valid,
                 segs.segment_valid)
             img_sim = _grouped_masked_mean(
@@ -276,6 +332,17 @@ def make_train_step(config):
             img_sim = img_sim * tcfg.img_sim_loss_weight
             metrics["img_sim_loss"] = img_sim
             total = total + img_sim
+
+        # ---- feature affinity (DensePose, tpu.apply_feat_aff) ----
+        if use_feat_aff and densepose:
+            aff_ll = losses.set_segsort_loss(
+                emb_rows, occ_pix_tags, pix_own, all_protos, occ_proto_tags,
+                tcfg.feat_aff_concentration, pix_valid, all_valid,
+                reduction="none")
+            aff = _grouped_masked_mean(aff_ll, pix_valid, _n_groups(B))
+            aff = aff * tcfg.feat_aff_loss_weight
+            metrics["feat_aff_loss"] = aff
+            total = total + aff
 
         # ---- top-5 prototype retrieval accuracy (logged steps only) ----
         if compute_metrics:

@@ -40,7 +40,7 @@ _STEM_BN_NAME = {"conv1_1": "conv1.1", "conv1_2": "conv1.4",
 
 
 def embedding_state_dict(params: dict, batch_stats: dict) -> dict:
-    """EmbeddingModel (DeepLab/ASPP) flax params + batch_stats -> the
+    """EmbeddingModel (ASPP or PSPP head) flax params + batch_stats -> the
     port's EmbeddingModel state dict."""
     out: dict = {}
     bp, bs = params["resnet_backbone"], batch_stats["resnet_backbone"]
@@ -61,8 +61,28 @@ def embedding_state_dict(params: dict, batch_stats: dict) -> dict:
                 _conv(out, f"{pre}.downsample.0", blk["downsample"]["conv"])
                 _bn(out, f"{pre}.downsample.1", blk["downsample"]["bn"],
                     st["downsample"]["bn"])
-    for mod, leaves in params["aspp"].items():
+    for mod, leaves in params.get("aspp", {}).items():
         _conv(out, f"aspp.{mod}.0", leaves)
+    if "pspp" in params:
+        # pspp.0 the pyramid, pspp.1 the projection to the embedding width
+        out.update(pspp_state_dict(params["pspp"], batch_stats["pspp"],
+                                   prefix="pspp.0."))
+        _conv(out, "pspp.1", params["pspp_proj"])
+    return out
+
+
+def pspp_state_dict(params: dict, batch_stats: dict,
+                    prefix: str = "") -> dict:
+    """PSPP flax params + batch_stats -> the port's PSPP state dict
+    (pspp_{i}.{1 conv, 2 bn}, conv.{0 conv, 1 bn}), names under
+    `prefix`."""
+    out: dict = {}
+    for i in "1234":
+        _conv(out, f"{prefix}pspp_{i}.1", params[f"pspp_{i}_conv"])
+        _bn(out, f"{prefix}pspp_{i}.2", params[f"pspp_{i}_bn"],
+            batch_stats[f"pspp_{i}_bn"])
+    _conv(out, f"{prefix}conv.0", params["fuse_conv"])
+    _bn(out, f"{prefix}conv.1", params["fuse_bn"], batch_stats["fuse_bn"])
     return out
 
 

@@ -5,10 +5,12 @@
   with "spml_tpu");
 * the entry points default to the CUDA card and raise on a host without
   one instead of carrying on on the CPU;
-* the joint SegSort wrapper takes the plain version only for a CPU
-  tensor; a CUDA tensor goes to the kernel binding, and a launch error
-  raises (no fallback). A CUDA tensor is stood in for by a subclass that
-  reports is_cuda, with the binding monkeypatched.
+* the SegSort wrappers (joint and hard-label) take the plain version
+  only for a CPU tensor; a CUDA tensor goes to the kernel binding, and a
+  launch error raises (no fallback). A CUDA tensor is stood in for by a
+  subclass that reports is_cuda, with the binding monkeypatched;
+* make_train_step raises NotImplementedError, naming what is missing,
+  for what is not ported yet.
 """
 
 import ast
@@ -142,7 +144,51 @@ def test_cuda_tensor_calls_the_binding(monkeypatch):
     assert lib.calls == ["segsort_joint_stats", "segsort_joint_grad_emb",
                          "segsort_joint_grad_proto"]
     assert fused.LAUNCHES == {"joint_stats": 1, "joint_grad_emb": 1,
-                              "joint_grad_proto": 1}
+                              "joint_grad_proto": 1, "hard_stats": 0,
+                              "hard_grad_emb": 0, "hard_grad_proto": 0}
+
+
+def test_hard_family_dispatch(monkeypatch):
+    """segsort_stats: a CPU tensor takes the plain version and launches
+    nothing; a CUDA tensor calls K4, then K5 and K6 in backward."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "load", lambda name: lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda device: 0)
+    fused.reset_launch_counts()
+    emb, protos, (lab, own, _), (plab, _, _) = _joint_inputs(
+        np.random.RandomState(5))
+    stats = fused.segsort_stats(emb, lab, own, protos, plab,
+                                torch.tensor([12]), 6.0)
+    assert stats.shape == (3, 40) and lib.calls == []
+
+    def no_reference(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(fused, "segsort_stats_reference", no_reference)
+    emb = torch.Tensor._make_subclass(_FakeCuda, emb, True)
+    protos = torch.Tensor._make_subclass(_FakeCuda, protos, True)
+    stats = fused.segsort_stats(emb, lab, own, protos, plab,
+                                torch.tensor([12]), 6.0)
+    assert stats.shape == (3, 40)
+    stats.sum().backward()
+    assert lib.calls == ["segsort_hard_stats", "segsort_hard_grad_emb",
+                         "segsort_hard_grad_proto"]
+    assert fused.LAUNCHES == {"joint_stats": 0, "joint_grad_emb": 0,
+                              "joint_grad_proto": 0, "hard_stats": 1,
+                              "hard_grad_emb": 1, "hard_grad_proto": 1}
+
+
+@pytest.mark.parametrize("what", ["tag_only_fused", "softmax_classifier"])
+def test_unported_paths_raise(what):
+    cfg = _tiny_config()
+    if what == "tag_only_fused":
+        cfg.tpu.use_fused_loss = True
+        cfg.train.sem_ann_loss_types = "none"
+        match = "tag-only fused loss"
+    else:
+        cfg.network.prediction_types = "softmax_classifier"
+        match = "softmax_classifier"
+    with pytest.raises(NotImplementedError, match=match):
+        tstep.make_train_step(cfg)
 
 
 def test_launch_error_raises(monkeypatch):
@@ -197,6 +243,38 @@ def test_joint_kernels_match_plain_version_on_card():
     p2 = protos.double().requires_grad_(True)
     s2 = fused.joint_segsort_stats_reference(e2, lab, own, tag, p2, plab,
                                              ptag, pval, nv, 6.0, 12.0)
+    (s2 * g.double()).sum().backward()
+    torch.testing.assert_close(s1, s2.detach().float(), rtol=1e-5, atol=0.0)
+    for a, b in ((e1.grad, e2.grad.float()), (p1.grad, p2.grad.float())):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_hard_kernels_match_plain_version_on_card():
+    """K4-K6 against the plain version in float64 on the card, at a small
+    size, D = 32 (stats rtol 1e-5; dE / dP rtol 1e-4, atol 1e-5 *
+    max|ref|; chip_smoke.py checks the same at the DensePose shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.RandomState(6)
+    n, p, d = 3000, 700, 32
+    emb = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(n, d).astype(np.float32)), dim=1).cuda()
+    protos = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(p, d).astype(np.float32)), dim=1).cuda()
+    lab = torch.from_numpy(rng.randint(0, 4, n)).cuda()
+    own = torch.from_numpy(rng.randint(0, p, n)).cuda()
+    plab = torch.from_numpy(rng.randint(-1, 4, p)).cuda()
+    nv = torch.tensor([500], device="cuda")
+    g = torch.randn(3, n, device="cuda")
+    e1 = emb.clone().requires_grad_(True)
+    p1 = protos.clone().requires_grad_(True)
+    s1 = fused.segsort_stats(e1, lab, own, p1, plab, nv, 6.0)
+    (s1 * g).sum().backward()
+    e2 = emb.double().requires_grad_(True)
+    p2 = protos.double().requires_grad_(True)
+    s2 = fused.segsort_stats_reference(e2, lab, own, p2, plab, nv, 6.0)
     (s2 * g.double()).sum().backward()
     torch.testing.assert_close(s1, s2.detach().float(), rtol=1e-5, atol=0.0)
     for a, b in ((e1.grad, e2.grad.float()), (p1.grad, p2.grad.float())):

@@ -251,3 +251,33 @@ def test_segment_batch_exact(case):
         assert not segs.pixel_valid[1].any()
     if case == "overflow":
         assert segs.segment_valid.sum(dim=1).tolist() == [capacity] * b
+
+
+@pytest.mark.parametrize("top_k", [1, 3])
+def test_nearest_neighbor_multiset_labels_exact(top_k):
+    """The DensePose NN-propagated tags, as the step calls them
+    (prototypes against themselves, plus near copies above the 0.95
+    threshold): equal to the JAX function, including image 2, which has
+    no allowed prototype (all rows zero), and labels >= num_classes."""
+    rng = np.random.RandomState(9)
+    c, p = 5, 30
+    protos = oracles.normalize(rng.randn(p, 7))
+    near = oracles.normalize(protos[:10] + 0.1 * rng.randn(10, 7))
+    emb = np.concatenate([protos, near]).astype(np.float32)
+    protos = protos.astype(np.float32)
+    plab = rng.randint(0, c + 2, p).astype(np.int32)
+    pbatch = rng.randint(0, 2, p).astype(np.int32)
+    pbatch[-4:] = 2
+    plab[-4:] = c + 1  # image 2: unlabelled prototypes only
+    ebatch = np.concatenate([pbatch, pbatch[:10]])
+    pmask = rng.rand(p) > 0.2
+    got = knn.nearest_neighbor_multiset_labels(
+        _t(emb), _t(protos), _t(plab), _t(ebatch), _t(pbatch), c,
+        top_k=top_k, threshold=0.95, prototype_mask=_t(pmask))
+    want = jknn.nearest_neighbor_multiset_labels(
+        jnp.asarray(emb), jnp.asarray(protos), jnp.asarray(plab),
+        jnp.asarray(ebatch), jnp.asarray(pbatch), c, top_k=top_k,
+        threshold=0.95, prototype_mask=jnp.asarray(pmask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (40, c)
+    assert not got[ebatch == 2].any() and got.sum() > 0

@@ -1,6 +1,7 @@
-"""The port's joint SegSort loss on the CPU (the plain version the CUDA
-kernels are held against) vs the JAX fused joint loss in interpret mode
-and vs the dense losses.
+"""The port's fused SegSort losses on the CPU (the plain versions the
+CUDA kernels are held against): the joint family vs the JAX fused joint
+loss in interpret mode, the hard-label family vs the JAX fused_segsort_loss
+in interpret mode, and both vs the dense losses.
 
 Tolerances: per-pixel log likelihoods and scalar losses rtol 1e-5 (f32,
 different summation order); dE / dP rtol 1e-4, atol 1e-7 (backward sums
@@ -217,3 +218,88 @@ def test_wrapper_pieces_match_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got_own.numpy(), np.asarray(want_own))
     assert int(got_n) == int(want_n[0])
+
+
+# ---------------------------------------------------------------------------
+# Hard-label family (sem_ann alone: K4-K6 on the card)
+# ---------------------------------------------------------------------------
+
+def _torch_hard(pb, reduction="mean", compact=True, kappa=6.0):
+    e = _t(pb["emb"]).requires_grad_(True)
+    p = _t(pb["protos"]).requires_grad_(True)
+    ll = fused.fused_segsort_loss(
+        e, _t(pb["sem"]), _t(pb["own"]), p, _t(pb["proto_sem"]), kappa,
+        _t(pb["ann_mask"]), _t(pb["pvalid"] & (pb["proto_sem"] < pb["c"])),
+        reduction=reduction, compact=compact)
+    return e, p, ll
+
+
+def _jax_hard_fn(pb, reduction="mean", compact=True, kappa=6.0):
+    def fn(e, p_):
+        return jfused.fused_segsort_loss(
+            e, jnp.asarray(pb["sem"]), jnp.asarray(pb["own"]), p_,
+            jnp.asarray(pb["proto_sem"]), kappa, jnp.asarray(pb["ann_mask"]),
+            jnp.asarray(pb["pvalid"] & (pb["proto_sem"] < pb["c"])),
+            interpret=True, reduction=reduction, compact=compact)
+    return fn
+
+
+@pytest.mark.parametrize("compact", [True, False],
+                         ids=["compact", "no_compact"])
+def test_hard_matches_jax_fused_interpret(compact):
+    """Per-pixel ll on the masked pixels, the scalar loss and dE / dP
+    against the JAX hard-label Pallas kernels in interpret mode, with and
+    without the valid-first compaction."""
+    pb = _problem(2, fill=0.3)
+    _, _, ll = _torch_hard(pb, "none", compact)
+    jll = _jax_hard_fn(pb, "none", compact)(jnp.asarray(pb["emb"]),
+                                            jnp.asarray(pb["protos"]))
+    m = pb["ann_mask"]
+    np.testing.assert_allclose(ll.detach().numpy()[m], np.asarray(jll)[m],
+                               **LL)
+
+    e, p, val = _torch_hard(pb, compact=compact)
+    val.backward()
+    jval, (ge, gp) = jax.value_and_grad(_jax_hard_fn(pb, compact=compact),
+                                        argnums=(0, 1))(
+        jnp.asarray(pb["emb"]), jnp.asarray(pb["protos"]))
+    np.testing.assert_allclose(float(val.detach()), float(jval), **LL)
+    np.testing.assert_allclose(e.grad.numpy(), np.asarray(ge), **GRAD)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(gp), **GRAD)
+
+
+def test_hard_matches_dense_loss():
+    """The hard-label sweep equals the port's dense losses.segsort_loss
+    (values and gradients), at ~20% scattered fill."""
+    pb = _problem(3, n=512, p=64, fill=0.2)
+    e, p, val = _torch_hard(pb)
+    val.backward()
+    e2 = _t(pb["emb"]).requires_grad_(True)
+    p2 = _t(pb["protos"]).requires_grad_(True)
+    dense = losses.segsort_loss(
+        e2, _t(pb["sem"]), _t(pb["own"]).long(), p2, _t(pb["proto_sem"]),
+        6.0, _t(pb["ann_mask"]),
+        _t(pb["pvalid"] & (pb["proto_sem"] < pb["c"])))
+    dense.backward()
+    np.testing.assert_allclose(float(val.detach()), float(dense.detach()),
+                               **LL)
+    np.testing.assert_allclose(e.grad.numpy(), e2.grad.numpy(), **GRAD)
+    np.testing.assert_allclose(p.grad.numpy(), p2.grad.numpy(), **GRAD)
+
+
+def test_hard_all_invalid_is_finite():
+    """No valid prototype and no masked pixel (num_valid == 0): the
+    statistics are zero, the loss and its gradients stay finite."""
+    rng = np.random.RandomState(10)
+    n, p, d = 256, 32, 8
+    e = _t(oracles.normalize(rng.randn(n, d)).astype(
+        np.float32)).requires_grad_(True)
+    protos = _t(oracles.normalize(rng.randn(p, d)).astype(
+        np.float32)).requires_grad_(True)
+    ll = fused.fused_segsort_loss(
+        e, torch.zeros(n, dtype=torch.int64), _t(rng.randint(0, p, n)),
+        protos, torch.zeros(p, dtype=torch.int64), 6.0,
+        torch.zeros(n, dtype=torch.bool), torch.zeros(p, dtype=torch.bool))
+    ll.backward()
+    assert float(ll.detach()) == 0.0
+    assert torch.isfinite(e.grad).all() and torch.isfinite(protos.grad).all()
