@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The port on one CUDA card, end to end: build the kernels, hold each
-against its plain version, drive the two ported SPML train steps, report.
+against its plain version, drive the three ported SPML train steps and the
+dilated-conv probe, report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -20,9 +21,17 @@ Phases, each printing one line or more:
     - hard labels, K4 (stats), K5 (dE), K6 (dP): at N = 16384 / P = 2048,
       D = 32 (full and ~20% fill, ragged N, all invalid) and D = 64, and at
       the DensePose N = 65536 / P = 2048, D = 32, ~15% fill;
+    - tag sets, K7 (stats), K8 (dE), K9 (dP): at N = 16384 / P = 2048,
+      D = 64 (full and ~20% fill, ragged N, all invalid) and D = 32, and at
+      the tag step's N = 65536 / P = 3072, D = 64, ~20% fill; one to three
+      tags of 20 per row, a tenth of the rows below the valid count
+      invalid (their own mask still counts);
+    - the dilated conv K10 against its plain version in float64 on the
+      same bf16 values: ragged shapes at d = 1, 2, 4 and the probe's two
+      shapes (B = 8, 64 x 64, 256 -> 256 at d = 2, 512 -> 512 at d = 4);
  4. main paths, each from random weights of seed 0, 3 warm-up and 10
     timed steps, every loss finite, segments formed, each of its kernels
-    launched once per step and the other family's not at all; then each
+    launched once per step and the other families' not at all; then each
     kernel timed at the path's own inputs beside the plain version and its
     bound:
     - flagship (panoptic_deeplab_101, crop 512, batch 8, 6x6 k-means x10,
@@ -33,14 +42,23 @@ Phases, each printing one line or more:
       batch 4, 12x12 k-means x10, capacity 512, no memory bank, sem_ann
       + img_sim with the fused hard-label loss, bf16 convolutions) on
       synthetic point labels, with labelled pixels in the loss: K4-K6;
+    - VOC image tags, tags only (the flagship network at batch 4, sem_ann
+      off, sem_occ + img_sim with the fused tag-set loss) on the flagship's
+      blobby labels: K7-K9;
+    - the dilated-conv probe (spml_tpu_torch/tools/dilated_conv_probe.py)
+      at its two shapes: K10, then K10 timed at the first shape (res4 d2)
+      beside its plain version, cuDNN (F.conv2d, the library yardstick)
+      and its bound at the bf16 tensor-core peak;
  5. the kernel list as one JSON line;
  6. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
-Tolerances: the statistics rtol 1e-5 (float32 sums in another order,
-amplified by exp(kappa * logit)); dE and dP rtol 1e-4 with atol
-1e-5 * max|reference|.
+Tolerances: the SegSort statistics rtol 1e-5 (float32 sums in another
+order, amplified by exp(kappa * logit)); dE and dP rtol 1e-4 with atol
+1e-5 * max|reference|; the dilated conv rtol 2^-8 (one bf16 rounding of
+the output) with atol 1e-3 * max|reference| (float32 sums of 9 C terms
+that cancel near zero).
 """
 
 from __future__ import annotations
@@ -58,10 +76,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"  # every tensor of the run lives here
 STATS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
+CONV_RTOL, CONV_ATOL_REL = 2.0 ** -8, 1e-3
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PALLAS = "spml_tpu/ops/pallas/segsort_loss.py"
+PROBE = "pyscripts/misc/pallas_dilated_conv_probe.py"
+SEGSORT_SOURCE = "spml_tpu_torch/csrc/segsort_joint.cu"
 KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
     "joint_stats": ("segsort_joint_stats", f"{PALLAS}:664"),
     "joint_grad_emb": ("segsort_joint_grad_emb", f"{PALLAS}:716"),
@@ -69,10 +92,18 @@ KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
     "hard_stats": ("segsort_hard_stats", f"{PALLAS}:130"),
     "hard_grad_emb": ("segsort_hard_grad_emb", f"{PALLAS}:200"),
     "hard_grad_proto": ("segsort_hard_grad_proto", f"{PALLAS}:240"),
+    "set_stats": ("segsort_set_stats", f"{PALLAS}:408"),
+    "set_grad_emb": ("segsort_set_grad_emb", f"{PALLAS}:444"),
+    "set_grad_proto": ("segsort_set_grad_proto", f"{PALLAS}:444"),
 }
+CONV_KERNEL = ("dilated_conv3x3_bf16", f"{PROBE}:31",
+               "spml_tpu_torch/csrc/dilated_conv.cu")
 KINDS = ("stats", "grad_emb", "grad_proto")
-N_STATS = {"joint": 6, "hard": 3}
-N_KAPPAS = {"joint": 2, "hard": 1}
+N_STATS = {"joint": 6, "hard": 3, "set": 3}
+N_KAPPAS = {"joint": 2, "hard": 1, "set": 1}
+# recipe (spml_tpu_torch/train/recipes.py) -> family of its loss kernels
+RECIPE_FAMILY = {"flagship": "joint", "densepose_point": "hard",
+                 "voc_tag": "set"}
 
 
 def log(phase, msg):
@@ -91,9 +122,14 @@ def nvidia_smi_line():
 # Kernel checks
 # ---------------------------------------------------------------------------
 
-def make_case(torch, n, p, fill, seed, d=64, n_classes=21, n_tags=20):
-    """Inputs of the joint kernels as the wrapper hands them over:
-    prototypes sorted valid-first, pixels near their own prototype."""
+def make_case(torch, n, p, fill, seed, d=64, n_classes=21, n_tags=20,
+              sparse_tags=False):
+    """Inputs of the SegSort kernels as the wrapper hands them over:
+    prototypes sorted valid-first, pixels near their own prototype.
+    sparse_tags (the set family's cases): one to three tags per row, as
+    images carry, a sixth of the prototypes tagless, and a tenth of the
+    rows below the valid count invalid (touched only as an own
+    prototype)."""
     rng = np.random.RandomState(seed)
     nv = int(round(fill * p))
     protos = rng.randn(p, d)
@@ -109,6 +145,14 @@ def make_case(torch, n, p, fill, seed, d=64, n_classes=21, n_tags=20):
     lab = np.where(rng.rand(n) < 0.9, plab[own], rng.randint(0, n_classes,
                                                              n))
     tag = rng.randint(0, 2 ** n_tags, n)
+    if sparse_tags:
+        def few_tags(k):
+            bits = [1 << rng.randint(0, n_tags, k) for _ in range(3)]
+            return np.where(rng.rand(k) < 0.5, bits[0], 0) | \
+                np.where(rng.rand(k) < 0.3, bits[1], 0) | bits[2]
+        ptag = np.where(rng.rand(p) < 1 / 6, 0, few_tags(p))
+        tag = np.where(rng.rand(n) < 0.7, ptag[own], few_tags(n))
+        pval[rng.rand(p) < 0.1] = 0
 
     def cuda(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -130,15 +174,21 @@ def stats_args(family, case, emb, protos, rows=slice(None)):
         return [emb, c["pix_lab"][rows], c["own_idx"][rows],
                 c["pix_tags"][rows], protos, c["proto_lab"],
                 c["proto_tags"], c["proto_valid"], c["num_valid"]]
+    if family == "set":
+        return [emb, c["pix_tags"][rows], c["own_idx"][rows], protos,
+                c["proto_tags"], c["proto_valid"], c["num_valid"]]
     return [emb, c["pix_lab"][rows], c["own_idx"][rows], protos,
             c["proto_lab"], c["num_valid"]]
 
 
+STATS_FN = {"joint": "joint_segsort_stats", "hard": "segsort_stats",
+            "set": "set_segsort_stats"}
+
+
 def stats_fns(fused, family):
     """(kernel path, plain version) of a family."""
-    if family == "joint":
-        return fused.joint_segsort_stats, fused.joint_segsort_stats_reference
-    return fused.segsort_stats, fused.segsort_stats_reference
+    name = STATS_FN[family]
+    return getattr(fused, name), getattr(fused, name + "_reference")
 
 
 def reference64(torch, fused, family, case, grads, kappas, rows=16384):
@@ -222,11 +272,19 @@ def check_kernels(torch, fused):
             ("mid all invalid", (mid, 2048, 0.0, 14, 32), (6.0,)),
             ("mid 20% fill", (mid, 2048, 0.2, 15, 64), (6.0,)),
             ("DensePose 15% fill", (65536, 2048, 0.15, 16, 32), (6.0,))],
+        "set": [
+            ("mid full fill", (mid, 2048, 1.0, 21, 64), (8.0,)),
+            ("mid 20% fill", (mid, 2048, 0.2, 22, 64), (8.0,)),
+            ("mid ragged N", (mid - 1, 2048, 0.2, 23, 64), (8.0,)),
+            ("mid all invalid", (mid, 2048, 0.0, 24, 64), (8.0,)),
+            ("mid 20% fill", (mid, 2048, 0.2, 25, 32), (8.0,)),
+            ("tag step 20% fill", (65536, 3072, 0.2, 26, 64), (8.0,))],
     }
     errs = {}
     for family, family_cases in cases.items():
         for label, (n, p, fill, seed, d), kappas in family_cases:
-            case = make_case(torch, n, p, fill, seed, d=d)
+            case = make_case(torch, n, p, fill, seed, d=d,
+                             sparse_tags=family == "set")
             errs[family] = check_case(torch, fused, family, label, case,
                                       kappas, seed=seed)
     return errs
@@ -236,29 +294,14 @@ def check_kernels(torch, fused):
 # Main paths
 # ---------------------------------------------------------------------------
 
-def path_setup(recipe):
-    """(config, batch, family of its loss kernels) of a main path."""
-    from spml_tpu_torch.config import load_config
-    from spml_tpu_torch.train import densepose_point, flagship
-
-    if recipe == "flagship":
-        cfg = load_config(overrides=flagship.OVERRIDES)
-        b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
-        batch = flagship.blobby_batch(b, crop, cfg.dataset.num_classes,
-                                      device=DEVICE)
-        return cfg, batch, "joint"
-    cfg = load_config(overrides=densepose_point.OVERRIDES)
-    b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
-    return cfg, densepose_point.point_batch(b, crop, seed=0,
-                                            device=DEVICE), "hard"
-
-
 def run_main_path(torch, fused, recipe):
     """3 warm-up and 10 timed steps of one recipe; returns (launch counts,
     the last call's stats inputs)."""
+    from spml_tpu_torch.train import recipes
     from spml_tpu_torch.train import step as step_lib
 
-    cfg, batch, family = path_setup(recipe)
+    cfg, batch = recipes.setup(recipe, device=DEVICE)
+    family = RECIPE_FAMILY[recipe]
     b = cfg.train.batch_size
     t0 = time.perf_counter()
     state = step_lib.init_state(cfg, 0, batch["image"], device=DEVICE)
@@ -266,8 +309,7 @@ def run_main_path(torch, fused, recipe):
     log(recipe, f"state built in {time.perf_counter() - t0:.1f} s")
 
     last, masked = {}, []
-    stats_name = "joint_segsort_stats" if family == "joint" else \
-        "segsort_stats"
+    stats_name = STATS_FN[family]
     orig_stats, orig_ll = getattr(fused, stats_name), fused._ll_from_stats
 
     def recording(*args):  # keeps the last call's inputs for the timings
@@ -340,19 +382,6 @@ def run_main_path(torch, fused, recipe):
 # Timings at the main paths' inputs
 # ---------------------------------------------------------------------------
 
-def cuda_time(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bounds(family, n, p, nv, d):
     """{kind: (bound_ms, bound_by)} of a family from this run's shapes:
     bytes each input read once and each output written once (prototype
@@ -363,6 +392,9 @@ def bounds(family, n, p, nv, d):
     if family == "joint":  # rows carry label, own / tag, valid
         pix_in, protos_in = n * (d * 4 + 3 * 4), nv * (d * 4 + 3 * 4)
         ops_stats, ops_grad = 2 * d + 10, 4 * d + 14  # 2 exps, 6 sums
+    elif family == "set":  # rows carry tag bitword, own / bitword, valid
+        pix_in, protos_in = n * (d * 4 + 8), nv * (d * 4 + 8)
+        ops_stats, ops_grad = 2 * d + 7, 4 * d + 9  # 1 exp, 3 sums, 1 AND
     else:  # rows carry label, own / label
         pix_in, protos_in = n * (d * 4 + 8), nv * (d * 4 + 4)
         ops_stats, ops_grad = 2 * d + 6, 4 * d + 8
@@ -386,13 +418,15 @@ def time_kernels(torch, fused, family, args):
     """Each kernel of a family at a main path's last inputs (CUDA events,
     20 launches) beside the plain version (3 runs over row chunks) and
     its bound; returns {counter: (ms, plain ms, (bound ms, by))}."""
+    from spml_tpu_torch.tools.dilated_conv_probe import cuda_ms
+
     ns, nk = N_STATS[family], N_KAPPAS[family]
     tensors, kappas = args[:-nk], tuple(args[-nk:])
     scalars = kappas  # as the C functions take them
     if family == "joint":
         scalars = (*kappas, int(kappas[1] == 2.0 * kappas[0]))
     f32, i32 = torch.float32, torch.int32
-    at = 4 if family == "joint" else 3  # the prototypes among the inputs
+    at = fused._FAMILIES[family][1]  # the prototypes among the inputs
     inputs = tuple(fused._kernel_operand(t, f32 if i in (0, at) else i32)
                    for i, t in enumerate(tensors))
     emb, protos = inputs[0], inputs[at]
@@ -401,14 +435,14 @@ def time_kernels(torch, fused, family, args):
     nv = int(inputs[-1])
     grads = torch.randn(ns, n, device=DEVICE)
     kernel_ms = {
-        "stats": cuda_time(
-            torch, lambda: fused._launch_stats(family, inputs, scalars), 20),
-        "grad_emb": cuda_time(
-            torch, lambda: fused._launch_grad_emb(family, inputs, scalars,
-                                                  grads), 20),
-        "grad_proto": cuda_time(
-            torch, lambda: fused._launch_grad_proto(family, inputs, scalars,
-                                                    grads), 20),
+        "stats": cuda_ms(
+            lambda: fused._launch_stats(family, inputs, scalars), 20),
+        "grad_emb": cuda_ms(
+            lambda: fused._launch_grad_emb(family, inputs, scalars, grads),
+            20),
+        "grad_proto": cuda_ms(
+            lambda: fused._launch_grad_proto(family, inputs, scalars, grads),
+            20),
     }
 
     rows = 32768  # the plain version over row chunks (it is [N, P] dense)
@@ -425,7 +459,7 @@ def time_kernels(torch, fused, family, args):
                 torch.autograd.grad((s * grads[:, sl]).sum(),
                                     e if kind == "grad_emb" else pr)
 
-    plain_ms = {kind: cuda_time(torch, lambda: plain(kind), 3)
+    plain_ms = {kind: cuda_ms(lambda: plain(kind), 3)
                 for kind in KINDS}
     bnd = bounds(family, n, p, nv, d)
     out = {}
@@ -438,6 +472,85 @@ def time_kernels(torch, fused, family, args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dilated conv K10
+# ---------------------------------------------------------------------------
+
+def check_dilated_conv(torch, dc):
+    """K10 against its plain version in float64 on the same bf16 values;
+    returns the largest absolute error at the probe's shapes."""
+    from spml_tpu_torch.tools.dilated_conv_probe import SHAPES
+
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    cases = [("ragged d1", 2, 9, 7, 16, 32, 1),
+             ("ragged d2", 3, 13, 20, 48, 16, 2),
+             ("ragged d4", 1, 6, 33, 32, 144, 4)]
+    probe_err = 0.0
+    for label, b, h, w, c, o, d in cases + SHAPES:
+        x = torch.randn(b, h, w, c, device=DEVICE, generator=gen).bfloat16()
+        wt = (0.05 * torch.randn(3, 3, c, o, device=DEVICE,
+                                 generator=gen)).bfloat16()
+        got = dc.dilated_conv3x3(x, wt, d)
+        torch.cuda.synchronize()
+        ref = dc.dilated_conv3x3_reference(x.double(), wt.double(), d)
+        if got.dtype != torch.bfloat16 or not torch.isfinite(got).all():
+            raise AssertionError(f"dilated conv {label}: bad output")
+        abs_tol = CONV_ATOL_REL * float(ref.abs().max())
+        torch.testing.assert_close(got.double(), ref, rtol=CONV_RTOL,
+                                   atol=abs_tol,
+                                   msg=lambda m: f"dilated conv {label}: {m}")
+        err = (got.double() - ref).abs()
+        margin = float((err / (abs_tol + CONV_RTOL * ref.abs())).max())
+        if (label, b, h, w, c, o, d) in SHAPES:
+            probe_err = max(probe_err, float(err.max()))
+        log("kernels", f"dilated conv {label}: x [{b}, {h}, {w}, {c}] -> "
+            f"{o}, d={d} max_abs_err {float(err.max()):.3e} | tolerance "
+            f"used {margin:.3f} ok")
+    return probe_err
+
+
+def run_probe_path(torch, dc):
+    """The dilated-conv probe's entry point at its two shapes; returns the
+    launch count of that run."""
+    from spml_tpu_torch.tools import dilated_conv_probe
+
+    dc.reset_launch_counts()
+    dilated_conv_probe.main()
+    launches = dc.LAUNCHES["dilated_conv3x3"]
+    # per shape: the error check, the warm-up call, ITERS timed calls
+    want = len(dilated_conv_probe.SHAPES) * (2 + dilated_conv_probe.ITERS)
+    if launches != want:
+        raise AssertionError(f"probe: dilated_conv3x3 launched {launches} "
+                             f"times, want {want}")
+    return launches
+
+
+def time_dilated_conv(torch, dc):
+    """K10 at the probe's first shape (res4 d2) beside its plain version,
+    cuDNN and its bound; returns (ms, plain ms, library ms, (bound ms,
+    by))."""
+    from spml_tpu_torch.tools.dilated_conv_probe import (
+        SHAPES, cuda_ms, cudnn_conv, cudnn_weight)
+
+    label, b, h, w, c, o, d = SHAPES[0]
+    gen = torch.Generator(DEVICE).manual_seed(1)
+    x = torch.randn(b, h, w, c, device=DEVICE, generator=gen).bfloat16()
+    wt = (0.05 * torch.randn(3, 3, c, o, device=DEVICE,
+                             generator=gen)).bfloat16()
+    w_oihw = cudnn_weight(wt)
+    ms = cuda_ms(lambda: dc.dilated_conv3x3(x, wt, d), 20)
+    plain_ms = cuda_ms(lambda: dc.dilated_conv3x3_reference(x, wt, d), 5)
+    library_ms = cuda_ms(lambda: cudnn_conv(x, w_oihw, d), 20)
+    t_ops = 2 * b * h * w * c * o * 9 / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 2 * (b * h * w * (c + o) + 9 * c * o) / PEAK_BYTES * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                             "bytes")
+    log("timing", f"dilated_conv3x3_bf16 ({label}): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, cuDNN {library_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    return ms, plain_ms, library_ms, bound
+
+
 def main() -> int:
     import torch
 
@@ -446,7 +559,8 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from spml_tpu_torch.ops import _cuda, segsort_loss as fused
+    from spml_tpu_torch.ops import _cuda, dilated_conv as dc
+    from spml_tpu_torch.ops import segsort_loss as fused
 
     smi = nvidia_smi_line()
     log("device", f"{smi} | torch {torch.__version__} CUDA "
@@ -463,12 +577,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; ptxas: " + " | ".join(regs))
 
     errs = check_kernels(torch, fused)
+    conv_err = check_dilated_conv(torch, dc)
     launches, times = {}, {}
-    for recipe, family in (("flagship", "joint"), ("densepose", "hard")):
+    for recipe, family in RECIPE_FAMILY.items():
         path_launches, args = run_main_path(torch, fused, recipe)
         launches.update({k: v for k, v in path_launches.items()
                          if k.startswith(family)})
         times.update(time_kernels(torch, fused, family, args))
+    conv_launches = run_probe_path(torch, dc)
+    conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
+        time_dilated_conv(torch, dc)
 
     err_name = {"stats": "stats", "grad_emb": "dE", "grad_proto": "dP"}
     table = []
@@ -476,12 +594,18 @@ def main() -> int:
         family, kind = key.split("_", 1)
         ms, plain_ms, (bound_ms, bound_by) = times[key]
         table.append({
-            "name": name, "route": "cuda",
-            "source": "spml_tpu_torch/csrc/segsort_joint.cu",
+            "name": name, "route": "cuda", "source": SEGSORT_SOURCE,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": errs[family][err_name[kind]], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
+    name, replaces, source = CONV_KERNEL
+    table.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": conv_launches,
+        "max_abs_err": conv_err, "ms": conv_ms, "plain_ms": conv_plain,
+        "bound_ms": conv_bound, "bound_by": conv_by,
+        "library_ms": conv_lib})
     print(json.dumps({"kernels": table}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

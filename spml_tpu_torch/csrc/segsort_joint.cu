@@ -1,5 +1,5 @@
 // SegSort statistics and their gradients: the fused loss sweeps of the SPML
-// train step, for NVIDIA Hopper (sm_90a). One source serves two loss
+// train step, for NVIDIA Hopper (sm_90a). One source serves three loss
 // families, a compile-time parameter of every kernel:
 //
 //   JOINT: sem_ann (hard labels) + sem_occ (tag sets) in one sweep, six
@@ -13,15 +13,21 @@
 //     K4 segsort_hard_stats       <- _stats_kernel (:130)
 //     K5 segsort_hard_grad_emb    <- _grad_coeff_kernel (:200)
 //     K6 segsort_hard_grad_proto  <- _grad_proto_kernel (:240)
+//   SET:   sem_occ alone (the VOC image-tag step with sem_ann off), three
+//          row sums at one concentration under tag-set masks. Replaces:
+//     K7 segsort_set_stats        <- _set_stats_kernel (:408)
+//     K8 segsort_set_grad_emb     <- _set_grad_kernel(transpose=False) (:444)
+//     K9 segsort_set_grad_proto   <- _set_grad_kernel(transpose=True) (:444)
 //
 // For N pixels and the first num_valid of P prototypes (sorted valid-first
 // by the wrapper; rows past num_valid contribute exactly zero), with
 // l = E[n].P[k], s_a = exp(kappa_a l), s_o = exp(kappa_o l) (s_a^2 when
 // kappa_o == 2 kappa_a, as the TPU kernel does):
 //   stats: row sums over k of s_a (and, JOINT, s_o) under the own
-//       (k == own[n], not gated by the label), same-label and
-//       different-label masks (prototype label >= 0), and, JOINT, the
-//       tag-intersect and tag-disjoint masks (prototype valid);
+//       (k == own[n], not gated by the label or validity), same-label and
+//       different-label masks (prototype label >= 0; JOINT and HARD), and
+//       the tag-intersect and tag-disjoint masks (prototype valid; JOINT
+//       at kappa_o, SET at kappa_a in place of the label masks);
 //   dE[n] = sum_k c[n,k] P[k],   c = kappa_a s_a g_a (+ kappa_o s_o g_o),
 //       g_a / g_o the incoming row cotangents picked by the same masks;
 //   dP[k] = sum_n c[n,k] E[n].
@@ -32,7 +38,8 @@
 // flagship shapes (N = 131072, P = 6144, D = 64) one JOINT sweep over a
 // full prototype set is ~1e11 flops against ~40 MB of inputs. At the
 // DensePose point shapes (N = 65536, P = 2048, D = 32, ~10-25% of the
-// prototype rows live) a HARD sweep is ~1e9 flops, a bound of ~0.02 ms:
+// prototype rows live) a HARD sweep is ~1e9 flops, a bound of ~0.02 ms
+// (a SET sweep of the tag step, N = 65536, P = 3072, D = 64, is alike):
 // there the kernels are launch- and latency-bound, and the design keeps
 // them to one launch each (two for dP) with no host round trip. These
 // kernels use float32 FMAs on the CUDA cores (67 TFLOP/s), not the tensor
@@ -64,6 +71,7 @@ namespace {
 
 constexpr int JOINT = 0;
 constexpr int HARD = 1;
+constexpr int SET = 2;  // rows carry no label: tag bitwords and validity
 
 __host__ __device__ constexpr int n_stats(int family) {
   return family == JOINT ? 6 : 3;
@@ -137,14 +145,20 @@ __device__ __forceinline__ void sims(float l, float kappa_a, float kappa_o,
 }
 
 // Adds one pair's similarities to the family's row sums: JOINT (own_a,
-// same_a, diff_a, own_o, same_o, diff_o), HARD (own, same, diff).
+// same_a, diff_a, own_o, same_o, diff_o), HARD (own, same, diff by label),
+// SET (own, same, diff by tag set).
 template <int F>
 __device__ __forceinline__ void add_pair(float (&acc)[n_stats(F)],
                                          const PairMasks& m, float sa,
                                          float so) {
   acc[0] += m.own ? sa : 0.f;
-  acc[1] += m.same_a ? sa : 0.f;
-  acc[2] += m.diff_a ? sa : 0.f;
+  if constexpr (F == SET) {
+    acc[1] += m.same_o ? sa : 0.f;
+    acc[2] += m.diff_o ? sa : 0.f;
+  } else {
+    acc[1] += m.same_a ? sa : 0.f;
+    acc[2] += m.diff_a ? sa : 0.f;
+  }
   if constexpr (F == JOINT) {
     acc[3] += m.own ? so : 0.f;
     acc[4] += m.same_o ? so : 0.f;
@@ -158,19 +172,25 @@ __device__ __forceinline__ float pair_coeff(const PairMasks& m,
                                             const float (&g)[n_stats(F)],
                                             float sa, float so,
                                             float kappa_a, float kappa_o) {
-  const float ga = (m.own ? g[0] : 0.f) + (m.same_a ? g[1] : 0.f) +
-                   (m.diff_a ? g[2] : 0.f);
-  if constexpr (F == JOINT) {
-    const float go = (m.own ? g[3] : 0.f) + (m.same_o ? g[4] : 0.f) +
-                     (m.diff_o ? g[5] : 0.f);
-    return kappa_a * sa * ga + kappa_o * so * go;
+  if constexpr (F == SET) {
+    const float gs = (m.own ? g[0] : 0.f) + (m.same_o ? g[1] : 0.f) +
+                     (m.diff_o ? g[2] : 0.f);
+    return kappa_a * sa * gs;
   } else {
-    return kappa_a * sa * ga;
+    const float ga = (m.own ? g[0] : 0.f) + (m.same_a ? g[1] : 0.f) +
+                     (m.diff_a ? g[2] : 0.f);
+    if constexpr (F == JOINT) {
+      const float go = (m.own ? g[3] : 0.f) + (m.same_o ? g[4] : 0.f) +
+                       (m.diff_o ? g[5] : 0.f);
+      return kappa_a * sa * ga + kappa_o * so * go;
+    } else {
+      return kappa_a * sa * ga;
+    }
   }
 }
 
 // Stages prototypes [t0, t0 + cnt) of a valid-first sorted set (HARD reads
-// no tag bits or validity).
+// no tag bits or validity, SET no label).
 template <int D, int F>
 __device__ __forceinline__ void stage_protos(
     float* sp, int* slab, int* stag, int* sval, const float* protos,
@@ -180,8 +200,12 @@ __device__ __forceinline__ void stage_protos(
   float4* dst = reinterpret_cast<float4*>(sp);
   for (int i = threadIdx.x; i < cnt * D / 4; i += blockDim.x) dst[i] = src[i];
   for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    slab[i] = proto_lab[t0 + i];
-    if constexpr (F == JOINT) {
+    if constexpr (F == SET) {
+      slab[i] = -1;
+    } else {
+      slab[i] = proto_lab[t0 + i];
+    }
+    if constexpr (F != HARD) {
       stag[i] = proto_tag[t0 + i];
       sval[i] = proto_valid[t0 + i];
     } else {
@@ -208,9 +232,9 @@ __global__ void __launch_bounds__(THREADS) stats_kernel(
   int lab = -1, own_k = -1, tag = 0;
   if (live) {
     load_row<D>(e, emb + (size_t)row * D);
-    lab = pix_lab[row];
+    if constexpr (F != SET) lab = pix_lab[row];
     own_k = own[row];
-    if constexpr (F == JOINT) tag = pix_tag[row];
+    if constexpr (F != HARD) tag = pix_tag[row];
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) e[d] = 0.f;
@@ -265,9 +289,9 @@ __global__ void __launch_bounds__(THREADS) grad_emb_kernel(
   int lab = -1, own_k = -1, tag = 0;
   if (live) {
     load_row<D>(e, emb + (size_t)row * D);
-    lab = pix_lab[row];
+    if constexpr (F != SET) lab = pix_lab[row];
     own_k = own[row];
-    if constexpr (F == JOINT) tag = pix_tag[row];
+    if constexpr (F != HARD) tag = pix_tag[row];
 #pragma unroll
     for (int s = 0; s < NS; ++s) g[s] = grads[(size_t)s * n + row];
   } else {
@@ -332,8 +356,8 @@ __global__ void __launch_bounds__(THREADS) grad_proto_kernel(
   int plab = -1, ptag = 0, pval = 0;
   if (live) {
     load_row<D>(pr, protos + (size_t)k * D);
-    plab = proto_lab[k];
-    if constexpr (F == JOINT) {
+    if constexpr (F != SET) plab = proto_lab[k];
+    if constexpr (F != HARD) {
       ptag = proto_tag[k];
       pval = proto_valid[k];
     }
@@ -352,9 +376,13 @@ __global__ void __launch_bounds__(THREADS) grad_proto_kernel(
     float4* dst = reinterpret_cast<float4*>(se);
     for (int i = threadIdx.x; i < cnt * D / 4; i += THREADS) dst[i] = src[i];
     for (int i = threadIdx.x; i < cnt; i += THREADS) {
-      slab[i] = pix_lab[t0 + i];
+      if constexpr (F == SET) {
+        slab[i] = -1;
+      } else {
+        slab[i] = pix_lab[t0 + i];
+      }
       sown[i] = own[t0 + i];
-      stag[i] = F == JOINT ? pix_tag[t0 + i] : 0;
+      stag[i] = F != HARD ? pix_tag[t0 + i] : 0;
 #pragma unroll
       for (int s = 0; s < NS; ++s) sg[s][i] = grads[(size_t)s * n + t0 + i];
     }
@@ -556,6 +584,48 @@ int segsort_hard_grad_proto(const float* emb, const int* pix_lab,
       d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
       (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
       0, grads, chunk, partial, n_chunks, d_protos, (cudaStream_t)stream);
+}
+
+// out: [3, n] rows own, same, diff (tag sets intersect / are disjoint) at
+// concentration kappa. pix_tag / proto_tag are class bitwords.
+int segsort_set_stats(const float* emb, const int* pix_tag, const int* own,
+                      const float* protos, const int* proto_tag,
+                      const int* proto_valid, const int* num_valid, int n,
+                      int p, int d, float kappa, float* out, void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<SET, LaunchStats>(
+      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
+      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, out,
+      (cudaStream_t)stream);
+}
+
+// grads: [3, n] cotangents of the three rows of segsort_set_stats.
+int segsort_set_grad_emb(const float* emb, const int* pix_tag,
+                         const int* own, const float* protos,
+                         const int* proto_tag, const int* proto_valid,
+                         const int* num_valid, int n, int p, int d,
+                         float kappa, const float* grads, float* d_emb,
+                         void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<SET, LaunchGradEmb>(
+      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
+      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads, d_emb,
+      (cudaStream_t)stream);
+}
+
+// partial: scratch [n_chunks, p, d], n_chunks = ceil(n / chunk).
+int segsort_set_grad_proto(const float* emb, const int* pix_tag,
+                           const int* own, const float* protos,
+                           const int* proto_tag, const int* proto_valid,
+                           const int* num_valid, int n, int p, int d,
+                           float kappa, const float* grads, int chunk,
+                           float* partial, int n_chunks, float* d_protos,
+                           void* stream) {
+  if (p == 0) return 0;
+  return dispatch_d<SET, LaunchGradProto>(
+      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
+      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads, chunk,
+      partial, n_chunks, d_protos, (cudaStream_t)stream);
 }
 
 }  // extern "C"

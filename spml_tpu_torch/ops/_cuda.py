@@ -48,6 +48,20 @@ SIGNATURES = {
         # n_chunks, d_protos [P, D], stream
         "segsort_hard_grad_proto":
             [P] * 6 + [I, I, I, F, P, I, P, I, P, P],
+        # emb, pix_tag, own, protos, proto_tag, proto_valid, num_valid, n,
+        # p, d, kappa, out [3, N], stream
+        "segsort_set_stats": [P] * 7 + [I, I, I, F, P, P],
+        # ... the same 11 + grads [3, N], d_emb [N, D], stream
+        "segsort_set_grad_emb": [P] * 7 + [I, I, I, F, P, P, P],
+        # ... the same 11 + grads [3, N], chunk, partial [C, P, D],
+        # n_chunks, d_protos [P, D], stream
+        "segsort_set_grad_proto":
+            [P] * 7 + [I, I, I, F, P, I, P, I, P, P],
+    },
+    "dilated_conv": {
+        # x [B, H, W, C], w [3, 3, C, O], out [B, H, W, O] (bf16), B, H,
+        # W, C, O, dilation, stream
+        "dilated_conv3x3_bf16": [P] * 3 + [I] * 6 + [P],
     },
 }
 

@@ -1,9 +1,12 @@
 """Fused SegSort losses: the pixel-to-prototype statistics in one sweep.
 
-Port of spml_tpu/ops/pallas/segsort_loss.py, two families:
+Port of spml_tpu/ops/pallas/segsort_loss.py, three families:
 
 * hard labels (``segsort_stats`` / ``fused_segsort_loss``): the sem_ann
   loss alone, three statistics (own, same, diff) at one concentration;
+* tag sets (``set_segsort_stats`` / ``fused_set_segsort_loss``): the
+  sem_occ loss alone, three statistics where same / diff mean the tag
+  sets intersect / are disjoint, at one concentration;
 * joint (``joint_segsort_stats`` / ``fused_joint_losses``): sem_ann (hard
   labels) + sem_occ (tag sets) together, six statistics at two
   concentrations.
@@ -25,7 +28,7 @@ exactly zero to every statistic of a masked pixel.
 
 Dispatch: a CUDA tensor goes to the kernels (a failed build or launch
 raises); a CPU tensor goes to the plain version
-(``segsort_stats_reference`` / ``joint_segsort_stats_reference``),
+(``*_stats_reference``),
 differentiated by autograd.
 """
 
@@ -41,7 +44,7 @@ CHUNK = 2048  # pixels per partial dP sum of the dP kernels
 
 # family -> (statistics per pixel, position of the prototypes among the
 # kernel inputs, which are in the C functions' argument order)
-_FAMILIES = {"joint": (6, 4), "hard": (3, 3)}
+_FAMILIES = {"joint": (6, 4), "hard": (3, 3), "set": (3, 3)}
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {f"{family}_{kind}": 0 for family in _FAMILIES
@@ -114,16 +117,30 @@ def _rowsum(mask, s):
     return torch.sum(torch.where(mask, s, 0.0), dim=1)
 
 
-def _label_masks(emb, pix_lab, own_idx, proto_lab, num_valid):
-    """Masks shared by both families: own (not gated by the label), same
-    and different label (prototype label >= 0), all cut at num_valid."""
-    cols = torch.arange(proto_lab.shape[0], device=emb.device)
+def _own_mask(own_idx, p, num_valid):
+    """(own [N, P]: column == own index, gated by nothing but the
+    num_valid cut; live [P]: column < num_valid)."""
+    cols = torch.arange(p, device=own_idx.device)
     live = cols < num_valid.reshape(())
+    return (own_idx[:, None] == cols[None, :]) & live, live
+
+
+def _label_masks(pix_lab, own_idx, proto_lab, num_valid):
+    """Masks of the label families: own (not gated by the label), same
+    and different label (prototype label >= 0), all cut at num_valid."""
+    own, live = _own_mask(own_idx, proto_lab.shape[0], num_valid)
     lab_ok = (proto_lab >= 0) & live
     same = (pix_lab[:, None] == proto_lab[None, :]) & lab_ok
     diff = (pix_lab[:, None] != proto_lab[None, :]) & lab_ok
-    own = (own_idx[:, None] == cols[None, :]) & live
     return own, same, diff, live
+
+
+def _tag_masks(pix_tags, proto_tags, proto_valid, live):
+    """(same, diff) of the tag-set losses: the bitwords intersect / are
+    disjoint, on valid prototypes before the num_valid cut."""
+    inter = (pix_tags[:, None] & proto_tags[None, :]) != 0
+    tag_ok = (proto_valid > 0) & live
+    return inter & tag_ok, ~inter & tag_ok
 
 
 def segsort_stats_reference(emb, pix_lab, own_idx, protos, proto_lab,
@@ -131,8 +148,22 @@ def segsort_stats_reference(emb, pix_lab, own_idx, protos, proto_lab,
     """Dense [N, P] form of the hard-label statistics, with the kernels'
     masks; prototype rows at or past num_valid contribute nothing.
     Returns a [3, N] tensor (own, same, diff)."""
-    own, same, diff, _ = _label_masks(emb, pix_lab, own_idx, proto_lab,
+    own, same, diff, _ = _label_masks(pix_lab, own_idx, proto_lab,
                                       num_valid)
+    s = torch.exp((emb @ protos.T) * kappa)
+    return torch.stack([_rowsum(own, s), _rowsum(same, s),
+                        _rowsum(diff, s)])
+
+
+def set_segsort_stats_reference(emb, pix_tags, own_idx, protos, proto_tags,
+                                proto_valid, num_valid, kappa):
+    """Dense [N, P] form of the tag-set statistics, with the kernels'
+    masks: own (not gated by validity), same = the tag bitwords
+    intersect, diff = they do not, both on valid prototypes; rows at or
+    past num_valid contribute nothing. Returns a [3, N] tensor (own,
+    same, diff)."""
+    own, live = _own_mask(own_idx, protos.shape[0], num_valid)
+    same, diff = _tag_masks(pix_tags, proto_tags, proto_valid, live)
     s = torch.exp((emb @ protos.T) * kappa)
     return torch.stack([_rowsum(own, s), _rowsum(same, s),
                         _rowsum(diff, s)])
@@ -144,16 +175,13 @@ def joint_segsort_stats_reference(emb, pix_lab, own_idx, pix_tags, protos,
     """Dense [N, P] form of the six statistics, with the kernels' masks;
     prototype rows at or past num_valid contribute nothing. Returns a
     [6, N] tensor (own_a, same_a, diff_a, own_o, same_o, diff_o)."""
-    own, same_a, diff_a, live = _label_masks(emb, pix_lab, own_idx,
+    own, same_a, diff_a, live = _label_masks(pix_lab, own_idx,
                                              proto_lab, num_valid)
     logits = emb @ protos.T
     s_a = torch.exp(logits * kappa_a)
     s_o = s_a * s_a if kappa_o == 2.0 * kappa_a else torch.exp(
         logits * kappa_o)
-    inter = (pix_tags[:, None] & proto_tags[None, :]) != 0
-    tag_ok = (proto_valid > 0) & live
-    same_o = inter & tag_ok
-    diff_o = ~inter & tag_ok
+    same_o, diff_o = _tag_masks(pix_tags, proto_tags, proto_valid, live)
     return torch.stack([_rowsum(own, s_a), _rowsum(same_a, s_a),
                         _rowsum(diff_a, s_a), _rowsum(own, s_o),
                         _rowsum(same_o, s_o), _rowsum(diff_o, s_o)])
@@ -214,10 +242,10 @@ def _kernel_operand(t, dtype):
 
 
 class _SegsortStats(torch.autograd.Function):
-    """Forward: the family's stats kernel (K1 joint, K4 hard); backward:
-    its dE (K2, K5) and dP (K3, K6) kernels. `inputs` are in the C
-    functions' argument order; gradients flow to the embeddings (first)
-    and the prototypes only."""
+    """Forward: the family's stats kernel (K1 joint, K4 hard, K7 set);
+    backward: its dE (K2, K5, K8) and dP (K3, K6, K9) kernels. `inputs`
+    are in the C functions' argument order; gradients flow to the
+    embeddings (first) and the prototypes only."""
 
     @staticmethod
     def forward(ctx, family, scalars, *inputs):
@@ -270,6 +298,25 @@ def segsort_stats(emb, pix_lab, own_idx, protos, proto_lab, num_valid,
                                plab, nv)
 
 
+def set_segsort_stats(emb, pix_tags, own_idx, protos, proto_tags,
+                      proto_valid, num_valid, kappa):
+    """(own, same, diff) of the tag-set loss as a [3, N] float32 tensor.
+
+    emb [N, D], protos [P, D]; pix_tags / own_idx [N] and proto_tags /
+    proto_valid [P] integers, tags as bitwords; num_valid [1]: rows at or
+    past it contribute nothing.
+    """
+    if not emb.is_cuda:
+        return set_segsort_stats_reference(
+            emb.float(), pix_tags, own_idx, protos.float(), proto_tags,
+            proto_valid, num_valid, kappa)
+    e, p, (tag, own, ptag, pval, nv) = _kernel_inputs(
+        emb, protos, (pix_tags, own_idx, proto_tags, proto_valid,
+                      num_valid))
+    return _SegsortStats.apply("set", (float(kappa),), e, tag, own, p, ptag,
+                               pval, nv)
+
+
 def joint_segsort_stats(emb, pix_lab, own_idx, pix_tags, protos, proto_lab,
                         proto_tags, proto_valid, num_valid, kappa_a,
                         kappa_o):
@@ -319,6 +366,32 @@ def fused_segsort_loss(embeddings, semantic_labels, own_segment_ids,
     own_s, same_s, diff_s = segsort_stats(
         embeddings.float(), semantic_labels.long(), own, protos, plab,
         num_valid, float(concentration)).unbind(0)
+    return _ll_from_stats(own_s, same_s, diff_s, pixel_mask, reduction)
+
+
+def fused_set_segsort_loss(embeddings, semantic_tags, own_segment_ids,
+                           prototypes, prototype_semantic_tags,
+                           concentration, pixel_mask, prototype_mask,
+                           reduction="mean", compact=True):
+    """The tag-set SegSort loss (losses.set_segsort_loss) in one fused
+    sweep: the masked mean, or the per-pixel [N] log likelihood with
+    reduction="none". Tag sets [N, T] / [P, T] (T <= 32; 0/1 or counts,
+    nonzero meaning present) are packed to bitwords inside; prototypes
+    outside prototype_mask drop out of the same / diff sums."""
+    p0 = prototypes.shape[0]
+    protos = prototypes.float()
+    qtags = _pack_tag_bits(prototype_semantic_tags)
+    pvalid = prototype_mask.to(torch.int32)
+    own = own_segment_ids.long()
+    if compact:
+        touch = (pvalid > 0) | _own_flag(own, pixel_mask, p0)
+        (protos, qtags, pvalid), own, num_valid = _compact_prototypes(
+            touch, [protos, qtags, pvalid], own)
+    else:
+        num_valid = _num_valid_all(p0, protos.device)
+    own_s, same_s, diff_s = set_segsort_stats(
+        embeddings.float(), _pack_tag_bits(semantic_tags), own, protos,
+        qtags, pvalid, num_valid, float(concentration)).unbind(0)
     return _ll_from_stats(own_s, same_s, diff_s, pixel_mask, reduction)
 
 

@@ -1,12 +1,14 @@
 """Where a train step's device time goes.
 
-    python -m spml_tpu_torch.tools.profile_step [--recipe flagship]
+    python -m spml_tpu_torch.tools.profile_step [--recipe flagship |
+        densepose_point | voc_tag]
         [--steps 3] [--out DIR]
 
 Needs one CUDA card. Builds the recipe's configuration from seed 0 —
-flagship (spml_tpu_torch/train/flagship.py, blobby synthetic labels) or
+flagship (spml_tpu_torch/train/flagship.py, blobby synthetic labels),
 densepose_point (spml_tpu_torch/train/densepose_point.py, synthetic point
-labels) — runs 3 warm-up steps, times 5 steps with CUDA events, then
+labels) or voc_tag (spml_tpu_torch/train/voc_tag.py, the flagship's
+blobby labels) — runs 3 warm-up steps, times 5 steps with CUDA events, then
 traces --steps steps with torch.profiler (CPU + CUDA activity) and
 prints:
 
@@ -30,9 +32,12 @@ import subprocess
 
 import torch
 
+from spml_tpu_torch.train import recipes
+
 CATEGORIES = [  # first match wins; cuDNN's conv kernels also say "gemm"
-    # the kernels of csrc/segsort_joint.cu (K1-K3 joint, K4-K6 hard)
-    ("segsort loss K1-K6", r"(stats|grad_emb|grad_proto)_kernel<|"
+    # the kernels of csrc/segsort_joint.cu (K1-K3 joint, K4-K6 hard,
+    # K7-K9 set)
+    ("segsort loss K1-K9", r"(stats|grad_emb|grad_proto)_kernel<|"
                            r"reduce_chunks"),
     ("conv (cuDNN)", r"fprop|dgrad|wgrad|implicit|conv|cudnn|"
                      r"nchwToNhwc|nhwcToNchw"),
@@ -78,7 +83,7 @@ def _time_steps(train_step, state, batch, n):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--recipe", choices=("flagship", "densepose_point"),
+    ap.add_argument("--recipe", choices=list(recipes.RECIPES),
                     default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="profile_out")
@@ -86,18 +91,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
 
-    from spml_tpu_torch.config import load_config
-    from spml_tpu_torch.train import densepose_point, flagship
     from spml_tpu_torch.train import step as step_lib
 
-    if args.recipe == "flagship":
-        cfg = load_config(overrides=flagship.OVERRIDES)
-        b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
-        batch = flagship.blobby_batch(b, crop, cfg.dataset.num_classes)
-    else:
-        cfg = load_config(overrides=densepose_point.OVERRIDES)
-        b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
-        batch = densepose_point.point_batch(b, crop, seed=0)
+    cfg, batch = recipes.setup(args.recipe)
+    b = cfg.train.batch_size
     state = step_lib.init_state(cfg, 0, batch["image"], device="cuda")
     train_step = step_lib.make_train_step(cfg)
     state, _ = _time_steps(train_step, state, batch, 3)

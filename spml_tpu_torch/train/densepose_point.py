@@ -106,3 +106,9 @@ def point_batch(batch: int, crop: int, seed: int = 0,
     out = {"image": np.clip(img, 0.0, 1.0), "semantic_label": sem,
            "instance_label": inst, "semantic_tag": tags}
     return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+def make_batch(cfg, device="cuda") -> dict:
+    """The recipe's batch at cfg's batch size and crop, seed 0."""
+    return point_batch(cfg.train.batch_size, cfg.train.crop_size[0],
+                       seed=0, device=device)

@@ -55,3 +55,9 @@ def blobby_batch(batch: int, crop: int, num_classes: int, seed: int = 0,
     out = {"image": np.clip(img, 0, 1), "semantic_label": sem,
            "instance_label": inst, "semantic_tag": tags}
     return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+def make_batch(cfg, device="cuda") -> dict:
+    """The recipe's batch at cfg's batch size, crop and classes, seed 0."""
+    return blobby_batch(cfg.train.batch_size, cfg.train.crop_size[0],
+                        cfg.dataset.num_classes, device=device)

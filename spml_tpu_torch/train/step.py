@@ -8,7 +8,8 @@ segsort_softmax_densepose.py): embedding forward -> per-image vMF k-means
 memory bank -> CE + SegSort sem_ann, SetSegSort sem_occ (with
 tpu.use_fused_loss one fused sweep through the CUDA kernels of
 ops/segsort_loss.py: the joint kernels with both losses on, the
-hard-label kernels with sem_ann alone; else the dense losses), per-image
+hard-label kernels with sem_ann alone, the tag-set kernels with sem_occ
+alone; else the dense losses), per-image
 img_sim and, DensePose with tpu.apply_feat_aff, the dense feat_aff set
 loss -> backward -> SGD -> memory-bank push.
 
@@ -21,9 +22,10 @@ Loss reduction: tpu.loss_reduction='per_device_mean' groups the batch
 into train.batch_size-image groups and means each group's pixels, then
 the groups (the reference's per-GPU mean, train.py:211-219).
 
-Not ported yet: the softmax_classifier baseline and the tag-only fused
-loss (sem_ann off, sem_occ on with tpu.use_fused_loss), whose kernels
-are still to port.
+With sem_ann off (the VOC image-tag recipe's "tags only" arm), the
+sem_ann metric is the classifier head's cross-entropy alone.
+
+Not ported yet: the softmax_classifier baseline.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from spml_tpu_torch.models.embeddings import (build_classifier_head,
 from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common, kmeans, knn, losses
 from spml_tpu_torch.ops.segsort_loss import (fused_joint_losses,
-                                             fused_segsort_loss)
+                                             fused_segsort_loss,
+                                             fused_set_segsort_loss)
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import MemoryBank, TrainState
 from spml_tpu_torch.utils.device import resolve_device
@@ -165,10 +168,6 @@ def make_train_step(config):
                     and config.tpu.apply_feat_aff)
     densepose = "densepose" in config.network.backbone_types
     fused = config.tpu.use_fused_loss
-    if fused and use_sem_occ and not use_sem_ann:
-        raise NotImplementedError(
-            "the tag-only fused loss (sem_ann off, sem_occ on: the set "
-            "kernels K7-K9) is not ported yet; set tpu.use_fused_loss=False")
     schedule = optim.make_schedule(tcfg)
 
     def _n_groups(b):
@@ -302,7 +301,10 @@ def make_train_step(config):
                 ann = _grouped_masked_mean(ann_ll, ann_pix_mask,
                                            _n_groups(B))
             if use_sem_occ:
-                occ_ll = losses.set_segsort_loss(
+                # the tag-set kernels or the dense loss: one signature
+                occ_loss = fused_set_segsort_loss if fused else \
+                    losses.set_segsort_loss
+                occ_ll = occ_loss(
                     emb_rows, occ_pix_tags, pix_own, all_protos,
                     occ_proto_tags, tcfg.sem_occ_concentration, pix_valid,
                     all_valid, reduction="none")

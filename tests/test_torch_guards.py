@@ -5,12 +5,14 @@
   with "spml_tpu");
 * the entry points default to the CUDA card and raise on a host without
   one instead of carrying on on the CPU;
-* the SegSort wrappers (joint and hard-label) take the plain version
-  only for a CPU tensor; a CUDA tensor goes to the kernel binding, and a
-  launch error raises (no fallback). A CUDA tensor is stood in for by a
-  subclass that reports is_cuda, with the binding monkeypatched;
+* the kernel wrappers (SegSort joint, hard-label and tag-set; the
+  dilated conv) take the plain version only for a CPU tensor; a CUDA
+  tensor goes to the kernel binding, and a launch error raises (no
+  fallback). A CUDA tensor is stood in for by a subclass that reports
+  is_cuda, with the binding monkeypatched;
 * make_train_step raises NotImplementedError, naming what is missing,
-  for what is not ported yet.
+  for what is not ported yet, and routes the tag-only fused loss to the
+  tag-set kernels.
 """
 
 import ast
@@ -21,7 +23,8 @@ import pytest
 import torch
 
 from spml_tpu_torch.config import load_config
-from spml_tpu_torch.ops import _cuda, segsort_loss as fused
+from spml_tpu_torch.ops import _cuda, dilated_conv, segsort_loss as fused
+from spml_tpu_torch.train import recipes
 from spml_tpu_torch.train import step as tstep
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,9 +54,29 @@ def test_port_imports_nothing_of_the_jax_package():
     files = sorted((ROOT / "spml_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"spml_tpu_torch/ops/dilated_conv.py",
+            "spml_tpu_torch/train/voc_tag.py",
+            "spml_tpu_torch/train/recipes.py",
+            "spml_tpu_torch/tools/dilated_conv_probe.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
+
+
+@pytest.mark.parametrize("name", ["flagship", "densepose_point",
+                                  "voc_tag"])
+def test_recipe_setup(name):
+    """Each recipe the tools name builds its configuration and a batch of
+    that configuration's size, the same batch from the same seed."""
+    cfg, batch = recipes.setup(name, device="cpu")
+    b, crop = cfg.train.batch_size, cfg.train.crop_size[0]
+    assert batch["image"].shape == (b, crop, crop, 3)
+    assert batch["semantic_label"].shape == (b, crop, crop)
+    assert batch["semantic_tag"].shape == (b, 256)
+    assert cfg.tpu.use_fused_loss
+    again = recipes.RECIPES[name].make_batch(cfg, device="cpu")
+    assert all(torch.equal(batch[k], again[k]) for k in batch)
 
 
 def _tiny_config():
@@ -145,7 +168,9 @@ def test_cuda_tensor_calls_the_binding(monkeypatch):
                          "segsort_joint_grad_proto"]
     assert fused.LAUNCHES == {"joint_stats": 1, "joint_grad_emb": 1,
                               "joint_grad_proto": 1, "hard_stats": 0,
-                              "hard_grad_emb": 0, "hard_grad_proto": 0}
+                              "hard_grad_emb": 0, "hard_grad_proto": 0,
+                              "set_stats": 0, "set_grad_emb": 0,
+                              "set_grad_proto": 0}
 
 
 def test_hard_family_dispatch(monkeypatch):
@@ -174,21 +199,140 @@ def test_hard_family_dispatch(monkeypatch):
                          "segsort_hard_grad_proto"]
     assert fused.LAUNCHES == {"joint_stats": 0, "joint_grad_emb": 0,
                               "joint_grad_proto": 0, "hard_stats": 1,
-                              "hard_grad_emb": 1, "hard_grad_proto": 1}
+                              "hard_grad_emb": 1, "hard_grad_proto": 1,
+                              "set_stats": 0, "set_grad_emb": 0,
+                              "set_grad_proto": 0}
 
 
-@pytest.mark.parametrize("what", ["tag_only_fused", "softmax_classifier"])
+def _set_inputs(rng, n=40, p=12, d=16):
+    emb, protos, (tag, own, _), (ptag, pval, _) = _joint_inputs(rng, n, p, d)
+    return emb, tag, own, protos, ptag, pval, torch.tensor([12])
+
+
+def test_set_family_dispatch(monkeypatch):
+    """set_segsort_stats: a CPU tensor takes the plain version and
+    launches nothing; a CUDA tensor calls K7, then K8 and K9 in
+    backward."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "load", lambda name: lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda device: 0)
+    fused.reset_launch_counts()
+    emb, tag, own, protos, ptag, pval, nv = _set_inputs(
+        np.random.RandomState(7))
+    stats = fused.set_segsort_stats(emb, tag, own, protos, ptag, pval, nv,
+                                    8.0)
+    assert stats.shape == (3, 40) and lib.calls == []
+
+    def no_reference(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(fused, "set_segsort_stats_reference", no_reference)
+    emb = torch.Tensor._make_subclass(_FakeCuda, emb, True)
+    protos = torch.Tensor._make_subclass(_FakeCuda, protos, True)
+    stats = fused.set_segsort_stats(emb, tag, own, protos, ptag, pval, nv,
+                                    8.0)
+    assert lib.calls == ["segsort_set_stats"]
+    stats.sum().backward()
+    assert lib.calls == ["segsort_set_stats", "segsort_set_grad_emb",
+                         "segsort_set_grad_proto"]
+    assert fused.LAUNCHES == {"joint_stats": 0, "joint_grad_emb": 0,
+                              "joint_grad_proto": 0, "hard_stats": 0,
+                              "hard_grad_emb": 0, "hard_grad_proto": 0,
+                              "set_stats": 1, "set_grad_emb": 1,
+                              "set_grad_proto": 1}
+
+
+def test_dilated_conv_dispatch(monkeypatch):
+    """dilated_conv3x3: a CPU tensor takes the plain version; a CUDA
+    tensor calls the C function once and counts it; channel counts that
+    are not multiples of 16, and weights on another device than the input,
+    raise before any launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "load", lambda name: lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda device: 0)
+    dilated_conv.reset_launch_counts()
+    x = torch.zeros(1, 5, 6, 16, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 16, 32, dtype=torch.bfloat16)
+    assert dilated_conv.dilated_conv3x3(x, w, 2).shape == (1, 5, 6, 32)
+    assert lib.calls == [] and dilated_conv.LAUNCHES["dilated_conv3x3"] == 0
+
+    def no_reference(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(dilated_conv, "dilated_conv3x3_reference",
+                        no_reference)
+    xc = torch.Tensor._make_subclass(_FakeCuda, x, False)
+    out = dilated_conv.dilated_conv3x3(xc, w, 2)
+    assert out.shape == (1, 5, 6, 32) and out.dtype == torch.bfloat16
+    assert lib.calls == ["dilated_conv3x3_bf16"]
+    assert dilated_conv.LAUNCHES["dilated_conv3x3"] == 1
+    for c, o in ((8, 32), (16, 24)):
+        xc = torch.Tensor._make_subclass(
+            _FakeCuda, torch.zeros(1, 5, 6, c, dtype=torch.bfloat16), False)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            dilated_conv.dilated_conv3x3(
+                xc, torch.zeros(3, 3, c, o, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="bf16"):
+        dilated_conv.dilated_conv3x3(
+            torch.Tensor._make_subclass(_FakeCuda, x.float(), False),
+            w.float(), 2)
+    for xd in (x, torch.Tensor._make_subclass(_FakeCuda, x, False)):
+        with pytest.raises(ValueError, match="but w on meta"):
+            dilated_conv.dilated_conv3x3(xd, w.to("meta"), 2)
+    assert lib.calls == ["dilated_conv3x3_bf16"]
+    monkeypatch.setattr(_cuda, "load", lambda name: _FakeLib(err=700))
+    with pytest.raises(RuntimeError, match="error 700"):
+        dilated_conv.dilated_conv3x3(
+            torch.Tensor._make_subclass(_FakeCuda, x, False), w, 2)
+
+
+@pytest.mark.parametrize("what", ["softmax_classifier"])
 def test_unported_paths_raise(what):
     cfg = _tiny_config()
-    if what == "tag_only_fused":
-        cfg.tpu.use_fused_loss = True
-        cfg.train.sem_ann_loss_types = "none"
-        match = "tag-only fused loss"
-    else:
-        cfg.network.prediction_types = "softmax_classifier"
-        match = "softmax_classifier"
-    with pytest.raises(NotImplementedError, match=match):
+    cfg.network.prediction_types = "softmax_classifier"
+    with pytest.raises(NotImplementedError, match=what):
         tstep.make_train_step(cfg)
+
+
+def test_tag_only_fused_step_reaches_set_kernels(monkeypatch):
+    """sem_ann off, sem_occ on, tpu.use_fused_loss: make_train_step builds
+    the step, and the step's sem_occ term goes through
+    fused_set_segsort_loss (the tag-set kernels K7-K9 on a card) and no
+    other fused loss."""
+    cfg = load_config(overrides={
+        "network": {"backbone_types": "panoptic_deeplab_10",
+                    "embedding_dim": 8, "kmeans_num_clusters": [2, 2],
+                    "kmeans_iterations": 1},
+        "dataset": {"num_classes": 4},
+        "train": {"batch_size": 1, "crop_size": [32, 32],
+                  "memory_bank_size": 1, "sem_ann_loss_types": "none"},
+        "tpu": {"segment_capacity": 16, "compute_dtype": "float32",
+                "use_fused_loss": True}})
+    calls = []
+
+    def spy(name):
+        orig = getattr(tstep, name)
+
+        def wrapped(*a, **k):
+            calls.append(name)
+            return orig(*a, **k)
+        monkeypatch.setattr(tstep, name, wrapped)
+    for name in ("fused_set_segsort_loss", "fused_segsort_loss",
+                 "fused_joint_losses"):
+        spy(name)
+    step = tstep.make_train_step(cfg)
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.rand(1, 32, 32, 3).astype(
+                 np.float32)),
+             "semantic_label": torch.from_numpy(rng.randint(0, 4, (1, 32,
+                                                                   32))),
+             "instance_label": torch.from_numpy(rng.randint(0, 3, (1, 32,
+                                                                   32))),
+             "semantic_tag": torch.ones(1, 256, dtype=torch.int64)}
+    state = tstep.init_state(cfg, 0, batch["image"], device="cpu")
+    _, metrics = step(state, batch)
+    assert calls == ["fused_set_segsort_loss"]
+    assert {"sem_ann_loss", "sem_occ_loss"} <= set(metrics)
+    assert all(np.isfinite(float(v)) for k, v in metrics.items()
+               if k.endswith("loss"))
 
 
 def test_launch_error_raises(monkeypatch):
@@ -280,3 +424,60 @@ def test_hard_kernels_match_plain_version_on_card():
     for a, b in ((e1.grad, e2.grad.float()), (p1.grad, p2.grad.float())):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_set_kernels_match_plain_version_on_card():
+    """K7-K9 against the plain version in float64 on the card, at a small
+    size, D = 64 (stats rtol 1e-5; dE / dP rtol 1e-4, atol 1e-5 *
+    max|ref|; chip_smoke.py checks the same at the tag step's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.RandomState(8)
+    n, p, d = 3000, 700, 64
+    emb = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(n, d).astype(np.float32)), dim=1).cuda()
+    protos = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(p, d).astype(np.float32)), dim=1).cuda()
+    tag = torch.from_numpy(rng.randint(0, 2 ** 20, n)).cuda()
+    own = torch.from_numpy(rng.randint(0, p, n)).cuda()
+    ptag = torch.from_numpy(rng.randint(0, 2 ** 20, p)).cuda()
+    ptag[::7] = 0
+    pval = torch.from_numpy(rng.randint(0, 2, p)).cuda()
+    nv = torch.tensor([500], device="cuda")
+    g = torch.randn(3, n, device="cuda")
+    e1 = emb.clone().requires_grad_(True)
+    p1 = protos.clone().requires_grad_(True)
+    s1 = fused.set_segsort_stats(e1, tag, own, p1, ptag, pval, nv, 8.0)
+    (s1 * g).sum().backward()
+    e2 = emb.double().requires_grad_(True)
+    p2 = protos.double().requires_grad_(True)
+    s2 = fused.set_segsort_stats_reference(e2, tag, own, p2, ptag, pval, nv,
+                                           8.0)
+    (s2 * g.double()).sum().backward()
+    torch.testing.assert_close(s1, s2.detach().float(), rtol=1e-5, atol=0.0)
+    for a, b in ((e1.grad, e2.grad.float()), (p1.grad, p2.grad.float())):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_dilated_conv_kernel_matches_plain_version_on_card():
+    """K10 against the plain version in float64 from the same bf16
+    values, at small ragged shapes (rtol 2^-8: one bf16 rounding of the
+    output; atol 1e-3 * max|ref| for float32 sums that cancel; chip_smoke.py
+    checks the same at the probe's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(9)
+    for (b, h, w, c, o), d in (((2, 9, 7, 16, 16), 1),
+                               ((1, 13, 20, 48, 32), 2),
+                               ((3, 6, 5, 32, 144), 4)):
+        x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
+        wt = (0.2 * torch.randn(3, 3, c, o, device="cuda",
+                                generator=gen)).bfloat16()
+        got = dilated_conv.dilated_conv3x3(x, wt, d)
+        want = dilated_conv.dilated_conv3x3_reference(x.double(),
+                                                      wt.double(), d)
+        torch.testing.assert_close(got.double(), want, rtol=2.0 ** -8,
+                                   atol=1e-3 * float(want.abs().max()))

@@ -303,3 +303,111 @@ def test_hard_all_invalid_is_finite():
     ll.backward()
     assert float(ll.detach()) == 0.0
     assert torch.isfinite(e.grad).all() and torch.isfinite(protos.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# Tag-set family (sem_occ alone: K7-K9 on the card)
+# ---------------------------------------------------------------------------
+
+def _torch_set(pb, reduction="mean", compact=True, kappa=8.0, tags=None,
+               proto_tags=None):
+    e = _t(pb["emb"]).requires_grad_(True)
+    p = _t(pb["protos"]).requires_grad_(True)
+    ll = fused.fused_set_segsort_loss(
+        e, _t(pb["tags"] if tags is None else tags), _t(pb["own"]), p,
+        _t(pb["proto_tags"] if proto_tags is None else proto_tags), kappa,
+        _t(pb["occ_mask"]), _t(pb["pvalid"]), reduction=reduction,
+        compact=compact)
+    return e, p, ll
+
+
+def _jax_set_fn(pb, reduction="mean", compact=True, kappa=8.0, tags=None,
+                proto_tags=None):
+    def fn(e, p_):
+        return jfused.fused_set_segsort_loss(
+            e, jnp.asarray(pb["tags"] if tags is None else tags),
+            jnp.asarray(pb["own"]), p_,
+            jnp.asarray(pb["proto_tags"] if proto_tags is None
+                        else proto_tags), kappa,
+            jnp.asarray(pb["occ_mask"]), jnp.asarray(pb["pvalid"]),
+            interpret=True, reduction=reduction, compact=compact)
+    return fn
+
+
+def _check_set_against_jax(pb, compact, **kw):
+    _, _, ll = _torch_set(pb, "none", compact, **kw)
+    jll = _jax_set_fn(pb, "none", compact, **kw)(jnp.asarray(pb["emb"]),
+                                                 jnp.asarray(pb["protos"]))
+    m = pb["occ_mask"]
+    np.testing.assert_allclose(ll.detach().numpy()[m], np.asarray(jll)[m],
+                               **LL)
+    e, p, val = _torch_set(pb, compact=compact, **kw)
+    val.backward()
+    jval, (ge, gp) = jax.value_and_grad(
+        _jax_set_fn(pb, compact=compact, **kw), argnums=(0, 1))(
+        jnp.asarray(pb["emb"]), jnp.asarray(pb["protos"]))
+    np.testing.assert_allclose(float(val.detach()), float(jval), **LL)
+    np.testing.assert_allclose(e.grad.numpy(), np.asarray(ge), **GRAD)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(gp), **GRAD)
+
+
+@pytest.mark.parametrize("compact", [True, False],
+                         ids=["compact", "no_compact"])
+def test_set_matches_jax_fused_interpret(compact):
+    """Per-pixel ll on the masked pixels, the scalar loss and dE / dP
+    against the JAX SetSegSort Pallas kernels in interpret mode, with and
+    without the valid-first compaction; a third of the pixels are outside
+    the mask (their own prototype may lie past the valid count)."""
+    pb = _problem(4, fill=0.3)
+    pb["occ_mask"] = np.random.RandomState(40).rand(len(pb["own"])) < 0.67
+    _check_set_against_jax(pb, compact)
+
+
+def test_set_count_valued_tags_match_jax():
+    """DensePose-style count tags (values 0..3, as NN propagation can
+    give): the bit packing tests `!= 0`, which is the JAX kernel's float
+    dot > 0 for non-negative counts."""
+    pb = _problem(5, fill=0.5)
+    rng = np.random.RandomState(50)
+    tags = pb["tags"] * rng.randint(1, 4, pb["tags"].shape)
+    proto_tags = pb["proto_tags"] * rng.randint(1, 4,
+                                                pb["proto_tags"].shape)
+    proto_tags[:5] = 0  # tagless prototypes: never "same"
+    assert tags.max() >= 2 and proto_tags.max() >= 2
+    _check_set_against_jax(pb, True, tags=tags, proto_tags=proto_tags)
+
+
+def test_set_matches_dense_loss():
+    """The tag-set sweep equals the port's dense losses.set_segsort_loss
+    (values and gradients), at ~20% scattered fill."""
+    pb = _problem(11, n=512, p=64, fill=0.2)
+    e, p, val = _torch_set(pb)
+    val.backward()
+    e2 = _t(pb["emb"]).requires_grad_(True)
+    p2 = _t(pb["protos"]).requires_grad_(True)
+    dense = losses.set_segsort_loss(
+        e2, _t(pb["tags"]), _t(pb["own"]).long(), p2, _t(pb["proto_tags"]),
+        8.0, _t(pb["occ_mask"]), _t(pb["pvalid"]))
+    dense.backward()
+    np.testing.assert_allclose(float(val.detach()), float(dense.detach()),
+                               **LL)
+    np.testing.assert_allclose(e.grad.numpy(), e2.grad.numpy(), **GRAD)
+    np.testing.assert_allclose(p.grad.numpy(), p2.grad.numpy(), **GRAD)
+
+
+def test_set_all_invalid_is_finite():
+    """No valid prototype and no masked pixel (num_valid == 0): the
+    statistics are zero, the loss and its gradients stay finite."""
+    rng = np.random.RandomState(12)
+    n, p, d = 256, 32, 8
+    e = _t(oracles.normalize(rng.randn(n, d)).astype(
+        np.float32)).requires_grad_(True)
+    protos = _t(oracles.normalize(rng.randn(p, d)).astype(
+        np.float32)).requires_grad_(True)
+    ll = fused.fused_set_segsort_loss(
+        e, torch.ones(n, 20, dtype=torch.int64), _t(rng.randint(0, p, n)),
+        protos, torch.ones(p, 20, dtype=torch.int64), 8.0,
+        torch.zeros(n, dtype=torch.bool), torch.zeros(p, dtype=torch.bool))
+    ll.backward()
+    assert float(ll.detach()) == 0.0
+    assert torch.isfinite(e.grad).all() and torch.isfinite(protos.grad).all()
