@@ -10,7 +10,9 @@ Run from the repository root (needs one CUDA card, nvcc and no network):
 Phases, each printing one line or more:
  1. device: the card's name and power limit, torch and CUDA versions;
  2. build: nvcc for sm_90a of every csrc/*.cu, one process each, in
-    parallel, with the seconds it took and ptxas's register report;
+    parallel, with the seconds it took, ptxas's register and spill
+    report, and any ptxas line on wgmma or a performance loss (a
+    serialized wgmma shows there);
  3. kernels: each SegSort kernel family through its autograd.Function
     against the plain version, computed in float64 on the same float32
     values (plain version over row chunks):
@@ -27,8 +29,12 @@ Phases, each printing one line or more:
       tags of 20 per row, a tenth of the rows below the valid count
       invalid (their own mask still counts);
     - the dilated conv K10 against its plain version in float64 on the
-      same bf16 values: ragged shapes at d = 1, 2, 4 and the probe's two
-      shapes (B = 8, 64 x 64, 256 -> 256 at d = 2, 512 -> 512 at d = 4);
+      same bf16 values: ragged shapes at d = 1, 2, 4 (B = 1, H and W not
+      multiples of the 8 x 16 tile, C = 16 and 48 under a 64-channel box,
+      O = 16 and 144 filling part of a 256-channel tile), a 3 x 3 image
+      at d = 4 where every tap but the centre lies outside, two channel
+      chunks with two N tiles, and the probe's two shapes (B = 8,
+      64 x 64, 256 -> 256 at d = 2, 512 -> 512 at d = 4);
  4. main paths, each from random weights of seed 0, 3 warm-up and 10
     timed steps, every loss finite, segments formed, each of its kernels
     launched once per step and the other families' not at all; then each
@@ -483,8 +489,11 @@ def check_dilated_conv(torch, dc):
 
     gen = torch.Generator(DEVICE).manual_seed(0)
     cases = [("ragged d1", 2, 9, 7, 16, 32, 1),
-             ("ragged d2", 3, 13, 20, 48, 16, 2),
-             ("ragged d4", 1, 6, 33, 32, 144, 4)]
+             ("ragged d2 C 48 O 16", 3, 13, 20, 48, 16, 2),
+             ("ragged d4 B 1 O 144", 1, 6, 33, 32, 144, 4),
+             ("taps outside but the centre", 1, 3, 3, 16, 16, 4),
+             ("two chunks, two N tiles", 1, 10, 17, 80, 272, 3),
+             ("B 1 C 48 O 400", 1, 17, 23, 48, 400, 2)]
     probe_err = 0.0
     for label, b, h, w, c, o, d in cases + SHAPES:
         x = torch.randn(b, h, w, c, device=DEVICE, generator=gen).bfloat16()
@@ -571,8 +580,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _cuda.build()
-    regs = [ln.strip() for r in reports.values() for ln in r.splitlines()
-            if "registers" in ln or "spill" in ln]
+    regs = [f"{name}: {ln.strip()}" for name, r in reports.items()
+            for ln in r.splitlines()
+            if any(k in ln for k in ("registers", "spill", "wgmma",
+                                     "Performance Loss"))]
     log("build", f"{len(reports)} source(s) in "
         f"{time.perf_counter() - t0:.1f} s; ptxas: " + " | ".join(regs))
 

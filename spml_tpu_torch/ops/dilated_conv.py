@@ -6,13 +6,19 @@ Port of the probe kernel of pyscripts/misc/pallas_dilated_conv_probe.py
 The layouts are the probe's, so the tests compare like with like.
 
 Dispatch: a CUDA tensor goes to the hand-written kernel of
-csrc/dilated_conv.cu (bf16 tensor cores, float32 accumulators; C and O
-multiples of 16, else ValueError; a failed build or launch raises); a CPU
-tensor goes to the plain version, ``dilated_conv3x3_reference``. Forward
-only: the probe has no backward.
+csrc/dilated_conv.cu (TMA loads, bf16 `wgmma`, float32 accumulators; C
+and O multiples of 16, else ValueError; a failed build, tensor-map encode
+or launch raises); a CPU tensor goes to the plain version,
+``dilated_conv3x3_reference``. Forward only: the probe has no backward.
+
+``tile_grid``, ``tile_origin`` and ``box_coords`` mirror the kernel's
+tile geometry (which block computes which pixels, and where each K step's
+TMA boxes start), so the CPU tests can replay the kernel box by box.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +34,40 @@ LAUNCHES = {"dilated_conv3x3": 0}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the kernel's tile: 8 x 16 output pixels of one image times 256 output
+# channels; one K step is one tap times 64 input channels
+TILE_H, TILE_W, BLOCK_N, CHUNK = 8, 16, 256, 64
+
+
+def tile_grid(b, h, w, o):
+    """(blocks along M, blocks along N) of the kernel's launch."""
+    return (b * math.ceil(h / TILE_H) * math.ceil(w / TILE_W),
+            math.ceil(o / BLOCK_N))
+
+
+def tile_origin(tile, h, w):
+    """(image, h0, w0) of M tile `tile`: its output row m is the pixel
+    (h0 + m // TILE_W, w0 + m % TILE_W)."""
+    tiles_h, tiles_w = math.ceil(h / TILE_H), math.ceil(w / TILE_W)
+    img, rem = divmod(tile, tiles_h * tiles_w)
+    return img, rem // tiles_w * TILE_H, rem % tiles_w * TILE_W
+
+
+def box_coords(tile, n_tile, step, h, w, c, d):
+    """The TMA box coordinates, innermost first, of K step `step` of the
+    block (tile, n_tile): the input box {CHUNK, TILE_W, TILE_H, 1} of x as
+    [C, W, H, B], and the weight boxes {64, CHUNK, 1} of w as [O, C, 9],
+    BLOCK_N // 64 of them side by side along O. Coordinates may lie
+    outside the tensor, where the boxes read zeros."""
+    chunks = math.ceil(c / CHUNK)
+    tap, chunk = divmod(step, chunks)
+    img, h0, w0 = tile_origin(tile, h, w)
+    i, j = divmod(tap, 3)
+    c0 = chunk * CHUNK
+    return ((c0, w0 + (j - 1) * d, h0 + (i - 1) * d, img),
+            [(n_tile * BLOCK_N + q, c0, tap) for q in range(0, BLOCK_N, 64)])
 
 
 def _check_shapes(x, w, d):
@@ -56,7 +96,8 @@ def dilated_conv3x3_reference(x, w, d):
 
 
 def _operand(t):
-    """Contiguous and 16-byte aligned (the kernel reads 16-byte vectors)."""
+    """Contiguous and 16-byte aligned (TMA takes 16-byte aligned bases and
+    strides)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

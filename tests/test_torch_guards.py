@@ -470,9 +470,16 @@ def test_dilated_conv_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     gen = torch.Generator("cuda").manual_seed(9)
+    # B = 1; H, W not multiples of the 8 x 16 tile; C = 16 and 48 under a
+    # 64-channel box; O = 16 and 144 in part of a 256-channel tile; every
+    # tap but the centre outside a 3 x 3 image; two chunks and N tiles;
+    # no input channel (zeros)
     for (b, h, w, c, o), d in (((2, 9, 7, 16, 16), 1),
                                ((1, 13, 20, 48, 32), 2),
-                               ((3, 6, 5, 32, 144), 4)):
+                               ((3, 6, 5, 32, 144), 4),
+                               ((1, 3, 3, 16, 16), 4),
+                               ((1, 10, 17, 80, 272), 3),
+                               ((1, 4, 5, 0, 16), 1)):
         x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
         wt = (0.2 * torch.randn(3, 3, c, o, device="cuda",
                                 generator=gen)).bfloat16()
