@@ -10,16 +10,20 @@ Run from the repository root (needs one CUDA card, nvcc and no network):
 Phases, each printing one line or more:
  1. device: the card's name and power limit, torch and CUDA versions;
  2. build: nvcc for sm_90a of every csrc/*.cu, one process each, in
-    parallel, with the seconds it took, ptxas's register and spill
-    report, and any ptxas line on wgmma or a performance loss (a
-    serialized wgmma shows there);
+    parallel, with the seconds it took, ptxas's registers and spilled
+    bytes for each kernel, and any ptxas line on wgmma or a performance
+    loss (a serialized wgmma shows there); a spill in the tiled JOINT dE /
+    dP kernels (grad_tile_kernel) fails the run;
  3. kernels: each SegSort kernel family through its autograd.Function
     against the plain version, computed in float64 on the same float32
     values (plain version over row chunks):
-    - joint, K1 (stats), K2 (dE), K3 (dP): at N = 16384 / P = 2048, D = 64
-      (full and ~20% fill, N not a multiple of the tile, all prototypes
-      invalid, both kappa branches) and D = 32 (~20% fill), and at the
-      flagship N = 131072 / P = 6144, D = 64;
+    - joint, K1 (stats), K2 (dE), K3 (dP; K2 and K3 tiled: a block owns
+      128 rows and walks 64-row tiles, 128 threads, both products on the
+      tensor cores in split TF32, the dP grid of 264 blocks split on the
+      card into valid prototype tiles x pixel chunks): at N = 16384 / P = 2048,
+      D = 64 (full and ~20% fill, N not a multiple of the tile, all
+      prototypes invalid, one valid, both kappa branches) and D = 32 (~20%
+      fill), and at the flagship N = 131072 / P = 6144, D = 64;
     - hard labels, K4 (stats), K5 (dE), K6 (dP): at N = 16384 / P = 2048,
       D = 32 (full and ~20% fill, ragged N, all invalid) and D = 64, and at
       the DensePose N = 65536 / P = 2048, D = 32, ~15% fill;
@@ -39,7 +43,8 @@ Phases, each printing one line or more:
     timed steps, every loss finite, segments formed, each of its kernels
     launched once per step and the other families' not at all; then each
     kernel timed at the path's own inputs beside the plain version and its
-    bound:
+    bound (K2 and K3: at the split-TF32 rate their products use, with the
+    float32 bound beside it as bound_f32_ms):
     - flagship (panoptic_deeplab_101, crop 512, batch 8, 6x6 k-means x10,
       capacity 256, memory bank 2, sem_ann + sem_occ + img_sim with the
       fused joint loss, bf16 convolutions) on blobby synthetic labels:
@@ -72,6 +77,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -86,6 +92,7 @@ CONV_RTOL, CONV_ATOL_REL = 2.0 ** -8, 1e-3
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense
 # bf16 on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PALLAS = "spml_tpu/ops/pallas/segsort_loss.py"
@@ -102,6 +109,8 @@ KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
     "set_grad_emb": ("segsort_set_grad_emb", f"{PALLAS}:444"),
     "set_grad_proto": ("segsort_set_grad_proto", f"{PALLAS}:444"),
 }
+# kernels whose D-long products run on the tensor cores in split TF32
+TENSOR_CORE = ("joint_grad_emb", "joint_grad_proto")
 CONV_KERNEL = ("dilated_conv3x3_bf16", f"{PROBE}:31",
                "spml_tpu_torch/csrc/dilated_conv.cu")
 KINDS = ("stats", "grad_emb", "grad_proto")
@@ -114,6 +123,39 @@ RECIPE_FAMILY = {"flagship": "joint", "densepose_point": "hard",
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def kernel_name(mangled):
+    """A kernel's name and integer template arguments from its mangled
+    name (grad_tile_kernel<64,0,1>); other names as they are."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)  # anonymous namespace
+    if not m:
+        return mangled
+    rest = mangled[m.end(1) + int(m.group(1)):]
+    m = re.match(r"\d+", rest)
+    end = m.end() + int(m.group(0))
+    name, args = rest[m.end():end], re.match(r"I((?:L[a-z]+\d+E)+)E",
+                                             rest[end:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) \
+            + ">"
+    return name
+
+
+def ptxas_kernels(report):
+    """[(kernel, registers, spilled bytes stored + loaded)] of a ptxas -v
+    report."""
+    out, name, spill = [], None, 0
+    for ln in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            name, spill = kernel_name(m.group(1)), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", ln):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def nvidia_smi_line():
@@ -268,6 +310,8 @@ def check_kernels(torch, fused):
             ("mid ragged N, two exps", (mid - 1, 2048, 0.2, 3, 64),
              (6.0, 10.0)),
             ("mid all invalid", (mid, 2048, 0.0, 4, 64), (6.0, 12.0)),
+            ("mid one valid, two exps", (mid, 2048, 1 / 2048, 7, 64),
+             (6.0, 10.0)),
             ("mid 20% fill", (mid, 2048, 0.2, 6, 32), (6.0, 12.0)),
             ("flagship 17% fill", (131072, 6144, 0.17, 5, 64),
              (6.0, 12.0))],
@@ -389,10 +433,13 @@ def run_main_path(torch, fused, recipe):
 # ---------------------------------------------------------------------------
 
 def bounds(family, n, p, nv, d):
-    """{kind: (bound_ms, bound_by)} of a family from this run's shapes:
-    bytes each input read once and each output written once (prototype
-    rows up to the valid count), operations per live (pixel, prototype)
-    pair."""
+    """{kind: (bound_ms, bound_by, float32 bound ms)} of a family from this
+    run's shapes: bytes each input read once and each output written once
+    (prototype rows up to the valid count), operations per live (pixel,
+    prototype) pair at the float32 peak; for the kernels whose products
+    run on the tensor cores in split TF32 (TENSOR_CORE), the 4 D product
+    flops a pair three times at the TF32 peak plus the rest at the float32
+    peak."""
     pairs = n * nv
     ns = N_STATS[family]
     if family == "joint":  # rows carry label, own / tag, valid
@@ -414,16 +461,21 @@ def bounds(family, n, p, nv, d):
     out = {}
     for kind, (nbytes, ops) in work.items():
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = ops / PEAK_F32_FLOPS * 1e3
+        t_f32 = ops / PEAK_F32_FLOPS * 1e3
+        t_ops = t_f32
+        if f"{family}_{kind}" in TENSOR_CORE:
+            t_ops = pairs * (3 * 4 * d / PEAK_TF32_FLOPS
+                             + (ops_grad - 4 * d) / PEAK_F32_FLOPS) * 1e3
         out[kind] = ((t_ops, "operations") if t_ops >= t_bytes
-                     else (t_bytes, "bytes"))
+                     else (t_bytes, "bytes")) + (max(t_f32, t_bytes),)
     return out
 
 
 def time_kernels(torch, fused, family, args):
     """Each kernel of a family at a main path's last inputs (CUDA events,
     20 launches) beside the plain version (3 runs over row chunks) and
-    its bound; returns {counter: (ms, plain ms, (bound ms, by))}."""
+    its bound; returns {counter: (ms, plain ms, (bound ms, by, float32
+    bound ms))}."""
     from spml_tpu_torch.tools.dilated_conv_probe import cuda_ms
 
     ns, nk = N_STATS[family], N_KAPPAS[family]
@@ -474,7 +526,8 @@ def time_kernels(torch, fused, family, args):
         out[key] = (kernel_ms[kind], plain_ms[kind], bnd[kind])
         log("timing", f"{KERNELS[key][0]}: N={n} P={p} valid={nv} D={d} "
             f"kernel {kernel_ms[kind]:.4f} ms, plain {plain_ms[kind]:.3f} "
-            f"ms, bound {bnd[kind][0]:.4f} ms ({bnd[kind][1]})")
+            f"ms, bound {bnd[kind][0]:.4f} ms ({bnd[kind][1]}; float32 "
+            f"{bnd[kind][2]:.4f} ms)")
     return out
 
 
@@ -580,12 +633,22 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _cuda.build()
-    regs = [f"{name}: {ln.strip()}" for name, r in reports.items()
-            for ln in r.splitlines()
-            if any(k in ln for k in ("registers", "spill", "wgmma",
-                                     "Performance Loss"))]
+    kernels = {src: ptxas_kernels(r) for src, r in reports.items()}
+    warnings = [f"{src}: {ln.strip()}" for src, r in reports.items()
+                for ln in r.splitlines()
+                if any(k in ln for k in ("wgmma", "Performance Loss"))]
     log("build", f"{len(reports)} source(s) in "
-        f"{time.perf_counter() - t0:.1f} s; ptxas: " + " | ".join(regs))
+        f"{time.perf_counter() - t0:.1f} s; ptxas (registers, spilled "
+        "bytes): " + " | ".join(f"{k} {regs} {spill}"
+                                for ks in kernels.values()
+                                for k, regs, spill in ks)
+        + "".join(f" | {w}" for w in warnings))
+    spilled = [k for k, _, spill in kernels.get("segsort_joint", [])
+               if k.startswith("grad_tile_kernel") and spill]
+    if spilled or not any(k.startswith("grad_tile_kernel")
+                          for k, _, _ in kernels.get("segsort_joint", [])):
+        raise AssertionError(f"ptxas: tiled kernels spill or are missing: "
+                             f"{spilled}")
 
     errs = check_kernels(torch, fused)
     conv_err = check_dilated_conv(torch, dc)
@@ -603,13 +666,15 @@ def main() -> int:
     table = []
     for key, (name, replaces) in KERNELS.items():
         family, kind = key.split("_", 1)
-        ms, plain_ms, (bound_ms, bound_by) = times[key]
+        ms, plain_ms, (bound_ms, bound_by, f32_ms) = times[key]
         table.append({
             "name": name, "route": "cuda", "source": SEGSORT_SOURCE,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": errs[family][err_name[kind]], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
+        if key in TENSOR_CORE:  # the bound of the same work in float32
+            table[-1]["bound_f32_ms"] = f32_ms
     name, replaces, source = CONV_KERNEL
     table.append({
         "name": name, "route": "cuda", "source": source,

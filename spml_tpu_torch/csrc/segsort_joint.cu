@@ -41,29 +41,58 @@
 // prototype rows live) a HARD sweep is ~1e9 flops, a bound of ~0.02 ms
 // (a SET sweep of the tag step, N = 65536, P = 3072, D = 64, is alike):
 // there the kernels are launch- and latency-bound, and the design keeps
-// them to one launch each (two for dP) with no host round trip. These
-// kernels use float32 FMAs on the CUDA cores (67 TFLOP/s), not the tensor
-// cores: the logits feed exp(kappa l), which amplifies TF32 or bf16
-// operand rounding.
+// them to one launch each (two for dP) with no host round trip. The
+// logits feed exp(kappa l), which amplifies TF32 or bf16 operand
+// rounding: the stats kernels and HARD's and SET's dE / dP use float32
+// FMAs on the CUDA cores (67 TFLOP/s); JOINT's dE / dP use split TF32 on
+// the tensor cores (three TF32 products at 495 TFLOP/s, float32 sums).
 //
 // Design. The [N, P] similarity matrix never reaches device memory.
-//   stats, dE: one thread per pixel row keeps E[n] (and, for dE, dE[n]) in
-//     registers; the block stages tiles of TP prototypes, labels and tag
-//     bits in shared memory, read as warp-wide broadcasts. The loop stops
-//     at num_valid, read from device memory, so the host never waits for
-//     it. The stats kernel sums each tile into its own partials before
-//     adding them to the running sums (two-level summation keeps the
-//     6144-term sums accurate to ~1e-6).
-//   dP: one thread per prototype row keeps P[k] and dP[k] in registers;
-//     blocks also split the pixels into chunks (`chunk` rows, 2048 from
-//     the wrapper), so that a few hundred prototypes still fill the 132
-//     SMs. Each chunk writes its partial dP to scratch and a second kernel
-//     adds the chunks in a fixed order: the result does not depend on the
-//     run (no float atomics).
-//   Every kernel computes the dot products in the same order, so the
-//   three of a family agree on each logit bit for bit.
-// Left for later: wgmma / TMA tiles, bf16 operands, skipping pixels whose
-// cotangents are all zero.
+//   stats (all families), dE and dP of HARD and SET: one thread per row.
+//     stats, dE: a thread keeps E[n] (and, for dE, dE[n]) in registers;
+//     the block stages tiles of TP prototypes, labels and tag bits in
+//     shared memory, read as warp-wide broadcasts. The loop stops at
+//     num_valid, read from device memory, so the host never waits for it.
+//     The stats kernel sums each tile into its own partials before adding
+//     them to the running sums (two-level summation keeps the 6144-term
+//     sums accurate to ~1e-6). dP: a thread keeps P[k] and dP[k] in
+//     registers; blocks also split the pixels into chunks (`chunk` rows,
+//     2048 from the wrapper), so that a few hundred prototypes still fill
+//     the 132 SMs. These kernels take each logit in dot_row's order, so
+//     the three of HARD, and of SET, agree on each logit bit for bit.
+//   dE and dP of JOINT (K2, K3): grad_tile_kernel, a back-to-back product
+//     per tile. With float32 FMAs the products take 128 FFMA a pair, and
+//     register tiles of 4 x 4 and 8 x 8 alike ran at ~48% of the FFMA
+//     rate on an H100: the FP32 pipe issues the products and the ~40 exp,
+//     mask and select instructions of the middle. So both products go to
+//     the tensor cores, in split TF32: x = hi + lo (each TF32), a b = hi
+//     hi + hi lo + lo hi (three mma.sync m16n8k8, float32 sums), about 2^-21
+//     of each product off, where plain TF32 (2^-11) would be amplified by
+//     exp(kappa l). The middle stays in float32. The splits are integer
+//     operations (cvt.rna.tf32 runs at a quarter of the rate), and the
+//     streamed tile is split once for all warps. A block of 128 threads
+//     owns OWN = 128 rows of one side (pixels for dE, valid prototypes
+//     for dP) and walks tiles of STR = 64 rows of the other, staged by
+//     cp.async into a double buffer (zero-filled past the count). Per
+//     tile a warp takes its 32 own rows: S = own . other^T; c = kappa_a
+//     s_a g_a + kappa_o s_o g_o under the masks, in place, in registers;
+//     then acc += c . other, in registers across all tiles; c never
+//     leaves the registers (see the kernel). A warp whose own rows lie
+//     past the count skips both products. mma.sync's rate bounds the
+//     products; the float32 middle adds to that rather than hiding under
+//     it (two blocks, eight warps, a SM). K2 and K3 agree with K1 to
+//     ~1e-6 of a logit, not bit for bit. dE is written once, in a fixed
+//     order. dP: the grid (`blocks` >= ceil(P / OWN), 264 from the
+//     wrapper: 2 a SM) is split on the device, from num_valid, into
+//     ceil(num_valid / OWN) prototype tiles times blocks / tiles pixel
+//     chunks of equal length, so the live tiles fill the card whatever
+//     the fill; each block writes an [OWN, D] partial and
+//     reduce_tiles_kernel adds a tile's chunks in chunk order.
+//     ops/segsort_loss.py mirrors this schedule (joint_grad_emb_tiles,
+//     joint_grad_proto_tiles) for the CPU tests.
+//   No dP uses float atomics: the result does not depend on the run.
+// Left for later: the tiled kernels for HARD and SET, skipping pixels
+// whose cotangents are all zero.
 
 #include <cuda_runtime.h>
 
@@ -433,6 +462,441 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ partial,
   d_protos[idx] = s;
 }
 
+// ---------------------------------------------------------------------------
+// Tiled dE / dP (JOINT: K2, K3)
+// ---------------------------------------------------------------------------
+
+constexpr int OWN = 128;           // own rows of a block
+constexpr int STR = 64;            // streamed rows of a tile
+constexpr int TILE_THREADS = 128;  // 4 warps, 32 own rows each
+
+template <int NS, int ROWS>
+struct PixelRows {  // per-pixel operands (zero past the count)
+  int lab[ROWS], own[ROWS], tag[ROWS];
+  float g[NS][ROWS];
+};
+
+template <int ROWS>
+struct ProtoRows {
+  int lab[ROWS], tag[ROWS], valid[ROWS];
+};
+
+// Both sides row-major, padded by 4 floats: the 8 rows x 4 columns of an
+// mma fragment, and the 4 row pairs x 8 columns of product 2's B, fall
+// in 32 distinct banks. other_hi / other_lo: the streamed tile's TF32
+// halves, split once a tile for all four warps.
+template <int D, int F, bool DP>
+struct TileSmem {
+  float own[OWN][D + 4];
+  float other[2][STR][D + 4];
+  unsigned other_hi[STR][D + 4], other_lo[STR][D + 4];
+  PixelRows<n_stats(F), DP ? STR : OWN> pix[DP ? 2 : 1];
+  ProtoRows<DP ? OWN : STR> proto[DP ? 1 : 2];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + ROWS)' operands of the masks and c by cp.async, zero past
+// the count (HARD reads no tag bits or validity, SET no label).
+template <int F, int ROWS>
+__device__ __forceinline__ void stage_pixel_rows(
+    PixelRows<n_stats(F), ROWS>& s, const int* pix_lab, const int* own,
+    const int* pix_tag, const float* grads, int n, int r0) {
+  for (int r = threadIdx.x; r < ROWS; r += TILE_THREADS) {
+    const bool live = r0 + r < n;
+    const int row = live ? r0 + r : 0;
+    if constexpr (F == SET) {
+      s.lab[r] = -1;
+    } else {
+      cp_async4(&s.lab[r], pix_lab + row, live);
+    }
+    cp_async4(&s.own[r], own + row, live);
+    if constexpr (F == HARD) {
+      s.tag[r] = 0;
+    } else {
+      cp_async4(&s.tag[r], pix_tag + row, live);
+    }
+#pragma unroll
+    for (int k = 0; k < n_stats(F); ++k)
+      cp_async4(&s.g[k][r], grads + (size_t)k * n + row, live);
+  }
+}
+
+template <int F, int ROWS>
+__device__ __forceinline__ void stage_proto_rows(
+    ProtoRows<ROWS>& s, const int* proto_lab, const int* proto_tag,
+    const int* proto_valid, int nv, int r0) {
+  for (int r = threadIdx.x; r < ROWS; r += TILE_THREADS) {
+    const bool live = r0 + r < nv;
+    const int row = live ? r0 + r : 0;
+    if constexpr (F == SET) {
+      s.lab[r] = -1;
+    } else {
+      cp_async4(&s.lab[r], proto_lab + row, live);
+    }
+    if constexpr (F == HARD) {
+      s.tag[r] = 0;
+      s.valid[r] = 0;
+    } else {
+      cp_async4(&s.tag[r], proto_tag + row, live);
+      cp_async4(&s.valid[r], proto_valid + row, live);
+    }
+  }
+}
+
+// Rows [r0, r0 + ROWS) of src, zero-filled from `count` on, by cp.async.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_rows(float (*dst)[D + 4],
+                                           const float* src, int r0,
+                                           int count) {
+  for (int i = threadIdx.x; i < ROWS * D / 4; i += TILE_THREADS) {
+    const int r = i / (D / 4), q = i % (D / 4);
+    const bool live = r0 + r < count;
+    cp_async16(&dst[r][4 * q], src + (size_t)(live ? r0 + r : 0) * D + 4 * q,
+               live);
+  }
+}
+
+// One row's operands of the masks and c, in registers.
+template <int NS>
+struct PixelOp {
+  int lab, own, tag;
+  bool live;
+  float g[NS];
+};
+
+struct ProtoOp {
+  int k, lab, tag, valid;
+  bool live;
+};
+
+template <int NS, int ROWS>
+__device__ __forceinline__ PixelOp<NS> pixel_op(
+    const PixelRows<NS, ROWS>& s, int r, int r0, int n) {
+  PixelOp<NS> x;
+  x.lab = s.lab[r];
+  x.own = s.own[r];
+  x.tag = s.tag[r];
+  x.live = r0 + r < n;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) x.g[k] = s.g[k][r];
+  return x;
+}
+
+template <int ROWS>
+__device__ __forceinline__ ProtoOp proto_op(const ProtoRows<ROWS>& s, int r,
+                                            int r0, int nv) {
+  return ProtoOp{r0 + r, s.lab[r], s.tag[r], s.valid[r], r0 + r < nv};
+}
+
+// x = hi + lo: hi is x rounded to the nearest TF32 (10 explicit mantissa
+// bits, ties away from zero) by integer operations on its bits; lo = x -
+// hi is exact in float32, and the tensor core reads it as TF32 by
+// truncation, 2^-21 of x at most. (cvt.rna.tf32.f32 takes the
+// quarter-rate conversion pipe: on an H100 it made this kernel slower
+// than the float32 FMA form.)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in float32 from split operands: lo lo (2^-22 of the product)
+// is dropped, the two small products go first.
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const unsigned (&ahi)[4],
+                                          const unsigned (&alo)[4],
+                                          const unsigned (&bhi)[2],
+                                          const unsigned (&blo)[2]) {
+  mma_tf32(d, alo, bhi);
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
+}
+
+// DP = false (dE): the block owns pixels [OWN b, OWN b + OWN) and walks
+// the valid prototypes in tiles of STR; out = dE [N, D].
+// DP = true (dP): gridDim.x blocks split, from num_valid, into `tiles` =
+// ceil(num_valid / OWN) prototype tiles times `chunks` = gridDim.x / tiles
+// pixel chunks (pixel tiles [chunk NT / chunks, (chunk + 1) NT / chunks)
+// of NT = ceil(N / STR)); block tile * chunks + chunk writes its partial
+// out[block] = [OWN, D]; blocks past tiles * chunks exit.
+// Warp w owns rows m0 = 32 w .. m0 + 31 in both products (m16n8k8 tiles
+// m0 and m0 + 16); lane (g, t) = (lane / 4, lane % 4) holds the pairs of
+// own rows m0 + 16 mt + g + 8 h and streamed rows 8 nt + 2 t + e, the
+// accumulator layout of product 1, which is product 2's A operand once the
+// streamed rows of a k step are taken in the order 2 t, 2 t + 1 (k = t,
+// t + 4): c never leaves the registers.
+template <int D, int F, bool DP>
+__global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
+    const float* __restrict__ emb, const int* __restrict__ pix_lab,
+    const int* __restrict__ own, const int* __restrict__ pix_tag,
+    const float* __restrict__ protos, const int* __restrict__ proto_lab,
+    const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
+    const int* __restrict__ num_valid, int n, int p, float kappa_a,
+    float kappa_o, int square, const float* __restrict__ grads,
+    float* __restrict__ out) {
+  constexpr int NS = n_stats(F);
+  constexpr int NT = STR / 8;  // product 1's n tiles, product 2's k steps
+  constexpr int KD = D / 8;    // product 1's k steps, product 2's n tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<TileSmem<D, F, DP>*>(smem_raw);
+  const int nv = min(*num_valid, p);
+
+  int own0, o_begin, o_end;  // own rows from own0; streamed [o_begin, o_end)
+  if constexpr (DP) {
+    if (nv == 0) return;  // uniform over the block
+    const int tiles = (nv + OWN - 1) / OWN;
+    const int chunks = gridDim.x / tiles;
+    if ((int)blockIdx.x >= tiles * chunks) return;
+    const int chunk = blockIdx.x % chunks;
+    own0 = blockIdx.x / chunks * OWN;
+    const long long nt = (n + STR - 1) / STR;
+    o_begin = (int)(chunk * nt / chunks) * STR;
+    o_end = min(n, (int)((chunk + 1) * nt / chunks) * STR);
+  } else {
+    own0 = blockIdx.x * OWN;
+    o_begin = 0;
+    o_end = nv;
+  }
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            t = threadIdx.x % 4;
+  const int m0 = 32 * warp;
+  // past the count, a warp's rows take no part: it skips both products
+  const bool warp_live = own0 + m0 < (DP ? nv : n);
+  float acc[2][KD][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int dn = 0; dn < KD; ++dn)
+      acc[mt][dn][0] = acc[mt][dn][1] = acc[mt][dn][2] = acc[mt][dn][3] = 0.f;
+
+  auto stage = [&](int buf, int r0) {
+    if constexpr (DP) {
+      stage_rows<D, STR>(sm.other[buf], emb, r0, n);
+      stage_pixel_rows<F>(sm.pix[buf], pix_lab, own, pix_tag, grads,
+                                n, r0);
+    } else {
+      stage_rows<D, STR>(sm.other[buf], protos, r0, nv);
+      stage_proto_rows<F>(sm.proto[buf], proto_lab, proto_tag,
+                                proto_valid, nv, r0);
+    }
+    cp_async_commit();
+  };
+  if (o_begin < o_end) {
+    stage_rows<D, OWN>(sm.own, DP ? protos : emb, own0, DP ? nv : n);
+    if constexpr (DP) {
+      stage_proto_rows<F>(sm.proto[0], proto_lab, proto_tag,
+                                 proto_valid, nv, own0);
+    } else {
+      stage_pixel_rows<F>(sm.pix[0], pix_lab, own, pix_tag, grads, n,
+                                 own0);
+    }
+    stage(0, o_begin);
+  }
+  // the thread's four own rows' operands, after the first tile's barrier
+  PixelOp<NS> own_px[2][2];
+  ProtoOp own_pr[2][2];
+
+  int buf = 0;
+  for (int t0 = o_begin; t0 < o_end; t0 += STR, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every thread left the last one
+    {  // this tile's TF32 halves, once for the four warps
+      const float (*raw)[D + 4] = sm.other[buf];
+      for (int i = threadIdx.x; i < STR * D / 4; i += TILE_THREADS) {
+        const int r = i / (D / 4), q = 4 * (i % (D / 4));
+        const float4 v = *reinterpret_cast<const float4*>(&raw[r][q]);
+        uint4 h, l;
+        split_tf32(v.x, h.x, l.x);
+        split_tf32(v.y, h.y, l.y);
+        split_tf32(v.z, h.z, l.z);
+        split_tf32(v.w, h.w, l.w);
+        *reinterpret_cast<uint4*>(&sm.other_hi[r][q]) = h;
+        *reinterpret_cast<uint4*>(&sm.other_lo[r][q]) = l;
+      }
+    }
+    __syncthreads();
+    if (t0 + STR < o_end) stage(buf ^ 1, t0 + STR);
+    if (!warp_live) continue;
+    if (t0 == o_begin) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + 16 * mt + g + 8 * h;
+          if constexpr (DP) {
+            own_pr[mt][h] = proto_op(sm.proto[0], r, own0, nv);
+          } else {
+            own_px[mt][h] = pixel_op(sm.pix[0], r, own0, n);
+          }
+        }
+    }
+
+    // product 1: s[mt][nt] = own rows m0 + 16 mt (+ g, + 8) . streamed
+    // rows 8 nt (+ 2 t, + 1)
+    float s[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      const int d0 = 8 * ks;
+      unsigned ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = m0 + 16 * mt + g;
+        split_tf32(sm.own[r][d0 + t], ahi[mt][0], alo[mt][0]);
+        split_tf32(sm.own[r + 8][d0 + t], ahi[mt][1], alo[mt][1]);
+        split_tf32(sm.own[r][d0 + t + 4], ahi[mt][2], alo[mt][2]);
+        split_tf32(sm.own[r + 8][d0 + t + 4], ahi[mt][3], alo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        unsigned bhi[2], blo[2];
+        bhi[0] = sm.other_hi[8 * nt + g][d0 + t];
+        blo[0] = sm.other_lo[8 * nt + g][d0 + t];
+        bhi[1] = sm.other_hi[8 * nt + g][d0 + t + 4];
+        blo[1] = sm.other_lo[8 * nt + g][d0 + t + 4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_split(s[mt][nt], ahi[mt], alo[mt], bhi, blo);
+      }
+    }
+
+    // c in place of the logits: s[mt][nt][2 h + e] is the pair (own row
+    // m0 + 16 mt + g + 8 h, streamed row 8 nt + 2 t + e)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * nt + 2 * t + e;
+        PixelOp<NS> px;
+        ProtoOp pr;
+        if constexpr (DP) {
+          px = pixel_op(sm.pix[buf], r, t0, n);
+        } else {
+          pr = proto_op(sm.proto[buf], r, t0, nv);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const PixelOp<NS>& x = DP ? px : own_px[mt][h];
+            const ProtoOp& y = DP ? own_pr[mt][h] : pr;
+            float& sv = s[mt][nt][2 * h + e];
+            float sa, so;
+            sims<F>(sv, kappa_a, kappa_o, square, sa, so);
+            const PairMasks m =
+                pair_masks(y.k, x.own, x.lab, x.tag, y.lab, y.tag, y.valid);
+            sv = x.live && y.live
+                     ? pair_coeff<F>(m, x.g, sa, so, kappa_a, kappa_o)
+                     : 0.f;
+          }
+      }
+    }
+
+    // product 2: acc[mt][dn] += c (own rows x streamed rows) . streamed
+    // rows' columns 8 dn .. 8 dn + 7, k step ks = streamed rows 8 ks +
+    // (2 t, 2 t + 1) as k = (t, t + 4)
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      unsigned ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        split_tf32(s[mt][ks][0], ahi[mt][0], alo[mt][0]);
+        split_tf32(s[mt][ks][2], ahi[mt][1], alo[mt][1]);
+        split_tf32(s[mt][ks][1], ahi[mt][2], alo[mt][2]);
+        split_tf32(s[mt][ks][3], ahi[mt][3], alo[mt][3]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn) {
+        unsigned bhi[2], blo[2];
+        bhi[0] = sm.other_hi[8 * ks + 2 * t][8 * dn + g];
+        blo[0] = sm.other_lo[8 * ks + 2 * t][8 * dn + g];
+        bhi[1] = sm.other_hi[8 * ks + 2 * t + 1][8 * dn + g];
+        blo[1] = sm.other_lo[8 * ks + 2 * t + 1][8 * dn + g];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_split(acc[mt][dn], ahi[mt], alo[mt], bhi, blo);
+      }
+    }
+  }
+
+  // acc[mt][dn][2 h + e]: own row m0 + 16 mt + g + 8 h, column 8 dn + 2 t
+  // + e
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 16 * mt + g + 8 * h;
+      float* dst;
+      if constexpr (DP) {
+        dst = out + ((size_t)blockIdx.x * OWN + row) * D;
+      } else {
+        if (own0 + row >= n) continue;
+        dst = out + (size_t)(own0 + row) * D;
+      }
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn)
+        *reinterpret_cast<float2*>(dst + 8 * dn + 2 * t) =
+            make_float2(acc[mt][dn][2 * h], acc[mt][dn][2 * h + 1]);
+    }
+}
+
+// d_protos[k][d] = the sum of k's rows in the partials of its tile's
+// chunks, in chunk order, for k < num_valid (the split of
+// grad_tile_kernel<DP = true> over `blocks`); 0 past it.
+__global__ void reduce_tiles_kernel(const float* __restrict__ partial,
+                                    const int* __restrict__ num_valid, int p,
+                                    int d, int blocks,
+                                    float* __restrict__ d_protos) {
+  const size_t idx = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (idx >= (size_t)p * d) return;
+  const int nv = min(*num_valid, p);
+  const int k = (int)(idx / d);
+  float s = 0.f;
+  if (k < nv) {
+    const int chunks = blocks / ((nv + OWN - 1) / OWN);
+    const size_t at =
+        ((size_t)(k / OWN) * chunks * OWN + k % OWN) * d + idx % d;
+    for (int c = 0; c < chunks; ++c) s += partial[at + (size_t)c * OWN * d];
+  }
+  d_protos[idx] = s;
+}
+
 template <int F, template <int, int> class Launch, typename... Args>
 int dispatch_d(int d, Args... args) {
   switch (d) {
@@ -498,6 +962,58 @@ struct LaunchGradProto {
   }
 };
 
+template <int D, int F, bool DP>
+void launch_grad_tile(int blocks, const float* emb, const int* pix_lab,
+                      const int* own, const int* pix_tag,
+                      const float* protos, const int* proto_lab,
+                      const int* proto_tag, const int* proto_valid,
+                      const int* num_valid, int n, int p, float kappa_a,
+                      float kappa_o, int square, const float* grads,
+                      float* out, cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(TileSmem<D, F, DP>);  // above 48 KB
+  cudaFuncSetAttribute(grad_tile_kernel<D, F, DP>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  grad_tile_kernel<D, F, DP><<<blocks, TILE_THREADS, smem, stream>>>(
+      emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag, proto_valid,
+      num_valid, n, p, kappa_a, kappa_o, square, grads, out);
+}
+
+template <int D, int F>
+struct LaunchGradEmbTiled {
+  static void run(const float* emb, const int* pix_lab, const int* own,
+                  const int* pix_tag, const float* protos,
+                  const int* proto_lab, const int* proto_tag,
+                  const int* proto_valid, const int* num_valid, int n, int p,
+                  float kappa_a, float kappa_o, int square,
+                  const float* grads, float* d_emb, cudaStream_t stream) {
+    launch_grad_tile<D, F, false>(
+        (n + OWN - 1) / OWN, emb, pix_lab, own, pix_tag, protos, proto_lab,
+        proto_tag, proto_valid, num_valid, n, p, kappa_a, kappa_o, square,
+        grads, d_emb, stream);
+  }
+};
+
+template <int D, int F>
+struct LaunchGradProtoTiled {
+  static void run(const float* emb, const int* pix_lab, const int* own,
+                  const int* pix_tag, const float* protos,
+                  const int* proto_lab, const int* proto_tag,
+                  const int* proto_valid, const int* num_valid, int n, int p,
+                  float kappa_a, float kappa_o, int square,
+                  const float* grads, float* partial, int blocks,
+                  float* d_protos, cudaStream_t stream) {
+    launch_grad_tile<D, F, true>(
+        blocks, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
+        proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
+        partial, stream);
+    const size_t total = (size_t)p * D;
+    reduce_tiles_kernel<<<(int)((total + REDUCE_THREADS - 1) /
+                                REDUCE_THREADS),
+                          REDUCE_THREADS, 0, stream>>>(
+        partial, num_valid, p, D, blocks, d_protos);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -525,26 +1041,29 @@ int segsort_joint_grad_emb(const float* emb, const int* pix_lab,
                            float kappa_a, float kappa_o, int square,
                            const float* grads, float* d_emb, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<JOINT, LaunchGradEmb>(
+  return dispatch_d<JOINT, LaunchGradEmbTiled>(
       d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
       proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads, d_emb,
       (cudaStream_t)stream);
 }
 
-// partial: scratch [n_chunks, p, d], n_chunks = ceil(n / chunk).
+// partial: scratch [blocks, 128, d], blocks >= ceil(p / 128): the grid of
+// the dP kernel, split on the device into valid prototype tiles x pixel
+// chunks.
 int segsort_joint_grad_proto(const float* emb, const int* pix_lab,
                              const int* own, const int* pix_tag,
                              const float* protos, const int* proto_lab,
                              const int* proto_tag, const int* proto_valid,
                              const int* num_valid, int n, int p, int d,
                              float kappa_a, float kappa_o, int square,
-                             const float* grads, int chunk, float* partial,
-                             int n_chunks, float* d_protos, void* stream) {
+                             const float* grads, float* partial, int blocks,
+                             float* d_protos, void* stream) {
   if (p == 0) return 0;
-  return dispatch_d<JOINT, LaunchGradProto>(
+  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
+  return dispatch_d<JOINT, LaunchGradProtoTiled>(
       d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
-      proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads, chunk,
-      partial, n_chunks, d_protos, (cudaStream_t)stream);
+      proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
+      partial, blocks, d_protos, (cudaStream_t)stream);
 }
 
 // out: [3, n] rows own, same, diff at concentration kappa.

@@ -35,10 +35,10 @@ SIGNATURES = {
         "segsort_joint_stats": [P] * 9 + [I, I, I, F, F, I, P, P],
         # ... the same 15 + grads [6, N], d_emb [N, D], stream
         "segsort_joint_grad_emb": [P] * 9 + [I, I, I, F, F, I, P, P, P],
-        # ... the same 15 + grads [6, N], chunk, partial [C, P, D],
-        # n_chunks, d_protos [P, D], stream
+        # ... the same 15 + grads [6, N], partial [blocks, 128, D],
+        # blocks, d_protos [P, D], stream
         "segsort_joint_grad_proto":
-            [P] * 9 + [I, I, I, F, F, I, P, I, P, I, P, P],
+            [P] * 9 + [I, I, I, F, F, I, P, P, I, P, P],
         # emb, pix_lab, own, protos, proto_lab, num_valid, n, p, d, kappa,
         # out [3, N], stream
         "segsort_hard_stats": [P] * 6 + [I, I, I, F, P, P],

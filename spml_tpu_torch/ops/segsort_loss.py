@@ -40,7 +40,14 @@ from spml_tpu_torch.ops import _cuda
 
 KERNEL_SOURCE = "segsort_joint"
 SUPPORTED_DIMS = (16, 32, 64)
-CHUNK = 2048  # pixels per partial dP sum of the dP kernels
+CHUNK = 2048  # pixels per partial dP sum of the HARD and SET dP kernels
+# the JOINT dE and dP kernels: a block owns OWN_ROWS rows of one side
+# (pixels for dE, valid prototypes for dP) and walks STREAM_ROWS-row tiles
+# of the other
+OWN_ROWS, STREAM_ROWS = 128, 64
+# grid of the JOINT dP kernel: 2 blocks per SM of a 132-SM H100, split on
+# the device into valid prototype tiles x equal pixel chunks
+JOINT_DP_BLOCKS = 264
 
 # family -> (statistics per pixel, position of the prototypes among the
 # kernel inputs, which are in the C functions' argument order)
@@ -226,13 +233,66 @@ def _launch_grad_emb(family, inputs, scalars, grads):
 
 def _launch_grad_proto(family, inputs, scalars, grads):
     emb, protos = inputs[0], inputs[_FAMILIES[family][1]]
+    d_protos = torch.empty_like(protos)
+    if family == "joint":
+        blocks = joint_dp_blocks(protos.shape[0])
+        partial = torch.empty((blocks, OWN_ROWS, protos.shape[1]),
+                              dtype=torch.float32, device=emb.device)
+        _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(),
+                partial.data_ptr(), blocks, d_protos.data_ptr())
+        return d_protos
     n_chunks = -(-emb.shape[0] // CHUNK)
     partial = torch.empty((n_chunks, *protos.shape), dtype=torch.float32,
                           device=emb.device)
-    d_protos = torch.empty_like(protos)
     _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(), CHUNK,
             partial.data_ptr(), n_chunks, d_protos.data_ptr())
     return d_protos
+
+
+# ---------------------------------------------------------------------------
+# The JOINT dE / dP kernels' schedule (csrc/segsort_joint.cu,
+# grad_tile_kernel and reduce_tiles_kernel), mirrored for the CPU tests:
+# change both together.
+# ---------------------------------------------------------------------------
+
+def joint_dp_blocks(p):
+    """Grid of the JOINT dP kernel for P prototype rows (the scratch holds
+    one [OWN_ROWS, D] partial per block)."""
+    return max(JOINT_DP_BLOCKS, -(-p // OWN_ROWS))
+
+
+def _tiles(start, stop, size, count):
+    """Tiles of `size` rows from start (a multiple of size) to stop, each
+    cut at count."""
+    return [range(t, min(t + size, count))
+            for t in range(start, min(stop, count), size)]
+
+
+def joint_grad_emb_tiles(n, num_valid):
+    """The dE kernel's blocks: [(pixel rows, [prototype rows of each
+    streamed tile, in loop order])], ranges cut at n and num_valid."""
+    ptiles = _tiles(0, num_valid, STREAM_ROWS, num_valid)
+    return [(own, ptiles) for own in _tiles(0, n, OWN_ROWS, n)]
+
+
+def joint_grad_proto_tiles(n, num_valid, blocks):
+    """The dP kernel's split of its `blocks`: (chunks per prototype tile,
+    [(block, prototype rows, [pixel rows of each streamed tile, in loop
+    order])] for the blocks that write a partial). dP[k] adds, in chunk
+    order c, row k % OWN_ROWS of block (k // OWN_ROWS) * chunks + c."""
+    if num_valid == 0:
+        return 0, []
+    tiles = -(-num_valid // OWN_ROWS)
+    chunks = blocks // tiles
+    nt = -(-n // STREAM_ROWS)
+    out = []
+    for b in range(tiles * chunks):
+        tile, chunk = divmod(b, chunks)
+        own = _tiles(tile * OWN_ROWS, num_valid, OWN_ROWS, num_valid)[0]
+        out.append((b, own, _tiles(chunk * nt // chunks * STREAM_ROWS,
+                                   (chunk + 1) * nt // chunks * STREAM_ROWS,
+                                   STREAM_ROWS, n)))
+    return chunks, out
 
 
 def _kernel_operand(t, dtype):

@@ -151,6 +151,10 @@ def make_train_step(config):
     if config.train.optimizer != "sgd":
         raise NotImplementedError(
             f"train.optimizer {config.train.optimizer!r} is not ported yet")
+    if config.tpu.loss_operand_dtype not in ("", "float32"):
+        raise NotImplementedError(
+            f"tpu.loss_operand_dtype {config.tpu.loss_operand_dtype!r}: the "
+            "fused loss kernels take float32 operands only")
     C = config.dataset.num_classes
     P = config.tpu.segment_capacity
     ignore = config.dataset.semantic_ignore_index

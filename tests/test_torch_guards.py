@@ -284,10 +284,18 @@ def test_dilated_conv_dispatch(monkeypatch):
             torch.Tensor._make_subclass(_FakeCuda, x, False), w, 2)
 
 
-@pytest.mark.parametrize("what", ["softmax_classifier"])
+@pytest.mark.parametrize("what", ["softmax_classifier",
+                                  "loss_operand_dtype"])
 def test_unported_paths_raise(what):
     cfg = _tiny_config()
-    cfg.network.prediction_types = "softmax_classifier"
+    if what == "softmax_classifier":
+        cfg.network.prediction_types = "softmax_classifier"
+    else:  # the JAX package would run its fused losses on bf16 operands
+        cfg = load_config(overrides={
+            "network": {"backbone_types": "panoptic_deeplab_10",
+                        "embedding_dim": 8},
+            "tpu": {"loss_operand_dtype": "bfloat16"}})
+        assert cfg.tpu.loss_operand_dtype == "bfloat16"
     with pytest.raises(NotImplementedError, match=what):
         tstep.make_train_step(cfg)
 
@@ -356,15 +364,25 @@ def test_unsupported_width_raises():
 
 
 @pytest.mark.gpu
-def test_joint_kernels_match_plain_version_on_card():
-    """K1-K3 against the plain version on the card, at a small size (on
-    a CUDA host without JAX: `python -m pytest --noconftest -m gpu
+@pytest.mark.parametrize(
+    "n,nv,d,kappa_o",
+    [(3000, 500, 64, 12.0), (3009, 449, 64, 12.0), (3007, 447, 64, 10.0),
+     (3000, 0, 64, 12.0), (3000, 1, 64, 10.0), (3000, 500, 32, 12.0),
+     (3001, 65, 32, 10.0)],
+    ids=["mid", "one_past_tiles", "one_short_of_tiles", "none_valid",
+         "one_valid_two_exps", "d32", "d32_ragged_two_exps"])
+def test_joint_kernels_match_plain_version_on_card(n, nv, d, kappa_o):
+    """K1-K3 against the plain version on the card, at small sizes that
+    straddle the dE / dP kernels' 64-row tiles: N and num_valid one past
+    or one short of a multiple, none or one valid row, D = 32, kappa_o =
+    2 kappa_a (s_o = s_a^2) and 10 with kappa_a = 6 (on a CUDA host
+    without JAX: `python -m pytest --noconftest -m gpu
     tests/test_torch_guards.py`; chip_smoke.py checks the same at the
     flagship shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     rng = np.random.RandomState(4)
-    n, p, d = 3000, 700, 64
+    p = 700
     emb = torch.nn.functional.normalize(
         torch.from_numpy(rng.randn(n, d).astype(np.float32)), dim=1).cuda()
     protos = torch.nn.functional.normalize(
@@ -373,12 +391,12 @@ def test_joint_kernels_match_plain_version_on_card():
             for k in (n, n, n, p, p, p)]
     lab, own, tag, plab, ptag, pval = ints
     own = own.clamp(0, p - 1)
-    nv = torch.tensor([500], device="cuda")
+    nv = torch.tensor([nv], device="cuda")
     g = torch.randn(6, n, device="cuda")
     e1 = emb.clone().requires_grad_(True)
     p1 = protos.clone().requires_grad_(True)
     s1 = fused.joint_segsort_stats(e1, lab, own, tag, p1, plab, ptag, pval,
-                                   nv, 6.0, 12.0)
+                                   nv, 6.0, kappa_o)
     (s1 * g).sum().backward()
     # the plain version in float64 on the same values: the check measures
     # the kernels' own float32 error (stats rtol 1e-5; dE / dP rtol 1e-4,
@@ -386,12 +404,13 @@ def test_joint_kernels_match_plain_version_on_card():
     e2 = emb.double().requires_grad_(True)
     p2 = protos.double().requires_grad_(True)
     s2 = fused.joint_segsort_stats_reference(e2, lab, own, tag, p2, plab,
-                                             ptag, pval, nv, 6.0, 12.0)
+                                             ptag, pval, nv, 6.0, kappa_o)
     (s2 * g.double()).sum().backward()
     torch.testing.assert_close(s1, s2.detach().float(), rtol=1e-5, atol=0.0)
     for a, b in ((e1.grad, e2.grad.float()), (p1.grad, p2.grad.float())):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
+    assert not p1.grad[int(nv):].any()  # rows past num_valid: exactly 0
 
 
 @pytest.mark.gpu
