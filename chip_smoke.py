@@ -12,15 +12,16 @@ Phases, each printing one line or more:
  2. build: nvcc for sm_90a of every csrc/*.cu, one process each, in
     parallel, with the seconds it took, ptxas's registers and spilled
     bytes for each kernel, and any ptxas line on wgmma or a performance
-    loss (a serialized wgmma shows there); a spill in the tiled JOINT dE /
-    dP kernels (grad_tile_kernel) fails the run;
+    loss (a serialized wgmma shows there); a spill in a tiled kernel
+    (stats_tile_kernel, grad_tile_kernel) fails the run;
  3. kernels: each SegSort kernel family through its autograd.Function
     against the plain version, computed in float64 on the same float32
-    values (plain version over row chunks):
-    - joint, K1 (stats), K2 (dE), K3 (dP; K2 and K3 tiled: a block owns
-      128 rows and walks 64-row tiles, 128 threads, both products on the
-      tensor cores in split TF32, the dP grid of 264 blocks split on the
-      card into valid prototype tiles x pixel chunks): at N = 16384 / P = 2048,
+    values (plain version over row chunks). The tiled kernels (K1-K3,
+    K9): a block of 128 threads owns 128 rows and walks 64-row tiles of
+    the other side, the products on the tensor cores in split TF32; the
+    dP grid of 264 blocks is split on the card into valid prototype tiles
+    x pixel chunks. The others take one thread per row, float32 FMAs.
+    - joint, K1 (stats), K2 (dE), K3 (dP): at N = 16384 / P = 2048,
       D = 64 (full and ~20% fill, N not a multiple of the tile, all
       prototypes invalid, one valid, both kappa branches) and D = 32 (~20%
       fill), and at the flagship N = 131072 / P = 6144, D = 64;
@@ -28,7 +29,8 @@ Phases, each printing one line or more:
       D = 32 (full and ~20% fill, ragged N, all invalid) and D = 64, and at
       the DensePose N = 65536 / P = 2048, D = 32, ~15% fill;
     - tag sets, K7 (stats), K8 (dE), K9 (dP): at N = 16384 / P = 2048,
-      D = 64 (full and ~20% fill, ragged N, all invalid) and D = 32, and at
+      D = 64 (full and ~20% fill, ragged N, all invalid, one valid: one
+      live prototype tile over 264 pixel chunks) and D = 32, and at
       the tag step's N = 65536 / P = 3072, D = 64, ~20% fill; one to three
       tags of 20 per row, a tenth of the rows below the valid count
       invalid (their own mask still counts);
@@ -43,8 +45,8 @@ Phases, each printing one line or more:
     timed steps, every loss finite, segments formed, each of its kernels
     launched once per step and the other families' not at all; then each
     kernel timed at the path's own inputs beside the plain version and its
-    bound (K2 and K3: at the split-TF32 rate their products use, with the
-    float32 bound beside it as bound_f32_ms):
+    bound (the tiled kernels K1-K3 and K9: at the split-TF32 rate their
+    products use, with the float32 bound beside it as bound_f32_ms):
     - flagship (panoptic_deeplab_101, crop 512, batch 8, 6x6 k-means x10,
       capacity 256, memory bank 2, sem_ann + sem_occ + img_sim with the
       fused joint loss, bf16 convolutions) on blobby synthetic labels:
@@ -110,7 +112,10 @@ KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
     "set_grad_proto": ("segsort_set_grad_proto", f"{PALLAS}:444"),
 }
 # kernels whose D-long products run on the tensor cores in split TF32
-TENSOR_CORE = ("joint_grad_emb", "joint_grad_proto")
+TENSOR_CORE = ("joint_stats", "joint_grad_emb", "joint_grad_proto",
+               "set_grad_proto")
+# the tiled SegSort kernels: a spill in any of them fails the build phase
+TILED_KERNELS = ("stats_tile_kernel", "grad_tile_kernel")
 CONV_KERNEL = ("dilated_conv3x3_bf16", f"{PROBE}:31",
                "spml_tpu_torch/csrc/dilated_conv.cu")
 KINDS = ("stats", "grad_emb", "grad_proto")
@@ -327,6 +332,7 @@ def check_kernels(torch, fused):
             ("mid 20% fill", (mid, 2048, 0.2, 22, 64), (8.0,)),
             ("mid ragged N", (mid - 1, 2048, 0.2, 23, 64), (8.0,)),
             ("mid all invalid", (mid, 2048, 0.0, 24, 64), (8.0,)),
+            ("mid one valid", (mid, 2048, 1 / 2048, 27, 64), (8.0,)),
             ("mid 20% fill", (mid, 2048, 0.2, 25, 32), (8.0,)),
             ("tag step 20% fill", (65536, 3072, 0.2, 26, 64), (8.0,))],
     }
@@ -437,9 +443,9 @@ def bounds(family, n, p, nv, d):
     run's shapes: bytes each input read once and each output written once
     (prototype rows up to the valid count), operations per live (pixel,
     prototype) pair at the float32 peak; for the kernels whose products
-    run on the tensor cores in split TF32 (TENSOR_CORE), the 4 D product
-    flops a pair three times at the TF32 peak plus the rest at the float32
-    peak."""
+    run on the tensor cores in split TF32 (TENSOR_CORE), the product flops
+    a pair (2 D for the stats, 4 D for dE and dP) three times at the TF32
+    peak plus the rest at the float32 peak."""
     pairs = n * nv
     ns = N_STATS[family]
     if family == "joint":  # rows carry label, own / tag, valid
@@ -451,21 +457,21 @@ def bounds(family, n, p, nv, d):
     else:  # rows carry label, own / label
         pix_in, protos_in = n * (d * 4 + 8), nv * (d * 4 + 4)
         ops_stats, ops_grad = 2 * d + 6, 4 * d + 8
-    work = {  # bytes, operations
-        "stats": (pix_in + protos_in + ns * n * 4, pairs * ops_stats),
-        "grad_emb": (pix_in + ns * n * 4 + protos_in + n * d * 4,
-                     pairs * ops_grad),
+    work = {  # bytes, operations a pair, product flops a pair
+        "stats": (pix_in + protos_in + ns * n * 4, ops_stats, 2 * d),
+        "grad_emb": (pix_in + ns * n * 4 + protos_in + n * d * 4, ops_grad,
+                     4 * d),
         "grad_proto": (pix_in + ns * n * 4 + protos_in + p * d * 4,
-                       pairs * ops_grad),
+                       ops_grad, 4 * d),
     }
     out = {}
-    for kind, (nbytes, ops) in work.items():
+    for kind, (nbytes, ops, prod) in work.items():
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_f32 = ops / PEAK_F32_FLOPS * 1e3
+        t_f32 = pairs * ops / PEAK_F32_FLOPS * 1e3
         t_ops = t_f32
         if f"{family}_{kind}" in TENSOR_CORE:
-            t_ops = pairs * (3 * 4 * d / PEAK_TF32_FLOPS
-                             + (ops_grad - 4 * d) / PEAK_F32_FLOPS) * 1e3
+            t_ops = pairs * (3 * prod / PEAK_TF32_FLOPS
+                             + (ops - prod) / PEAK_F32_FLOPS) * 1e3
         out[kind] = ((t_ops, "operations") if t_ops >= t_bytes
                      else (t_bytes, "bytes")) + (max(t_f32, t_bytes),)
     return out
@@ -643,12 +649,12 @@ def main() -> int:
                                 for ks in kernels.values()
                                 for k, regs, spill in ks)
         + "".join(f" | {w}" for w in warnings))
-    spilled = [k for k, _, spill in kernels.get("segsort_joint", [])
-               if k.startswith("grad_tile_kernel") and spill]
-    if spilled or not any(k.startswith("grad_tile_kernel")
-                          for k, _, _ in kernels.get("segsort_joint", [])):
+    tiled = [(k, spill) for k, _, spill in kernels.get("segsort_joint", [])
+             if k.startswith(TILED_KERNELS)]
+    spilled = [k for k, spill in tiled if spill]
+    if spilled or {k.split("<")[0] for k, _ in tiled} != set(TILED_KERNELS):
         raise AssertionError(f"ptxas: tiled kernels spill or are missing: "
-                             f"{spilled}")
+                             f"{spilled or tiled}")
 
     errs = check_kernels(torch, fused)
     conv_err = check_dilated_conv(torch, dc)

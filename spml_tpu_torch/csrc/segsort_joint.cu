@@ -43,12 +43,13 @@
 // there the kernels are launch- and latency-bound, and the design keeps
 // them to one launch each (two for dP) with no host round trip. The
 // logits feed exp(kappa l), which amplifies TF32 or bf16 operand
-// rounding: the stats kernels and HARD's and SET's dE / dP use float32
-// FMAs on the CUDA cores (67 TFLOP/s); JOINT's dE / dP use split TF32 on
-// the tensor cores (three TF32 products at 495 TFLOP/s, float32 sums).
+// rounding: the per-row kernels use float32 FMAs on the CUDA cores (67
+// TFLOP/s); the tiled ones use split TF32 on the tensor cores (three TF32
+// products at 495 TFLOP/s, float32 sums).
 //
 // Design. The [N, P] similarity matrix never reaches device memory.
-//   stats (all families), dE and dP of HARD and SET: one thread per row.
+//   Per-row kernels, one thread per row: the stats of HARD and SET (K4,
+//     K7), their dE (K5, K8) and HARD's dP (K6).
 //     stats, dE: a thread keeps E[n] (and, for dE, dE[n]) in registers;
 //     the block stages tiles of TP prototypes, labels and tag bits in
 //     shared memory, read as warp-wide broadcasts. The loop stops at
@@ -59,40 +60,52 @@
 //     registers; blocks also split the pixels into chunks (`chunk` rows,
 //     2048 from the wrapper), so that a few hundred prototypes still fill
 //     the 132 SMs. These kernels take each logit in dot_row's order, so
-//     the three of HARD, and of SET, agree on each logit bit for bit.
-//   dE and dP of JOINT (K2, K3): grad_tile_kernel, a back-to-back product
-//     per tile. With float32 FMAs the products take 128 FFMA a pair, and
-//     register tiles of 4 x 4 and 8 x 8 alike ran at ~48% of the FFMA
-//     rate on an H100: the FP32 pipe issues the products and the ~40 exp,
-//     mask and select instructions of the middle. So both products go to
-//     the tensor cores, in split TF32: x = hi + lo (each TF32), a b = hi
-//     hi + hi lo + lo hi (three mma.sync m16n8k8, float32 sums), about 2^-21
-//     of each product off, where plain TF32 (2^-11) would be amplified by
-//     exp(kappa l). The middle stays in float32. The splits are integer
-//     operations (cvt.rna.tf32 runs at a quarter of the rate), and the
-//     streamed tile is split once for all warps. A block of 128 threads
-//     owns OWN = 128 rows of one side (pixels for dE, valid prototypes
-//     for dP) and walks tiles of STR = 64 rows of the other, staged by
-//     cp.async into a double buffer (zero-filled past the count). Per
-//     tile a warp takes its 32 own rows: S = own . other^T; c = kappa_a
-//     s_a g_a + kappa_o s_o g_o under the masks, in place, in registers;
-//     then acc += c . other, in registers across all tiles; c never
-//     leaves the registers (see the kernel). A warp whose own rows lie
-//     past the count skips both products. mma.sync's rate bounds the
-//     products; the float32 middle adds to that rather than hiding under
-//     it (two blocks, eight warps, a SM). K2 and K3 agree with K1 to
-//     ~1e-6 of a logit, not bit for bit. dE is written once, in a fixed
-//     order. dP: the grid (`blocks` >= ceil(P / OWN), 264 from the
-//     wrapper: 2 a SM) is split on the device, from num_valid, into
-//     ceil(num_valid / OWN) prototype tiles times blocks / tiles pixel
-//     chunks of equal length, so the live tiles fill the card whatever
-//     the fill; each block writes an [OWN, D] partial and
-//     reduce_tiles_kernel adds a tile's chunks in chunk order.
-//     ops/segsort_loss.py mirrors this schedule (joint_grad_emb_tiles,
-//     joint_grad_proto_tiles) for the CPU tests.
+//     K4-K6 agree on each logit bit for bit.
+//   Tiled kernels: JOINT's stats, dE and dP (K1, K2, K3: stats_tile_kernel,
+//     grad_tile_kernel) and SET's dP (K9: grad_tile_kernel). With float32
+//     FMAs a D-long product takes 2D FFMA a pair, and register tiles of
+//     4 x 4 and 8 x 8 alike ran at ~48% of the FFMA rate on an H100: the
+//     FP32 pipe issues the products and the ~40 exp, mask and select
+//     instructions of the middle. So the products go to the tensor cores,
+//     in split TF32: x = hi + lo (each TF32), a b = hi hi + hi lo + lo hi
+//     (three mma.sync m16n8k8, float32 sums), about 2^-21 of each product
+//     off, where plain TF32 (2^-11) would be amplified by exp(kappa l).
+//     The middle stays in float32. The splits are integer operations
+//     (cvt.rna.tf32 runs at a quarter of the rate), and the streamed tile
+//     is split once for all warps. A block of 128 threads owns OWN = 128
+//     rows of one side (pixels for stats and dE, valid prototypes for dP)
+//     and walks tiles of STR = 64 rows of the other, staged by cp.async
+//     into a double buffer (zero-filled past the count). Per tile a warp
+//     takes its 32 own rows: S = own . other^T (product 1).
+//     stats: the masked similarities are added to per-tile partial sums
+//     in registers, then to running sums (two-level summation, as above);
+//     at the end the four lanes of a row add their sums in a fixed order.
+//     Its product 1 (stats_logits) sums each k step in a fresh
+//     accumulator: mma.sync's float32 sums truncate against the
+//     accumulator, and one accumulator over all D cost the one-term own
+//     statistic at kappa 12 its whole rtol of 1e-5. Its middle is
+//     branch-free and takes s = 2^(kappa log2(e) l) on the SFU.
+//     dE, dP: c = kappa_a s_a g_a + kappa_o s_o g_o under the masks, in
+//     place, in registers; then acc += c . other (product 2), in registers
+//     across all tiles; c never leaves the registers (see the kernel). A
+//     warp whose own rows lie past the count skips the products. mma.sync's
+//     rate bounds the products; the float32 middle adds to that rather
+//     than hiding under it (two blocks, eight warps, a SM). K2 and K3
+//     take each logit through tile_logits and agree on it bit for bit;
+//     K1's logits (stats_logits) are closer to float32's and differ from
+//     theirs by up to ~1e-6, as K9's differ from K7's and K8's (per-row,
+//     float32 FMAs). Stats and dE are written once, in a fixed order. dP:
+//     the grid (`blocks` >= ceil(P / OWN), 264 from the wrapper: 2 a SM)
+//     is split on the device, from num_valid, into ceil(num_valid / OWN)
+//     prototype tiles times blocks / tiles pixel chunks of equal length,
+//     so the live tiles fill the card whatever the fill; each block writes
+//     an [OWN, D] partial and reduce_tiles_kernel adds a tile's chunks in
+//     chunk order. ops/segsort_loss.py mirrors this schedule
+//     (joint_stats_tiles, joint_grad_emb_tiles, grad_proto_tiles) for the
+//     CPU tests.
 //   No dP uses float atomics: the result does not depend on the run.
-// Left for later: the tiled kernels for HARD and SET, skipping pixels
-// whose cotangents are all zero.
+// Left for later: the tiled kernels for the rest of HARD and SET, skipping
+// pixels whose cotangents are all zero.
 
 #include <cuda_runtime.h>
 
@@ -463,7 +476,7 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled dE / dP (JOINT: K2, K3)
+// Tiled kernels: stats (K1), dE (K2), dP (K3, K9)
 // ---------------------------------------------------------------------------
 
 constexpr int OWN = 128;           // own rows of a block
@@ -644,6 +657,121 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
   mma_tf32(d, ahi, bhi);
 }
 
+// A staged tile's TF32 halves, once for the four warps.
+template <int D>
+__device__ __forceinline__ void split_tile(const float (*raw)[D + 4],
+                                           unsigned (*hi)[D + 4],
+                                           unsigned (*lo)[D + 4]) {
+  for (int i = threadIdx.x; i < STR * D / 4; i += TILE_THREADS) {
+    const int r = i / (D / 4), q = 4 * (i % (D / 4));
+    const float4 v = *reinterpret_cast<const float4*>(&raw[r][q]);
+    uint4 h, l;
+    split_tf32(v.x, h.x, l.x);
+    split_tf32(v.y, h.y, l.y);
+    split_tf32(v.z, h.z, l.z);
+    split_tf32(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(&hi[r][q]) = h;
+    *reinterpret_cast<uint4*>(&lo[r][q]) = l;
+  }
+}
+
+// Product 1's A fragment at k step d0 / 8: own rows m0 + 16 mt (+ g, + 8),
+// columns d0 + (t, t + 4), split from float32.
+template <int D>
+__device__ __forceinline__ void own_fragments(unsigned (&ahi)[2][4],
+                                              unsigned (&alo)[2][4],
+                                              const float (*own)[D + 4],
+                                              int m0, int g, int t,
+                                              int d0) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = m0 + 16 * mt + g;
+    split_tf32(own[r][d0 + t], ahi[mt][0], alo[mt][0]);
+    split_tf32(own[r + 8][d0 + t], ahi[mt][1], alo[mt][1]);
+    split_tf32(own[r][d0 + t + 4], ahi[mt][2], alo[mt][2]);
+    split_tf32(own[r + 8][d0 + t + 4], ahi[mt][3], alo[mt][3]);
+  }
+}
+
+// Product 1's B fragment of n tile nt at k step d0 / 8: streamed row 8 nt
+// + g, columns d0 + (t, t + 4), from the tile's halves.
+template <int D>
+__device__ __forceinline__ void streamed_fragment(unsigned (&bhi)[2],
+                                                  unsigned (&blo)[2],
+                                                  const unsigned (*hi)[D + 4],
+                                                  const unsigned (*lo)[D + 4],
+                                                  int nt, int g, int t,
+                                                  int d0) {
+  bhi[0] = hi[8 * nt + g][d0 + t];
+  blo[0] = lo[8 * nt + g][d0 + t];
+  bhi[1] = hi[8 * nt + g][d0 + t + 4];
+  blo[1] = lo[8 * nt + g][d0 + t + 4];
+}
+
+// Product 1 of a tile, the logits: s[mt][nt][2 h + e] = own row m0 + 16 mt
+// + g + 8 h . streamed row 8 nt + 2 t + e, in split TF32 (the own rows
+// split here, the streamed tile from its halves), summed over all D in one
+// accumulator (dE, dP).
+template <int D>
+__device__ __forceinline__ void tile_logits(float (&s)[2][STR / 8][4],
+                                            const float (*own)[D + 4],
+                                            const unsigned (*hi)[D + 4],
+                                            const unsigned (*lo)[D + 4],
+                                            int m0, int g, int t) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < STR / 8; ++nt)
+      s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    unsigned ahi[2][4], alo[2][4];
+    own_fragments<D>(ahi, alo, own, m0, g, t, 8 * ks);
+#pragma unroll
+    for (int nt = 0; nt < STR / 8; ++nt) {
+      unsigned bhi[2], blo[2];
+      streamed_fragment<D>(bhi, blo, hi, lo, nt, g, t, 8 * ks);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_split(s[mt][nt], ahi[mt], alo[mt], bhi, blo);
+    }
+  }
+}
+
+// The logits of tile_logits for the statistics. mma.sync's float32 sums
+// truncate against the accumulator's magnitude: a logit summed over all D
+// in one accumulator is off by up to ~1e-6 near |l| = 1, which exp(12 l)
+// makes ~1.3e-5 of a one-term statistic, past the stats check's rtol of
+// 1e-5 (measured on an H100). So each k step (8 dimensions) goes into a fresh
+// accumulator, and the steps are added in float32 (round to nearest); the
+// steps run n tile by n tile, so only one accumulator stays live beside
+// the logits.
+template <int D>
+__device__ __forceinline__ void stats_logits(float (&s)[2][STR / 8][4],
+                                             const float (*own)[D + 4],
+                                             const unsigned (*hi)[D + 4],
+                                             const unsigned (*lo)[D + 4],
+                                             int m0, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    unsigned ahi[2][4], alo[2][4];
+    own_fragments<D>(ahi, alo, own, m0, g, t, 8 * ks);
+#pragma unroll
+    for (int nt = 0; nt < STR / 8; ++nt) {
+      unsigned bhi[2], blo[2];
+      streamed_fragment<D>(bhi, blo, hi, lo, nt, g, t, 8 * ks);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_split(part, ahi[mt], alo[mt], bhi, blo);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[mt][nt][i] = ks == 0 ? part[i] : s[mt][nt][i] + part[i];
+      }
+    }
+  }
+}
+
 // DP = false (dE): the block owns pixels [OWN b, OWN b + OWN) and walks
 // the valid prototypes in tiles of STR; out = dE [N, D].
 // DP = true (dP): gridDim.x blocks split, from num_valid, into `tiles` =
@@ -668,7 +796,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
     float* __restrict__ out) {
   constexpr int NS = n_stats(F);
   constexpr int NT = STR / 8;  // product 1's n tiles, product 2's k steps
-  constexpr int KD = D / 8;    // product 1's k steps, product 2's n tiles
+  constexpr int KD = D / 8;    // product 2's n tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<TileSmem<D, F, DP>*>(smem_raw);
   const int nv = min(*num_valid, p);
@@ -732,20 +860,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
   for (int t0 = o_begin; t0 < o_end; t0 += STR, buf ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // this tile landed; every thread left the last one
-    {  // this tile's TF32 halves, once for the four warps
-      const float (*raw)[D + 4] = sm.other[buf];
-      for (int i = threadIdx.x; i < STR * D / 4; i += TILE_THREADS) {
-        const int r = i / (D / 4), q = 4 * (i % (D / 4));
-        const float4 v = *reinterpret_cast<const float4*>(&raw[r][q]);
-        uint4 h, l;
-        split_tf32(v.x, h.x, l.x);
-        split_tf32(v.y, h.y, l.y);
-        split_tf32(v.z, h.z, l.z);
-        split_tf32(v.w, h.w, l.w);
-        *reinterpret_cast<uint4*>(&sm.other_hi[r][q]) = h;
-        *reinterpret_cast<uint4*>(&sm.other_lo[r][q]) = l;
-      }
-    }
+    split_tile<D>(sm.other[buf], sm.other_hi, sm.other_lo);
     __syncthreads();
     if (t0 + STR < o_end) stage(buf ^ 1, t0 + STR);
     if (!warp_live) continue;
@@ -763,38 +878,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
         }
     }
 
-    // product 1: s[mt][nt] = own rows m0 + 16 mt (+ g, + 8) . streamed
-    // rows 8 nt (+ 2 t, + 1)
     float s[2][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KD; ++ks) {
-      const int d0 = 8 * ks;
-      unsigned ahi[2][4], alo[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = m0 + 16 * mt + g;
-        split_tf32(sm.own[r][d0 + t], ahi[mt][0], alo[mt][0]);
-        split_tf32(sm.own[r + 8][d0 + t], ahi[mt][1], alo[mt][1]);
-        split_tf32(sm.own[r][d0 + t + 4], ahi[mt][2], alo[mt][2]);
-        split_tf32(sm.own[r + 8][d0 + t + 4], ahi[mt][3], alo[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        unsigned bhi[2], blo[2];
-        bhi[0] = sm.other_hi[8 * nt + g][d0 + t];
-        blo[0] = sm.other_lo[8 * nt + g][d0 + t];
-        bhi[1] = sm.other_hi[8 * nt + g][d0 + t + 4];
-        blo[1] = sm.other_lo[8 * nt + g][d0 + t + 4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          mma_split(s[mt][nt], ahi[mt], alo[mt], bhi, blo);
-      }
-    }
+    tile_logits<D>(s, sm.own, sm.other_hi, sm.other_lo, m0, g, t);
 
     // c in place of the logits: s[mt][nt][2 h + e] is the pair (own row
     // m0 + 16 mt + g + 8 h, streamed row 8 nt + 2 t + e)
@@ -876,6 +961,161 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
     }
 }
 
+template <int D>
+struct StatsTileSmem {  // the dE kernel's TileSmem but its pixel rows
+  float own[OWN][D + 4];
+  float other[2][STR][D + 4];
+  unsigned other_hi[STR][D + 4], other_lo[STR][D + 4];
+  ProtoRows<STR> proto[2];
+};
+
+// 2^x by the SFU (ex2.approx, ~2 ulp); x = kappa l log2(e) lies far above
+// the denormal range (|l| <= 1 for unit rows, kappa <= ~20).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The statistics, out [NS, N]: the block owns pixels [OWN b, OWN b + OWN)
+// and walks the valid prototypes in tiles of STR, as the dE kernel does,
+// with product 1 alone (stats_logits). Lane (g, t) of warp w adds its
+// pairs (own rows m0 + 16 mt + g + 8 h, streamed rows 8 nt + 2 t + e, in
+// the order nt, e) into a tile's partial sums, added to its running sums
+// once a tile. At the end the quad t = 0..3 of a row adds its four sums as
+// (t0 + t1) + (t2 + t3), every lane to the same bits, and lane t writes
+// statistics t and t + 4: no atomics, the same result on every run.
+// The middle is branch-free: a streamed row past the count takes no own
+// index, label or validity, so its pairs add 0 under the masks; s = 2^(l
+// kappa log2(e)) with kappa log2(e) taken once; SQUARE (kappa_o = 2
+// kappa_a, JOINT) is a template argument, so s_o = s_a^2 costs one
+// multiply a pair and no branch.
+template <int D, int F, bool SQUARE>
+__global__ void __launch_bounds__(TILE_THREADS, 2) stats_tile_kernel(
+    const float* __restrict__ emb, const int* __restrict__ pix_lab,
+    const int* __restrict__ own, const int* __restrict__ pix_tag,
+    const float* __restrict__ protos, const int* __restrict__ proto_lab,
+    const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
+    const int* __restrict__ num_valid, int n, int p, float kappa_a,
+    float kappa_o, float* __restrict__ out) {
+  constexpr int NS = n_stats(F);
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float ka2 = kappa_a * LOG2E, ko2 = kappa_o * LOG2E;
+  constexpr int NT = STR / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<StatsTileSmem<D>*>(smem_raw);
+  const int nv = min(*num_valid, p);
+  const int own0 = blockIdx.x * OWN;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            t = threadIdx.x % 4;
+  const int m0 = 32 * warp;
+  const bool warp_live = own0 + m0 < n;  // else it skips the tiles' work
+
+  // the thread's four own rows' operands
+  int lab[2][2], own_k[2][2], tag[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = own0 + m0 + 16 * mt + g + 8 * h;
+      const bool live = row < n;
+      lab[mt][h] = -1;
+      tag[mt][h] = 0;
+      if constexpr (F != SET) {
+        if (live) lab[mt][h] = pix_lab[row];
+      }
+      if constexpr (F != HARD) {
+        if (live) tag[mt][h] = pix_tag[row];
+      }
+      own_k[mt][h] = live ? own[row] : -1;
+    }
+  float acc[2][2][NS];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < NS; ++k) acc[mt][h][k] = 0.f;
+
+  auto stage = [&](int buf, int r0) {
+    stage_rows<D, STR>(sm.other[buf], protos, r0, nv);
+    stage_proto_rows<F>(sm.proto[buf], proto_lab, proto_tag, proto_valid,
+                        nv, r0);
+    cp_async_commit();
+  };
+  if (nv > 0) {
+    stage_rows<D, OWN>(sm.own, emb, own0, n);
+    stage(0, 0);
+  }
+
+  int buf = 0;
+  for (int t0 = 0; t0 < nv; t0 += STR, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every thread left the last one
+    split_tile<D>(sm.other[buf], sm.other_hi, sm.other_lo);
+    __syncthreads();
+    if (t0 + STR < nv) stage(buf ^ 1, t0 + STR);
+    if (!warp_live) continue;
+
+    float s[2][NT][4];
+    stats_logits<D>(s, sm.own, sm.other_hi, sm.other_lo, m0, g, t);
+    float part[2][2][NS];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int k = 0; k < NS; ++k) part[mt][h][k] = 0.f;
+    // s[mt][nt][2 h + e] is the pair (own row m0 + 16 mt + g + 8 h,
+    // streamed row 8 nt + 2 t + e)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const ProtoOp y = proto_op(sm.proto[buf], 8 * nt + 2 * t + e, t0, nv);
+        // past the count: no own index (-1 marks pixel rows past N, which
+        // are not written), no label, not valid
+        const int k = y.live ? y.k : -2;
+        const int plab = y.live ? y.lab : -1;
+        const int pvalid = y.live ? y.valid : 0;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float l = s[mt][nt][2 * h + e];
+            const float sa = ex2(l * ka2);
+            float so = 0.f;
+            if constexpr (F == JOINT) so = SQUARE ? sa * sa : ex2(l * ko2);
+            add_pair<F>(part[mt][h],
+                        pair_masks(k, own_k[mt][h], lab[mt][h], tag[mt][h],
+                                   plab, y.tag, pvalid),
+                        sa, so);
+          }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int k = 0; k < NS; ++k) acc[mt][h][k] += part[mt][h][k];
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = own0 + m0 + 16 * mt + g + 8 * h;
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        float v = acc[mt][h][k];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (k % 4 == t && row < n) out[(size_t)k * n + row] = v;
+      }
+    }
+}
+
 // d_protos[k][d] = the sum of k's rows in the partials of its tile's
 // chunks, in chunk order, for k < num_valid (the split of
 // grad_tile_kernel<DP = true> over `blocks`); 0 past it.
@@ -920,6 +1160,44 @@ struct LaunchStats {
     stats_kernel<D, F><<<blocks, THREADS, 0, stream>>>(
         emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
         proto_valid, num_valid, n, p, kappa_a, kappa_o, square, out);
+  }
+};
+
+template <int D, int F, bool SQUARE>
+void launch_stats_tile(const float* emb, const int* pix_lab, const int* own,
+                       const int* pix_tag, const float* protos,
+                       const int* proto_lab, const int* proto_tag,
+                       const int* proto_valid, const int* num_valid, int n,
+                       int p, float kappa_a, float kappa_o, float* out,
+                       cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(StatsTileSmem<D>);  // above 48 KB
+  cudaFuncSetAttribute(stats_tile_kernel<D, F, SQUARE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  stats_tile_kernel<D, F, SQUARE><<<(n + OWN - 1) / OWN, TILE_THREADS, smem,
+                                    stream>>>(
+      emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag, proto_valid,
+      num_valid, n, p, kappa_a, kappa_o, out);
+}
+
+template <int D, int F>
+struct LaunchStatsTiled {
+  static void run(const float* emb, const int* pix_lab, const int* own,
+                  const int* pix_tag, const float* protos,
+                  const int* proto_lab, const int* proto_tag,
+                  const int* proto_valid, const int* num_valid, int n, int p,
+                  float kappa_a, float kappa_o, int square, float* out,
+                  cudaStream_t stream) {
+    if (square) {
+      launch_stats_tile<D, F, true>(emb, pix_lab, own, pix_tag, protos,
+                                    proto_lab, proto_tag, proto_valid,
+                                    num_valid, n, p, kappa_a, kappa_o, out,
+                                    stream);
+    } else {
+      launch_stats_tile<D, F, false>(emb, pix_lab, own, pix_tag, protos,
+                                     proto_lab, proto_tag, proto_valid,
+                                     num_valid, n, p, kappa_a, kappa_o, out,
+                                     stream);
+    }
   }
 };
 
@@ -1026,7 +1304,7 @@ int segsort_joint_stats(const float* emb, const int* pix_lab, const int* own,
                         int p, int d, float kappa_a, float kappa_o,
                         int square, float* out, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<JOINT, LaunchStats>(
+  return dispatch_d<JOINT, LaunchStatsTiled>(
       d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
       proto_valid, num_valid, n, p, kappa_a, kappa_o, square, out,
       (cudaStream_t)stream);
@@ -1132,19 +1410,20 @@ int segsort_set_grad_emb(const float* emb, const int* pix_tag,
       (cudaStream_t)stream);
 }
 
-// partial: scratch [n_chunks, p, d], n_chunks = ceil(n / chunk).
+// partial: scratch [blocks, 128, d], blocks >= ceil(p / 128), as for
+// segsort_joint_grad_proto.
 int segsort_set_grad_proto(const float* emb, const int* pix_tag,
                            const int* own, const float* protos,
                            const int* proto_tag, const int* proto_valid,
                            const int* num_valid, int n, int p, int d,
-                           float kappa, const float* grads, int chunk,
-                           float* partial, int n_chunks, float* d_protos,
-                           void* stream) {
+                           float kappa, const float* grads, float* partial,
+                           int blocks, float* d_protos, void* stream) {
   if (p == 0) return 0;
-  return dispatch_d<SET, LaunchGradProto>(
+  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
+  return dispatch_d<SET, LaunchGradProtoTiled>(
       d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
-      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads, chunk,
-      partial, n_chunks, d_protos, (cudaStream_t)stream);
+      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads,
+      partial, blocks, d_protos, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -53,10 +53,10 @@ SIGNATURES = {
         "segsort_set_stats": [P] * 7 + [I, I, I, F, P, P],
         # ... the same 11 + grads [3, N], d_emb [N, D], stream
         "segsort_set_grad_emb": [P] * 7 + [I, I, I, F, P, P, P],
-        # ... the same 11 + grads [3, N], chunk, partial [C, P, D],
-        # n_chunks, d_protos [P, D], stream
+        # ... the same 11 + grads [3, N], partial [blocks, 128, D],
+        # blocks, d_protos [P, D], stream
         "segsort_set_grad_proto":
-            [P] * 7 + [I, I, I, F, P, I, P, I, P, P],
+            [P] * 7 + [I, I, I, F, P, P, I, P, P],
     },
     "dilated_conv": {
         # x [B, H, W, C], w [3, 3, C, O], out [B, H, W, O] (bf16), B, H,

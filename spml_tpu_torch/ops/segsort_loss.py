@@ -40,14 +40,16 @@ from spml_tpu_torch.ops import _cuda
 
 KERNEL_SOURCE = "segsort_joint"
 SUPPORTED_DIMS = (16, 32, 64)
-CHUNK = 2048  # pixels per partial dP sum of the HARD and SET dP kernels
-# the JOINT dE and dP kernels: a block owns OWN_ROWS rows of one side
-# (pixels for dE, valid prototypes for dP) and walks STREAM_ROWS-row tiles
-# of the other
+CHUNK = 2048  # pixels per partial dP sum of the HARD dP kernel
+# the tiled kernels (JOINT stats, dE and dP; SET dP): a block owns
+# OWN_ROWS rows of one side (pixels for stats and dE, valid prototypes for
+# dP) and walks STREAM_ROWS-row tiles of the other
 OWN_ROWS, STREAM_ROWS = 128, 64
-# grid of the JOINT dP kernel: 2 blocks per SM of a 132-SM H100, split on
+# grid of the tiled dP kernel: 2 blocks per SM of a 132-SM H100, split on
 # the device into valid prototype tiles x equal pixel chunks
-JOINT_DP_BLOCKS = 264
+DP_BLOCKS = 264
+# families whose dP is the tiled kernel
+_TILED_DP = ("joint", "set")
 
 # family -> (statistics per pixel, position of the prototypes among the
 # kernel inputs, which are in the C functions' argument order)
@@ -234,8 +236,8 @@ def _launch_grad_emb(family, inputs, scalars, grads):
 def _launch_grad_proto(family, inputs, scalars, grads):
     emb, protos = inputs[0], inputs[_FAMILIES[family][1]]
     d_protos = torch.empty_like(protos)
-    if family == "joint":
-        blocks = joint_dp_blocks(protos.shape[0])
+    if family in _TILED_DP:
+        blocks = dp_blocks(protos.shape[0])
         partial = torch.empty((blocks, OWN_ROWS, protos.shape[1]),
                               dtype=torch.float32, device=emb.device)
         _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(),
@@ -250,15 +252,15 @@ def _launch_grad_proto(family, inputs, scalars, grads):
 
 
 # ---------------------------------------------------------------------------
-# The JOINT dE / dP kernels' schedule (csrc/segsort_joint.cu,
+# The tiled kernels' schedule (csrc/segsort_joint.cu, stats_tile_kernel,
 # grad_tile_kernel and reduce_tiles_kernel), mirrored for the CPU tests:
 # change both together.
 # ---------------------------------------------------------------------------
 
-def joint_dp_blocks(p):
-    """Grid of the JOINT dP kernel for P prototype rows (the scratch holds
+def dp_blocks(p):
+    """Grid of the tiled dP kernel for P prototype rows (the scratch holds
     one [OWN_ROWS, D] partial per block)."""
-    return max(JOINT_DP_BLOCKS, -(-p // OWN_ROWS))
+    return max(DP_BLOCKS, -(-p // OWN_ROWS))
 
 
 def _tiles(start, stop, size, count):
@@ -275,8 +277,32 @@ def joint_grad_emb_tiles(n, num_valid):
     return [(own, ptiles) for own in _tiles(0, n, OWN_ROWS, n)]
 
 
-def joint_grad_proto_tiles(n, num_valid, blocks):
-    """The dP kernel's split of its `blocks`: (chunks per prototype tile,
+def quad_lane_rows(tile):
+    """The streamed rows of a tile that lanes t = 0..3 of a quad take, in
+    each lane's order: 8 nt + 2 t + e for nt, then e, cut at the tile's
+    end."""
+    return [[r for nt in range(0, STREAM_ROWS, 8) for e in (0, 1)
+             if (r := tile.start + nt + 2 * t + e) < tile.stop]
+            for t in range(4)]
+
+
+def quad_sum(lanes):
+    """The stats kernel's sum of a quad's four running sums."""
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def joint_stats_tiles(n, num_valid):
+    """The JOINT stats kernel's blocks: [(pixel rows, [quad_lane_rows of
+    each streamed prototype tile, in loop order])], the dE kernel's walk.
+    A row's statistic is quad_sum of its lanes' running sums, each the
+    tiles' partial sums (a lane's rows of the tile, in order) added in
+    loop order."""
+    return [(own, [quad_lane_rows(tile) for tile in ptiles])
+            for own, ptiles in joint_grad_emb_tiles(n, num_valid)]
+
+
+def grad_proto_tiles(n, num_valid, blocks):
+    """The tiled dP kernel's split of its `blocks`: (chunks per prototype tile,
     [(block, prototype rows, [pixel rows of each streamed tile, in loop
     order])] for the blocks that write a partial). dP[k] adds, in chunk
     order c, row k % OWN_ROWS of block (k // OWN_ROWS) * chunks + c."""

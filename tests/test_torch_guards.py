@@ -111,14 +111,27 @@ class _FakeCuda(torch.Tensor):
         return True
 
 
+# every exported C function's argtypes, whatever its source
+_SIGNATURES = {fn: sig for source in _cuda.SIGNATURES.values()
+               for fn, sig in source.items()}
+
+
 class _FakeLib:
+    """Stands in for a bound library: records each call's name and
+    arguments, and holds the argument count to the C signature."""
+
     def __init__(self, err=0):
         self.calls = []
+        self.args = []
         self.err = err
 
     def __getattr__(self, name):
         def fn(*args):
+            assert len(args) == len(_SIGNATURES[name]), (
+                f"{name}: {len(args)} arguments, the C function takes "
+                f"{len(_SIGNATURES[name])}")
             self.calls.append(name)
+            self.args.append(args)
             return self.err
         return fn
 
@@ -211,8 +224,9 @@ def _set_inputs(rng, n=40, p=12, d=16):
 
 def test_set_family_dispatch(monkeypatch):
     """set_segsort_stats: a CPU tensor takes the plain version and
-    launches nothing; a CUDA tensor calls K7, then K8 and K9 in
-    backward."""
+    launches nothing; a CUDA tensor calls K7, then K8 and K9 in backward,
+    K9 with the tiled dP kernel's scratch [blocks, 128, D], blocks >=
+    ceil(P / 128)."""
     lib = _FakeLib()
     monkeypatch.setattr(_cuda, "load", lambda name: lib)
     monkeypatch.setattr(_cuda, "stream_handle", lambda device: 0)
@@ -231,9 +245,25 @@ def test_set_family_dispatch(monkeypatch):
     stats = fused.set_segsort_stats(emb, tag, own, protos, ptag, pval, nv,
                                     8.0)
     assert lib.calls == ["segsort_set_stats"]
+    allocated = {}  # data pointer -> shape of each tensor torch.empty made
+    empty = torch.empty
+
+    def recording_empty(*a, **k):
+        t = empty(*a, **k)
+        allocated[t.data_ptr()] = tuple(t.shape)
+        return t
+    monkeypatch.setattr(torch, "empty", recording_empty)
     stats.sum().backward()
+    monkeypatch.setattr(torch, "empty", empty)
     assert lib.calls == ["segsort_set_stats", "segsort_set_grad_emb",
                          "segsort_set_grad_proto"]
+    # K9's arguments: ..., p, d, kappa, grads, partial, blocks, d_protos,
+    # stream
+    args = lib.args[-1]
+    p, d, partial, blocks = args[8], args[9], args[12], args[13]
+    assert (p, d) == tuple(protos.shape)
+    assert blocks == fused.dp_blocks(p) and blocks >= -(-p // 128)
+    assert allocated[partial] == (blocks, 128, d)
     assert fused.LAUNCHES == {"joint_stats": 0, "joint_grad_emb": 0,
                               "joint_grad_proto": 0, "hard_stats": 0,
                               "hard_grad_emb": 0, "hard_grad_proto": 0,

@@ -1,16 +1,20 @@
-"""The schedule of the JOINT dE and dP kernels (K2, K3), replayed on the CPU.
+"""The schedule of the tiled SegSort kernels, replayed on the CPU: the
+JOINT stats, dE and dP (K1, K2, K3) and the tag-set dP (K9).
 
-csrc/segsort_joint.cu's grad_tile_kernel cuts the (pixel, prototype) pairs
-into tiles: dE blocks own 128 pixels and walk the valid prototypes in
-64-row tiles; dP blocks own 128 valid prototypes and walk the pixels of
-their chunk in 64-row tiles, and reduce_tiles_kernel adds a prototype
-tile's chunks in chunk order.
-ops/segsort_loss.py mirrors that schedule (joint_grad_emb_tiles,
-joint_grad_proto_tiles). These tests check that every (pixel, valid
-prototype) pair is covered exactly once and no block touches a prototype
-row at or past num_valid, then replay dE and dP tile by tile, in the
-kernels' order, in float64 against the autograd of
-joint_segsort_stats_reference (rtol 1e-10: both sides are float64; only
+csrc/segsort_joint.cu's stats_tile_kernel and grad_tile_kernel cut the
+(pixel, prototype) pairs into tiles: stats and dE blocks own 128 pixels
+and walk the valid prototypes in 64-row tiles (in the stats kernel lane t
+of a quad takes the tile's rows 8 nt + 2 t + e, and the quad adds its four
+sums in a fixed order); dP blocks own 128 valid prototypes and walk the
+pixels of their chunk in 64-row tiles, and reduce_tiles_kernel adds a
+prototype tile's chunks in chunk order.
+ops/segsort_loss.py mirrors that schedule (joint_stats_tiles,
+joint_grad_emb_tiles, grad_proto_tiles). These tests check that every
+(pixel, valid prototype) pair is covered exactly once and no block
+touches a prototype row at or past num_valid, then replay the statistics,
+dE and dP tile by tile, in the kernels' order, in float64 against the
+plain versions and their autograd (joint_segsort_stats_reference,
+set_segsort_stats_reference; rtol 1e-10: both sides are float64; only
 the order of the sums differs).
 """
 
@@ -58,13 +62,38 @@ def _coeff(c, kappa_a, kappa_o):
             + kappa_o * s_o * pick((own, same_o, diff_o), (3, 4, 5)))
 
 
-def _reference(c, kappa_a, kappa_o):
-    e = c["emb"].clone().requires_grad_(True)
-    p = c["protos"].clone().requires_grad_(True)
-    s = fused.joint_segsort_stats_reference(
+def _set_coeff(c, kappa):
+    """c[n, k] = kappa s g of the tag-set family (pair_coeff<SET>): own,
+    tag sets intersect, disjoint; zero at or past num_valid."""
+    own, live = fused._own_mask(c["own_idx"], c["protos"].shape[0],
+                                c["num_valid"])
+    same, diff = fused._tag_masks(c["pix_tags"], c["proto_tags"],
+                                  c["proto_valid"], live)
+    s = torch.exp(kappa * (c["emb"] @ c["protos"].T))
+    g = c["grads"]
+    return kappa * s * sum(torch.where(m, g[r][:, None], 0.0)
+                           for m, r in zip((own, same, diff), (0, 1, 2)))
+
+
+def _joint_stats(c, e, p, kappa_a, kappa_o):
+    return fused.joint_segsort_stats_reference(
         e, c["pix_lab"], c["own_idx"], c["pix_tags"], p, c["proto_lab"],
         c["proto_tags"], c["proto_valid"], c["num_valid"], kappa_a, kappa_o)
-    return torch.autograd.grad((s * c["grads"]).sum(), (e, p))
+
+
+def _set_stats(c, e, p, kappa):
+    return fused.set_segsort_stats_reference(
+        e, c["pix_tags"], c["own_idx"], p, c["proto_tags"], c["proto_valid"],
+        c["num_valid"], kappa)
+
+
+def _reference(c, stats, *kappas):
+    """(dE, dP) of sum(stats * grads) by autograd of a plain version."""
+    e = c["emb"].clone().requires_grad_(True)
+    p = c["protos"].clone().requires_grad_(True)
+    s = stats(c, e, p, *kappas)
+    g = c["grads"][:s.shape[0]]
+    return torch.autograd.grad((s * g).sum(), (e, p))
 
 
 def _tile_rows(rows, size):
@@ -72,11 +101,45 @@ def _tile_rows(rows, size):
     return len(rows) <= size and rows.start % size == 0
 
 
-@pytest.mark.parametrize("blocks", [None, 5], ids=["wrapper_grid",
-                                                   "five_blocks"])
-@pytest.mark.parametrize("nv", [0, 1, 70, N_PROTO],
-                         ids=["none_valid", "one_valid", "70_valid",
-                              "all_valid"])
+def _replay_dp(coeff, emb, nv, blocks):
+    """dP from the tiled dP kernel's schedule: one [OWN_ROWS, D] partial
+    per working block, then each row's chunks in chunk order; checks that
+    each (pixel, valid prototype) pair is covered once."""
+    (n, d), p = emb.shape, coeff.shape[1]
+    own_rows, stream_rows = fused.OWN_ROWS, fused.STREAM_ROWS
+    assert blocks >= -(-p // own_rows)
+    chunks, proto_blocks = fused.grad_proto_tiles(n, nv, blocks)
+    seen = torch.zeros(n, p, dtype=torch.int64)
+    partial = {}
+    for b, pro, ptiles in proto_blocks:
+        assert b < blocks and _tile_rows(pro, own_rows) and pro.stop <= nv
+        part = torch.zeros(own_rows, d, dtype=torch.float64)
+        for pix in ptiles:
+            assert _tile_rows(pix, stream_rows) and pix.stop <= n
+            seen[pix.start:pix.stop, pro.start:pro.stop] += 1
+            part[:len(pro)] += coeff[pix.start:pix.stop,
+                                     pro.start:pro.stop].T @ \
+                emb[pix.start:pix.stop]
+        partial[b] = part
+    assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
+    assert len(partial) == len(proto_blocks) == -(-nv // own_rows) * chunks
+    d_protos = torch.zeros(p, d, dtype=torch.float64)
+    for k in range(nv):
+        for c in range(chunks):
+            d_protos[k] += partial[(k // own_rows) * chunks + c][
+                k % own_rows]
+    return d_protos
+
+
+_NV = pytest.mark.parametrize("nv", [0, 1, 70, N_PROTO],
+                              ids=["none_valid", "one_valid", "70_valid",
+                                   "all_valid"])
+_BLOCKS = pytest.mark.parametrize("blocks", [None, 5],
+                                  ids=["wrapper_grid", "five_blocks"])
+
+
+@_BLOCKS
+@_NV
 @pytest.mark.parametrize("d,kappas", [(16, (6.0, 12.0)), (32, (6.0, 10.0)),
                                       (64, (6.0, 12.0))],
                          ids=["d16_square", "d32_two_exps", "d64_square"])
@@ -84,7 +147,7 @@ def test_tiles_cover_each_pair_once_and_replay_the_gradients(d, kappas, nv,
                                                              blocks):
     n, p = N_PIX, N_PROTO
     own_rows, stream_rows = fused.OWN_ROWS, fused.STREAM_ROWS
-    blocks = fused.joint_dp_blocks(p) if blocks is None else blocks
+    blocks = fused.dp_blocks(p) if blocks is None else blocks
     case = _case(n, p, nv, d, seed=d + nv)
     coeff = _coeff(case, *kappas)
     emb, protos = case["emb"], case["protos"]
@@ -107,33 +170,84 @@ def test_tiles_cover_each_pair_once_and_replay_the_gradients(d, kappas, nv,
         d_emb[pix.start:pix.stop] = acc
     assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
 
-    # dP: one [OWN_ROWS, D] partial per working block, then each row's
-    # chunks in chunk order
-    assert blocks >= -(-p // own_rows)
-    chunks, proto_blocks = fused.joint_grad_proto_tiles(n, nv, blocks)
-    seen.zero_()
-    partial = {}
-    for b, pro, ptiles in proto_blocks:
-        assert b < blocks and _tile_rows(pro, own_rows) and pro.stop <= nv
-        part = torch.zeros(own_rows, d, dtype=torch.float64)
-        for pix in ptiles:
-            assert _tile_rows(pix, stream_rows) and pix.stop <= n
-            seen[pix.start:pix.stop, pro.start:pro.stop] += 1
-            part[:len(pro)] += coeff[pix.start:pix.stop,
-                                     pro.start:pro.stop].T @ \
-                emb[pix.start:pix.stop]
-        partial[b] = part
-    assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
-    assert len(partial) == len(proto_blocks) == -(-nv // own_rows) * chunks
-    d_protos = torch.zeros(p, d, dtype=torch.float64)
-    for k in range(nv):
-        for c in range(chunks):
-            d_protos[k] += partial[(k // own_rows) * chunks + c][
-                k % own_rows]
+    d_protos = _replay_dp(coeff, emb, nv, blocks)
 
-    want_emb, want_protos = _reference(case, *kappas)
+    want_emb, want_protos = _reference(case, _joint_stats, *kappas)
     torch.testing.assert_close(d_emb, want_emb, rtol=1e-10, atol=1e-12)
     torch.testing.assert_close(d_protos, want_protos, rtol=1e-10, atol=1e-12)
+    assert (d_protos[nv:] == 0).all()
+
+
+@_NV
+@pytest.mark.parametrize("d,kappas", [(16, (6.0, 12.0)), (32, (6.0, 10.0)),
+                                      (64, (6.0, 12.0))],
+                         ids=["d16_square", "d32_two_exps", "d64_square"])
+def test_stats_tiles_cover_each_pair_once_and_replay_the_stats(d, kappas,
+                                                               nv):
+    """K1: each block's quads add their lanes' rows of each prototype tile
+    into per-tile partial sums, then running sums in loop order, then the
+    quad's four sums in quad_sum's order; rows past num_valid are never
+    read."""
+    n, p = N_PIX, N_PROTO
+    case = _case(n, p, nv, d, seed=d + nv + 1)
+    kappa_a, kappa_o = kappas
+    # the six masked similarity matrices, rows of the kernel's add_pair
+    own, same_a, diff_a, live = fused._label_masks(
+        case["pix_lab"], case["own_idx"], case["proto_lab"],
+        case["num_valid"])
+    same_o, diff_o = fused._tag_masks(case["pix_tags"], case["proto_tags"],
+                                      case["proto_valid"], live)
+    logits = case["emb"] @ case["protos"].T
+    s_a = torch.exp(kappa_a * logits)
+    s_o = s_a * s_a if kappa_o == 2 * kappa_a else torch.exp(
+        kappa_o * logits)
+    terms = torch.stack([torch.where(m, s, 0.0) for m, s in (
+        (own, s_a), (same_a, s_a), (diff_a, s_a), (own, s_o),
+        (same_o, s_o), (diff_o, s_o))])  # [6, N, P]
+
+    seen = torch.zeros(n, p, dtype=torch.int64)
+    stats = torch.full((6, n), float("nan"), dtype=torch.float64)
+    blocks = fused.joint_stats_tiles(n, nv)
+    assert len(blocks) == -(-n // fused.OWN_ROWS)
+    for pix, ptiles in blocks:
+        assert _tile_rows(pix, fused.OWN_ROWS) and pix.stop <= n
+        lanes = [torch.zeros(6, len(pix), dtype=torch.float64)
+                 for _ in range(4)]
+        for tile_lanes in ptiles:
+            assert sorted(r for rows in tile_lanes for r in rows) == \
+                list(range(tile_lanes[0][0], tile_lanes[0][0] + sum(
+                    map(len, tile_lanes))))
+            for t, rows in enumerate(tile_lanes):
+                assert all(r < nv for r in rows)
+                part = torch.zeros(6, len(pix), dtype=torch.float64)
+                for r in rows:
+                    seen[pix.start:pix.stop, r] += 1
+                    part += terms[:, pix.start:pix.stop, r]
+                lanes[t] += part
+        assert torch.isnan(stats[:, pix.start:pix.stop]).all()
+        stats[:, pix.start:pix.stop] = fused.quad_sum(lanes)
+    assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
+
+    want = _joint_stats(case, case["emb"], case["protos"], *kappas)
+    torch.testing.assert_close(stats, want, rtol=1e-10, atol=0.0)
+    if nv == 0:
+        assert (stats == 0).all()
+
+
+@_BLOCKS
+@_NV
+@pytest.mark.parametrize("d,kappa", [(16, 8.0), (32, 8.0), (64, 8.0)],
+                         ids=["d16", "d32", "d64"])
+def test_set_dp_tiles_replay_the_gradient(d, kappa, nv, blocks):
+    """K9, the tag-set dP, on the same tiled dP kernel as K3: the replay
+    of its schedule against the autograd of set_segsort_stats_reference."""
+    n, p = N_PIX, N_PROTO
+    blocks = fused.dp_blocks(p) if blocks is None else blocks
+    case = _case(n, p, nv, d, seed=d + nv + 2)
+    case["grads"] = case["grads"][:3]
+    d_protos = _replay_dp(_set_coeff(case, kappa), case["emb"], nv, blocks)
+    _, want = _reference(case, _set_stats, kappa)
+    torch.testing.assert_close(d_protos, want, rtol=1e-10, atol=1e-12)
     assert (d_protos[nv:] == 0).all()
 
 
@@ -142,9 +256,9 @@ def test_flagship_split():
     the 264 blocks of the dP grid become 10 prototype tiles x 26 chunks
     of 78 or 79 pixel tiles: 260 blocks at work, a 8.65 MB scratch."""
     n, p, nv = 131072, 6144, 1195
-    blocks = fused.joint_dp_blocks(p)
+    blocks = fused.dp_blocks(p)
     assert blocks == 264
-    chunks, work = fused.joint_grad_proto_tiles(n, nv, blocks)
+    chunks, work = fused.grad_proto_tiles(n, nv, blocks)
     assert chunks == 26 and len(work) == 10 * 26
     assert {len(ptiles) for _, _, ptiles in work} == {78, 79}
     assert sum(len(ptiles) for _, _, ptiles in work) == \
@@ -152,5 +266,18 @@ def test_flagship_split():
     assert blocks * fused.OWN_ROWS * 64 * 4 == 8650752
     # a grid smaller than the prototype tiles is refused by the C side;
     # the wrapper's grid is never that small
-    assert fused.joint_dp_blocks(100 * fused.OWN_ROWS) == 264
-    assert fused.joint_dp_blocks(300 * fused.OWN_ROWS + 1) == 301
+    assert fused.dp_blocks(100 * fused.OWN_ROWS) == 264
+    assert fused.dp_blocks(300 * fused.OWN_ROWS + 1) == 301
+
+
+def test_tag_step_split():
+    """At the tag step's shapes (N = 65536, P = 3072, ~620 valid rows)
+    K9's 264 blocks become 5 prototype tiles x 52 chunks of 19 or 20
+    pixel tiles, over the same 8.65 MB scratch as the flagship's dP
+    (the per-row kernel's was [32, 3072, 64], 25.2 MB)."""
+    n, p, nv = 65536, 3072, 620
+    blocks = fused.dp_blocks(p)
+    chunks, work = fused.grad_proto_tiles(n, nv, blocks)
+    assert chunks == 52 and len(work) == 5 * 52
+    assert {len(ptiles) for _, _, ptiles in work} == {19, 20}
+    assert blocks * fused.OWN_ROWS * 64 * 4 == 8650752
