@@ -16,18 +16,21 @@ Phases, each printing one line or more:
     (stats_tile_kernel, grad_tile_kernel) fails the run;
  3. kernels: each SegSort kernel family through its autograd.Function
     against the plain version, computed in float64 on the same float32
-    values (plain version over row chunks). The tiled kernels (K1-K3,
-    K9): a block of 128 threads owns 128 rows and walks 64-row tiles of
-    the other side, the products on the tensor cores in split TF32; the
-    dP grid of 264 blocks is split on the card into valid prototype tiles
-    x pixel chunks. The others take one thread per row, float32 FMAs.
+    values (plain version over row chunks). The tiled kernels (K1-K3, K6,
+    K8, K9): a block of 128 threads owns 128 rows and walks 64-row tiles
+    of the other side, the products on the tensor cores in split TF32;
+    the dP grid of 264 blocks is split on the card into valid prototype
+    tiles x pixel chunks. The others (K4, K5, K7) take one thread per
+    row, float32 FMAs.
     - joint, K1 (stats), K2 (dE), K3 (dP): at N = 16384 / P = 2048,
       D = 64 (full and ~20% fill, N not a multiple of the tile, all
       prototypes invalid, one valid, both kappa branches) and D = 32 (~20%
       fill), and at the flagship N = 131072 / P = 6144, D = 64;
     - hard labels, K4 (stats), K5 (dE), K6 (dP): at N = 16384 / P = 2048,
-      D = 32 (full and ~20% fill, ragged N, all invalid) and D = 64, and at
-      the DensePose N = 65536 / P = 2048, D = 32, ~15% fill;
+      D = 32 (full and ~20% fill, ragged N, all invalid, one valid) and
+      D = 64, and at the DensePose N = 65536 / P = 2048, D = 32, ~15% fill
+      and 139 valid rows, the path's own (K6's second prototype tile: 11
+      live rows, three warps skipping);
     - tag sets, K7 (stats), K8 (dE), K9 (dP): at N = 16384 / P = 2048,
       D = 64 (full and ~20% fill, ragged N, all invalid, one valid: one
       live prototype tile over 264 pixel chunks) and D = 32, and at
@@ -45,8 +48,9 @@ Phases, each printing one line or more:
     timed steps, every loss finite, segments formed, each of its kernels
     launched once per step and the other families' not at all; then each
     kernel timed at the path's own inputs beside the plain version and its
-    bound (the tiled kernels K1-K3 and K9: at the split-TF32 rate their
-    products use, with the float32 bound beside it as bound_f32_ms):
+    bound (the tiled kernels K1-K3, K6, K8 and K9: at the split-TF32 rate
+    their products use, with the float32 bound beside it as
+    bound_f32_ms):
     - flagship (panoptic_deeplab_101, crop 512, batch 8, 6x6 k-means x10,
       capacity 256, memory bank 2, sem_ann + sem_occ + img_sim with the
       fused joint loss, bf16 convolutions) on blobby synthetic labels:
@@ -113,7 +117,7 @@ KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
 }
 # kernels whose D-long products run on the tensor cores in split TF32
 TENSOR_CORE = ("joint_stats", "joint_grad_emb", "joint_grad_proto",
-               "set_grad_proto")
+               "hard_grad_proto", "set_grad_emb", "set_grad_proto")
 # the tiled SegSort kernels: a spill in any of them fails the build phase
 TILED_KERNELS = ("stats_tile_kernel", "grad_tile_kernel")
 CONV_KERNEL = ("dilated_conv3x3_bf16", f"{PROBE}:31",
@@ -325,8 +329,11 @@ def check_kernels(torch, fused):
             ("mid 20% fill", (mid, 2048, 0.2, 12, 32), (6.0,)),
             ("mid ragged N", (mid - 1, 2048, 0.2, 13, 32), (6.0,)),
             ("mid all invalid", (mid, 2048, 0.0, 14, 32), (6.0,)),
+            ("mid one valid", (mid, 2048, 1 / 2048, 17, 32), (6.0,)),
             ("mid 20% fill", (mid, 2048, 0.2, 15, 64), (6.0,)),
-            ("DensePose 15% fill", (65536, 2048, 0.15, 16, 32), (6.0,))],
+            ("DensePose 15% fill", (65536, 2048, 0.15, 16, 32), (6.0,)),
+            ("DensePose 139 valid", (65536, 2048, 139 / 2048, 18, 32),
+             (6.0,))],
         "set": [
             ("mid full fill", (mid, 2048, 1.0, 21, 64), (8.0,)),
             ("mid 20% fill", (mid, 2048, 0.2, 22, 64), (8.0,)),

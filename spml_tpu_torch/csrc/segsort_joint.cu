@@ -48,35 +48,32 @@
 // products at 495 TFLOP/s, float32 sums).
 //
 // Design. The [N, P] similarity matrix never reaches device memory.
-//   Per-row kernels, one thread per row: the stats of HARD and SET (K4,
-//     K7), their dE (K5, K8) and HARD's dP (K6).
-//     stats, dE: a thread keeps E[n] (and, for dE, dE[n]) in registers;
-//     the block stages tiles of TP prototypes, labels and tag bits in
-//     shared memory, read as warp-wide broadcasts. The loop stops at
-//     num_valid, read from device memory, so the host never waits for it.
-//     The stats kernel sums each tile into its own partials before adding
-//     them to the running sums (two-level summation keeps the 6144-term
-//     sums accurate to ~1e-6). dP: a thread keeps P[k] and dP[k] in
-//     registers; blocks also split the pixels into chunks (`chunk` rows,
-//     2048 from the wrapper), so that a few hundred prototypes still fill
-//     the 132 SMs. These kernels take each logit in dot_row's order, so
-//     K4-K6 agree on each logit bit for bit.
-//   Tiled kernels: JOINT's stats, dE and dP (K1, K2, K3: stats_tile_kernel,
-//     grad_tile_kernel) and SET's dP (K9: grad_tile_kernel). With float32
-//     FMAs a D-long product takes 2D FFMA a pair, and register tiles of
-//     4 x 4 and 8 x 8 alike ran at ~48% of the FFMA rate on an H100: the
-//     FP32 pipe issues the products and the ~40 exp, mask and select
-//     instructions of the middle. So the products go to the tensor cores,
-//     in split TF32: x = hi + lo (each TF32), a b = hi hi + hi lo + lo hi
-//     (three mma.sync m16n8k8, float32 sums), about 2^-21 of each product
-//     off, where plain TF32 (2^-11) would be amplified by exp(kappa l).
-//     The middle stays in float32. The splits are integer operations
-//     (cvt.rna.tf32 runs at a quarter of the rate), and the streamed tile
-//     is split once for all warps. A block of 128 threads owns OWN = 128
-//     rows of one side (pixels for stats and dE, valid prototypes for dP)
-//     and walks tiles of STR = 64 rows of the other, staged by cp.async
-//     into a double buffer (zero-filled past the count). Per tile a warp
-//     takes its 32 own rows: S = own . other^T (product 1).
+//   Per-row kernels, one thread per pixel: the stats of HARD and SET (K4,
+//     K7) and HARD's dE (K5). A thread keeps E[n] (and, for dE, dE[n]) in
+//     registers; the block stages tiles of TP prototypes, labels and tag
+//     bits in shared memory, read as warp-wide broadcasts. The loop stops
+//     at num_valid, read from device memory, so the host never waits for
+//     it. The stats kernel sums each tile into its own partials before
+//     adding them to the running sums (two-level summation keeps the
+//     6144-term sums accurate to ~1e-6). These kernels take each logit in
+//     dot_row's order, so K4 and K5 agree on each logit bit for bit.
+//   Tiled kernels: JOINT's stats (K1, stats_tile_kernel), the dE of JOINT
+//     and SET (K2, K8) and the dP of all three families (K3, K6, K9), all
+//     on grad_tile_kernel. With float32 FMAs a D-long product takes 2D FFMA
+//     a pair, and register tiles of 4 x 4 and 8 x 8 alike ran at ~48% of
+//     the FFMA rate on an H100: the FP32 pipe issues the products and the
+//     ~40 exp, mask and select instructions of the middle. So the products
+//     go to the tensor cores, in split TF32: x = hi + lo (each TF32), a b =
+//     hi hi + hi lo + lo hi (three mma.sync m16n8k8, float32 sums), about
+//     2^-21 of each product off, where plain TF32 (2^-11) would be
+//     amplified by exp(kappa l). The middle stays in float32. The splits
+//     are integer operations (cvt.rna.tf32 runs at a quarter of the rate),
+//     and the streamed tile is split once for all warps. A block of 128
+//     threads owns OWN = 128 rows of one side (pixels for stats and dE,
+//     valid prototypes for dP) and walks tiles of STR = 64 rows of the
+//     other, staged by cp.async into a double buffer (zero-filled past the
+//     count). Per tile a warp takes its 32 own rows: S = own . other^T
+//     (product 1).
 //     stats: the masked similarities are added to per-tile partial sums
 //     in registers, then to running sums (two-level summation, as above);
 //     at the end the four lanes of a row add their sums in a fixed order.
@@ -90,22 +87,23 @@
 //     across all tiles; c never leaves the registers (see the kernel). A
 //     warp whose own rows lie past the count skips the products. mma.sync's
 //     rate bounds the products; the float32 middle adds to that rather
-//     than hiding under it (two blocks, eight warps, a SM). K2 and K3
-//     take each logit through tile_logits and agree on it bit for bit;
-//     K1's logits (stats_logits) are closer to float32's and differ from
-//     theirs by up to ~1e-6, as K9's differ from K7's and K8's (per-row,
-//     float32 FMAs). Stats and dE are written once, in a fixed order. dP:
-//     the grid (`blocks` >= ceil(P / OWN), 264 from the wrapper: 2 a SM)
-//     is split on the device, from num_valid, into ceil(num_valid / OWN)
-//     prototype tiles times blocks / tiles pixel chunks of equal length,
-//     so the live tiles fill the card whatever the fill; each block writes
-//     an [OWN, D] partial and reduce_tiles_kernel adds a tile's chunks in
-//     chunk order. ops/segsort_loss.py mirrors this schedule
-//     (joint_stats_tiles, joint_grad_emb_tiles, grad_proto_tiles) for the
-//     CPU tests.
+//     than hiding under it (two blocks, eight warps, a SM). The dE and dP
+//     of a family take each logit through tile_logits and agree on it bit
+//     for bit (K2 and K3, K8 and K9); K1's logits (stats_logits) are closer
+//     to float32's and differ from theirs by up to ~1e-6, and so do the
+//     per-row kernels' (float32 FMAs): K7's from K8's and K9's, K4's and
+//     K5's from K6's. Stats and dE are written once, in a fixed order. dP:
+//     the grid (`blocks` >= ceil(P / OWN), 264 from the wrapper: 2 a SM) is
+//     split on the device, from num_valid, into ceil(num_valid / OWN)
+//     prototype tiles times blocks / tiles pixel chunks of equal length, so
+//     the live tiles fill the card whatever the fill; each block writes an
+//     [OWN, D] partial and reduce_tiles_kernel adds a tile's chunks in
+//     chunk order.
+//     ops/segsort_loss.py mirrors this schedule (joint_stats_tiles,
+//     grad_emb_tiles, grad_proto_tiles) for the CPU tests.
 //   No dP uses float atomics: the result does not depend on the run.
-// Left for later: the tiled kernels for the rest of HARD and SET, skipping
-// pixels whose cotangents are all zero.
+// Left for later: the tiled forms of K4, K5 and K7, skipping pixels whose
+// cotangents are all zero.
 
 #include <cuda_runtime.h>
 
@@ -119,9 +117,8 @@ __host__ __device__ constexpr int n_stats(int family) {
   return family == JOINT ? 6 : 3;
 }
 
-constexpr int THREADS = 128;  // pixels (stats, dE) or prototypes (dP) a block
-constexpr int TP = 64;        // prototypes per shared tile (stats, dE)
-constexpr int TN = 64;        // pixels per shared tile (dP)
+constexpr int THREADS = 128;  // pixels a block (per-row kernels)
+constexpr int TP = 64;        // prototypes per shared tile (per-row kernels)
 constexpr int REDUCE_THREADS = 256;
 
 // Four independent FMA chains (lanes d mod 4), added pairwise at the end:
@@ -374,109 +371,8 @@ __global__ void __launch_bounds__(THREADS) grad_emb_kernel(
   }
 }
 
-// grid (ceil(P / THREADS), n_chunks): partial[c][k] = sum over the pixels
-// [c * chunk, (c + 1) * chunk) of c[n, k] E[n].
-template <int D, int F>
-__global__ void __launch_bounds__(THREADS) grad_proto_kernel(
-    const float* __restrict__ emb, const int* __restrict__ pix_lab,
-    const int* __restrict__ own, const int* __restrict__ pix_tag,
-    const float* __restrict__ protos, const int* __restrict__ proto_lab,
-    const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
-    const int* __restrict__ num_valid, int n, int p, float kappa_a,
-    float kappa_o, int square, const float* __restrict__ grads, int chunk,
-    float* __restrict__ partial) {
-  constexpr int NS = n_stats(F);
-  __shared__ __align__(16) float se[TN * D];
-  __shared__ int slab[TN], sown[TN], stag[TN];
-  __shared__ float sg[NS][TN];
-  const int nv = min(*num_valid, p);
-  const int k0 = blockIdx.x * THREADS;
-  if (k0 >= nv) return;  // uniform over the block
-  const int k = k0 + threadIdx.x;
-  const bool live = k < nv;
-  float pr[D], acc[D];
-  int plab = -1, ptag = 0, pval = 0;
-  if (live) {
-    load_row<D>(pr, protos + (size_t)k * D);
-    if constexpr (F != SET) plab = proto_lab[k];
-    if constexpr (F != HARD) {
-      ptag = proto_tag[k];
-      pval = proto_valid[k];
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) pr[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  const int c0 = blockIdx.y * chunk;
-  const int c1 = min(c0 + chunk, n);
-  for (int t0 = c0; t0 < c1; t0 += TN) {
-    const int cnt = min(TN, c1 - t0);
-    __syncthreads();
-    const float4* src = reinterpret_cast<const float4*>(emb + (size_t)t0 * D);
-    float4* dst = reinterpret_cast<float4*>(se);
-    for (int i = threadIdx.x; i < cnt * D / 4; i += THREADS) dst[i] = src[i];
-    for (int i = threadIdx.x; i < cnt; i += THREADS) {
-      if constexpr (F == SET) {
-        slab[i] = -1;
-      } else {
-        slab[i] = pix_lab[t0 + i];
-      }
-      sown[i] = own[t0 + i];
-      stag[i] = F != HARD ? pix_tag[t0 + i] : 0;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) sg[s][i] = grads[(size_t)s * n + t0 + i];
-    }
-    __syncthreads();
-    for (int i = 0; i < cnt; ++i) {
-      const float* ei = se + i * D;
-      float sa, so;
-      sims<F>(dot_row<D>(pr, ei), kappa_a, kappa_o, square, sa, so);
-      const PairMasks m = pair_masks(k, sown[i], slab[i], stag[i], plab,
-                                     ptag, pval);
-      float gi[NS];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) gi[s] = sg[s][i];
-      const float c = pair_coeff<F>(m, gi, sa, so, kappa_a, kappa_o);
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(ei + d);
-        acc[d] = fmaf(c, v.x, acc[d]);
-        acc[d + 1] = fmaf(c, v.y, acc[d + 1]);
-        acc[d + 2] = fmaf(c, v.z, acc[d + 2]);
-        acc[d + 3] = fmaf(c, v.w, acc[d + 3]);
-      }
-    }
-  }
-  if (live) {
-    float4* dst = reinterpret_cast<float4*>(
-        partial + ((size_t)blockIdx.y * p + k) * D);
-#pragma unroll
-    for (int d = 0; d < D; d += 4)
-      dst[d / 4] = make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
-  }
-}
-
-// d_protos[k][d] = sum over chunks, in chunk order, for k < num_valid;
-// 0 past it.
-__global__ void reduce_chunks_kernel(const float* __restrict__ partial,
-                                     const int* __restrict__ num_valid,
-                                     int p, int d, int n_chunks,
-                                     float* __restrict__ d_protos) {
-  const size_t idx = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
-  const size_t total = (size_t)p * d;
-  if (idx >= total) return;
-  const int nv = min(*num_valid, p);
-  float s = 0.f;
-  if ((int)(idx / d) < nv) {
-    for (int c = 0; c < n_chunks; ++c) s += partial[(size_t)c * total + idx];
-  }
-  d_protos[idx] = s;
-}
-
 // ---------------------------------------------------------------------------
-// Tiled kernels: stats (K1), dE (K2), dP (K3, K9)
+// Tiled kernels: stats (K1), dE (K2, K8), dP (K3, K6, K9)
 // ---------------------------------------------------------------------------
 
 constexpr int OWN = 128;           // own rows of a block
@@ -1217,29 +1113,6 @@ struct LaunchGradEmb {
   }
 };
 
-template <int D, int F>
-struct LaunchGradProto {
-  static void run(const float* emb, const int* pix_lab, const int* own,
-                  const int* pix_tag, const float* protos,
-                  const int* proto_lab, const int* proto_tag,
-                  const int* proto_valid, const int* num_valid, int n, int p,
-                  float kappa_a, float kappa_o, int square,
-                  const float* grads, int chunk, float* partial,
-                  int n_chunks, float* d_protos, cudaStream_t stream) {
-    if (n_chunks > 0) {
-      const dim3 grid((p + THREADS - 1) / THREADS, n_chunks);
-      grad_proto_kernel<D, F><<<grid, THREADS, 0, stream>>>(
-          emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
-          proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
-          chunk, partial);
-    }
-    const size_t total = (size_t)p * D;
-    const int blocks = (int)((total + REDUCE_THREADS - 1) / REDUCE_THREADS);
-    reduce_chunks_kernel<<<blocks, REDUCE_THREADS, 0, stream>>>(
-        partial, num_valid, p, D, n_chunks, d_protos);
-  }
-};
-
 template <int D, int F, bool DP>
 void launch_grad_tile(int blocks, const float* emb, const int* pix_lab,
                       const int* own, const int* pix_tag,
@@ -1369,18 +1242,20 @@ int segsort_hard_grad_emb(const float* emb, const int* pix_lab,
       0, grads, d_emb, (cudaStream_t)stream);
 }
 
-// partial: scratch [n_chunks, p, d], n_chunks = ceil(n / chunk).
+// partial: scratch [blocks, 128, d], blocks >= ceil(p / 128), as for
+// segsort_joint_grad_proto.
 int segsort_hard_grad_proto(const float* emb, const int* pix_lab,
                             const int* own, const float* protos,
                             const int* proto_lab, const int* num_valid,
                             int n, int p, int d, float kappa,
-                            const float* grads, int chunk, float* partial,
-                            int n_chunks, float* d_protos, void* stream) {
+                            const float* grads, float* partial, int blocks,
+                            float* d_protos, void* stream) {
   if (p == 0) return 0;
-  return dispatch_d<HARD, LaunchGradProto>(
+  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
+  return dispatch_d<HARD, LaunchGradProtoTiled>(
       d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
       (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
-      0, grads, chunk, partial, n_chunks, d_protos, (cudaStream_t)stream);
+      0, grads, partial, blocks, d_protos, (cudaStream_t)stream);
 }
 
 // out: [3, n] rows own, same, diff (tag sets intersect / are disjoint) at
@@ -1404,7 +1279,7 @@ int segsort_set_grad_emb(const float* emb, const int* pix_tag,
                          float kappa, const float* grads, float* d_emb,
                          void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<SET, LaunchGradEmb>(
+  return dispatch_d<SET, LaunchGradEmbTiled>(
       d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
       proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads, d_emb,
       (cudaStream_t)stream);

@@ -44,10 +44,10 @@ SIGNATURES = {
         "segsort_hard_stats": [P] * 6 + [I, I, I, F, P, P],
         # ... the same 10 + grads [3, N], d_emb [N, D], stream
         "segsort_hard_grad_emb": [P] * 6 + [I, I, I, F, P, P, P],
-        # ... the same 10 + grads [3, N], chunk, partial [C, P, D],
-        # n_chunks, d_protos [P, D], stream
+        # ... the same 10 + grads [3, N], partial [blocks, 128, D],
+        # blocks, d_protos [P, D], stream
         "segsort_hard_grad_proto":
-            [P] * 6 + [I, I, I, F, P, I, P, I, P, P],
+            [P] * 6 + [I, I, I, F, P, P, I, P, P],
         # emb, pix_tag, own, protos, proto_tag, proto_valid, num_valid, n,
         # p, d, kappa, out [3, N], stream
         "segsort_set_stats": [P] * 7 + [I, I, I, F, P, P],

@@ -40,16 +40,13 @@ from spml_tpu_torch.ops import _cuda
 
 KERNEL_SOURCE = "segsort_joint"
 SUPPORTED_DIMS = (16, 32, 64)
-CHUNK = 2048  # pixels per partial dP sum of the HARD dP kernel
-# the tiled kernels (JOINT stats, dE and dP; SET dP): a block owns
-# OWN_ROWS rows of one side (pixels for stats and dE, valid prototypes for
-# dP) and walks STREAM_ROWS-row tiles of the other
+# the tiled kernels (JOINT stats; JOINT and SET dE; every family's dP): a
+# block owns OWN_ROWS rows of one side (pixels for stats and dE, valid
+# prototypes for dP) and walks STREAM_ROWS-row tiles of the other
 OWN_ROWS, STREAM_ROWS = 128, 64
 # grid of the tiled dP kernel: 2 blocks per SM of a 132-SM H100, split on
 # the device into valid prototype tiles x equal pixel chunks
 DP_BLOCKS = 264
-# families whose dP is the tiled kernel
-_TILED_DP = ("joint", "set")
 
 # family -> (statistics per pixel, position of the prototypes among the
 # kernel inputs, which are in the C functions' argument order)
@@ -234,20 +231,13 @@ def _launch_grad_emb(family, inputs, scalars, grads):
 
 
 def _launch_grad_proto(family, inputs, scalars, grads):
-    emb, protos = inputs[0], inputs[_FAMILIES[family][1]]
+    protos = inputs[_FAMILIES[family][1]]
     d_protos = torch.empty_like(protos)
-    if family in _TILED_DP:
-        blocks = dp_blocks(protos.shape[0])
-        partial = torch.empty((blocks, OWN_ROWS, protos.shape[1]),
-                              dtype=torch.float32, device=emb.device)
-        _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(),
-                partial.data_ptr(), blocks, d_protos.data_ptr())
-        return d_protos
-    n_chunks = -(-emb.shape[0] // CHUNK)
-    partial = torch.empty((n_chunks, *protos.shape), dtype=torch.float32,
-                          device=emb.device)
-    _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(), CHUNK,
-            partial.data_ptr(), n_chunks, d_protos.data_ptr())
+    blocks = dp_blocks(protos.shape[0])
+    partial = torch.empty((blocks, OWN_ROWS, protos.shape[1]),
+                          dtype=torch.float32, device=protos.device)
+    _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(),
+            partial.data_ptr(), blocks, d_protos.data_ptr())
     return d_protos
 
 
@@ -270,9 +260,10 @@ def _tiles(start, stop, size, count):
             for t in range(start, min(stop, count), size)]
 
 
-def joint_grad_emb_tiles(n, num_valid):
-    """The dE kernel's blocks: [(pixel rows, [prototype rows of each
-    streamed tile, in loop order])], ranges cut at n and num_valid."""
+def grad_emb_tiles(n, num_valid):
+    """The tiled dE kernel's blocks (JOINT and SET): [(pixel rows,
+    [prototype rows of each streamed tile, in loop order])], ranges cut at
+    n and num_valid."""
     ptiles = _tiles(0, num_valid, STREAM_ROWS, num_valid)
     return [(own, ptiles) for own in _tiles(0, n, OWN_ROWS, n)]
 
@@ -298,7 +289,7 @@ def joint_stats_tiles(n, num_valid):
     tiles' partial sums (a lane's rows of the tile, in order) added in
     loop order."""
     return [(own, [quad_lane_rows(tile) for tile in ptiles])
-            for own, ptiles in joint_grad_emb_tiles(n, num_valid)]
+            for own, ptiles in grad_emb_tiles(n, num_valid)]
 
 
 def grad_proto_tiles(n, num_valid, blocks):

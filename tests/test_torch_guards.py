@@ -188,7 +188,9 @@ def test_cuda_tensor_calls_the_binding(monkeypatch):
 
 def test_hard_family_dispatch(monkeypatch):
     """segsort_stats: a CPU tensor takes the plain version and launches
-    nothing; a CUDA tensor calls K4, then K5 and K6 in backward."""
+    nothing; a CUDA tensor calls K4, then K5 and K6 in backward, K6 with
+    the tiled dP kernel's scratch [blocks, 128, D], blocks >= ceil(P /
+    128)."""
     lib = _FakeLib()
     monkeypatch.setattr(_cuda, "load", lambda name: lib)
     monkeypatch.setattr(_cuda, "stream_handle", lambda device: 0)
@@ -207,9 +209,25 @@ def test_hard_family_dispatch(monkeypatch):
     stats = fused.segsort_stats(emb, lab, own, protos, plab,
                                 torch.tensor([12]), 6.0)
     assert stats.shape == (3, 40)
+    allocated = {}  # data pointer -> shape of each tensor torch.empty made
+    empty = torch.empty
+
+    def recording_empty(*a, **k):
+        t = empty(*a, **k)
+        allocated[t.data_ptr()] = tuple(t.shape)
+        return t
+    monkeypatch.setattr(torch, "empty", recording_empty)
     stats.sum().backward()
+    monkeypatch.setattr(torch, "empty", empty)
     assert lib.calls == ["segsort_hard_stats", "segsort_hard_grad_emb",
                          "segsort_hard_grad_proto"]
+    # K6's arguments: ..., p, d, kappa, grads, partial, blocks, d_protos,
+    # stream
+    args = lib.args[-1]
+    p, d, partial, blocks = args[7], args[8], args[11], args[12]
+    assert (p, d) == tuple(protos.shape)
+    assert blocks == fused.dp_blocks(p) and blocks >= -(-p // 128)
+    assert allocated[partial] == (blocks, 128, d)
     assert fused.LAUNCHES == {"joint_stats": 0, "joint_grad_emb": 0,
                               "joint_grad_proto": 0, "hard_stats": 1,
                               "hard_grad_emb": 1, "hard_grad_proto": 1,

@@ -1,5 +1,6 @@
 """The schedule of the tiled SegSort kernels, replayed on the CPU: the
-JOINT stats, dE and dP (K1, K2, K3) and the tag-set dP (K9).
+JOINT stats, dE and dP (K1, K2, K3), the hard-label dP (K6) and the
+tag-set dE and dP (K8, K9).
 
 csrc/segsort_joint.cu's stats_tile_kernel and grad_tile_kernel cut the
 (pixel, prototype) pairs into tiles: stats and dE blocks own 128 pixels
@@ -9,13 +10,13 @@ sums in a fixed order); dP blocks own 128 valid prototypes and walk the
 pixels of their chunk in 64-row tiles, and reduce_tiles_kernel adds a
 prototype tile's chunks in chunk order.
 ops/segsort_loss.py mirrors that schedule (joint_stats_tiles,
-joint_grad_emb_tiles, grad_proto_tiles). These tests check that every
+grad_emb_tiles, grad_proto_tiles). These tests check that every
 (pixel, valid prototype) pair is covered exactly once and no block
 touches a prototype row at or past num_valid, then replay the statistics,
 dE and dP tile by tile, in the kernels' order, in float64 against the
 plain versions and their autograd (joint_segsort_stats_reference,
-set_segsort_stats_reference; rtol 1e-10: both sides are float64; only
-the order of the sums differs).
+segsort_stats_reference, set_segsort_stats_reference; rtol 1e-10: both
+sides are float64; only the order of the sums differs).
 """
 
 import numpy as np
@@ -75,10 +76,28 @@ def _set_coeff(c, kappa):
                            for m, r in zip((own, same, diff), (0, 1, 2)))
 
 
+def _hard_coeff(c, kappa):
+    """c[n, k] = kappa s g of the hard-label family (pair_coeff<HARD>):
+    own, same and different label (prototype label >= 0); zero at or past
+    num_valid."""
+    own, same, diff, _ = fused._label_masks(c["pix_lab"], c["own_idx"],
+                                            c["proto_lab"], c["num_valid"])
+    s = torch.exp(kappa * (c["emb"] @ c["protos"].T))
+    g = c["grads"]
+    return kappa * s * sum(torch.where(m, g[r][:, None], 0.0)
+                           for m, r in zip((own, same, diff), (0, 1, 2)))
+
+
 def _joint_stats(c, e, p, kappa_a, kappa_o):
     return fused.joint_segsort_stats_reference(
         e, c["pix_lab"], c["own_idx"], c["pix_tags"], p, c["proto_lab"],
         c["proto_tags"], c["proto_valid"], c["num_valid"], kappa_a, kappa_o)
+
+
+def _hard_stats(c, e, p, kappa):
+    return fused.segsort_stats_reference(
+        e, c["pix_lab"], c["own_idx"], p, c["proto_lab"], c["num_valid"],
+        kappa)
 
 
 def _set_stats(c, e, p, kappa):
@@ -99,6 +118,29 @@ def _reference(c, stats, *kappas):
 def _tile_rows(rows, size):
     """A tile: at most `size` rows, starting on a multiple of size."""
     return len(rows) <= size and rows.start % size == 0
+
+
+def _replay_de(coeff, protos, nv):
+    """dE from the tiled dE kernel's schedule: each block writes its own
+    pixel rows once, summing the prototype tiles in loop order; checks
+    that each (pixel, valid prototype) pair is covered once."""
+    n, (p, d) = coeff.shape[0], protos.shape
+    seen = torch.zeros(n, p, dtype=torch.int64)
+    d_emb = torch.full((n, d), float("nan"), dtype=torch.float64)
+    emb_tiles = fused.grad_emb_tiles(n, nv)
+    assert len(emb_tiles) == -(-n // fused.OWN_ROWS)
+    for pix, ptiles in emb_tiles:
+        assert _tile_rows(pix, fused.OWN_ROWS) and pix.stop <= n
+        acc = torch.zeros(len(pix), d, dtype=torch.float64)
+        for pro in ptiles:
+            assert _tile_rows(pro, fused.STREAM_ROWS) and pro.stop <= nv
+            seen[pix.start:pix.stop, pro.start:pro.stop] += 1
+            acc += coeff[pix.start:pix.stop, pro.start:pro.stop] @ \
+                protos[pro.start:pro.stop]
+        assert torch.isnan(d_emb[pix.start:pix.stop]).all()
+        d_emb[pix.start:pix.stop] = acc
+    assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
+    return d_emb
 
 
 def _replay_dp(coeff, emb, nv, blocks):
@@ -146,31 +188,11 @@ _BLOCKS = pytest.mark.parametrize("blocks", [None, 5],
 def test_tiles_cover_each_pair_once_and_replay_the_gradients(d, kappas, nv,
                                                              blocks):
     n, p = N_PIX, N_PROTO
-    own_rows, stream_rows = fused.OWN_ROWS, fused.STREAM_ROWS
     blocks = fused.dp_blocks(p) if blocks is None else blocks
     case = _case(n, p, nv, d, seed=d + nv)
     coeff = _coeff(case, *kappas)
-    emb, protos = case["emb"], case["protos"]
-
-    # dE: each block writes its own pixel rows once, summing the
-    # prototype tiles in loop order
-    seen = torch.zeros(n, p, dtype=torch.int64)
-    d_emb = torch.full((n, d), float("nan"), dtype=torch.float64)
-    emb_tiles = fused.joint_grad_emb_tiles(n, nv)
-    assert len(emb_tiles) == -(-n // own_rows)
-    for pix, ptiles in emb_tiles:
-        assert _tile_rows(pix, own_rows) and pix.stop <= n
-        acc = torch.zeros(len(pix), d, dtype=torch.float64)
-        for pro in ptiles:
-            assert _tile_rows(pro, stream_rows) and pro.stop <= nv
-            seen[pix.start:pix.stop, pro.start:pro.stop] += 1
-            acc += coeff[pix.start:pix.stop, pro.start:pro.stop] @ \
-                protos[pro.start:pro.stop]
-        assert torch.isnan(d_emb[pix.start:pix.stop]).all()
-        d_emb[pix.start:pix.stop] = acc
-    assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
-
-    d_protos = _replay_dp(coeff, emb, nv, blocks)
+    d_emb = _replay_de(coeff, case["protos"], nv)
+    d_protos = _replay_dp(coeff, case["emb"], nv, blocks)
 
     want_emb, want_protos = _reference(case, _joint_stats, *kappas)
     torch.testing.assert_close(d_emb, want_emb, rtol=1e-10, atol=1e-12)
@@ -251,6 +273,35 @@ def test_set_dp_tiles_replay_the_gradient(d, kappa, nv, blocks):
     assert (d_protos[nv:] == 0).all()
 
 
+@_BLOCKS
+@_NV
+@pytest.mark.parametrize("d", [16, 32, 64], ids=["d16", "d32", "d64"])
+def test_hard_dp_tiles_replay_the_gradient(d, nv, blocks):
+    """K6, the hard-label dP, on the tiled dP kernel: the replay of its
+    schedule against the autograd of segsort_stats_reference."""
+    n, p = N_PIX, N_PROTO
+    blocks = fused.dp_blocks(p) if blocks is None else blocks
+    case = _case(n, p, nv, d, seed=d + nv + 3)
+    case["grads"] = case["grads"][:3]
+    d_protos = _replay_dp(_hard_coeff(case, 6.0), case["emb"], nv, blocks)
+    _, want = _reference(case, _hard_stats, 6.0)
+    torch.testing.assert_close(d_protos, want, rtol=1e-10, atol=1e-12)
+    assert (d_protos[nv:] == 0).all()
+
+
+@_NV
+@pytest.mark.parametrize("d", [16, 32, 64], ids=["d16", "d32", "d64"])
+def test_set_de_tiles_replay_the_gradient(d, nv):
+    """K8, the tag-set dE, on the tiled dE kernel as K2: the replay of its
+    schedule against the autograd of set_segsort_stats_reference."""
+    n, p = N_PIX, N_PROTO
+    case = _case(n, p, nv, d, seed=d + nv + 4)
+    case["grads"] = case["grads"][:3]
+    d_emb = _replay_de(_set_coeff(case, 8.0), case["protos"], nv)
+    want, _ = _reference(case, _set_stats, 8.0)
+    torch.testing.assert_close(d_emb, want, rtol=1e-10, atol=1e-12)
+
+
 def test_flagship_split():
     """At the flagship's shapes (N = 131072, P = 6144, ~1195 valid rows)
     the 264 blocks of the dP grid become 10 prototype tiles x 26 chunks
@@ -281,3 +332,18 @@ def test_tag_step_split():
     assert chunks == 52 and len(work) == 5 * 52
     assert {len(ptiles) for _, _, ptiles in work} == {19, 20}
     assert blocks * fused.OWN_ROWS * 64 * 4 == 8650752
+
+
+def test_densepose_split():
+    """At the DensePose point shapes (N = 65536, P = 2048, D = 32, ~139
+    valid rows) K6's 264 blocks become 2 prototype tiles x 132 chunks of 7
+    or 8 pixel tiles, all at work; the second tile holds 11 live rows
+    (warp 0's), and the scratch is [264, 128, 32], 4.33 MB (the per-row
+    kernel's was [32, 2048, 32], 8.39 MB)."""
+    n, p, nv = 65536, 2048, 139
+    blocks = fused.dp_blocks(p)
+    chunks, work = fused.grad_proto_tiles(n, nv, blocks)
+    assert chunks == 132 and len(work) == 2 * 132 == blocks
+    assert {len(ptiles) for _, _, ptiles in work} == {7, 8}
+    assert {own for _, own, _ in work} == {range(0, 128), range(128, 139)}
+    assert blocks * fused.OWN_ROWS * 32 * 4 == 4325376
