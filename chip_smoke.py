@@ -6,6 +6,11 @@ dilated-conv probe, report.
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --csrc OTHER/spml_tpu_torch/csrc
+
+The second form builds another checkout's kernel sources (say, a parent
+commit's; their C signatures must be this checkout's) and runs them
+under this script's checks and timings, for an A/B in one call.
 
 Phases, each printing one line or more:
  1. device: the card's name and power limit, torch and CUDA versions;
@@ -16,12 +21,19 @@ Phases, each printing one line or more:
     (stats_tile_kernel, grad_tile_kernel) fails the run;
  3. kernels: each SegSort kernel family through its autograd.Function
     against the plain version, computed in float64 on the same float32
-    values (plain version over row chunks). The tiled kernels (K1-K3, K6,
-    K8, K9): a block of 128 threads owns 128 rows and walks 64-row tiles
-    of the other side, the products on the tensor cores in split TF32;
-    the dP grid of 264 blocks is split on the card into valid prototype
-    tiles x pixel chunks. The others (K4, K5, K7) take one thread per
-    row, float32 FMAs.
+    values (plain version over row chunks). The tiled kernels (all but
+    K4): a block of 128 threads owns 128 rows and walks 64-row tiles of
+    the other side, the products on the tensor cores in split TF32; dE
+    skips the warps of 32 pixels none of which carries a nonzero
+    cotangent, and the blocks with no such warp; the dP grid of 264
+    blocks is split on the card into valid prototype tiles x pixel
+    chunks. K4 takes one thread per row, float32 FMAs. Cotangents are
+    randn on every row but in the cases that say otherwise: each family
+    also takes them on ~0.5% of the rows in short runs, on none (dE and
+    dP must then be exactly 0) and on the last row of a ragged N alone,
+    and the hard family at DensePose's 139 valid rows on 354 rows in runs,
+    the path's own sparsity; dE must be exactly 0 on every row without
+    one.
     - joint, K1 (stats), K2 (dE), K3 (dP): at N = 16384 / P = 2048,
       D = 64 (full and ~20% fill, N not a multiple of the tile, all
       prototypes invalid, one valid, both kappa branches) and D = 32 (~20%
@@ -48,9 +60,11 @@ Phases, each printing one line or more:
     timed steps, every loss finite, segments formed, each of its kernels
     launched once per step and the other families' not at all; then each
     kernel timed at the path's own inputs beside the plain version and its
-    bound (the tiled kernels K1-K3, K6, K8 and K9: at the split-TF32 rate
-    their products use, with the float32 bound beside it as
-    bound_f32_ms):
+    bound (the tiled kernels, all but K4: at the split-TF32 rate their
+    products use, with the float32 bound beside it as bound_f32_ms); dE
+    and dP on randn cotangents, and again on the cotangents the path's
+    last backward handed them (path_cotangent_ms, beside a bound that
+    counts only the pixels carrying a nonzero one):
     - flagship (panoptic_deeplab_101, crop 512, batch 8, 6x6 k-means x10,
       capacity 256, memory bank 2, sem_ann + sem_occ + img_sim with the
       fused joint loss, bf16 convolutions) on blobby synthetic labels:
@@ -87,6 +101,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -117,7 +132,8 @@ KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
 }
 # kernels whose D-long products run on the tensor cores in split TF32
 TENSOR_CORE = ("joint_stats", "joint_grad_emb", "joint_grad_proto",
-               "hard_grad_proto", "set_grad_emb", "set_grad_proto")
+               "hard_grad_emb", "hard_grad_proto", "set_stats",
+               "set_grad_emb", "set_grad_proto")
 # the tiled SegSort kernels: a spill in any of them fails the build phase
 TILED_KERNELS = ("stats_tile_kernel", "grad_tile_kernel")
 CONV_KERNEL = ("dilated_conv3x3_bf16", f"{PROBE}:31",
@@ -277,10 +293,40 @@ def kernel_outputs(torch, fused, family, case, grads, kappas):
     return s.detach(), e.grad, p.grad
 
 
-def check_case(torch, fused, family, label, case, kappas, seed):
+def carrying_rows(n, kind, seed):
+    """[N] bool, the rows given a nonzero cotangent: every row ("randn");
+    short runs of 1 to 3 rows at random starts over ~0.5% of the rows
+    ("runs"), or over 354 rows ("densepose"), as the DensePose step's
+    labelled points fall; none ("zero"); the last row alone ("last")."""
+    rows = np.zeros(n, bool)
+    if kind == "randn":
+        rows[:] = True
+    elif kind == "last":
+        rows[-1] = True
+    elif kind in ("runs", "densepose"):
+        want = 354 if kind == "densepose" else round(0.005 * n)
+        rng = np.random.RandomState(seed)
+        while rows.sum() < want:
+            start = rng.randint(0, n)
+            rows[start:start + min(rng.randint(1, 4), want - rows.sum())] \
+                = True
+    elif kind != "zero":
+        raise ValueError(kind)
+    return rows
+
+
+def check_case(torch, fused, family, label, case, kappas, seed,
+               cotangents="randn"):
+    """The family's three kernels on one case, against the plain version;
+    the cotangents are randn on the rows of carrying_rows(cotangents), 0
+    on the others, whose dE rows must then be exactly 0 (dE and dP both
+    when no row carries one)."""
     n = case["emb"].shape[0]
     g = torch.randn(N_STATS[family], n, device=DEVICE,
                     generator=torch.Generator(DEVICE).manual_seed(seed))
+    carries = torch.as_tensor(carrying_rows(n, cotangents, seed),
+                              device=DEVICE)
+    g = torch.where(carries, g, 0.0)
     s, de, dp = kernel_outputs(torch, fused, family, case, g, kappas)
     rs, rde, rdp = reference64(torch, fused, family, case, g, kappas)
     errs, margins = {}, {}
@@ -299,9 +345,16 @@ def check_case(torch, fused, family, label, case, kappas, seed):
         # share of the tolerance used by the worst element (<= 1 passes)
         margins[name] = float((err / (abs_tol + rtol * ref.abs())
                                .clamp(min=1e-38)).max())
+    if not (de[~carries] == 0).all():
+        raise AssertionError(f"{label}: dE not exactly 0 on a row without a "
+                             "cotangent")
+    if not carries.any() and not (dp == 0).all():
+        raise AssertionError(f"{label}: dP not exactly 0 under zero "
+                             "cotangents")
     log("kernels", f"{family} {label}: N={n} P={case['protos'].shape[0]} "
         f"D={case['emb'].shape[1]} valid={int(case['num_valid'])} "
-        f"kappa={kappas} max_abs_err "
+        f"kappa={kappas} rows with a cotangent {int(carries.sum())} "
+        "max_abs_err "
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
         + " | tolerance used "
         + " ".join(f"{k}={v:.3f}" for k, v in margins.items()) + " ok")
@@ -309,8 +362,9 @@ def check_case(torch, fused, family, label, case, kappas, seed):
 
 
 def check_kernels(torch, fused):
-    """Both families' cases; returns {family: errors of its main-path
-    sized case (the last)}."""
+    """Every family's cases; returns {family: errors of its main-path
+    sized case on randn cotangents (the last)}. A fourth element names the
+    cotangents' rows (carrying_rows; randn on all by default)."""
     mid = 16384
     cases = {
         "joint": [
@@ -322,6 +376,12 @@ def check_kernels(torch, fused):
             ("mid one valid, two exps", (mid, 2048, 1 / 2048, 7, 64),
              (6.0, 10.0)),
             ("mid 20% fill", (mid, 2048, 0.2, 6, 32), (6.0, 12.0)),
+            ("mid 20% fill, 0.5% of rows in runs", (mid, 2048, 0.2, 8, 64),
+             (6.0, 12.0), "runs"),
+            ("mid 20% fill, zero cotangents", (mid, 2048, 0.2, 9, 64),
+             (6.0, 12.0), "zero"),
+            ("mid ragged N, last row only", (mid - 1, 2048, 0.2, 10, 64),
+             (6.0, 10.0), "last"),
             ("flagship 17% fill", (131072, 6144, 0.17, 5, 64),
              (6.0, 12.0))],
         "hard": [
@@ -332,6 +392,14 @@ def check_kernels(torch, fused):
             ("mid one valid", (mid, 2048, 1 / 2048, 17, 32), (6.0,)),
             ("mid 20% fill", (mid, 2048, 0.2, 15, 64), (6.0,)),
             ("DensePose 15% fill", (65536, 2048, 0.15, 16, 32), (6.0,)),
+            ("mid 20% fill, 0.5% of rows in runs", (mid, 2048, 0.2, 19, 32),
+             (6.0,), "runs"),
+            ("mid 20% fill, zero cotangents", (mid, 2048, 0.2, 20, 32),
+             (6.0,), "zero"),
+            ("mid ragged N, last row only", (mid - 1, 2048, 0.2, 28, 32),
+             (6.0,), "last"),
+            ("DensePose 139 valid, 354 rows in runs",
+             (65536, 2048, 139 / 2048, 29, 32), (6.0,), "densepose"),
             ("DensePose 139 valid", (65536, 2048, 139 / 2048, 18, 32),
              (6.0,))],
         "set": [
@@ -341,15 +409,22 @@ def check_kernels(torch, fused):
             ("mid all invalid", (mid, 2048, 0.0, 24, 64), (8.0,)),
             ("mid one valid", (mid, 2048, 1 / 2048, 27, 64), (8.0,)),
             ("mid 20% fill", (mid, 2048, 0.2, 25, 32), (8.0,)),
+            ("mid 20% fill, 0.5% of rows in runs", (mid, 2048, 0.2, 30, 64),
+             (8.0,), "runs"),
+            ("mid 20% fill, zero cotangents", (mid, 2048, 0.2, 31, 64),
+             (8.0,), "zero"),
+            ("mid ragged N, last row only", (mid - 1, 2048, 0.2, 32, 64),
+             (8.0,), "last"),
             ("tag step 20% fill", (65536, 3072, 0.2, 26, 64), (8.0,))],
     }
     errs = {}
     for family, family_cases in cases.items():
-        for label, (n, p, fill, seed, d), kappas in family_cases:
+        for label, (n, p, fill, seed, d), kappas, *cotangents in \
+                family_cases:
             case = make_case(torch, n, p, fill, seed, d=d,
                              sparse_tags=family == "set")
             errs[family] = check_case(torch, fused, family, label, case,
-                                      kappas, seed=seed)
+                                      kappas, seed, *cotangents)
     return errs
 
 
@@ -359,7 +434,8 @@ def check_kernels(torch, fused):
 
 def run_main_path(torch, fused, recipe):
     """3 warm-up and 10 timed steps of one recipe; returns (launch counts,
-    the last call's stats inputs)."""
+    the last call's stats inputs, the cotangent of its stats that the last
+    backward handed to the kernels)."""
     from spml_tpu_torch.train import recipes
     from spml_tpu_torch.train import step as step_lib
 
@@ -375,10 +451,15 @@ def run_main_path(torch, fused, recipe):
     stats_name = STATS_FN[family]
     orig_stats, orig_ll = getattr(fused, stats_name), fused._ll_from_stats
 
+    def keep_cotangent(g):
+        last["grads"] = g.detach().clone()
+
     def recording(*args):  # keeps the last call's inputs for the timings
         last["args"] = [a.detach() if torch.is_tensor(a) else a
                         for a in args]
-        return orig_stats(*args)
+        stats = orig_stats(*args)
+        stats.register_hook(keep_cotangent)
+        return stats
 
     def counting(own_s, same_s, diff_s, pixel_mask, reduction="mean"):
         masked.append(pixel_mask.sum())  # pixels in the loss, read later
@@ -427,52 +508,59 @@ def run_main_path(torch, fused, recipe):
     ms = start.elapsed_time(end) / 10
     cap = b * cfg.tpu.segment_capacity
     loss = losses["loss"]
+    carrying = int((last["grads"] != 0).any(0).sum())
     log(recipe, f"{steps} steps, loss {loss[0]:.4f} -> {loss[-1]:.4f} ("
         + ", ".join(f"{k} {v[-1]:.4f}" for k, v in losses.items()
                     if k != "loss")
         + f"), segments {nsegs[-1]}/{cap} ({nsegs[-1] / cap:.1%} of "
-        f"capacity), loss pixels {int(masked[-1])}, kernel valid count "
-        f"{int(last['args'][-1 - N_KAPPAS[family]])}, accuracy step 0 "
-        f"{float(metrics_log[0]['accuracy']):.4f}")
+        f"capacity), loss pixels {int(masked[-1])}, pixels with a nonzero "
+        f"stats cotangent {carrying} of {last['grads'].shape[1]}, kernel "
+        f"valid count {int(last['args'][-1 - N_KAPPAS[family]])}, accuracy "
+        f"step 0 {float(metrics_log[0]['accuracy']):.4f}")
     log(recipe, f"train step {ms:.2f} ms (CUDA events; host clock "
         f"{host_s * 100:.2f} ms), {b * 1000 / ms:.2f} imgs/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
         f"{launches}, card {nvidia_smi_line()}")
-    return launches, last["args"]
+    return launches, last["args"], last["grads"]
 
 
 # ---------------------------------------------------------------------------
 # Timings at the main paths' inputs
 # ---------------------------------------------------------------------------
 
-def bounds(family, n, p, nv, d):
+def bounds(family, n, p, nv, d, rows=None):
     """{kind: (bound_ms, bound_by, float32 bound ms)} of a family from this
     run's shapes: bytes each input read once and each output written once
     (prototype rows up to the valid count), operations per live (pixel,
     prototype) pair at the float32 peak; for the kernels whose products
     run on the tensor cores in split TF32 (TENSOR_CORE), the product flops
     a pair (2 D for the stats, 4 D for dE and dP) three times at the TF32
-    peak plus the rest at the float32 peak."""
-    pairs = n * nv
+    peak plus the rest at the float32 peak. rows: the pixels whose pairs
+    the gradients need, those with a nonzero cotangent (all N by
+    default); the gradients' pairs and pixel operands count only these,
+    their cotangents and outputs in full."""
+    rows = n if rows is None else rows
     ns = N_STATS[family]
     if family == "joint":  # rows carry label, own / tag, valid
-        pix_in, protos_in = n * (d * 4 + 3 * 4), nv * (d * 4 + 3 * 4)
+        pix_row, proto_row = d * 4 + 3 * 4, d * 4 + 3 * 4
         ops_stats, ops_grad = 2 * d + 10, 4 * d + 14  # 2 exps, 6 sums
     elif family == "set":  # rows carry tag bitword, own / bitword, valid
-        pix_in, protos_in = n * (d * 4 + 8), nv * (d * 4 + 8)
+        pix_row, proto_row = d * 4 + 8, d * 4 + 8
         ops_stats, ops_grad = 2 * d + 7, 4 * d + 9  # 1 exp, 3 sums, 1 AND
     else:  # rows carry label, own / label
-        pix_in, protos_in = n * (d * 4 + 8), nv * (d * 4 + 4)
+        pix_row, proto_row = d * 4 + 8, d * 4 + 4
         ops_stats, ops_grad = 2 * d + 6, 4 * d + 8
-    work = {  # bytes, operations a pair, product flops a pair
-        "stats": (pix_in + protos_in + ns * n * 4, ops_stats, 2 * d),
-        "grad_emb": (pix_in + ns * n * 4 + protos_in + n * d * 4, ops_grad,
-                     4 * d),
-        "grad_proto": (pix_in + ns * n * 4 + protos_in + p * d * 4,
-                       ops_grad, 4 * d),
+    protos_in, grads_in = nv * proto_row, ns * n * 4
+    work = {  # bytes, operations a pair, product flops a pair, pairs
+        "stats": (n * pix_row + protos_in + ns * n * 4, ops_stats, 2 * d,
+                  n * nv),
+        "grad_emb": (rows * pix_row + grads_in + protos_in + n * d * 4,
+                     ops_grad, 4 * d, rows * nv),
+        "grad_proto": (rows * pix_row + grads_in + protos_in + p * d * 4,
+                       ops_grad, 4 * d, rows * nv),
     }
     out = {}
-    for kind, (nbytes, ops, prod) in work.items():
+    for kind, (nbytes, ops, prod, pairs) in work.items():
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_f32 = pairs * ops / PEAK_F32_FLOPS * 1e3
         t_ops = t_f32
@@ -484,11 +572,14 @@ def bounds(family, n, p, nv, d):
     return out
 
 
-def time_kernels(torch, fused, family, args):
+def time_kernels(torch, fused, family, args, path_grads):
     """Each kernel of a family at a main path's last inputs (CUDA events,
     20 launches) beside the plain version (3 runs over row chunks) and
-    its bound; returns {counter: (ms, plain ms, (bound ms, by, float32
-    bound ms))}."""
+    its bound, dE and dP on randn cotangents and again on path_grads, the
+    cotangents the path's last backward handed them (its bound counting
+    only the rows that carry one); returns {counter: (ms, plain ms,
+    (bound ms, by, float32 bound ms), (path ms, path bound, rows) or
+    None)}."""
     from spml_tpu_torch.tools.dilated_conv_probe import cuda_ms
 
     ns, nk = N_STATS[family], N_KAPPAS[family]
@@ -505,16 +596,21 @@ def time_kernels(torch, fused, family, args):
     p = protos.shape[0]
     nv = int(inputs[-1])
     grads = torch.randn(ns, n, device=DEVICE)
+    path_grads = fused._kernel_operand(path_grads, f32)
+    carrying = int((path_grads != 0).any(0).sum())
+
+    def grad_ms(kind, g):
+        launch = getattr(fused, f"_launch_{kind}")
+        return cuda_ms(lambda: launch(family, inputs, scalars, g), 20)
+
     kernel_ms = {
         "stats": cuda_ms(
             lambda: fused._launch_stats(family, inputs, scalars), 20),
-        "grad_emb": cuda_ms(
-            lambda: fused._launch_grad_emb(family, inputs, scalars, grads),
-            20),
-        "grad_proto": cuda_ms(
-            lambda: fused._launch_grad_proto(family, inputs, scalars, grads),
-            20),
+        "grad_emb": grad_ms("grad_emb", grads),
+        "grad_proto": grad_ms("grad_proto", grads),
     }
+    path_ms = {kind: grad_ms(kind, path_grads)
+               for kind in ("grad_emb", "grad_proto")}
 
     rows = 32768  # the plain version over row chunks (it is [N, P] dense)
     plain_fn = stats_fns(fused, family)[1]
@@ -533,14 +629,21 @@ def time_kernels(torch, fused, family, args):
     plain_ms = {kind: cuda_ms(lambda: plain(kind), 3)
                 for kind in KINDS}
     bnd = bounds(family, n, p, nv, d)
+    path_bnd = bounds(family, n, p, nv, d, carrying)
     out = {}
     for kind in KINDS:
         key = f"{family}_{kind}"
-        out[key] = (kernel_ms[kind], plain_ms[kind], bnd[kind])
+        path = None
+        if kind in path_ms:
+            path = (path_ms[kind], path_bnd[kind], carrying)
+        out[key] = (kernel_ms[kind], plain_ms[kind], bnd[kind], path)
         log("timing", f"{KERNELS[key][0]}: N={n} P={p} valid={nv} D={d} "
             f"kernel {kernel_ms[kind]:.4f} ms, plain {plain_ms[kind]:.3f} "
             f"ms, bound {bnd[kind][0]:.4f} ms ({bnd[kind][1]}; float32 "
-            f"{bnd[kind][2]:.4f} ms)")
+            f"{bnd[kind][2]:.4f} ms)" + ("" if path is None else
+            f"; on the path's cotangents ({carrying} rows carry one) kernel "
+            f"{path[0]:.4f} ms, bound {path[1][0]:.4f} ms ({path[1][1]}; "
+            f"float32 {path[1][2]:.4f} ms)"))
     return out
 
 
@@ -627,7 +730,14 @@ def time_dilated_conv(torch, dc):
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", help="build the kernels from this directory "
+                    "in place of spml_tpu_torch/csrc")
+    opts = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -637,6 +747,9 @@ def main() -> int:
     from spml_tpu_torch.ops import _cuda, dilated_conv as dc
     from spml_tpu_torch.ops import segsort_loss as fused
 
+    if opts.csrc:
+        _cuda.CSRC = Path(opts.csrc).resolve()
+        log("build", f"kernel sources from {_cuda.CSRC}")
     smi = nvidia_smi_line()
     log("device", f"{smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
@@ -667,10 +780,11 @@ def main() -> int:
     conv_err = check_dilated_conv(torch, dc)
     launches, times = {}, {}
     for recipe, family in RECIPE_FAMILY.items():
-        path_launches, args = run_main_path(torch, fused, recipe)
+        path_launches, args, path_grads = run_main_path(torch, fused,
+                                                        recipe)
         launches.update({k: v for k, v in path_launches.items()
                          if k.startswith(family)})
-        times.update(time_kernels(torch, fused, family, args))
+        times.update(time_kernels(torch, fused, family, args, path_grads))
     conv_launches = run_probe_path(torch, dc)
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
@@ -679,7 +793,7 @@ def main() -> int:
     table = []
     for key, (name, replaces) in KERNELS.items():
         family, kind = key.split("_", 1)
-        ms, plain_ms, (bound_ms, bound_by, f32_ms) = times[key]
+        ms, plain_ms, (bound_ms, bound_by, f32_ms), path = times[key]
         table.append({
             "name": name, "route": "cuda", "source": SEGSORT_SOURCE,
             "replaces": replaces, "launches": launches[key],
@@ -688,6 +802,12 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None})
         if key in TENSOR_CORE:  # the bound of the same work in float32
             table[-1]["bound_f32_ms"] = f32_ms
+        if path is not None:  # dE, dP on the path's own cotangents
+            path_ms, (path_bound, path_by, _), rows = path
+            table[-1].update({"path_cotangent_ms": path_ms,
+                              "path_cotangent_bound_ms": path_bound,
+                              "path_cotangent_bound_by": path_by,
+                              "path_cotangent_rows": rows})
     name, replaces, source = CONV_KERNEL
     table.append({
         "name": name, "route": "cuda", "source": source,

@@ -43,33 +43,32 @@
 // there the kernels are launch- and latency-bound, and the design keeps
 // them to one launch each (two for dP) with no host round trip. The
 // logits feed exp(kappa l), which amplifies TF32 or bf16 operand
-// rounding: the per-row kernels use float32 FMAs on the CUDA cores (67
+// rounding: the per-row kernel uses float32 FMAs on the CUDA cores (67
 // TFLOP/s); the tiled ones use split TF32 on the tensor cores (three TF32
 // products at 495 TFLOP/s, float32 sums).
 //
 // Design. The [N, P] similarity matrix never reaches device memory.
-//   Per-row kernels, one thread per pixel: the stats of HARD and SET (K4,
-//     K7) and HARD's dE (K5). A thread keeps E[n] (and, for dE, dE[n]) in
-//     registers; the block stages tiles of TP prototypes, labels and tag
-//     bits in shared memory, read as warp-wide broadcasts. The loop stops
-//     at num_valid, read from device memory, so the host never waits for
-//     it. The stats kernel sums each tile into its own partials before
-//     adding them to the running sums (two-level summation keeps the
-//     6144-term sums accurate to ~1e-6). These kernels take each logit in
-//     dot_row's order, so K4 and K5 agree on each logit bit for bit.
-//   Tiled kernels: JOINT's stats (K1, stats_tile_kernel), the dE of JOINT
-//     and SET (K2, K8) and the dP of all three families (K3, K6, K9), all
-//     on grad_tile_kernel. With float32 FMAs a D-long product takes 2D FFMA
-//     a pair, and register tiles of 4 x 4 and 8 x 8 alike ran at ~48% of
-//     the FFMA rate on an H100: the FP32 pipe issues the products and the
-//     ~40 exp, mask and select instructions of the middle. So the products
-//     go to the tensor cores, in split TF32: x = hi + lo (each TF32), a b =
-//     hi hi + hi lo + lo hi (three mma.sync m16n8k8, float32 sums), about
-//     2^-21 of each product off, where plain TF32 (2^-11) would be
-//     amplified by exp(kappa l). The middle stays in float32. The splits
-//     are integer operations (cvt.rna.tf32 runs at a quarter of the rate),
-//     and the streamed tile is split once for all warps. A block of 128
-//     threads owns OWN = 128 rows of one side (pixels for stats and dE,
+//   Per-row kernel, one thread per pixel: HARD's stats (K4). A thread keeps
+//     E[n] in registers; the block stages tiles of TP prototypes and labels
+//     in shared memory, read as warp-wide broadcasts. The loop stops at
+//     num_valid, read from device memory, so the host never waits for it.
+//     It sums each tile into its own partials before adding them to the
+//     running sums (two-level summation keeps the 6144-term sums accurate
+//     to ~1e-6), and takes each logit as four float32 FMA chains
+//     (dot_row).
+//   Tiled kernels: the stats of JOINT and SET (K1, K7, stats_tile_kernel),
+//     the dE of all three families (K2, K5, K8) and their dP (K3, K6, K9),
+//     all on grad_tile_kernel. With float32 FMAs a D-long product takes 2D
+//     FFMA a pair, and register tiles of 4 x 4 and 8 x 8 alike ran at ~48%
+//     of the FFMA rate on an H100: the FP32 pipe issues the products and
+//     the ~40 exp, mask and select instructions of the middle. So the
+//     products go to the tensor cores, in split TF32: x = hi + lo (each
+//     TF32), a b = hi hi + hi lo + lo hi (three mma.sync m16n8k8, float32
+//     sums), about 2^-21 of each product off, where plain TF32 (2^-11)
+//     would be amplified by exp(kappa l). The middle stays in float32. The
+//     splits are integer operations (cvt.rna.tf32 runs at a quarter of the
+//     rate), and the streamed tile is split once for all warps. A block of
+//     128 threads owns OWN = 128 rows of one side (pixels for stats and dE,
 //     valid prototypes for dP) and walks tiles of STR = 64 rows of the
 //     other, staged by cp.async into a double buffer (zero-filled past the
 //     count). Per tile a warp takes its 32 own rows: S = own . other^T
@@ -85,27 +84,33 @@
 //     dE, dP: c = kappa_a s_a g_a + kappa_o s_o g_o under the masks, in
 //     place, in registers; then acc += c . other (product 2), in registers
 //     across all tiles; c never leaves the registers (see the kernel). A
-//     warp whose own rows lie past the count skips the products. mma.sync's
-//     rate bounds the products; the float32 middle adds to that rather
-//     than hiding under it (two blocks, eight warps, a SM). The dE and dP
-//     of a family take each logit through tile_logits and agree on it bit
-//     for bit (K2 and K3, K8 and K9); K1's logits (stats_logits) are closer
-//     to float32's and differ from theirs by up to ~1e-6, and so do the
-//     per-row kernels' (float32 FMAs): K7's from K8's and K9's, K4's and
-//     K5's from K6's. Stats and dE are written once, in a fixed order. dP:
-//     the grid (`blocks` >= ceil(P / OWN), 264 from the wrapper: 2 a SM) is
-//     split on the device, from num_valid, into ceil(num_valid / OWN)
-//     prototype tiles times blocks / tiles pixel chunks of equal length, so
-//     the live tiles fill the card whatever the fill; each block writes an
-//     [OWN, D] partial and reduce_tiles_kernel adds a tile's chunks in
-//     chunk order.
-//     ops/segsort_loss.py mirrors this schedule (joint_stats_tiles,
+//     warp whose own rows lie past the count skips the products. dE also
+//     skips the pixels whose cotangents are all zero, where c is 0 on
+//     every pair: a warp none of whose rows carries a nonzero cotangent
+//     skips both products and writes +0 rows, and a block with no such
+//     warp stages nothing and walks no tile (the DensePose step puts ~0.5%
+//     of its pixels in the loss). mma.sync's rate bounds the products; the
+//     float32 middle adds to that rather than hiding under it (two blocks,
+//     eight warps, a SM). The dE and dP of a family take each logit through
+//     tile_logits and agree on it bit for bit (K2 and K3, K5 and K6, K8 and
+//     K9); the stats' logits (stats_logits) are closer to float32's and
+//     differ from theirs by up to ~1e-6 (K1's from K2's and K3's, K7's from
+//     K8's and K9's), and so do K4's (float32 FMAs) from K5's and K6's.
+//     Stats and dE are written once, in a fixed order. dP: the grid
+//     (`blocks` >= ceil(P / OWN), 264 from the wrapper: 2 a SM) is split
+//     on the device, from num_valid, into ceil(num_valid / OWN) prototype
+//     tiles times blocks / tiles pixel chunks of equal length, so the live
+//     tiles fill the card whatever the fill; each block writes an [OWN, D]
+//     partial and reduce_tiles_kernel adds a tile's chunks in chunk order.
+//     ops/segsort_loss.py mirrors this schedule (stats_tiles,
 //     grad_emb_tiles, grad_proto_tiles) for the CPU tests.
 //   No dP uses float atomics: the result does not depend on the run.
-// Left for later: the tiled forms of K4, K5 and K7, skipping pixels whose
-// cotangents are all zero.
+// Left for later: the tiled form of K4; the dP kernel skipping pixel tiles
+// whose cotangents are all zero.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -117,8 +122,8 @@ __host__ __device__ constexpr int n_stats(int family) {
   return family == JOINT ? 6 : 3;
 }
 
-constexpr int THREADS = 128;  // pixels a block (per-row kernels)
-constexpr int TP = 64;        // prototypes per shared tile (per-row kernels)
+constexpr int THREADS = 128;  // pixels a block (per-row kernel)
+constexpr int TP = 64;        // prototypes per shared tile (per-row kernel)
 constexpr int REDUCE_THREADS = 256;
 
 // Four independent FMA chains (lanes d mod 4), added pairwise at the end:
@@ -307,72 +312,8 @@ __global__ void __launch_bounds__(THREADS) stats_kernel(
   }
 }
 
-template <int D, int F>
-__global__ void __launch_bounds__(THREADS) grad_emb_kernel(
-    const float* __restrict__ emb, const int* __restrict__ pix_lab,
-    const int* __restrict__ own, const int* __restrict__ pix_tag,
-    const float* __restrict__ protos, const int* __restrict__ proto_lab,
-    const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
-    const int* __restrict__ num_valid, int n, int p, float kappa_a,
-    float kappa_o, int square, const float* __restrict__ grads,
-    float* __restrict__ d_emb) {
-  constexpr int NS = n_stats(F);
-  __shared__ __align__(16) float sp[TP * D];
-  __shared__ int slab[TP], stag[TP], sval[TP];
-  const int row = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = row < n;
-  float e[D], acc[D];
-  float g[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) g[s] = 0.f;
-  int lab = -1, own_k = -1, tag = 0;
-  if (live) {
-    load_row<D>(e, emb + (size_t)row * D);
-    if constexpr (F != SET) lab = pix_lab[row];
-    own_k = own[row];
-    if constexpr (F != HARD) tag = pix_tag[row];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) g[s] = grads[(size_t)s * n + row];
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) e[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  const int nv = min(*num_valid, p);
-  for (int t0 = 0; t0 < nv; t0 += TP) {
-    const int cnt = min(TP, nv - t0);
-    __syncthreads();
-    stage_protos<D, F>(sp, slab, stag, sval, protos, proto_lab, proto_tag,
-                       proto_valid, t0, cnt);
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float* pk = sp + j * D;
-      float sa, so;
-      sims<F>(dot_row<D>(e, pk), kappa_a, kappa_o, square, sa, so);
-      const PairMasks m = pair_masks(t0 + j, own_k, lab, tag, slab[j],
-                                     stag[j], sval[j]);
-      const float c = pair_coeff<F>(m, g, sa, so, kappa_a, kappa_o);
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(pk + d);
-        acc[d] = fmaf(c, v.x, acc[d]);
-        acc[d + 1] = fmaf(c, v.y, acc[d + 1]);
-        acc[d + 2] = fmaf(c, v.z, acc[d + 2]);
-        acc[d + 3] = fmaf(c, v.w, acc[d + 3]);
-      }
-    }
-  }
-  if (live) {
-    float4* dst = reinterpret_cast<float4*>(d_emb + (size_t)row * D);
-#pragma unroll
-    for (int d = 0; d < D; d += 4)
-      dst[d / 4] = make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Tiled kernels: stats (K1), dE (K2, K8), dP (K3, K6, K9)
+// Tiled kernels: stats (K1, K7), dE (K2, K5, K8), dP (K3, K6, K9)
 // ---------------------------------------------------------------------------
 
 constexpr int OWN = 128;           // own rows of a block
@@ -394,14 +335,29 @@ struct ProtoRows {
 // mma fragment, and the 4 row pairs x 8 columns of product 2's B, fall
 // in 32 distinct banks. other_hi / other_lo: the streamed tile's TF32
 // halves, split once a tile for all four warps.
-template <int D, int F, bool DP>
-struct TileSmem {
+// Pixels own, prototype tiles streamed (stats, dE): a thread keeps its own
+// pixels' operands in registers, read from device memory up front.
+template <int D>
+struct PixelTileSmem {
   float own[OWN][D + 4];
   float other[2][STR][D + 4];
   unsigned other_hi[STR][D + 4], other_lo[STR][D + 4];
-  PixelRows<n_stats(F), DP ? STR : OWN> pix[DP ? 2 : 1];
-  ProtoRows<DP ? OWN : STR> proto[DP ? 1 : 2];
+  ProtoRows<STR> proto[2];
 };
+
+// Prototypes own, pixel tiles streamed (dP).
+template <int D, int F>
+struct ProtoTileSmem {
+  float own[OWN][D + 4];
+  float other[2][STR][D + 4];
+  unsigned other_hi[STR][D + 4], other_lo[STR][D + 4];
+  PixelRows<n_stats(F), STR> pix[2];
+  ProtoRows<OWN> proto;
+};
+
+template <int D, int F, bool DP>
+using TileSmem =
+    std::conditional_t<DP, ProtoTileSmem<D, F>, PixelTileSmem<D>>;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool live) {
@@ -511,6 +467,28 @@ __device__ __forceinline__ PixelOp<NS> pixel_op(
   x.live = r0 + r < n;
 #pragma unroll
   for (int k = 0; k < NS; ++k) x.g[k] = s.g[k][r];
+  return x;
+}
+
+// Row `row`'s operands from device memory, zero past the count.
+template <int F>
+__device__ __forceinline__ PixelOp<n_stats(F)> pixel_op_at(
+    const int* pix_lab, const int* own, const int* pix_tag,
+    const float* grads, int n, int row) {
+  PixelOp<n_stats(F)> x;
+  x.live = row < n;
+  x.lab = -1;
+  x.own = -1;
+  x.tag = 0;
+#pragma unroll
+  for (int k = 0; k < n_stats(F); ++k) x.g[k] = 0.f;
+  if (x.live) {
+    if constexpr (F != SET) x.lab = pix_lab[row];
+    x.own = own[row];
+    if constexpr (F != HARD) x.tag = pix_tag[row];
+#pragma unroll
+    for (int k = 0; k < n_stats(F); ++k) x.g[k] = grads[(size_t)k * n + row];
+  }
   return x;
 }
 
@@ -669,7 +647,11 @@ __device__ __forceinline__ void stats_logits(float (&s)[2][STR / 8][4],
 }
 
 // DP = false (dE): the block owns pixels [OWN b, OWN b + OWN) and walks
-// the valid prototypes in tiles of STR; out = dE [N, D].
+// the valid prototypes in tiles of STR; out = dE [N, D]. A warp none of
+// whose rows below N carries a nonzero cotangent (-0 counts as 0) skips
+// both products: c = kappa s 0 = 0 on all its pairs (s is finite for unit
+// rows), so its rows are the accumulator's +0. A block with no live warp
+// stages nothing and walks no tile; it still writes its +0 rows.
 // DP = true (dP): gridDim.x blocks split, from num_valid, into `tiles` =
 // ceil(num_valid / OWN) prototype tiles times `chunks` = gridDim.x / tiles
 // pixel chunks (pixel tiles [chunk NT / chunks, (chunk + 1) NT / chunks)
@@ -716,8 +698,27 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
   const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
             t = threadIdx.x % 4;
   const int m0 = 32 * warp;
-  // past the count, a warp's rows take no part: it skips both products
-  const bool warp_live = own0 + m0 < (DP ? nv : n);
+  // the thread's four own rows' operands: dE's from device memory here,
+  // dP's from shared memory after the first tile's barrier
+  PixelOp<NS> own_px[2][2];
+  ProtoOp own_pr[2][2];
+  bool warp_live;  // else the warp skips both products
+  if constexpr (DP) {
+    warp_live = own0 + m0 < nv;  // rows past the count take no part
+  } else {
+    bool carries = false;  // one of the thread's rows has a cotangent
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        own_px[mt][h] = pixel_op_at<F>(pix_lab, own, pix_tag, grads, n,
+                                       own0 + m0 + 16 * mt + g + 8 * h);
+#pragma unroll
+        for (int k = 0; k < NS; ++k) carries |= own_px[mt][h].g[k] != 0.f;
+      }
+    warp_live = __any_sync(0xffffffffu, carries);
+    if (!__syncthreads_or(warp_live)) o_end = o_begin;  // the whole block
+  }
   float acc[2][KD][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -740,17 +741,11 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
   if (o_begin < o_end) {
     stage_rows<D, OWN>(sm.own, DP ? protos : emb, own0, DP ? nv : n);
     if constexpr (DP) {
-      stage_proto_rows<F>(sm.proto[0], proto_lab, proto_tag,
-                                 proto_valid, nv, own0);
-    } else {
-      stage_pixel_rows<F>(sm.pix[0], pix_lab, own, pix_tag, grads, n,
-                                 own0);
+      stage_proto_rows<F>(sm.proto, proto_lab, proto_tag, proto_valid, nv,
+                          own0);
     }
     stage(0, o_begin);
   }
-  // the thread's four own rows' operands, after the first tile's barrier
-  PixelOp<NS> own_px[2][2];
-  ProtoOp own_pr[2][2];
 
   int buf = 0;
   for (int t0 = o_begin; t0 < o_end; t0 += STR, buf ^= 1) {
@@ -760,18 +755,15 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
     __syncthreads();
     if (t0 + STR < o_end) stage(buf ^ 1, t0 + STR);
     if (!warp_live) continue;
-    if (t0 == o_begin) {
+    if constexpr (DP) {
+      if (t0 == o_begin) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = m0 + 16 * mt + g + 8 * h;
-          if constexpr (DP) {
-            own_pr[mt][h] = proto_op(sm.proto[0], r, own0, nv);
-          } else {
-            own_px[mt][h] = pixel_op(sm.pix[0], r, own0, n);
-          }
-        }
+          for (int h = 0; h < 2; ++h)
+            own_pr[mt][h] =
+                proto_op(sm.proto, m0 + 16 * mt + g + 8 * h, own0, nv);
+      }
     }
 
     float s[2][NT][4];
@@ -857,20 +849,21 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
     }
 }
 
-template <int D>
-struct StatsTileSmem {  // the dE kernel's TileSmem but its pixel rows
-  float own[OWN][D + 4];
-  float other[2][STR][D + 4];
-  unsigned other_hi[STR][D + 4], other_lo[STR][D + 4];
-  ProtoRows<STR> proto[2];
-};
-
 // 2^x by the SFU (ex2.approx, ~2 ulp); x = kappa l log2(e) lies far above
 // the denormal range (|l| <= 1 for unit rows, kappa <= ~20).
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Blocks a SM the stats kernel is built for. SET at D <= 32 takes 3 (168
+// registers; 3 x 55.5 KB of shared memory at D = 32): allowed 255
+// registers, ptxas spilled its D = 32 form. JOINT keeps 2 (at 168
+// registers its D = 16 form spilled); at D = 64 two blocks fill the
+// shared memory.
+__host__ __device__ constexpr int stats_min_blocks(int d, int family) {
+  return d <= 32 && family == SET ? 3 : 2;
 }
 
 // The statistics, out [NS, N]: the block owns pixels [OWN b, OWN b + OWN)
@@ -887,7 +880,8 @@ __device__ __forceinline__ float ex2(float x) {
 // kappa_a, JOINT) is a template argument, so s_o = s_a^2 costs one
 // multiply a pair and no branch.
 template <int D, int F, bool SQUARE>
-__global__ void __launch_bounds__(TILE_THREADS, 2) stats_tile_kernel(
+__global__ void __launch_bounds__(TILE_THREADS, stats_min_blocks(D, F))
+    stats_tile_kernel(
     const float* __restrict__ emb, const int* __restrict__ pix_lab,
     const int* __restrict__ own, const int* __restrict__ pix_tag,
     const float* __restrict__ protos, const int* __restrict__ proto_lab,
@@ -899,7 +893,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) stats_tile_kernel(
   const float ka2 = kappa_a * LOG2E, ko2 = kappa_o * LOG2E;
   constexpr int NT = STR / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<StatsTileSmem<D>*>(smem_raw);
+  auto& sm = *reinterpret_cast<PixelTileSmem<D>*>(smem_raw);
   const int nv = min(*num_valid, p);
   const int own0 = blockIdx.x * OWN;
   const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
@@ -1066,7 +1060,7 @@ void launch_stats_tile(const float* emb, const int* pix_lab, const int* own,
                        const int* proto_valid, const int* num_valid, int n,
                        int p, float kappa_a, float kappa_o, float* out,
                        cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(StatsTileSmem<D>);  // above 48 KB
+  constexpr int smem = (int)sizeof(PixelTileSmem<D>);  // above 48 KB
   cudaFuncSetAttribute(stats_tile_kernel<D, F, SQUARE>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   stats_tile_kernel<D, F, SQUARE><<<(n + OWN - 1) / OWN, TILE_THREADS, smem,
@@ -1083,33 +1077,19 @@ struct LaunchStatsTiled {
                   const int* proto_valid, const int* num_valid, int n, int p,
                   float kappa_a, float kappa_o, int square, float* out,
                   cudaStream_t stream) {
-    if (square) {
-      launch_stats_tile<D, F, true>(emb, pix_lab, own, pix_tag, protos,
-                                    proto_lab, proto_tag, proto_valid,
-                                    num_valid, n, p, kappa_a, kappa_o, out,
-                                    stream);
-    } else {
-      launch_stats_tile<D, F, false>(emb, pix_lab, own, pix_tag, protos,
-                                     proto_lab, proto_tag, proto_valid,
-                                     num_valid, n, p, kappa_a, kappa_o, out,
-                                     stream);
+    if constexpr (F == JOINT) {  // SQUARE needs two concentrations
+      if (square) {
+        launch_stats_tile<D, F, true>(emb, pix_lab, own, pix_tag, protos,
+                                      proto_lab, proto_tag, proto_valid,
+                                      num_valid, n, p, kappa_a, kappa_o,
+                                      out, stream);
+        return;
+      }
     }
-  }
-};
-
-template <int D, int F>
-struct LaunchGradEmb {
-  static void run(const float* emb, const int* pix_lab, const int* own,
-                  const int* pix_tag, const float* protos,
-                  const int* proto_lab, const int* proto_tag,
-                  const int* proto_valid, const int* num_valid, int n, int p,
-                  float kappa_a, float kappa_o, int square,
-                  const float* grads, float* d_emb, cudaStream_t stream) {
-    const int blocks = (n + THREADS - 1) / THREADS;
-    grad_emb_kernel<D, F><<<blocks, THREADS, 0, stream>>>(
-        emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
-        proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
-        d_emb);
+    launch_stats_tile<D, F, false>(emb, pix_lab, own, pix_tag, protos,
+                                   proto_lab, proto_tag, proto_valid,
+                                   num_valid, n, p, kappa_a, kappa_o, out,
+                                   stream);
   }
 };
 
@@ -1236,7 +1216,7 @@ int segsort_hard_grad_emb(const float* emb, const int* pix_lab,
                           int p, int d, float kappa, const float* grads,
                           float* d_emb, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<HARD, LaunchGradEmb>(
+  return dispatch_d<HARD, LaunchGradEmbTiled>(
       d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
       (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
       0, grads, d_emb, (cudaStream_t)stream);
@@ -1265,7 +1245,7 @@ int segsort_set_stats(const float* emb, const int* pix_tag, const int* own,
                       const int* proto_valid, const int* num_valid, int n,
                       int p, int d, float kappa, float* out, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<SET, LaunchStats>(
+  return dispatch_d<SET, LaunchStatsTiled>(
       d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
       proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, out,
       (cudaStream_t)stream);

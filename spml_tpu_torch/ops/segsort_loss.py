@@ -40,10 +40,11 @@ from spml_tpu_torch.ops import _cuda
 
 KERNEL_SOURCE = "segsort_joint"
 SUPPORTED_DIMS = (16, 32, 64)
-# the tiled kernels (JOINT stats; JOINT and SET dE; every family's dP): a
+# the tiled kernels (JOINT and SET stats; every family's dE and dP): a
 # block owns OWN_ROWS rows of one side (pixels for stats and dE, valid
-# prototypes for dP) and walks STREAM_ROWS-row tiles of the other
-OWN_ROWS, STREAM_ROWS = 128, 64
+# prototypes for dP), WARP_ROWS to each of its four warps, and walks
+# STREAM_ROWS-row tiles of the other
+OWN_ROWS, STREAM_ROWS, WARP_ROWS = 128, 64, 32
 # grid of the tiled dP kernel: 2 blocks per SM of a 132-SM H100, split on
 # the device into valid prototype tiles x equal pixel chunks
 DP_BLOCKS = 264
@@ -260,12 +261,27 @@ def _tiles(start, stop, size, count):
             for t in range(start, min(stop, count), size)]
 
 
-def grad_emb_tiles(n, num_valid):
-    """The tiled dE kernel's blocks (JOINT and SET): [(pixel rows,
-    [prototype rows of each streamed tile, in loop order])], ranges cut at
-    n and num_valid."""
+def _pixel_blocks(n, num_valid):
+    """The stats and dE kernels' walk: [(pixel rows, [prototype rows of
+    each streamed tile, in loop order])], ranges cut at n and num_valid."""
     ptiles = _tiles(0, num_valid, STREAM_ROWS, num_valid)
     return [(own, ptiles) for own in _tiles(0, n, OWN_ROWS, n)]
+
+
+def grad_emb_tiles(n, num_valid, grads):
+    """The tiled dE kernel's blocks (every family): [(pixel rows, live
+    warps' pixel rows, [prototype rows of each streamed tile, in loop
+    order])]. grads [NS, N], the stats' cotangents: a warp is live if one
+    of its rows carries a nonzero one (-0 counts as 0), and only live warps
+    take the products; a block with no live warp walks no tile. The rows
+    of the other warps are +0."""
+    carries = (grads != 0).any(0).tolist()
+    out = []
+    for own, ptiles in _pixel_blocks(n, num_valid):
+        warps = [w for w in _tiles(own.start, own.stop, WARP_ROWS, n)
+                 if any(carries[r] for r in w)]
+        out.append((own, warps, ptiles if warps else []))
+    return out
 
 
 def quad_lane_rows(tile):
@@ -282,14 +298,14 @@ def quad_sum(lanes):
     return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
 
 
-def joint_stats_tiles(n, num_valid):
-    """The JOINT stats kernel's blocks: [(pixel rows, [quad_lane_rows of
-    each streamed prototype tile, in loop order])], the dE kernel's walk.
-    A row's statistic is quad_sum of its lanes' running sums, each the
-    tiles' partial sums (a lane's rows of the tile, in order) added in
-    loop order."""
+def stats_tiles(n, num_valid):
+    """The tiled stats kernel's blocks (JOINT and SET): [(pixel rows,
+    [quad_lane_rows of each streamed prototype tile, in loop order])], the
+    dE kernel's walk with every warp live. A row's statistic is quad_sum
+    of its lanes' running sums, each the tiles' partial sums (a lane's
+    rows of the tile, in order) added in loop order."""
     return [(own, [quad_lane_rows(tile) for tile in ptiles])
-            for own, ptiles in grad_emb_tiles(n, num_valid)]
+            for own, ptiles in _pixel_blocks(n, num_valid)]
 
 
 def grad_proto_tiles(n, num_valid, blocks):
@@ -319,10 +335,12 @@ def _kernel_operand(t, dtype):
 
 
 class _SegsortStats(torch.autograd.Function):
-    """Forward: the family's stats kernel (K1 joint, K4 hard, K7 set);
-    backward: its dE (K2, K5, K8) and dP (K3, K6, K9) kernels. `inputs`
-    are in the C functions' argument order; gradients flow to the
-    embeddings (first) and the prototypes only."""
+    """Forward: the family's stats kernel (K1 joint, K4 hard, K7 set; K4
+    per row, the others tiled); backward: its dE (K2, K5, K8) and dP (K3,
+    K6, K9) kernels, all tiled, the dE skipping the pixels whose
+    cotangents are all zero. `inputs` are in the C functions' argument
+    order; gradients flow to the embeddings (first) and the prototypes
+    only."""
 
     @staticmethod
     def forward(ctx, family, scalars, *inputs):

@@ -1,22 +1,25 @@
 """The schedule of the tiled SegSort kernels, replayed on the CPU: the
-JOINT stats, dE and dP (K1, K2, K3), the hard-label dP (K6) and the
-tag-set dE and dP (K8, K9).
+JOINT stats, dE and dP (K1, K2, K3), the hard-label dE and dP (K5, K6)
+and the tag-set stats, dE and dP (K7, K8, K9).
 
 csrc/segsort_joint.cu's stats_tile_kernel and grad_tile_kernel cut the
 (pixel, prototype) pairs into tiles: stats and dE blocks own 128 pixels
 and walk the valid prototypes in 64-row tiles (in the stats kernel lane t
 of a quad takes the tile's rows 8 nt + 2 t + e, and the quad adds its four
-sums in a fixed order); dP blocks own 128 valid prototypes and walk the
-pixels of their chunk in 64-row tiles, and reduce_tiles_kernel adds a
-prototype tile's chunks in chunk order.
-ops/segsort_loss.py mirrors that schedule (joint_stats_tiles,
-grad_emb_tiles, grad_proto_tiles). These tests check that every
-(pixel, valid prototype) pair is covered exactly once and no block
-touches a prototype row at or past num_valid, then replay the statistics,
-dE and dP tile by tile, in the kernels' order, in float64 against the
-plain versions and their autograd (joint_segsort_stats_reference,
-segsort_stats_reference, set_segsort_stats_reference; rtol 1e-10: both
-sides are float64; only the order of the sums differs).
+sums in a fixed order; in the dE kernel only the warps of 32 pixels with a
+nonzero cotangent take products, and a block with none walks no tile);
+dP blocks own 128 valid prototypes and walk the pixels of their chunk in
+64-row tiles, and reduce_tiles_kernel adds a prototype tile's chunks in
+chunk order.
+ops/segsort_loss.py mirrors that schedule (stats_tiles, grad_emb_tiles,
+grad_proto_tiles). These tests check that every (pixel, valid prototype)
+pair is covered exactly once (in dE, every pair of a live warp's pixels)
+and no block touches a prototype row at or past num_valid, then replay
+the statistics, dE and dP tile by tile, in the kernels' order, in float64
+against the plain versions and their autograd
+(joint_segsort_stats_reference, segsort_stats_reference,
+set_segsort_stats_reference; rtol 1e-10: both sides are float64; only the
+order of the sums differs). The rows a dE skips are exactly 0.
 """
 
 import numpy as np
@@ -120,27 +123,37 @@ def _tile_rows(rows, size):
     return len(rows) <= size and rows.start % size == 0
 
 
-def _replay_de(coeff, protos, nv):
+def _replay_de(coeff, protos, nv, grads):
     """dE from the tiled dE kernel's schedule: each block writes its own
-    pixel rows once, summing the prototype tiles in loop order; checks
-    that each (pixel, valid prototype) pair is covered once."""
+    pixel rows once, its live warps' rows summing the prototype tiles in
+    loop order, the others +0; checks that each (pixel of a live warp,
+    valid prototype) pair is covered once and no other pair at all.
+    Returns (dE, which rows lie in a live warp)."""
     n, (p, d) = coeff.shape[0], protos.shape
     seen = torch.zeros(n, p, dtype=torch.int64)
+    live = torch.zeros(n, dtype=torch.bool)
     d_emb = torch.full((n, d), float("nan"), dtype=torch.float64)
-    emb_tiles = fused.grad_emb_tiles(n, nv)
+    emb_tiles = fused.grad_emb_tiles(n, nv, grads)
     assert len(emb_tiles) == -(-n // fused.OWN_ROWS)
-    for pix, ptiles in emb_tiles:
+    for pix, warps, ptiles in emb_tiles:
         assert _tile_rows(pix, fused.OWN_ROWS) and pix.stop <= n
+        assert warps or not ptiles  # a block with no live warp walks none
         acc = torch.zeros(len(pix), d, dtype=torch.float64)
-        for pro in ptiles:
-            assert _tile_rows(pro, fused.STREAM_ROWS) and pro.stop <= nv
-            seen[pix.start:pix.stop, pro.start:pro.stop] += 1
-            acc += coeff[pix.start:pix.stop, pro.start:pro.stop] @ \
-                protos[pro.start:pro.stop]
+        for w in warps:
+            assert _tile_rows(w, fused.WARP_ROWS)
+            assert pix.start <= w.start and w.stop <= pix.stop
+            live[w.start:w.stop] = True
+            for pro in ptiles:
+                assert _tile_rows(pro, fused.STREAM_ROWS) and pro.stop <= nv
+                seen[w.start:w.stop, pro.start:pro.stop] += 1
+                acc[w.start - pix.start:w.stop - pix.start] += \
+                    coeff[w.start:w.stop, pro.start:pro.stop] @ \
+                    protos[pro.start:pro.stop]
         assert torch.isnan(d_emb[pix.start:pix.stop]).all()
         d_emb[pix.start:pix.stop] = acc
-    assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
-    return d_emb
+    assert (seen[live, :nv] == 1).all() and (seen[~live] == 0).all()
+    assert (seen[:, nv:] == 0).all()
+    return d_emb, live
 
 
 def _replay_dp(coeff, emb, nv, blocks):
@@ -191,7 +204,8 @@ def test_tiles_cover_each_pair_once_and_replay_the_gradients(d, kappas, nv,
     blocks = fused.dp_blocks(p) if blocks is None else blocks
     case = _case(n, p, nv, d, seed=d + nv)
     coeff = _coeff(case, *kappas)
-    d_emb = _replay_de(coeff, case["protos"], nv)
+    d_emb, live = _replay_de(coeff, case["protos"], nv, case["grads"])
+    assert live.all()  # randn cotangents: every warp takes part
     d_protos = _replay_dp(coeff, case["emb"], nv, blocks)
 
     want_emb, want_protos = _reference(case, _joint_stats, *kappas)
@@ -200,40 +214,58 @@ def test_tiles_cover_each_pair_once_and_replay_the_gradients(d, kappas, nv,
     assert (d_protos[nv:] == 0).all()
 
 
-@_NV
-@pytest.mark.parametrize("d,kappas", [(16, (6.0, 12.0)), (32, (6.0, 10.0)),
-                                      (64, (6.0, 12.0))],
-                         ids=["d16_square", "d32_two_exps", "d64_square"])
-def test_stats_tiles_cover_each_pair_once_and_replay_the_stats(d, kappas,
-                                                               nv):
-    """K1: each block's quads add their lanes' rows of each prototype tile
-    into per-tile partial sums, then running sums in loop order, then the
-    quad's four sums in quad_sum's order; rows past num_valid are never
-    read."""
-    n, p = N_PIX, N_PROTO
-    case = _case(n, p, nv, d, seed=d + nv + 1)
-    kappa_a, kappa_o = kappas
-    # the six masked similarity matrices, rows of the kernel's add_pair
-    own, same_a, diff_a, live = fused._label_masks(
-        case["pix_lab"], case["own_idx"], case["proto_lab"],
-        case["num_valid"])
+def _stats_terms(family, case, kappas):
+    """[NS, N, P]: each pair's similarity under each statistic's mask, the
+    rows of the kernel's add_pair (JOINT: own, same, diff label at kappa_a,
+    own, tags intersect, disjoint at kappa_o; SET: own, intersect,
+    disjoint at kappa)."""
+    logits = case["emb"] @ case["protos"].T
+    s_a = torch.exp(kappas[0] * logits)
+    own, live = fused._own_mask(case["own_idx"], case["protos"].shape[0],
+                                case["num_valid"])
     same_o, diff_o = fused._tag_masks(case["pix_tags"], case["proto_tags"],
                                       case["proto_valid"], live)
-    logits = case["emb"] @ case["protos"].T
-    s_a = torch.exp(kappa_a * logits)
-    s_o = s_a * s_a if kappa_o == 2 * kappa_a else torch.exp(
-        kappa_o * logits)
-    terms = torch.stack([torch.where(m, s, 0.0) for m, s in (
-        (own, s_a), (same_a, s_a), (diff_a, s_a), (own, s_o),
-        (same_o, s_o), (diff_o, s_o))])  # [6, N, P]
+    if family == "set":
+        pairs = ((own, s_a), (same_o, s_a), (diff_o, s_a))
+    else:
+        kappa_a, kappa_o = kappas
+        _, same_a, diff_a, _ = fused._label_masks(
+            case["pix_lab"], case["own_idx"], case["proto_lab"],
+            case["num_valid"])
+        s_o = s_a * s_a if kappa_o == 2 * kappa_a else torch.exp(
+            kappa_o * logits)
+        pairs = ((own, s_a), (same_a, s_a), (diff_a, s_a), (own, s_o),
+                 (same_o, s_o), (diff_o, s_o))
+    return torch.stack([torch.where(m, s, 0.0) for m, s in pairs])
+
+
+@_NV
+@pytest.mark.parametrize(
+    "family,d,kappas",
+    [("joint", 16, (6.0, 12.0)), ("joint", 32, (6.0, 10.0)),
+     ("joint", 64, (6.0, 12.0)), ("set", 16, (8.0,)), ("set", 32, (8.0,)),
+     ("set", 64, (8.0,))],
+    ids=["d16_square", "d32_two_exps", "d64_square", "set_d16", "set_d32",
+         "set_d64"])
+def test_stats_tiles_cover_each_pair_once_and_replay_the_stats(family, d,
+                                                               kappas, nv):
+    """K1 (JOINT) and K7 (SET): each block's quads add their lanes' rows
+    of each prototype tile into per-tile partial sums, then running sums
+    in loop order, then the quad's four sums in quad_sum's order; rows past
+    num_valid are never read."""
+    n, p = N_PIX, N_PROTO
+    seed = d + nv + (1 if family == "joint" else 5)
+    case = _case(n, p, nv, d, seed=seed)
+    terms = _stats_terms(family, case, kappas)
+    ns = terms.shape[0]
 
     seen = torch.zeros(n, p, dtype=torch.int64)
-    stats = torch.full((6, n), float("nan"), dtype=torch.float64)
-    blocks = fused.joint_stats_tiles(n, nv)
+    stats = torch.full((ns, n), float("nan"), dtype=torch.float64)
+    blocks = fused.stats_tiles(n, nv)
     assert len(blocks) == -(-n // fused.OWN_ROWS)
     for pix, ptiles in blocks:
         assert _tile_rows(pix, fused.OWN_ROWS) and pix.stop <= n
-        lanes = [torch.zeros(6, len(pix), dtype=torch.float64)
+        lanes = [torch.zeros(ns, len(pix), dtype=torch.float64)
                  for _ in range(4)]
         for tile_lanes in ptiles:
             assert sorted(r for rows in tile_lanes for r in rows) == \
@@ -241,7 +273,7 @@ def test_stats_tiles_cover_each_pair_once_and_replay_the_stats(d, kappas,
                     map(len, tile_lanes))))
             for t, rows in enumerate(tile_lanes):
                 assert all(r < nv for r in rows)
-                part = torch.zeros(6, len(pix), dtype=torch.float64)
+                part = torch.zeros(ns, len(pix), dtype=torch.float64)
                 for r in rows:
                     seen[pix.start:pix.stop, r] += 1
                     part += terms[:, pix.start:pix.stop, r]
@@ -250,7 +282,8 @@ def test_stats_tiles_cover_each_pair_once_and_replay_the_stats(d, kappas,
         stats[:, pix.start:pix.stop] = fused.quad_sum(lanes)
     assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
 
-    want = _joint_stats(case, case["emb"], case["protos"], *kappas)
+    plain = _joint_stats if family == "joint" else _set_stats
+    want = plain(case, case["emb"], case["protos"], *kappas)
     torch.testing.assert_close(stats, want, rtol=1e-10, atol=0.0)
     if nv == 0:
         assert (stats == 0).all()
@@ -297,9 +330,76 @@ def test_set_de_tiles_replay_the_gradient(d, nv):
     n, p = N_PIX, N_PROTO
     case = _case(n, p, nv, d, seed=d + nv + 4)
     case["grads"] = case["grads"][:3]
-    d_emb = _replay_de(_set_coeff(case, 8.0), case["protos"], nv)
+    d_emb, _ = _replay_de(_set_coeff(case, 8.0), case["protos"], nv,
+                          case["grads"])
     want, _ = _reference(case, _set_stats, 8.0)
     torch.testing.assert_close(d_emb, want, rtol=1e-10, atol=1e-12)
+
+
+@_NV
+@pytest.mark.parametrize("d", [16, 32, 64], ids=["d16", "d32", "d64"])
+def test_hard_de_tiles_replay_the_gradient(d, nv):
+    """K5, the hard-label dE, on the tiled dE kernel as K2 and K8: the
+    replay of its schedule against the autograd of
+    segsort_stats_reference."""
+    n, p = N_PIX, N_PROTO
+    case = _case(n, p, nv, d, seed=d + nv + 6)
+    case["grads"] = case["grads"][:3]
+    d_emb, _ = _replay_de(_hard_coeff(case, 6.0), case["protos"], nv,
+                          case["grads"])
+    want, _ = _reference(case, _hard_stats, 6.0)
+    torch.testing.assert_close(d_emb, want, rtol=1e-10, atol=1e-12)
+
+
+# pixel rows with a nonzero cotangent; on the others it is 0 or -0
+_CARRYING = {
+    # warps 0, 1 and 2 of block 0 (a run across a warp boundary); block 1
+    # holds none and walks no tile
+    "short_runs": [30, 31, 32, 70, 71],
+    "all_zero": [],
+    # warp 2 of block 1 (rows 192-199, the ragged end); block 0 holds none
+    "last_ragged_row": [N_PIX - 1],
+}
+
+
+@_NV
+@pytest.mark.parametrize("carrying", list(_CARRYING))
+@pytest.mark.parametrize("family", ["joint", "hard", "set"])
+def test_de_skips_rows_without_cotangents(family, carrying, nv):
+    """The dE kernel's skip (K2, K5, K8): the mirror names as live exactly
+    the warps holding a row with a nonzero cotangent, and as walking tiles
+    exactly the blocks holding a live warp; the replay agrees with the
+    plain version's autograd, and every row of a skipped warp is exactly 0
+    in both."""
+    n, p, d = N_PIX, N_PROTO, 32
+    case = _case(n, p, nv, d, seed=nv + 7)
+    rows = torch.tensor(_CARRYING[carrying], dtype=torch.int64)
+    carries = torch.zeros(n, dtype=torch.bool)
+    carries[rows] = True
+    zero = torch.zeros(n, dtype=torch.float64)
+    zero[::2] = -0.0
+    ns = 6 if family == "joint" else 3
+    case["grads"] = torch.where(carries, case["grads"][:ns], zero)
+    coeff_fn, stats, kappas = {
+        "joint": (_coeff, _joint_stats, (6.0, 12.0)),
+        "hard": (_hard_coeff, _hard_stats, (6.0,)),
+        "set": (_set_coeff, _set_stats, (8.0,))}[family]
+    coeff = coeff_fn(case, *kappas)
+
+    w = fused.WARP_ROWS
+    want_warps = [range(r, min(r + w, n)) for r in range(0, n, w)
+                  if carries[r:r + w].any()]
+    tiles = fused.grad_emb_tiles(n, nv, case["grads"])
+    assert [wr for _, warps, _ in tiles for wr in warps] == want_warps
+    for pix, warps, ptiles in tiles:
+        walks = bool(carries[pix.start:pix.stop].any()) and nv > 0
+        assert bool(ptiles) == walks
+
+    d_emb, live = _replay_de(coeff, case["protos"], nv, case["grads"])
+    want, _ = _reference(case, stats, *kappas)
+    torch.testing.assert_close(d_emb, want, rtol=1e-10, atol=1e-12)
+    assert (d_emb[~live] == 0).all() and (want[~live] == 0).all()
+    assert live[carries].all()
 
 
 def test_flagship_split():
