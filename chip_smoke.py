@@ -18,28 +18,29 @@ Phases, each printing one line or more:
     parallel, with the seconds it took, ptxas's registers and spilled
     bytes for each kernel, and any ptxas line on wgmma or a performance
     loss (a serialized wgmma shows there); a spill in a tiled kernel
-    (stats_tile_kernel, grad_tile_kernel) fails the run;
+    (stats_tile_kernel, grad_tile_kernel) fails the run, and so does a
+    per-row stats_kernel in this checkout's sources;
  3. kernels: each SegSort kernel family through its autograd.Function
     against the plain version, computed in float64 on the same float32
-    values (plain version over row chunks). The tiled kernels (all but
-    K4): a block of 128 threads owns 128 rows and walks 64-row tiles of
+    values (plain version over row chunks). Every SegSort kernel is
+    tiled: a block of 128 threads owns 128 rows and walks 64-row tiles of
     the other side, the products on the tensor cores in split TF32; dE
     skips the warps of 32 pixels none of which carries a nonzero
     cotangent, and the blocks with no such warp; the dP grid of 264
     blocks is split on the card into valid prototype tiles x pixel
-    chunks. K4 takes one thread per row, float32 FMAs. Cotangents are
-    randn on every row but in the cases that say otherwise: each family
-    also takes them on ~0.5% of the rows in short runs, on none (dE and
-    dP must then be exactly 0) and on the last row of a ragged N alone,
-    and the hard family at DensePose's 139 valid rows on 354 rows in runs,
-    the path's own sparsity; dE must be exactly 0 on every row without
-    one.
+    chunks. Cotangents are randn on every row but in the cases that say
+    otherwise: each family also takes them on ~0.5% of the rows in short
+    runs, on none (dE and dP must then be exactly 0) and on the last row
+    of a ragged N alone, and the hard family at DensePose's 139 valid
+    rows on 354 rows in runs, the path's own sparsity; dE must be exactly
+    0 on every row without one.
     - joint, K1 (stats), K2 (dE), K3 (dP): at N = 16384 / P = 2048,
       D = 64 (full and ~20% fill, N not a multiple of the tile, all
       prototypes invalid, one valid, both kappa branches) and D = 32 (~20%
       fill), and at the flagship N = 131072 / P = 6144, D = 64;
     - hard labels, K4 (stats), K5 (dE), K6 (dP): at N = 16384 / P = 2048,
-      D = 32 (full and ~20% fill, ragged N, all invalid, one valid) and
+      D = 32 (full and ~20% fill, ragged N, all invalid, one valid, 64
+      and 65 valid: the last prototype tile one full tile or one row) and
       D = 64, and at the DensePose N = 65536 / P = 2048, D = 32, ~15% fill
       and 139 valid rows, the path's own (K6's second prototype tile: 11
       live rows, three warps skipping);
@@ -60,11 +61,11 @@ Phases, each printing one line or more:
     timed steps, every loss finite, segments formed, each of its kernels
     launched once per step and the other families' not at all; then each
     kernel timed at the path's own inputs beside the plain version and its
-    bound (the tiled kernels, all but K4: at the split-TF32 rate their
-    products use, with the float32 bound beside it as bound_f32_ms); dE
-    and dP on randn cotangents, and again on the cotangents the path's
-    last backward handed them (path_cotangent_ms, beside a bound that
-    counts only the pixels carrying a nonzero one):
+    bound (every SegSort kernel: at the split-TF32 rate its products use,
+    with the float32 bound beside it as bound_f32_ms); dE and dP on randn
+    cotangents, and again on the cotangents the path's last backward
+    handed them (path_cotangent_ms, beside a bound that counts only the
+    pixels carrying a nonzero one):
     - flagship (panoptic_deeplab_101, crop 512, batch 8, 6x6 k-means x10,
       capacity 256, memory bank 2, sem_ann + sem_occ + img_sim with the
       fused joint loss, bf16 convolutions) on blobby synthetic labels:
@@ -132,10 +133,11 @@ KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
 }
 # kernels whose D-long products run on the tensor cores in split TF32
 TENSOR_CORE = ("joint_stats", "joint_grad_emb", "joint_grad_proto",
-               "hard_grad_emb", "hard_grad_proto", "set_stats",
-               "set_grad_emb", "set_grad_proto")
+               "hard_stats", "hard_grad_emb", "hard_grad_proto",
+               "set_stats", "set_grad_emb", "set_grad_proto")
 # the tiled SegSort kernels: a spill in any of them fails the build phase
 TILED_KERNELS = ("stats_tile_kernel", "grad_tile_kernel")
+PER_ROW_KERNEL = "stats_kernel<"  # retired: fails the build phase
 CONV_KERNEL = ("dilated_conv3x3_bf16", f"{PROBE}:31",
                "spml_tpu_torch/csrc/dilated_conv.cu")
 KINDS = ("stats", "grad_emb", "grad_proto")
@@ -390,6 +392,10 @@ def check_kernels(torch, fused):
             ("mid ragged N", (mid - 1, 2048, 0.2, 13, 32), (6.0,)),
             ("mid all invalid", (mid, 2048, 0.0, 14, 32), (6.0,)),
             ("mid one valid", (mid, 2048, 1 / 2048, 17, 32), (6.0,)),
+            ("mid 64 valid, one full prototype tile",
+             (mid, 2048, 64 / 2048, 33, 32), (6.0,)),
+            ("mid 65 valid, one row in the last prototype tile",
+             (mid, 2048, 65 / 2048, 34, 32), (6.0,)),
             ("mid 20% fill", (mid, 2048, 0.2, 15, 64), (6.0,)),
             ("DensePose 15% fill", (65536, 2048, 0.15, 16, 32), (6.0,)),
             ("mid 20% fill, 0.5% of rows in runs", (mid, 2048, 0.2, 19, 32),
@@ -769,12 +775,16 @@ def main() -> int:
                                 for ks in kernels.values()
                                 for k, regs, spill in ks)
         + "".join(f" | {w}" for w in warnings))
-    tiled = [(k, spill) for k, _, spill in kernels.get("segsort_joint", [])
+    segsort = kernels.get("segsort_joint", [])
+    tiled = [(k, spill) for k, _, spill in segsort
              if k.startswith(TILED_KERNELS)]
     spilled = [k for k, spill in tiled if spill]
     if spilled or {k.split("<")[0] for k, _ in tiled} != set(TILED_KERNELS):
         raise AssertionError(f"ptxas: tiled kernels spill or are missing: "
                              f"{spilled or tiled}")
+    per_row = [k for k, _, _ in segsort if k.startswith(PER_ROW_KERNEL)]
+    if per_row and not opts.csrc:  # another checkout's may still hold one
+        raise AssertionError(f"ptxas: per-row kernels left: {per_row}")
 
     errs = check_kernels(torch, fused)
     conv_err = check_dilated_conv(torch, dc)

@@ -43,44 +43,35 @@
 // there the kernels are launch- and latency-bound, and the design keeps
 // them to one launch each (two for dP) with no host round trip. The
 // logits feed exp(kappa l), which amplifies TF32 or bf16 operand
-// rounding: the per-row kernel uses float32 FMAs on the CUDA cores (67
-// TFLOP/s); the tiled ones use split TF32 on the tensor cores (three TF32
-// products at 495 TFLOP/s, float32 sums).
+// rounding, so the products run in split TF32 on the tensor cores (three
+// TF32 products at 495 TFLOP/s, float32 sums).
 //
-// Design. The [N, P] similarity matrix never reaches device memory.
-//   Per-row kernel, one thread per pixel: HARD's stats (K4). A thread keeps
-//     E[n] in registers; the block stages tiles of TP prototypes and labels
-//     in shared memory, read as warp-wide broadcasts. The loop stops at
-//     num_valid, read from device memory, so the host never waits for it.
-//     It sums each tile into its own partials before adding them to the
-//     running sums (two-level summation keeps the 6144-term sums accurate
-//     to ~1e-6), and takes each logit as four float32 FMA chains
-//     (dot_row).
-//   Tiled kernels: the stats of JOINT and SET (K1, K7, stats_tile_kernel),
-//     the dE of all three families (K2, K5, K8) and their dP (K3, K6, K9),
-//     all on grad_tile_kernel. With float32 FMAs a D-long product takes 2D
-//     FFMA a pair, and register tiles of 4 x 4 and 8 x 8 alike ran at ~48%
-//     of the FFMA rate on an H100: the FP32 pipe issues the products and
-//     the ~40 exp, mask and select instructions of the middle. So the
-//     products go to the tensor cores, in split TF32: x = hi + lo (each
-//     TF32), a b = hi hi + hi lo + lo hi (three mma.sync m16n8k8, float32
-//     sums), about 2^-21 of each product off, where plain TF32 (2^-11)
-//     would be amplified by exp(kappa l). The middle stays in float32. The
-//     splits are integer operations (cvt.rna.tf32 runs at a quarter of the
-//     rate), and the streamed tile is split once for all warps. A block of
-//     128 threads owns OWN = 128 rows of one side (pixels for stats and dE,
-//     valid prototypes for dP) and walks tiles of STR = 64 rows of the
-//     other, staged by cp.async into a double buffer (zero-filled past the
-//     count). Per tile a warp takes its 32 own rows: S = own . other^T
-//     (product 1).
+// Design. The [N, P] similarity matrix never reaches device memory. All
+//   nine kernels are tiled: the stats of the three families (K1, K4, K7)
+//   on stats_tile_kernel, the dE (K2, K5, K8) and dP (K3, K6, K9) on
+//   grad_tile_kernel. With float32 FMAs a D-long product takes 2D FFMA a
+//   pair, and register tiles of 4 x 4 and 8 x 8 alike ran at ~48% of the
+//   FFMA rate on an H100: the FP32 pipe issues the products and the ~40
+//   exp, mask and select instructions of the middle. So the products go
+//   to the tensor cores, in split TF32: x = hi + lo (each TF32), a b = hi
+//   hi + hi lo + lo hi (three mma.sync m16n8k8, float32 sums), about
+//   2^-21 of each product off, where plain TF32 (2^-11) would be
+//   amplified by exp(kappa l). The middle stays in float32. The splits are
+//   integer operations (cvt.rna.tf32 runs at a quarter of the rate), and
+//   the streamed tile is split once for all warps. A block of 128 threads
+//   owns OWN = 128 rows of one side (pixels for stats and dE, valid
+//   prototypes for dP) and walks tiles of STR = 64 rows of the other,
+//   staged by cp.async into a double buffer (zero-filled past the count).
+//   Per tile a warp takes its 32 own rows: S = own . other^T (product 1).
 //     stats: the masked similarities are added to per-tile partial sums
-//     in registers, then to running sums (two-level summation, as above);
-//     at the end the four lanes of a row add their sums in a fixed order.
-//     Its product 1 (stats_logits) sums each k step in a fresh
-//     accumulator: mma.sync's float32 sums truncate against the
-//     accumulator, and one accumulator over all D cost the one-term own
-//     statistic at kappa 12 its whole rtol of 1e-5. Its middle is
-//     branch-free and takes s = 2^(kappa log2(e) l) on the SFU.
+//     in registers, then to running sums (two-level summation keeps the
+//     6144-term sums accurate to ~1e-6); at the end the four lanes of a
+//     row add their sums in a fixed order. Its product 1 (stats_logits)
+//     sums each k step in a fresh accumulator: mma.sync's float32 sums
+//     truncate against the accumulator, and one accumulator over all D
+//     cost the one-term own statistic at kappa 12 its whole rtol of 1e-5.
+//     Its middle is branch-free (predicated adds) and takes s =
+//     2^(kappa log2(e) l) on the SFU.
 //     dE, dP: c = kappa_a s_a g_a + kappa_o s_o g_o under the masks, in
 //     place, in registers; then acc += c . other (product 2), in registers
 //     across all tiles; c never leaves the registers (see the kernel). A
@@ -94,8 +85,8 @@
 //     eight warps, a SM). The dE and dP of a family take each logit through
 //     tile_logits and agree on it bit for bit (K2 and K3, K5 and K6, K8 and
 //     K9); the stats' logits (stats_logits) are closer to float32's and
-//     differ from theirs by up to ~1e-6 (K1's from K2's and K3's, K7's from
-//     K8's and K9's), and so do K4's (float32 FMAs) from K5's and K6's.
+//     differ from theirs by up to ~1e-6 (K1's from K2's and K3's, K4's
+//     from K5's and K6's, K7's from K8's and K9's).
 //     Stats and dE are written once, in a fixed order. dP: the grid
 //     (`blocks` >= ceil(P / OWN), 264 from the wrapper: 2 a SM) is split
 //     on the device, from num_valid, into ceil(num_valid / OWN) prototype
@@ -105,8 +96,8 @@
 //     ops/segsort_loss.py mirrors this schedule (stats_tiles,
 //     grad_emb_tiles, grad_proto_tiles) for the CPU tests.
 //   No dP uses float atomics: the result does not depend on the run.
-// Left for later: the tiled form of K4; the dP kernel skipping pixel tiles
-// whose cotangents are all zero.
+// Left for later: the dP kernel skipping pixel tiles whose cotangents are
+// all zero; wgmma products for K2 and K3.
 
 #include <cuda_runtime.h>
 
@@ -122,41 +113,7 @@ __host__ __device__ constexpr int n_stats(int family) {
   return family == JOINT ? 6 : 3;
 }
 
-constexpr int THREADS = 128;  // pixels a block (per-row kernel)
-constexpr int TP = 64;        // prototypes per shared tile (per-row kernel)
 constexpr int REDUCE_THREADS = 256;
-
-// Four independent FMA chains (lanes d mod 4), added pairwise at the end:
-// shorter chains round less than one 64-long chain (exp(12 l) turns a
-// logit error into 12x the relative error), and they overlap in the
-// pipeline.
-template <int D>
-__device__ __forceinline__ float dot_row(const float (&r)[D],
-                                         const float* __restrict__ s) {
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(s + d);
-    a0 = fmaf(r[d], v.x, a0);
-    a1 = fmaf(r[d + 1], v.y, a1);
-    a2 = fmaf(r[d + 2], v.z, a2);
-    a3 = fmaf(r[d + 3], v.w, a3);
-  }
-  return (a0 + a1) + (a2 + a3);
-}
-
-template <int D>
-__device__ __forceinline__ void load_row(float (&r)[D],
-                                         const float* __restrict__ g) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(g + d);
-    r[d] = v.x;
-    r[d + 1] = v.y;
-    r[d + 2] = v.z;
-    r[d + 3] = v.w;
-  }
-}
 
 struct PairMasks {
   bool own, same_a, diff_a, same_o, diff_o;
@@ -190,23 +147,27 @@ __device__ __forceinline__ void sims(float l, float kappa_a, float kappa_o,
 
 // Adds one pair's similarities to the family's row sums: JOINT (own_a,
 // same_a, diff_a, own_o, same_o, diff_o), HARD (own, same, diff by label),
-// SET (own, same, diff by tag set).
+// SET (own, same, diff by tag set). Predicated adds (one instruction where
+// a select and an add take two): the sums start at +0 and take positive
+// terms, so skipping a pair outside a mask gives the bits of adding +0.
+// JOINT's caller rounds s_o = s_a^2 itself (__fmul_rn), so it is not
+// fused into the add and the sums keep the bits of the selects.
 template <int F>
 __device__ __forceinline__ void add_pair(float (&acc)[n_stats(F)],
                                          const PairMasks& m, float sa,
                                          float so) {
-  acc[0] += m.own ? sa : 0.f;
+  if (m.own) acc[0] += sa;
   if constexpr (F == SET) {
-    acc[1] += m.same_o ? sa : 0.f;
-    acc[2] += m.diff_o ? sa : 0.f;
+    if (m.same_o) acc[1] += sa;
+    if (m.diff_o) acc[2] += sa;
   } else {
-    acc[1] += m.same_a ? sa : 0.f;
-    acc[2] += m.diff_a ? sa : 0.f;
+    if (m.same_a) acc[1] += sa;
+    if (m.diff_a) acc[2] += sa;
   }
   if constexpr (F == JOINT) {
-    acc[3] += m.own ? so : 0.f;
-    acc[4] += m.same_o ? so : 0.f;
-    acc[5] += m.diff_o ? so : 0.f;
+    if (m.own) acc[3] += so;
+    if (m.same_o) acc[4] += so;
+    if (m.diff_o) acc[5] += so;
   }
 }
 
@@ -233,87 +194,8 @@ __device__ __forceinline__ float pair_coeff(const PairMasks& m,
   }
 }
 
-// Stages prototypes [t0, t0 + cnt) of a valid-first sorted set (HARD reads
-// no tag bits or validity, SET no label).
-template <int D, int F>
-__device__ __forceinline__ void stage_protos(
-    float* sp, int* slab, int* stag, int* sval, const float* protos,
-    const int* proto_lab, const int* proto_tag, const int* proto_valid,
-    int t0, int cnt) {
-  const float4* src = reinterpret_cast<const float4*>(protos + (size_t)t0 * D);
-  float4* dst = reinterpret_cast<float4*>(sp);
-  for (int i = threadIdx.x; i < cnt * D / 4; i += blockDim.x) dst[i] = src[i];
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    if constexpr (F == SET) {
-      slab[i] = -1;
-    } else {
-      slab[i] = proto_lab[t0 + i];
-    }
-    if constexpr (F != HARD) {
-      stag[i] = proto_tag[t0 + i];
-      sval[i] = proto_valid[t0 + i];
-    } else {
-      stag[i] = 0;
-      sval[i] = 0;
-    }
-  }
-}
-
-template <int D, int F>
-__global__ void __launch_bounds__(THREADS) stats_kernel(
-    const float* __restrict__ emb, const int* __restrict__ pix_lab,
-    const int* __restrict__ own, const int* __restrict__ pix_tag,
-    const float* __restrict__ protos, const int* __restrict__ proto_lab,
-    const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
-    const int* __restrict__ num_valid, int n, int p, float kappa_a,
-    float kappa_o, int square, float* __restrict__ out) {
-  constexpr int NS = n_stats(F);
-  __shared__ __align__(16) float sp[TP * D];
-  __shared__ int slab[TP], stag[TP], sval[TP];
-  const int row = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = row < n;
-  float e[D];
-  int lab = -1, own_k = -1, tag = 0;
-  if (live) {
-    load_row<D>(e, emb + (size_t)row * D);
-    if constexpr (F != SET) lab = pix_lab[row];
-    own_k = own[row];
-    if constexpr (F != HARD) tag = pix_tag[row];
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) e[d] = 0.f;
-  }
-  const int nv = min(*num_valid, p);
-  float acc[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) acc[s] = 0.f;
-  for (int t0 = 0; t0 < nv; t0 += TP) {
-    const int cnt = min(TP, nv - t0);
-    __syncthreads();
-    stage_protos<D, F>(sp, slab, stag, sval, protos, proto_lab, proto_tag,
-                       proto_valid, t0, cnt);
-    __syncthreads();
-    float part[NS];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) part[s] = 0.f;
-    for (int j = 0; j < cnt; ++j) {
-      float sa, so;
-      sims<F>(dot_row<D>(e, sp + j * D), kappa_a, kappa_o, square, sa, so);
-      const PairMasks m = pair_masks(t0 + j, own_k, lab, tag, slab[j],
-                                     stag[j], sval[j]);
-      add_pair<F>(part, m, sa, so);
-    }
-#pragma unroll
-    for (int s = 0; s < NS; ++s) acc[s] += part[s];
-  }
-  if (live) {
-#pragma unroll
-    for (int s = 0; s < NS; ++s) out[(size_t)s * n + row] = acc[s];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Tiled kernels: stats (K1, K7), dE (K2, K5, K8), dP (K3, K6, K9)
+// Tiled kernels: stats (K1, K4, K7), dE (K2, K5, K8), dP (K3, K6, K9)
 // ---------------------------------------------------------------------------
 
 constexpr int OWN = 128;           // own rows of a block
@@ -861,7 +743,8 @@ __device__ __forceinline__ float ex2(float x) {
 // registers; 3 x 55.5 KB of shared memory at D = 32): allowed 255
 // registers, ptxas spilled its D = 32 form. JOINT keeps 2 (at 168
 // registers its D = 16 form spilled); at D = 64 two blocks fill the
-// shared memory.
+// shared memory. HARD keeps 2: at D = 32 it builds to 255 registers with
+// no spill, and ran K4 ~11% faster than at 3 blocks (168) on an H100.
 __host__ __device__ constexpr int stats_min_blocks(int d, int family) {
   return d <= 32 && family == SET ? 3 : 2;
 }
@@ -874,11 +757,14 @@ __host__ __device__ constexpr int stats_min_blocks(int d, int family) {
 // once a tile. At the end the quad t = 0..3 of a row adds its four sums as
 // (t0 + t1) + (t2 + t3), every lane to the same bits, and lane t writes
 // statistics t and t + 4: no atomics, the same result on every run.
-// The middle is branch-free: a streamed row past the count takes no own
-// index, label or validity, so its pairs add 0 under the masks; s = 2^(l
-// kappa log2(e)) with kappa log2(e) taken once; SQUARE (kappa_o = 2
-// kappa_a, JOINT) is a template argument, so s_o = s_a^2 costs one
-// multiply a pair and no branch.
+// The middle has no branch: a streamed row past the count takes no own
+// index, label or validity, so its pairs add nothing under the masks (the
+// adds are predicated); s = 2^(l kappa log2(e)) with kappa log2(e) taken
+// once; SQUARE (kappa_o = 2 kappa_a, JOINT) is a template argument, so
+// s_o = s_a^2 costs one multiply a pair. (Skipping the last tile's 8-row
+// n tiles wholly past the count, by a test uniform over the block, cost
+// K1 and K7 ~17% on an H100: ptxas no longer interleaved the n tiles'
+// products.)
 template <int D, int F, bool SQUARE>
 __global__ void __launch_bounds__(TILE_THREADS, stats_min_blocks(D, F))
     stats_tile_kernel(
@@ -975,7 +861,8 @@ __global__ void __launch_bounds__(TILE_THREADS, stats_min_blocks(D, F))
             const float l = s[mt][nt][2 * h + e];
             const float sa = ex2(l * ka2);
             float so = 0.f;
-            if constexpr (F == JOINT) so = SQUARE ? sa * sa : ex2(l * ko2);
+            if constexpr (F == JOINT)
+              so = SQUARE ? __fmul_rn(sa, sa) : ex2(l * ko2);
             add_pair<F>(part[mt][h],
                         pair_masks(k, own_k[mt][h], lab[mt][h], tag[mt][h],
                                    plab, y.tag, pvalid),
@@ -1037,21 +924,6 @@ int dispatch_d(int d, Args... args) {
   }
   return (int)cudaGetLastError();
 }
-
-template <int D, int F>
-struct LaunchStats {
-  static void run(const float* emb, const int* pix_lab, const int* own,
-                  const int* pix_tag, const float* protos,
-                  const int* proto_lab, const int* proto_tag,
-                  const int* proto_valid, const int* num_valid, int n, int p,
-                  float kappa_a, float kappa_o, int square, float* out,
-                  cudaStream_t stream) {
-    const int blocks = (n + THREADS - 1) / THREADS;
-    stats_kernel<D, F><<<blocks, THREADS, 0, stream>>>(
-        emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
-        proto_valid, num_valid, n, p, kappa_a, kappa_o, square, out);
-  }
-};
 
 template <int D, int F, bool SQUARE>
 void launch_stats_tile(const float* emb, const int* pix_lab, const int* own,
@@ -1203,7 +1075,7 @@ int segsort_hard_stats(const float* emb, const int* pix_lab, const int* own,
                        const int* num_valid, int n, int p, int d,
                        float kappa, float* out, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<HARD, LaunchStats>(
+  return dispatch_d<HARD, LaunchStatsTiled>(
       d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
       (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
       0, out, (cudaStream_t)stream);

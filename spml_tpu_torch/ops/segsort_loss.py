@@ -40,8 +40,8 @@ from spml_tpu_torch.ops import _cuda
 
 KERNEL_SOURCE = "segsort_joint"
 SUPPORTED_DIMS = (16, 32, 64)
-# the tiled kernels (JOINT and SET stats; every family's dE and dP): a
-# block owns OWN_ROWS rows of one side (pixels for stats and dE, valid
+# the tiled kernels (every family's stats, dE and dP): a block owns
+# OWN_ROWS rows of one side (pixels for stats and dE, valid
 # prototypes for dP), WARP_ROWS to each of its four warps, and walks
 # STREAM_ROWS-row tiles of the other
 OWN_ROWS, STREAM_ROWS, WARP_ROWS = 128, 64, 32
@@ -299,11 +299,11 @@ def quad_sum(lanes):
 
 
 def stats_tiles(n, num_valid):
-    """The tiled stats kernel's blocks (JOINT and SET): [(pixel rows,
-    [quad_lane_rows of each streamed prototype tile, in loop order])], the
-    dE kernel's walk with every warp live. A row's statistic is quad_sum
-    of its lanes' running sums, each the tiles' partial sums (a lane's
-    rows of the tile, in order) added in loop order."""
+    """The tiled stats kernel's blocks (JOINT, HARD and SET): [(pixel
+    rows, [quad_lane_rows of each streamed prototype tile, in loop
+    order])], the dE kernel's walk with every warp live. A row's statistic
+    is quad_sum of its lanes' running sums, each the tiles' partial sums
+    (a lane's rows of the tile, in order) added in loop order."""
     return [(own, [quad_lane_rows(tile) for tile in ptiles])
             for own, ptiles in _pixel_blocks(n, num_valid)]
 
@@ -335,12 +335,11 @@ def _kernel_operand(t, dtype):
 
 
 class _SegsortStats(torch.autograd.Function):
-    """Forward: the family's stats kernel (K1 joint, K4 hard, K7 set; K4
-    per row, the others tiled); backward: its dE (K2, K5, K8) and dP (K3,
-    K6, K9) kernels, all tiled, the dE skipping the pixels whose
-    cotangents are all zero. `inputs` are in the C functions' argument
-    order; gradients flow to the embeddings (first) and the prototypes
-    only."""
+    """Forward: the family's stats kernel (K1 joint, K4 hard, K7 set);
+    backward: its dE (K2, K5, K8) and dP (K3, K6, K9) kernels, all tiled,
+    the dE skipping the pixels whose cotangents are all zero. `inputs`
+    are in the C functions' argument order; gradients flow to the
+    embeddings (first) and the prototypes only."""
 
     @staticmethod
     def forward(ctx, family, scalars, *inputs):

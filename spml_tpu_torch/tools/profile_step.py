@@ -37,8 +37,7 @@ from spml_tpu_torch.train import recipes
 CATEGORIES = [  # first match wins; cuDNN's conv kernels also say "gemm"
     # the kernels of csrc/segsort_joint.cu (K1-K3 joint, K4-K6 hard,
     # K7-K9 set)
-    ("segsort loss K1-K9", r"(stats|grad_tile|stats_tile)_kernel<"
-                           r"|reduce_tiles"),
+    ("segsort loss K1-K9", r"(grad_tile|stats_tile)_kernel<|reduce_tiles"),
     ("conv (cuDNN)", r"fprop|dgrad|wgrad|implicit|conv|cudnn|"
                      r"nchwToNhwc|nhwcToNchw"),
     ("matmul (cuBLAS)", r"gemm|gemv|Gemm|nvjet|splitK"),

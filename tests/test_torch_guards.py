@@ -464,8 +464,9 @@ def test_joint_kernels_match_plain_version_on_card(n, nv, d, kappa_o):
 @pytest.mark.gpu
 def test_hard_kernels_match_plain_version_on_card():
     """K4-K6 against the plain version in float64 on the card, at a small
-    size, D = 32 (stats rtol 1e-5; dE / dP rtol 1e-4, atol 1e-5 *
-    max|ref|; chip_smoke.py checks the same at the DensePose shapes)."""
+    size, D = 32, with 500 valid rows and with 65 (one row in the last
+    64-row prototype tile) (stats rtol 1e-5; dE / dP rtol 1e-4, atol 1e-5
+    * max|ref|; chip_smoke.py checks the same at the DensePose shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     rng = np.random.RandomState(6)
@@ -477,20 +478,23 @@ def test_hard_kernels_match_plain_version_on_card():
     lab = torch.from_numpy(rng.randint(0, 4, n)).cuda()
     own = torch.from_numpy(rng.randint(0, p, n)).cuda()
     plab = torch.from_numpy(rng.randint(-1, 4, p)).cuda()
-    nv = torch.tensor([500], device="cuda")
     g = torch.randn(3, n, device="cuda")
-    e1 = emb.clone().requires_grad_(True)
-    p1 = protos.clone().requires_grad_(True)
-    s1 = fused.segsort_stats(e1, lab, own, p1, plab, nv, 6.0)
-    (s1 * g).sum().backward()
-    e2 = emb.double().requires_grad_(True)
-    p2 = protos.double().requires_grad_(True)
-    s2 = fused.segsort_stats_reference(e2, lab, own, p2, plab, nv, 6.0)
-    (s2 * g.double()).sum().backward()
-    torch.testing.assert_close(s1, s2.detach().float(), rtol=1e-5, atol=0.0)
-    for a, b in ((e1.grad, e2.grad.float()), (p1.grad, p2.grad.float())):
-        torch.testing.assert_close(a, b, rtol=1e-4,
-                                   atol=1e-5 * float(b.abs().max()))
+    for valid in (500, 65):
+        nv = torch.tensor([valid], device="cuda")
+        e1 = emb.clone().requires_grad_(True)
+        p1 = protos.clone().requires_grad_(True)
+        s1 = fused.segsort_stats(e1, lab, own, p1, plab, nv, 6.0)
+        (s1 * g).sum().backward()
+        e2 = emb.double().requires_grad_(True)
+        p2 = protos.double().requires_grad_(True)
+        s2 = fused.segsort_stats_reference(e2, lab, own, p2, plab, nv, 6.0)
+        (s2 * g.double()).sum().backward()
+        torch.testing.assert_close(s1, s2.detach().float(), rtol=1e-5,
+                                   atol=0.0)
+        for a, b in ((e1.grad, e2.grad.float()),
+                     (p1.grad, p2.grad.float())):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * float(b.abs().max()))
 
 
 @pytest.mark.gpu

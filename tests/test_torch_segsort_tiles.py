@@ -1,6 +1,6 @@
 """The schedule of the tiled SegSort kernels, replayed on the CPU: the
-JOINT stats, dE and dP (K1, K2, K3), the hard-label dE and dP (K5, K6)
-and the tag-set stats, dE and dP (K7, K8, K9).
+JOINT stats, dE and dP (K1, K2, K3), the hard-label stats, dE and dP (K4,
+K5, K6) and the tag-set stats, dE and dP (K7, K8, K9).
 
 csrc/segsort_joint.cu's stats_tile_kernel and grad_tile_kernel cut the
 (pixel, prototype) pairs into tiles: stats and dE blocks own 128 pixels
@@ -217,8 +217,8 @@ def test_tiles_cover_each_pair_once_and_replay_the_gradients(d, kappas, nv,
 def _stats_terms(family, case, kappas):
     """[NS, N, P]: each pair's similarity under each statistic's mask, the
     rows of the kernel's add_pair (JOINT: own, same, diff label at kappa_a,
-    own, tags intersect, disjoint at kappa_o; SET: own, intersect,
-    disjoint at kappa)."""
+    own, tags intersect, disjoint at kappa_o; HARD: own, same, diff label
+    at kappa; SET: own, intersect, disjoint at kappa)."""
     logits = case["emb"] @ case["protos"].T
     s_a = torch.exp(kappas[0] * logits)
     own, live = fused._own_mask(case["own_idx"], case["protos"].shape[0],
@@ -227,6 +227,11 @@ def _stats_terms(family, case, kappas):
                                       case["proto_valid"], live)
     if family == "set":
         pairs = ((own, s_a), (same_o, s_a), (diff_o, s_a))
+    elif family == "hard":
+        own, same, diff, _ = fused._label_masks(
+            case["pix_lab"], case["own_idx"], case["proto_lab"],
+            case["num_valid"])
+        pairs = ((own, s_a), (same, s_a), (diff, s_a))
     else:
         kappa_a, kappa_o = kappas
         _, same_a, diff_a, _ = fused._label_masks(
@@ -244,17 +249,19 @@ def _stats_terms(family, case, kappas):
     "family,d,kappas",
     [("joint", 16, (6.0, 12.0)), ("joint", 32, (6.0, 10.0)),
      ("joint", 64, (6.0, 12.0)), ("set", 16, (8.0,)), ("set", 32, (8.0,)),
-     ("set", 64, (8.0,))],
+     ("set", 64, (8.0,)), ("hard", 16, (6.0,)), ("hard", 32, (6.0,)),
+     ("hard", 64, (6.0,))],
     ids=["d16_square", "d32_two_exps", "d64_square", "set_d16", "set_d32",
-         "set_d64"])
+         "set_d64", "hard_d16", "hard_d32", "hard_d64"])
 def test_stats_tiles_cover_each_pair_once_and_replay_the_stats(family, d,
                                                                kappas, nv):
-    """K1 (JOINT) and K7 (SET): each block's quads add their lanes' rows
-    of each prototype tile into per-tile partial sums, then running sums
-    in loop order, then the quad's four sums in quad_sum's order; rows past
-    num_valid are never read."""
+    """K1 (JOINT), K4 (HARD) and K7 (SET): each block's quads add their
+    lanes' rows of each prototype tile into per-tile partial sums, then
+    running sums in loop order, then the quad's four sums in quad_sum's
+    order; rows past num_valid are never read (70 valid rows end the
+    second tile inside an 8-row n tile)."""
     n, p = N_PIX, N_PROTO
-    seed = d + nv + (1 if family == "joint" else 5)
+    seed = d + nv + {"joint": 1, "set": 5, "hard": 8}[family]
     case = _case(n, p, nv, d, seed=seed)
     terms = _stats_terms(family, case, kappas)
     ns = terms.shape[0]
@@ -282,7 +289,8 @@ def test_stats_tiles_cover_each_pair_once_and_replay_the_stats(family, d,
         stats[:, pix.start:pix.stop] = fused.quad_sum(lanes)
     assert (seen[:, :nv] == 1).all() and (seen[:, nv:] == 0).all()
 
-    plain = _joint_stats if family == "joint" else _set_stats
+    plain = {"joint": _joint_stats, "hard": _hard_stats,
+             "set": _set_stats}[family]
     want = plain(case, case["emb"], case["protos"], *kappas)
     torch.testing.assert_close(stats, want, rtol=1e-10, atol=0.0)
     if nv == 0:
