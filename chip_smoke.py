@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port on one CUDA card, end to end: build the kernels, hold each
-against its plain version, drive the three ported SPML train steps and the
-dilated-conv probe, report.
+against its plain version, drive the three ported SPML train steps, the
+dilated-conv probe and the single-scale KNN inference path, report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -81,8 +81,30 @@ Phases, each printing one line or more:
       at its two shapes: K10, then K10 timed at the first shape (res4 d2)
       beside its plain version, cuDNN (F.conv2d, the library yardstick)
       and its bound at the bf16 tensor-core peak;
- 5. the kernel list as one JSON line;
- 6. the card's name and power limit (nvidia-smi), then the last line
+ 5. inference, the single-scale KNN path at VOC's test geometry
+    (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
+    kernel on it): panoptic_deeplab_101 from random weights of seed 0
+    (cli.build_eval_models without a snapshot; eval mode, bf16 convs),
+    test.image_size 512, crop = stride = 512, 12x12 k-means x10, 21
+    classes, top 20. build_prototypes on 8 blobby images (512 x 384 and
+    384 x 512); a bank of 1,523,808 (VOC train_aug's 10,582 images x 144
+    clusters): each built prototype 20 times, the rest random unit
+    vectors with labels 0-20 (seed 0); predict_semantic on the same 8.
+    Checks: (a) labels in [0, 21); (b) each prediction equals its own
+    clusters' majority labels, but on clusters whose float64
+    self-affinity lies within TIE_GAP of another prototype's; (c) on a
+    fresh image, the top-20 labels equal a float64 recomputation on the
+    card as multisets, but where the 20th and 21st float64 affinities
+    lie within TIE_GAP, and the stages composed equal predict_semantic;
+    then the device path against the CPU path in float32 (crop 128,
+    stride 64, a 192 x 160 image: 2 x 2 windows): the stitched map within
+    STITCH_RTOL, clusters, labels and predictions equal. One [inference]
+    line: build and predict ms/image and images/s (CUDA events, 3
+    warm-up and 10 timed images), the split of a prediction (upload,
+    forward, stitch, kmeans, knn, vote), peak memory, the nvidia-smi
+    line;
+ 6. the kernel list as one JSON line;
+ 7. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -90,7 +112,9 @@ Tolerances: the SegSort statistics rtol 1e-5 (float32 sums in another
 order, amplified by exp(kappa * logit)); dE and dP rtol 1e-4 with atol
 1e-5 * max|reference|; the dilated conv rtol 2^-8 (one bf16 rounding of
 the output) with atol 1e-3 * max|reference| (float32 sums of 9 C terms
-that cancel near zero).
+that cancel near zero); inference TIE_GAP 1e-5 (float32 rounding of a
+64-term dot of unit vectors stays below 3.8e-6), the stitched map rtol
+1e-4 with atol 1e-5 * max|CPU| (cuDNN against oneDNN through ResNet-101).
 """
 
 from __future__ import annotations
@@ -735,6 +759,284 @@ def time_dilated_conv(torch, dc):
     return ms, plain_ms, library_ms, bound
 
 
+# ---------------------------------------------------------------------------
+# Inference: the single-scale KNN path at VOC's test geometry
+# ---------------------------------------------------------------------------
+
+BANK_SIZE = 1523808  # VOC train_aug: 10582 images x at most 144 clusters
+COPIES = 20  # each built prototype's copies in the bank
+# f64-vs-f32 near-tie gap of a 64-term dot of unit vectors: float32
+# rounding stays below 64 * 2^-24 = 3.8e-6
+TIE_GAP = 1e-5
+# the card's float32 stitched map against the CPU's (cuDNN vs oneDNN
+# through ResNet-101, TF32 off)
+STITCH_RTOL, STITCH_ATOL_REL = 1e-4, 1e-5
+INFERENCE = {  # bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100
+    "network": {"backbone_types": "panoptic_deeplab_101",
+                "embedding_dim": 64, "kmeans_num_clusters": [12, 12],
+                "kmeans_iterations": 10},
+    "dataset": {"num_classes": 21},
+    "test": {"image_size": 512, "crop_size": [512, 512],
+             "stride": [512, 512]},
+    "tpu": {"compute_dtype": "bfloat16"},
+}
+
+
+def inference_images(cfg, n, seed):
+    """n normalized images with blobby labels, 512 x 384 and 384 x 512 in
+    turn (VOC's shapes after the 512 resize)."""
+    from spml_tpu_torch.train.flagship import blobby_batch
+
+    batch = blobby_batch(n, 512, cfg.dataset.num_classes, seed=seed,
+                         device="cpu")
+    mean = np.asarray(cfg.network.pixel_means, np.float32)
+    std = np.asarray(cfg.network.pixel_stds, np.float32)
+    out = []
+    for i in range(n):
+        h, w = (512, 384) if i % 2 == 0 else (384, 512)
+        img = batch["image"][i, :h, :w].numpy()
+        out.append((((img - mean) / std).astype(np.float32),
+                    batch["semantic_label"][i, :h, :w].numpy()))
+    return out
+
+
+def make_bank(torch, built, num_classes):
+    """The bank: each built prototype COPIES times (row r at r + k *
+    len(built)), then random unit vectors with labels 0..C-1 (seed 0) up
+    to BANK_SIZE. Returns (prototypes, labels, valid, built row of each
+    bank row or -1)."""
+    protos, labels = built
+    nb = protos.shape[0]
+    rest = BANK_SIZE - COPIES * nb
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    rand = torch.randn(rest, protos.shape[1], device=DEVICE, generator=gen)
+    rand = rand / rand.norm(dim=1, keepdim=True)
+    bank_p = torch.cat([protos.repeat(COPIES, 1), rand])
+    bank_l = torch.cat([labels.repeat(COPIES),
+                        torch.randint(0, num_classes, (rest,), device=DEVICE,
+                                      generator=gen, dtype=labels.dtype)])
+    owner = torch.cat([torch.arange(nb, device=DEVICE).repeat(COPIES),
+                       torch.full((rest,), -1, device=DEVICE)])
+    return (bank_p, bank_l, torch.ones(BANK_SIZE, dtype=torch.bool,
+                                       device=DEVICE), owner)
+
+
+def check_self_retrieval(torch, eng, images, builds, offsets, bank, owner):
+    """(a) predictions in [0, C); (b) each image's prediction equals its
+    own clusters' majority labels, but on clusters whose self-affinity in
+    float64 lies within TIE_GAP of a prototype not its copy (a near-tie
+    the float32 top 20 may break either way). Returns (mismatched pixels,
+    near-tie clusters)."""
+    c = eng.config.dataset.num_classes
+    bank64 = bank[0].double()
+    mismatched, near = 0, 0
+    for (image, _), (protos, labels, valid, clusters), off in zip(
+            images, builds, offsets):
+        pred = eng.predict_semantic(image, *bank)
+        if pred.min() < 0 or pred.max() >= c:
+            raise AssertionError(f"inference: prediction outside [0, {c})")
+        want = labels[clusters]
+        bad = np.unique(clusters[pred != want])
+        rows = np.cumsum(valid) - 1 + off  # built row of each valid cluster
+        for k in np.flatnonzero(valid):
+            p = torch.as_tensor(protos[k], device=DEVICE).double()
+            aff = bank64 @ p
+            own = owner == int(rows[k])
+            tie = float(aff[~own].max()) >= float(aff[own].min()) - TIE_GAP
+            near += tie
+            if k in bad and not tie:
+                raise AssertionError(
+                    f"inference: cluster {k} predicted "
+                    f"{np.unique(pred[clusters == k])}, its majority label "
+                    f"is {labels[k]}, and no prototype ties its own")
+        mismatched += int((pred != want).sum())
+    return mismatched, near
+
+
+def check_topk(torch, eng, image, bank):
+    """(c) one image not in the bank: each valid segment's top-20 labels
+    against a float64 recomputation of its affinities on the card, equal
+    as multisets but where the 20th and 21st float64 affinities lie within
+    TIE_GAP; and the stages composed equal predict_semantic. Returns
+    (segments checked, segments excused)."""
+    h, w = image.shape[:2]
+    img = eng.upload_image(image)
+    seg_ids, protos, seg_valid = eng.segment(eng.stitch(img), (h, w))
+    topk = eng.retrieve(protos, seg_valid, bank)
+    staged = eng.vote(topk, seg_ids, tuple(img.shape[:2]))[:h, :w]
+    if not np.array_equal(staged.cpu().numpy(),
+                          eng.predict_semantic(image, *bank)):
+        raise AssertionError("inference: the stages differ from "
+                             "predict_semantic")
+    aff = protos.double() @ bank[0].double().T
+    vals, idx = torch.sort(aff, dim=1, descending=True, stable=True)
+    want = bank[1][idx[:, :20]]
+    checked = excused = 0
+    for k in torch.nonzero(seg_valid).flatten().tolist():
+        checked += 1
+        if torch.equal(torch.sort(topk[k])[0], torch.sort(want[k])[0]):
+            continue
+        if float(vals[k, 19] - vals[k, 20]) >= TIE_GAP:
+            raise AssertionError(f"inference: segment {k} top-20 labels "
+                                 f"{topk[k].tolist()}, float64 "
+                                 f"{want[k].tolist()}")
+        excused += 1
+    return checked, excused
+
+
+def check_card_against_cpu(torch):
+    """The device path against the CPU path, float32, crop 128, stride 64,
+    a 192 x 160 image (2 x 2 windows): stitched map within STITCH_RTOL,
+    cluster maps, prototype labels and predictions equal. Returns the
+    stitched map's largest absolute error."""
+    import copy
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.inference import engine
+    from spml_tpu_torch.models.embeddings import build_embedding_model
+
+    over = dict(INFERENCE, test={"image_size": 0, "crop_size": [128, 128],
+                                 "stride": [64, 64]},
+                tpu={"compute_dtype": "float32"})
+    cfg = load_config(overrides=over)
+    model = build_embedding_model("panoptic_deeplab_101", 64)
+    engines = {dev: engine.InferenceEngine(cfg, copy.deepcopy(model), dev)
+               for dev in ("cpu", DEVICE)}
+    image, label = inference_images(cfg, 1, seed=2)[0]
+    image, label = image[:192, :160], label[:192, :160]
+    if engines["cpu"].windows(*engines["cpu"].bucket_shape(192, 160)) != [
+            (0, 0), (0, 64), (64, 0), (64, 64)]:
+        raise AssertionError("inference: the CPU check is not 2 x 2 windows")
+    rng = np.random.RandomState(1)
+    bank_p = rng.randn(2000, 64).astype(np.float32)
+    bank_p /= np.linalg.norm(bank_p, axis=1, keepdims=True)
+    bank = (bank_p, rng.randint(0, 21, 2000), np.ones(2000, bool))
+    out = {dev: (eng.stitched_embeddings(image).cpu(),
+                 eng.build_prototypes(image, label, return_clusters=True),
+                 eng.predict_semantic(image, *bank))
+           for dev, eng in engines.items()}
+    (want, wbuild, wpred), (got, gbuild, gpred) = out["cpu"], out[DEVICE]
+    atol = STITCH_ATOL_REL * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=STITCH_RTOL, atol=atol,
+                               msg=lambda m: f"inference stitch: {m}")
+    for name, g, w in (("clusters", gbuild[3], wbuild[3]),
+                       ("labels", gbuild[1], wbuild[1]),
+                       ("valid", gbuild[2], wbuild[2]),
+                       ("prediction", gpred, wpred)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"inference: card and CPU {name} differ in "
+                                 f"{int((g != w).sum())} places")
+    return float((got - want).abs().max())
+
+
+def time_inference(torch, eng, images, bank):
+    """CUDA events around 10 images after 3 warm-up images: (build ms,
+    predict ms, host ms of predict, {stage: ms}, peak bytes of predict)."""
+    order = [images[i % len(images)] for i in range(13)]
+
+    def timed(fn):
+        for image, label in order[:3]:
+            fn(image, label)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for image, label in order[3:]:
+            fn(image, label)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 10, (time.perf_counter() - t0) * 100
+
+    build_ms, _ = timed(lambda im, lab: eng.build_prototypes(im, lab))
+    torch.cuda.reset_peak_memory_stats()
+    predict_ms, host_ms = timed(lambda im, lab: eng.predict_semantic(
+        im, *bank))
+    peak = torch.cuda.max_memory_allocated()
+
+    stages = ("upload", "forward", "stitch", "kmeans", "knn", "vote")
+    totals = dict.fromkeys(stages, 0.0)
+    for n, (image, _) in enumerate(order):
+        h, w = image.shape[:2]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        img = eng.upload_image(image)
+        ev[1].record()
+        emb = eng.embed_windows(img)
+        ev[2].record()
+        emb_map = eng.overlap_average(emb, *img.shape[:2])
+        ev[3].record()
+        seg_ids, protos, seg_valid = eng.segment(emb_map, (h, w))
+        ev[4].record()
+        topk = eng.retrieve(protos, seg_valid, bank)
+        ev[5].record()
+        eng.vote(topk, seg_ids, tuple(img.shape[:2]))[:h, :w].cpu()
+        ev[6].record()
+        torch.cuda.synchronize()
+        if n >= 3:
+            for i, st in enumerate(stages):
+                totals[st] += ev[i].elapsed_time(ev[i + 1]) / 10
+    return build_ms, predict_ms, host_ms, totals, peak
+
+
+def run_inference(torch):
+    """The single-scale KNN path at VOC's test geometry: the flagship
+    network from random weights of seed 0 (eval mode, bf16 convs), 12 x 12
+    k-means x 10, 21 classes, top 20, crop = stride = 512; memory bank
+    entries from 8 images, a bank of BANK_SIZE, prediction of the same 8,
+    the checks and the timings."""
+    import tempfile
+
+    from spml_tpu_torch import cli
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.inference import engine
+
+    t0 = time.perf_counter()
+    cfg = load_config(overrides=INFERENCE)
+    with tempfile.TemporaryDirectory() as snapshot:  # none: seed 0 weights
+        eng = engine.InferenceEngine(
+            cfg, cli.build_eval_models(cfg, snapshot, DEVICE), DEVICE)
+    images = inference_images(cfg, 8, seed=0)
+    builds, offsets, parts = [], [], ([], [])
+    for image, label in images:
+        protos, labels, valid, clusters = eng.build_prototypes(
+            image, label, return_clusters=True)
+        builds.append((protos, labels, valid, clusters))
+        offsets.append(sum(len(p) for p in parts[0]))
+        parts[0].append(protos[valid])
+        parts[1].append(labels[valid])
+    built = (torch.as_tensor(np.concatenate(parts[0]), device=DEVICE),
+             torch.as_tensor(np.concatenate(parts[1]), device=DEVICE))
+    *bank, owner = make_bank(torch, built, cfg.dataset.num_classes)
+    log("inference", f"model and 8 memory-bank entries in "
+        f"{time.perf_counter() - t0:.1f} s: {built[0].shape[0]} valid "
+        f"prototypes of {8 * 144}, bank {bank[0].shape[0]} x "
+        f"{bank[0].shape[1]} float32 ({COPIES} copies each, the rest random "
+        "unit vectors)")
+    mismatched, near = check_self_retrieval(torch, eng, images, builds,
+                                            offsets, bank, owner)
+    fresh = inference_images(cfg, 1, seed=1)[0][0]
+    checked, excused = check_topk(torch, eng, fresh, bank)
+    stitch_err = check_card_against_cpu(torch)
+    log("inference", f"checks ok: (a) predictions in [0, 21); (b) "
+        f"self-retrieval {mismatched} pixels off their clusters' majority "
+        f"labels, {near} near-tie clusters (gap {TIE_GAP}); (c) top-20 "
+        f"labels of {checked} segments equal float64's, {excused} excused "
+        f"as near-ties; card vs CPU float32 (crop 128, stride 64, 192 x "
+        f"160, 2 x 2 windows) stitched max_abs_err {stitch_err:.3e} "
+        f"(rtol {STITCH_RTOL}), clusters, labels and predictions equal")
+    build_ms, predict_ms, host_ms, stages, peak = time_inference(
+        torch, eng, images, bank)
+    log("inference", f"VOC test geometry (panoptic_deeplab_101 bf16, 512 x "
+        f"384 / 384 x 512 in a 512 x 512 bucket, 12 x 12 k-means x 10, top "
+        f"20 of {BANK_SIZE}): build_prototypes {build_ms:.2f} ms/image; "
+        f"predict_semantic {predict_ms:.2f} ms/image (host clock "
+        f"{host_ms:.2f}), {1000 / predict_ms:.2f} images/s; split "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f" ms; peak memory {peak / 2**30:.2f} GiB; card "
+        f"{nvidia_smi_line()}")
+
+
 def main() -> int:
     import argparse
 
@@ -798,6 +1100,7 @@ def main() -> int:
     conv_launches = run_probe_path(torch, dc)
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
+    run_inference(torch)
 
     err_name = {"stats": "stats", "grad_emb": "dE", "grad_proto": "dP"}
     table = []

@@ -6,7 +6,8 @@ The same sections and field names as the JAX package's schema
 both packages: keys this schema lacks are skipped, as in the JAX package.
 The ``tpu`` section keeps its name for that reason; it holds the
 static-shape knobs the port shares (segment capacity, label cap, compute
-dtype, fused loss, loss reduction, lazy metrics).
+dtype, fused loss, loss reduction, lazy metrics, the inference window
+buckets).
 """
 
 from __future__ import annotations
@@ -117,6 +118,12 @@ class TpuConfig:
     # calls it; True adds it (the NN-propagated tag set loss at the
     # feat_aff concentration and weight)
     apply_feat_aff: bool = False
+    # inference: round padded shapes up to crop + k*stride (False: pad
+    # only up to the crop); changes the sliding-window grid
+    pad_to_stride_buckets: bool = True
+    # inference: images per prediction batch; only 1 is ported
+    # (inference/runner.py raises for more)
+    infer_batch: int = 1
 
 
 @dataclass

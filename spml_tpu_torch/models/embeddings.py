@@ -26,7 +26,8 @@ from spml_tpu_torch.models import local
 from spml_tpu_torch.models.resnet import (BN_EPS, BN_MOMENTUM,
                                           RESNET_DEPTHS, BatchNorm2d,
                                           ResnetBackbone, init_backbone_)
-from spml_tpu_torch.models.spp import ASPP, PSPP, init_torch_conv_
+from spml_tpu_torch.models.spp import (ASPP, PSPP, init_torch_conv_,
+                                       resize_bilinear)
 
 PSPP_FEATURE_DIM = 512
 
@@ -42,6 +43,8 @@ class EmbeddingModel(nn.Module):
 
     forward(images [B, H, W, 3]) -> (embedding float32, local features
     [B, H/4, W/4, L] float32: L = 2 location channels, 5 with colour).
+    resize_as_input (inference): the x2 map is resized again to the
+    input's H x W, and the local features are made at that size.
     head "aspp": ASPP(2048 -> dim); "pspp": PSPP(2048 -> 512) then a 1x1
     conv with bias to dim (module `pspp` = (PSPP, conv), the reference's
     names).
@@ -68,7 +71,7 @@ class EmbeddingModel(nn.Module):
         else:
             raise ValueError(f"unknown head {head!r}")
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor, resize_as_input: bool = False):
         x = images.permute(0, 3, 1, 2)
         with _autocast(x, self.compute_dtype):
             res5 = self.resnet_backbone(x.to(self.compute_dtype))[3]
@@ -78,8 +81,10 @@ class EmbeddingModel(nn.Module):
         emb = F.interpolate(emb, size=(2 * h, 2 * w), mode="bilinear",
                             align_corners=False, antialias=False)
         emb = emb.permute(0, 2, 3, 1)
+        if resize_as_input:  # a second resize, not folded into the first
+            emb = resize_bilinear(emb, tuple(images.shape[1:3]))
         loc = local.location_color_features(
-            images.float(), (2 * h, 2 * w), use_color=self.use_color,
+            images.float(), tuple(emb.shape[1:3]), use_color=self.use_color,
             norm_color=self.norm_color, smooth_ksize=self.smooth_ksize)
         return emb, loc
 

@@ -174,3 +174,45 @@ def segment_batch(embeddings: torch.Tensor, local_features: torch.Tensor,
                     segment_valid=seg_valid, segment_semantic=seg_sem,
                     segment_instance=seg_inst, segment_cluster=seg_cluster)
     return segs, emb_flat, emb_loc
+
+
+def segment_batch_single_group(embeddings: torch.Tensor,
+                               local_features: torch.Tensor,
+                               semantic_labels: torch.Tensor,
+                               num_clusters: tuple[int, int],
+                               iterations: int = 10,
+                               ignore_index: int = 255):
+    """segment_batch for inference's fake labels, where every valid pixel
+    shares one (semantic, instance) pair: the segments are the occupied
+    k-means clusters, and a segment's id is its cluster's.
+
+    Same inputs as segment_batch without the instance labels; returns
+    (Segments, emb_flat [B, N, D]) with capacity ky * kx. Invalid pixels
+    get id 0 and pixel_valid False; an empty cluster is an invalid
+    segment slot.
+    """
+    b, h, w, d = embeddings.shape
+    k = num_clusters[0] * num_clusters[1]
+    emb = common.normalize_embedding(embeddings.float())
+    emb_flat = emb.reshape(b, h * w, d)
+    loc_flat = local_features.float().reshape(b, h * w, -1)
+    emb_loc = common.normalize_embedding(
+        torch.cat([emb_flat, loc_flat], dim=-1))
+    grid = initialize_cluster_labels(num_clusters, (h, w),
+                                     device=embeddings.device).reshape(-1)
+    valid = semantic_labels.reshape(b, h * w) != ignore_index
+    cluster = kmeans_with_initial_labels(
+        emb_loc, grid.expand(b, -1), k, iterations, valid.float())
+    seg_ids = torch.where(valid, cluster, 0)
+    present = torch.zeros(b, k + 1, dtype=torch.bool, device=emb.device)
+    present.scatter_(1, torch.where(valid, cluster, k), True)
+    seg_valid = present[:, :k]
+    ignore = torch.full_like(seg_valid, ignore_index, dtype=torch.long)
+    segs = Segments(
+        pixel_segment_ids=seg_ids, pixel_valid=valid,
+        segment_valid=seg_valid,
+        segment_semantic=torch.where(seg_valid, 0, ignore),
+        segment_instance=torch.zeros(b, k, dtype=torch.long,
+                                     device=emb.device),
+        segment_cluster=torch.arange(k, device=emb.device).expand(b, k))
+    return segs, emb_flat

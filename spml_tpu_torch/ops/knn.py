@@ -2,13 +2,16 @@
 
 Port of spml_tpu/ops/knn.py::top_k_ranking (reference:
 spml/utils/segsort/eval.py:9 in twke18/SPML; invalid prototypes get -1e30
-affinity) and ::nearest_neighbor_multiset_labels (the DensePose step's
+affinity), ::majority_label_from_topk (eval.py:55, the KNN vote of
+inference) and ::nearest_neighbor_multiset_labels (the DensePose step's
 NN-propagated tags).
 """
 
 from __future__ import annotations
 
 import torch
+
+from spml_tpu_torch.ops import common
 
 NEG_INF = -1e30
 
@@ -35,6 +38,16 @@ def top_k_ranking(embeddings: torch.Tensor, labels: torch.Tensor,
     m = query_mask.float()[:, None]
     acc = torch.sum(tp * m) / torch.clamp(torch.sum(m) * top_k, min=1.0)
     return acc, topk_labels
+
+
+def majority_label_from_topk(top_k_labels: torch.Tensor,
+                             num_classes: int) -> torch.Tensor:
+    """Majority vote over the retrieved labels [..., top_k] -> [...]
+    int32; ties go to the lower class (torch.argmax returns the first
+    maximum, as jnp.argmax), labels outside [0, num_classes) count for
+    none."""
+    votes = common.one_hot(top_k_labels, num_classes).sum(dim=-2)
+    return torch.argmax(votes, dim=-1).int()
 
 
 def nearest_neighbor_multiset_labels(

@@ -19,6 +19,7 @@ the stem and res2 are in no group: frozen. Adam is not ported yet.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -38,7 +39,10 @@ GROUP_WD = {FROZEN: False, BACKBONE_W: True, BACKBONE_B: False,
 def lr_poly(base_lr: float, max_iter: int, warmup_iter: int = 0,
             power: float = 0.9) -> Callable[[int], float]:
     def schedule(step):
-        poly = base_lr * (1.0 - step / max_iter) ** power
+        left = 1.0 - step / max_iter
+        # past max_iter the JAX schedule's float32 power is nan, where a
+        # Python power of a negative base would be complex
+        poly = base_lr * left ** power if left >= 0 else math.nan
         if warmup_iter > 0 and step < warmup_iter:
             alpha = step / warmup_iter
             return min(base_lr * (0.1 * (1.0 - alpha) + alpha), poly)

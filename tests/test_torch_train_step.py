@@ -19,6 +19,7 @@ prototypes (unit rows) atol 3e-4: jitted and eager JAX differ there by
 exactly equal.
 """
 
+import math
 from unittest import mock
 
 import numpy as np
@@ -179,6 +180,19 @@ def test_schedules_match_jax(policy):
         joptim.make_schedule(jcfg.train)
     for s in (0, 1, 5, 9, 10, 11, 19, 20, 49, 50, 99):
         np.testing.assert_allclose(ours(s), float(theirs(s)), rtol=1e-6)
+
+
+def test_poly_schedule_past_max_iteration_is_nan_as_jax():
+    """At step max_iteration + 1 the poly schedule is a float nan, as the
+    JAX schedule's float32 power of a negative base; at max_iteration it
+    is 0.0 in both."""
+    over = {"train": {"lr_policy": "poly", "warmup_iteration": 10,
+                      "max_iteration": 100}}
+    ours = optim.make_schedule(load_config(overrides=over).train)
+    theirs = joptim.make_schedule(jload_config(overrides=over).train)
+    assert ours(100) == float(theirs(100)) == 0.0
+    got, want = ours(101), float(theirs(101))
+    assert isinstance(got, float) and math.isnan(got) and math.isnan(want)
 
 
 def test_sgd_matches_optax_chain():
