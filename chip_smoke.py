@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The port on one CUDA card, end to end: build the kernels, hold each
 against its plain version, drive the three ported SPML train steps, the
-dilated-conv probe and the single-scale KNN inference path, report.
+dilated-conv probe, the single-scale KNN inference path and the training
+drivers from an image list on disk, report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -103,8 +104,48 @@ Phases, each printing one line or more:
     warm-up and 10 timed images), the split of a prediction (upload,
     forward, stitch, kmeans, knn, vote), peak memory, the nvidia-smi
     line;
- 6. the kernel list as one JSON line;
- 7. the card's name and power limit (nvidia-smi), then the last line
+ 6. driver, the train entry points as a user runs them, on a world of 24
+    JPEGs (500 x 375 and 375 x 500) with blobby 21-class PNG labels
+    (255 around each blob) and ~30 Voronoi segments each as instance
+    maps, written from seed 0 (spml_tpu_torch/data/synthetic.py):
+    - stage 1, train/driver.py::train_spml with ListTagDataset on the
+      recipe of bashscripts/voc12/train_spml_scribble.sh:17-46
+      (panoptic_deeplab_101, 64-d, bf16 convs, batch 4, crop 512,
+      mirror / scale / crop, 4 loader threads, 6 x 6 k-means x 10,
+      capacity 256, memory bank 2, kappa 6 / 12 / 16 with weights 1 /
+      0.5 / 0.1, tpu.use_fused_loss on), 4 iterations with snapshot_step
+      2, then again with train.resume to iteration 6: finite losses,
+      K1-K3 launched once a step and no other kernel, the second call
+      starting at step 4 at the schedule's LR of step 4, checkpoints 2,
+      4 and 6; then K1-K3 on the stats inputs of step 6 (N = 65536,
+      P = 3072, D = 64, kappa 6 / 12), on the cotangents its backward
+      handed them and on randn ones, against the plain version as in
+      phase 3;
+    - the single-scale KNN chain on that snapshot (cli.build_eval_models
+      reads the port checkpoint): run_prototype over 8 images,
+      run_knn_inference over 4 (12 x 12 clusters), run_benchmark: the
+      mIoU a finite number in [0, 1], the 4 PNGs written;
+    - stage 2, train_classifier with ListTagClassifierDataset over the
+      stage-1 snapshot (softmax_classifier, batch 16, crop 512, no
+      k-means, 1 x 1 clusters; train_spml_scribble.sh:123-129), 12
+      iterations: every embedding parameter and BN buffer equal to stage
+      1's, every head parameter changed, finite losses, no kernel; and
+      the two runs' loaders alone, ms a batch over 8 batches with no
+      step running;
+    - the baseline, train_spml with softmax_classifier and Adam, batch
+      4, 12 iterations: no kernel, the memory bank empty, the stem and
+      res2 unchanged and every res3-5 parameter changed, finite losses.
+    For stages 1 and 2 and the baseline a [driver] line: the steady state
+    over the steps after the first (each step call between CUDA events
+    and a synchronize): host ms in the step call, the loader wait
+    (next(loader)) ms, device ms, images/s; the same over the steps after
+    the first 5 (after the 4 batches prefetched during the first step are
+    used up) with the data-wait share, wait / (wait + step call); each
+    step's wait, the first step; then the same step replayed on the
+    run's last batch with the loader closed, timed the same way and back
+    to back (as the recipes are); peak memory, the nvidia-smi line;
+ 7. the kernel list as one JSON line;
+ 8. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -119,6 +160,7 @@ that cancel near zero); inference TIE_GAP 1e-5 (float32 rounding of a
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -265,19 +307,25 @@ def make_case(torch, n, p, fill, seed, d=64, n_classes=21, n_tags=20,
                 num_valid=cuda([nv], i32))
 
 
+# the positional tensor arguments of each family's stats function; the
+# kappas follow them
+STATS_ARGS = {
+    "joint": ("emb", "pix_lab", "own_idx", "pix_tags", "protos",
+              "proto_lab", "proto_tags", "proto_valid", "num_valid"),
+    "set": ("emb", "pix_tags", "own_idx", "protos", "proto_tags",
+            "proto_valid", "num_valid"),
+    "hard": ("emb", "pix_lab", "own_idx", "protos", "proto_lab",
+             "num_valid")}
+PIXEL_ARGS = ("pix_lab", "own_idx", "pix_tags")
+
+
 def stats_args(family, case, emb, protos, rows=slice(None)):
     """The positional tensor arguments of the family's stats function
     (pixel arrays cut to `rows`)."""
-    c = case
-    if family == "joint":
-        return [emb, c["pix_lab"][rows], c["own_idx"][rows],
-                c["pix_tags"][rows], protos, c["proto_lab"],
-                c["proto_tags"], c["proto_valid"], c["num_valid"]]
-    if family == "set":
-        return [emb, c["pix_tags"][rows], c["own_idx"][rows], protos,
-                c["proto_tags"], c["proto_valid"], c["num_valid"]]
-    return [emb, c["pix_lab"][rows], c["own_idx"][rows], protos,
-            c["proto_lab"], c["num_valid"]]
+    given = {"emb": emb, "protos": protos}
+    return [given[k] if k in given else
+            case[k][rows] if k in PIXEL_ARGS else case[k]
+            for k in STATS_ARGS[family]]
 
 
 STATS_FN = {"joint": "joint_segsort_stats", "hard": "segsort_stats",
@@ -345,14 +393,19 @@ def check_case(torch, fused, family, label, case, kappas, seed,
                cotangents="randn"):
     """The family's three kernels on one case, against the plain version;
     the cotangents are randn on the rows of carrying_rows(cotangents), 0
-    on the others, whose dE rows must then be exactly 0 (dE and dP both
-    when no row carries one)."""
+    on the others, or the [stats, N] tensor `cotangents` itself; dE must
+    be exactly 0 on the rows without one (dE and dP both when no row
+    carries one)."""
     n = case["emb"].shape[0]
-    g = torch.randn(N_STATS[family], n, device=DEVICE,
-                    generator=torch.Generator(DEVICE).manual_seed(seed))
-    carries = torch.as_tensor(carrying_rows(n, cotangents, seed),
-                              device=DEVICE)
-    g = torch.where(carries, g, 0.0)
+    if torch.is_tensor(cotangents):
+        g = cotangents
+        carries = (g != 0).any(0)
+    else:
+        g = torch.randn(N_STATS[family], n, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(seed))
+        carries = torch.as_tensor(carrying_rows(n, cotangents, seed),
+                                  device=DEVICE)
+        g = torch.where(carries, g, 0.0)
     s, de, dp = kernel_outputs(torch, fused, family, case, g, kappas)
     rs, rde, rdp = reference64(torch, fused, family, case, g, kappas)
     errs, margins = {}, {}
@@ -458,6 +511,45 @@ def check_kernels(torch, fused):
     return errs
 
 
+def check_recorded(torch, fused, family, label, recorded, seed):
+    """The family's kernels on the stats inputs a path recorded (its last
+    call), on the cotangents its backward handed them and on randn ones,
+    against the plain version at the kernel checks' tolerances."""
+    names = STATS_ARGS[family]
+    case = dict(zip(names, recorded["args"]))
+    kappas = tuple(recorded["args"][len(names):])
+    check_case(torch, fused, family, f"{label}, its own cotangents", case,
+               kappas, seed, recorded["grads"])
+    check_case(torch, fused, family, f"{label}, randn cotangents", case,
+               kappas, seed)
+
+
+@contextlib.contextmanager
+def recording_stats(torch, fused, family):
+    """Patches the family's stats function to keep its last call's inputs
+    ("args") and the cotangent that the backward hands its kernels
+    ("grads"); yields the dict they go into."""
+    name = STATS_FN[family]
+    orig = getattr(fused, name)
+    last = {}
+
+    def keep_cotangent(g):
+        last["grads"] = g.detach().clone()
+
+    def recording(*args):
+        last["args"] = [a.detach() if torch.is_tensor(a) else a
+                        for a in args]
+        stats = orig(*args)
+        stats.register_hook(keep_cotangent)
+        return stats
+
+    setattr(fused, name, recording)
+    try:
+        yield last
+    finally:
+        setattr(fused, name, orig)
+
+
 # ---------------------------------------------------------------------------
 # Main paths
 # ---------------------------------------------------------------------------
@@ -477,47 +569,36 @@ def run_main_path(torch, fused, recipe):
     train_step = step_lib.make_train_step(cfg)
     log(recipe, f"state built in {time.perf_counter() - t0:.1f} s")
 
-    last, masked = {}, []
-    stats_name = STATS_FN[family]
-    orig_stats, orig_ll = getattr(fused, stats_name), fused._ll_from_stats
-
-    def keep_cotangent(g):
-        last["grads"] = g.detach().clone()
-
-    def recording(*args):  # keeps the last call's inputs for the timings
-        last["args"] = [a.detach() if torch.is_tensor(a) else a
-                        for a in args]
-        stats = orig_stats(*args)
-        stats.register_hook(keep_cotangent)
-        return stats
+    masked = []
+    orig_ll = fused._ll_from_stats
 
     def counting(own_s, same_s, diff_s, pixel_mask, reduction="mean"):
         masked.append(pixel_mask.sum())  # pixels in the loss, read later
         return orig_ll(own_s, same_s, diff_s, pixel_mask, reduction)
 
-    setattr(fused, stats_name, recording)
     fused._ll_from_stats = counting
     metrics_log = []
     torch.cuda.reset_peak_memory_stats()
     fused.reset_launch_counts()
-    try:
-        for _ in range(3):
-            state, m = train_step(state, batch)
-            metrics_log.append(m)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(10):
-            state, m = train_step(state, batch)
-            metrics_log.append(m)
-        end.record()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    finally:
-        setattr(fused, stats_name, orig_stats)
-        fused._ll_from_stats = orig_ll
+    # the last call's inputs, for the timings
+    with recording_stats(torch, fused, family) as last:
+        try:
+            for _ in range(3):
+                state, m = train_step(state, batch)
+                metrics_log.append(m)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(10):
+                state, m = train_step(state, batch)
+                metrics_log.append(m)
+            end.record()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        finally:
+            fused._ll_from_stats = orig_ll
     launches = dict(fused.LAUNCHES)
 
     steps = len(metrics_log)
@@ -1037,6 +1118,421 @@ def run_inference(torch):
         f"{nvidia_smi_line()}")
 
 
+# ---------------------------------------------------------------------------
+# Driver: the train entry points from an image list on disk
+# ---------------------------------------------------------------------------
+
+WORLD_IMAGES = 24
+PREFETCH = 4  # the driver's Loader default: batches made ahead
+# stage 2 and the baseline: enough steps that the last ones come after
+# the batches prefetched during the first step (the warm-up) are used up
+DRAINED_STEPS = 12
+STAGE1 = {  # bashscripts/voc12/train_spml_scribble.sh:17-46 rendered into
+    # configs/voc12_template.yaml, cut to 4 + 2 iterations
+    "network": {"backbone_types": "panoptic_deeplab_101",
+                "embedding_dim": 64, "kmeans_num_clusters": [6, 6],
+                "kmeans_iterations": 10, "label_divisor": 2048,
+                "prediction_types": "segsort", "bn_momentum": 3e-4},
+    "dataset": {"num_classes": 21, "semantic_ignore_index": 255},
+    "train": {"lr_policy": "poly", "snapshot_step": 2,
+              "tensorboard_step": 100, "max_iteration": 4,
+              "warmup_iteration": 100, "base_lr": 3e-3,
+              "weight_decay": 5e-4, "momentum": 0.9, "batch_size": 4,
+              "crop_size": [512, 512], "memory_bank_size": 2,
+              "random_mirror": True, "random_scale": True,
+              "random_crop": True, "shuffle": True,
+              "sem_ann_concentration": 6.0, "sem_occ_concentration": 12.0,
+              "img_sim_concentration": 16.0, "sem_ann_loss_weight": 1.0,
+              "sem_occ_loss_weight": 0.5, "img_sim_loss_weight": 0.1},
+    "test": {"image_size": 512, "crop_size": [512, 512],
+             "stride": [512, 512]},
+    # the fused joint loss as bench.py and train/flagship.py set it: the
+    # shipped template leaves it off (the dense losses, no kernel)
+    "tpu": {"segment_capacity": 256, "compute_dtype": "bfloat16",
+            "use_fused_loss": True},
+    "num_threads": 4,
+}
+
+
+def driver_configs(stage1_dir):
+    """(stage 1, stage 2, the Adam baseline) configs. Stage 2 is the
+    rendered classifier config (train_spml_scribble.sh:123-129:
+    PRETRAINED = the stage-1 snapshot, softmax_classifier, batch 16, 1 x 1
+    clusters, no k-means iteration), cut to DRAINED_STEPS iterations; the
+    baseline is stage 1 with softmax_classifier and Adam, as many."""
+    from spml_tpu_torch.config import load_config
+
+    stage1 = load_config(overrides=STAGE1)
+    stage2 = load_config(overrides=STAGE1)
+    stage2.network.pretrained = stage1_dir
+    stage2.network.prediction_types = "softmax_classifier"
+    stage2.network.kmeans_iterations = 0
+    stage2.network.kmeans_num_clusters = (1, 1)
+    stage2.train.batch_size = 16
+    stage2.train.max_iteration = DRAINED_STEPS
+    base = load_config(overrides=STAGE1)
+    base.network.prediction_types = "softmax_classifier"
+    base.train.optimizer = "adam"
+    base.train.max_iteration = DRAINED_STEPS
+    return stage1, stage2, base
+
+
+class DriverProbe:
+    """Times one driver call from the outside: the loader's next() (the
+    wait of each step), and each step call between CUDA events on the
+    host clock, followed by a synchronize (so the host time is the
+    step's own; the driver itself synchronizes only to log). Keeps every
+    step's metrics, the first step's state and the frozen embedding a
+    classifier step is built over."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.waits, self.steps, self.metrics = [], [], []
+        self.first_step, self.first_params, self.frozen = None, None, None
+        self.recorded, self.held = None, 0  # set by the caller
+
+    def __enter__(self):
+        from unittest import mock
+
+        from spml_tpu_torch.data import datasets
+        from spml_tpu_torch.train import classifier_step, step
+
+        loader_iter = datasets.Loader.__iter__
+        probe = self
+
+        def timed_iter(loader):
+            it = loader_iter(loader)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it)
+                    probe.waits.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                it.close()
+
+        self.patches = [
+            mock.patch.object(datasets.Loader, "__iter__", timed_iter),
+            mock.patch.object(step, "make_train_step",
+                              self.timed(step.make_train_step)),
+            mock.patch.object(
+                classifier_step, "make_classifier_train_step",
+                self.timed(classifier_step.make_classifier_train_step))]
+        for p in self.patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.stop()
+        self.patches = None  # its closures hold the probe: no cycle left
+
+    def timed(self, make):
+        torch = self.torch
+
+        def make_timed(config, *rest):
+            if rest:
+                self.frozen = rest[0]
+            train_step = make(config, *rest)
+            self.raw_step = train_step
+
+            def step(state, batch):
+                self.last_batch = batch
+                if self.first_step is None:
+                    self.first_step = state.step
+                    model = (state.emb_model if state.emb_model is not None
+                             else state.cls_model)
+                    self.first_params = {
+                        n: p.detach().clone()
+                        for n, p in model.named_parameters()}
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                state, metrics = train_step(state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                self.steps.append((time.perf_counter() - t0, start, end))
+                self.metrics.append({k: float(v) for k, v in metrics.items()})
+                return state, metrics
+            return step
+        return make_timed
+
+    def replay(self, state, n=5):
+        """After the driver call (its loader closed): one warm-up and n
+        steps of the same step function on the run's last batch, first
+        each between CUDA events and a synchronize as the driver's steps
+        are timed, then n back to back between two events, as the
+        recipes' steps are; (host ms, device ms, back-to-back ms) per
+        step."""
+        torch = self.torch
+        state, _ = self.raw_step(state, self.last_batch)
+        torch.cuda.synchronize()
+        host, dev = [], []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, _ = self.raw_step(state, self.last_batch)
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1000)
+            dev.append(start.elapsed_time(end))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            state, _ = self.raw_step(state, self.last_batch)
+        end.record()
+        torch.cuda.synchronize()
+        self.replayed = (float(np.mean(host)), float(np.mean(dev)),
+                         start.elapsed_time(end) / n)
+
+    def check_finite(self, what):
+        bad = [m for m in self.metrics
+               if not all(math.isfinite(v) for k, v in m.items()
+                          if k.endswith("loss"))]
+        if bad or not self.metrics:
+            raise AssertionError(f"{what}: non-finite loss: {bad}")
+
+    def steady(self, first):
+        """(host ms in the step call, loader wait ms, device ms) a step,
+        means over the steps from index `first` on."""
+        n = len(self.steps)
+        return (float(np.mean([h * 1000 for h, _, _ in self.steps[first:]])),
+                float(np.mean([w * 1000 for w in self.waits[first:n]])),
+                float(np.mean([s.elapsed_time(e)
+                               for _, s, e in self.steps[first:]])))
+
+    def line(self, what, batch, state):
+        """The [driver] line: steady state over the steps after the first,
+        and over those after the start-up prefetch drained (the steps
+        after the first PREFETCH + 1, whose batches the loader made while
+        steps ran); then the replay (which moves `state` on: call it after
+        the checks)."""
+        self.replay(state)
+        n = len(self.steps)
+        host, wait, dev = self.steady(1)
+        drained = "none: too few steps"
+        if n > PREFETCH + 1:
+            d_host, d_wait, _ = self.steady(PREFETCH + 1)
+            drained = (
+                f"loader wait {d_wait:.2f} ms/step, data-wait share "
+                f"{d_wait / (d_wait + d_host):.1%}, host {d_host:.2f} ms/step"
+                f" in the step call, {batch * 1000 / (d_wait + d_host):.2f} "
+                "images/s")
+        log("driver", f"{what}: {n} steps; steady state (steps 2-{n}): "
+            f"host {host:.2f} ms/step in the step call, loader wait "
+            f"{wait:.2f} ms/step, device {dev:.2f} ms/step (CUDA events), "
+            f"{batch * 1000 / (host + wait):.2f} images/s (batch {batch} "
+            f"over wait + step); after the start-up prefetch of {PREFETCH} "
+            f"batches drained (steps {PREFETCH + 2}-{n}): {drained}; waits "
+            f"{[round(w * 1000, 1) for w in self.waits[:n]]} ms; first step "
+            f"{self.steps[0][0] * 1000:.0f} ms; the same step on the last "
+            f"batch with the loader closed: host {self.replayed[0]:.2f} ms, "
+            f"device {self.replayed[1]:.2f} ms a step, "
+            f"{self.replayed[2]:.2f} ms back to back; peak memory "
+            f"{self.torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({self.held / 2**30:.2f} GiB held when the run began); "
+            f"card {nvidia_smi_line()}")
+
+
+def run_driver(torch, fused):
+    """Stage 1 (train_spml, ListTagDataset, K1-K3 on every step) for 4
+    iterations and resumed to 6, the single-scale KNN chain on its
+    snapshot, stage 2 (train_classifier over it), and the baseline
+    (softmax_classifier with Adam), on a world of WORLD_IMAGES images
+    written from seed 0 into a temporary directory; the checks of the
+    module docstring."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="spml_driver_") as root:
+        drive_all(torch, fused, root)
+
+
+def drive_all(torch, fused, root):
+    import argparse
+
+    from spml_tpu_torch.data import datasets, synthetic
+    from spml_tpu_torch.inference import runner
+    from spml_tpu_torch.train import driver, optim
+    from spml_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    data = os.path.join(root, "world")
+    lst = synthetic.write_world(data, WORLD_IMAGES, seed=0)
+    log("driver", f"world of {WORLD_IMAGES} JPEGs (500 x 375 / 375 x 500, 21 "
+        f"classes, ~30 segments each) in {time.perf_counter() - t0:.1f} s")
+    stage1_dir = os.path.join(root, "stage1")
+    stage1, stage2, base = driver_configs(stage1_dir)
+
+    def args(snapshot, data_list=lst, save=None, memory=None):
+        return argparse.Namespace(data_dir=data, data_list=data_list,
+                                  snapshot_dir=snapshot, save_dir=save,
+                                  semantic_memory_dir=memory)
+
+    def drive(what, fn, cfg, *a):
+        torch.cuda.reset_peak_memory_stats()
+        fused.reset_launch_counts()
+        held = torch.cuda.memory_allocated()
+        with DriverProbe(torch) as probe, \
+                recording_stats(torch, fused, "joint") as recorded:
+            state = fn(args(*a), cfg, device=DEVICE)
+        launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+        probe.check_finite(what)
+        probe.recorded, probe.held = recorded, held
+        return state, probe, launches
+
+    # ---- stage 1: 4 iterations, then resumed to 6 ----
+    ck_dir = os.path.join(stage1_dir, "checkpoints")
+    for first, last in ((0, 4), (4, 6)):
+        stage1.train.max_iteration = last
+        stage1.train.resume = first > 0
+        state = probe = None  # the last run's, out of this run's peak
+        state, probe, launches = drive(f"stage 1 {first}-{last}",
+                                       driver.train_spml, stage1,
+                                       stage1_dir)
+        n = last - first
+        want = {"joint_stats": n, "joint_grad_emb": n,
+                "joint_grad_proto": n}
+        if launches != want:
+            raise AssertionError(f"stage 1: launches {launches}, want "
+                                 f"{want} (K1-K3 once a step, no other)")
+        lr = optim.make_schedule(stage1.train)(first)
+        if (probe.first_step != first or state.step != last
+                or probe.metrics[0]["learning_rate"] != lr):
+            raise AssertionError(
+                f"stage 1 {first}-{last}: first step {probe.first_step} "
+                f"(lr {probe.metrics[0]['learning_rate']}, want {lr}), "
+                f"last {state.step}")
+        losses = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            probe.metrics[-1].items()) if k.endswith("loss"))
+        log("driver", f"stage 1 {first}-{last}: started at step "
+            f"{probe.first_step} at lr {lr:.3e} (the schedule's), "
+            f"launches {launches}; last step {losses}, "
+            f"{int(probe.metrics[-1]['num_segments'])} segments")
+        probe.line(f"stage 1 {first}-{last} (panoptic_deeplab_101 bf16, "
+                   "ListTagDataset, crop 512)", stage1.train.batch_size,
+                   state)
+    if ckpt.steps(ck_dir) != [2, 4, 6]:
+        raise AssertionError(f"stage 1 checkpoints {ckpt.steps(ck_dir)}")
+    # K1-K3 at the driver's own shapes: the last step's stats inputs
+    check_recorded(torch, fused, "joint", "stage 1 step 6", probe.recorded,
+                   seed=40)
+    state = probe = None
+
+    # ---- the single-scale KNN chain on the stage-1 snapshot ----
+    infer = load_infer_config(stage1)
+    with open(lst) as f:
+        items = f.read().splitlines()
+    lists = {}
+    for name, n in (("memory", 8), ("test", 4)):
+        lists[name] = os.path.join(root, f"{name}.txt")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(items[:n]) + "\n")
+    train_out = os.path.join(root, "results", "train")
+    val_out = os.path.join(root, "results", "val")
+    t0 = time.perf_counter()
+    runner.run_prototype(args(stage1_dir, lists["memory"], train_out),
+                         infer, device=DEVICE)
+    runner.run_knn_inference(
+        args(stage1_dir, lists["test"], val_out,
+             os.path.join(train_out, "semantic_prototype")),
+        infer, device=DEVICE)
+    result = runner.run_benchmark(args(stage1_dir, lists["test"], val_out),
+                                  infer)
+    pngs = sorted(os.listdir(os.path.join(val_out, "semantic_gray")))
+    miou = result["mean_iou"]
+    if not (math.isfinite(miou) and 0.0 <= miou <= 1.0) or len(pngs) != 4:
+        raise AssertionError(f"inference chain: mIoU {miou}, PNGs {pngs}")
+    log("driver", f"KNN chain on the stage-1 snapshot (step 6): "
+        f"run_prototype over 8 images, run_knn_inference over 4, "
+        f"run_benchmark mIoU {miou:.4f}, {len(pngs)} PNGs, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- stage 2 over the stage-1 snapshot ----
+    saved = ckpt.read(ck_dir)["emb_model"]  # host memory
+    state, probe, launches = drive("stage 2", driver.train_classifier,
+                                   stage2, os.path.join(root, "stage2"))
+    frozen = {k: v.cpu() for k, v in probe.frozen.state_dict().items()}
+    changed = [n for n, p in state.cls_model.named_parameters()
+               if not torch.equal(p, probe.first_params[n])]
+    if (launches or frozen.keys() != saved.keys()
+            or not all(torch.equal(frozen[k], saved[k]) for k in saved)
+            or len(changed) != len(probe.first_params)):
+        raise AssertionError(
+            f"stage 2: launches {launches}, embedding equal to stage 1's: "
+            f"{all(torch.equal(frozen[k], saved[k]) for k in saved)}, "
+            f"head parameters changed {changed}")
+    log("driver", f"stage 2: the embedding's {len(saved)} parameters and "
+        f"BN buffers equal to stage 1's step 6, all "
+        f"{len(changed)} head parameters changed, no kernel launched; last "
+        f"step loss {probe.metrics[-1]['loss']:.4f}, accuracy "
+        f"{probe.metrics[-1]['accuracy']:.4f}")
+    rates = [loader_ms(cfg, cls, args(root)) for cfg, cls in (
+        (stage1, datasets.ListTagDataset),
+        (stage2, datasets.ListTagClassifierDataset))]
+    log("driver", "the loaders alone, 8 batches each drawn back to back "
+        "from a fresh Loader (4 threads, 4 batches prefetched, no step "
+        f"running): stage 1 (ListTagDataset, batch 4) {rates[0]:.1f} ms a "
+        "batch; stage 2 (ListTagClassifierDataset, batch 16) "
+        f"{rates[1]:.1f} ms a batch")
+    probe.line("stage 2 (ListTagClassifierDataset, frozen "
+               "panoptic_deeplab_101, crop 512)", stage2.train.batch_size,
+               state)
+
+    # ---- the fully supervised baseline with Adam ----
+    state = probe = None
+    state, probe, launches = drive("baseline", driver.train_spml, base,
+                                   os.path.join(root, "baseline"))
+    moved = {n: not torch.equal(p, probe.first_params[n])
+             for n, p in state.emb_model.named_parameters()}
+    frozen_moved = [n for n, m in moved.items()
+                    if m and n.split(".")[1] in ("conv1", "res2")]
+    trained_still = [n for n, m in moved.items() if not m
+                     and n.split(".")[1] in ("res3", "res4", "res5")]
+    if (launches or state.memory.valid.any() or frozen_moved
+            or trained_still or state.adam_count != DRAINED_STEPS):
+        raise AssertionError(
+            f"baseline: launches {launches}, bank entries "
+            f"{int(state.memory.valid.sum())}, stem/res2 moved "
+            f"{frozen_moved}, res3-5 unmoved {trained_still}, Adam count "
+            f"{state.adam_count}")
+    log("driver", f"baseline (softmax_classifier, Adam): no kernel "
+        f"launched, bank empty, stem and res2 unchanged, every res3-5 "
+        f"parameter moved, Adam count {state.adam_count}; last step "
+        f"sem_ann_loss {probe.metrics[-1]['sem_ann_loss']:.4f}")
+    probe.line("baseline (panoptic_deeplab_101 bf16, ListTagDataset, crop "
+               "512, Adam)", base.train.batch_size, state)
+
+
+def loader_ms(cfg, dataset_cls, args, batches=8):
+    """ms per batch of the driver's loader with nothing consuming it: the
+    rate the host makes batches at, prefetch included."""
+    from spml_tpu_torch.train import driver
+
+    loader = driver._loader(args, cfg, dataset_cls)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(loader)
+        return (time.perf_counter() - t0) * 1000 / batches
+    finally:
+        loader.close()
+
+
+def load_infer_config(stage1):
+    """The inference config of the stage-1 snapshot
+    (train_spml_scribble.sh:86-100: --kmeans_num_clusters 12,12,
+    --label_divisor 2048)."""
+    import copy
+
+    cfg = copy.deepcopy(stage1)
+    cfg.network.kmeans_num_clusters = (12, 12)
+    return cfg
+
+
 def main() -> int:
     import argparse
 
@@ -1101,6 +1597,7 @@ def main() -> int:
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
     run_inference(torch)
+    run_driver(torch, fused)
 
     err_name = {"stats": "stats", "grad_emb": "dE", "grad_proto": "dP"}
     table = []

@@ -1,53 +1,82 @@
-"""Shared plumbing of the inference entry points: the evaluation model,
-the test-image iterator and the prediction PNGs.
+"""Shared plumbing of the entry points: arguments and configuration, the
+models of a snapshot, the test-image iterator and the prediction PNGs.
 
-Port of spml_tpu/cli.py:150-235. The argument parser and the DenseCRF
-flags (parse_args, crf_from_args) are not ported yet.
+Port of spml_tpu/cli.py (reference: spml/config/parse_args.py:8-53 in
+twke18/SPML). parse_args has the reference's flags but the DenseCRF ones
+(CRF is not ported yet; crf_from_args neither), plus --device, the port's
+counterpart of the JAX package's SPML_TPU_PLATFORM.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import os
 
 import numpy as np
 import torch
 
+from spml_tpu_torch.config import Config, load_config
 from spml_tpu_torch.utils.device import resolve_device
 
 
-def build_eval_models(config, snapshot_dir: str, device="cuda"):
-    """The embedding model of a snapshot, in eval mode on `device`.
+def parse_args(description: str = "") -> tuple[argparse.Namespace, Config]:
+    """(args, config) from sys.argv: the YAML at --cfg_path with
+    --kmeans_num_clusters, --label_divisor and --data_dir applied."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--snapshot_dir", required=True, type=str)
+    parser.add_argument("--save_dir", type=str)
+    parser.add_argument("--cfg_path", required=True, type=str)
+    parser.add_argument("--semantic_memory_dir", type=str, default=None)
+    parser.add_argument("--cam_dir", type=str, default=None)
+    parser.add_argument("--data_dir", type=str, default=None)
+    parser.add_argument("--data_list", type=str, default=None)
+    parser.add_argument("--kmeans_num_clusters", type=str, default=None,
+                        help="H,W")
+    parser.add_argument("--label_divisor", type=int, default=None)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (cpu for the plain "
+                        "versions of the kernels)")
+    args = parser.parse_args()
 
-    Reads the reference's snapshot layout (train.py:295-304):
-    `model-{max_iteration - 1}.pth`, key "embedding_model", in the
-    reference's names, which are the port's (load_state_dict strict) — the
-    file the JAX package's utils/torch_export.py::save_torch_checkpoint
-    writes. With no such file the weights are random, drawn from a
-    torch.Generator of seed 0: not the values the JAX package draws from
-    PRNGKey(0). A JAX (orbax) `checkpoints/` directory raises
-    NotImplementedError.
-    """
-    from spml_tpu_torch.models.embeddings import build_embedding_model
+    config = load_config(args.cfg_path)
+    if args.kmeans_num_clusters:
+        config.network.kmeans_num_clusters = tuple(
+            int(x) for x in args.kmeans_num_clusters.split(","))
+    if args.label_divisor:
+        config.network.label_divisor = args.label_divisor
+    if args.data_dir:
+        config.dataset.data_dir = args.data_dir
+    return args, config
+
+
+def build_eval_models(config, snapshot_dir: str, device="cuda",
+                      with_classifier=False):
+    """The embedding model (and, with_classifier, the classifier head) of a
+    snapshot, in eval mode on `device`; utils/checkpoint.py::
+    restore_models says what is read. With nothing to read the weights
+    are random, drawn from a torch.Generator of seed 0: not the values
+    the JAX package draws from PRNGKey(0)."""
+    from spml_tpu_torch.models.embeddings import (build_classifier_head,
+                                                  build_embedding_model)
+    from spml_tpu_torch.utils import checkpoint as ckpt
 
     device = resolve_device(device)
-    ck_dir = os.path.join(snapshot_dir, "checkpoints")
-    if os.path.isdir(ck_dir) and os.listdir(ck_dir):
-        raise NotImplementedError(
-            f"{ck_dir}: orbax checkpoints are not ported yet; export a "
-            "model-*.pth with spml_tpu.utils.torch_export")
     dtype = (torch.bfloat16 if config.tpu.compute_dtype == "bfloat16"
              else torch.float32)
     model = build_embedding_model(
         config.network.backbone_types, config.network.embedding_dim,
         compute_dtype=dtype, bn_momentum=config.network.bn_momentum,
         generator=torch.Generator().manual_seed(0))
-    pth = os.path.join(snapshot_dir,
-                       f"model-{config.train.max_iteration - 1}.pth")
-    if os.path.isfile(pth):
-        state = torch.load(pth, map_location="cpu")["embedding_model"]
-        model.load_state_dict(state, strict=True)
-    return model.to(device, memory_format=torch.channels_last).eval()
+    head = build_classifier_head(
+        config.dataset.num_classes, config.network.embedding_dim,
+        compute_dtype=dtype, generator=torch.Generator().manual_seed(0))
+    ckpt.restore_models(config, snapshot_dir, model, head)
+    fmt = torch.channels_last
+    model = model.to(device, memory_format=fmt).eval()
+    if with_classifier:
+        return model, head.to(device, memory_format=fmt).eval()
+    return model
 
 
 def save_semantic_pngs(pred: np.ndarray, base_name: str, save_dir: str,

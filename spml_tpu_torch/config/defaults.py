@@ -124,6 +124,10 @@ class TpuConfig:
     # inference: images per prediction batch; only 1 is ported
     # (inference/runner.py raises for more)
     infer_batch: int = 1
+    # training feed: labels and tags as uint8 and, under bf16
+    # convolutions, the image as bf16 on the host (a quarter of the
+    # host-to-device bytes; both casts are exact, train/driver.py)
+    compact_feed: bool = True
 
 
 @dataclass

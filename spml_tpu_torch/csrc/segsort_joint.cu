@@ -74,7 +74,8 @@
 //     2^(kappa log2(e) l) on the SFU.
 //     dE, dP: c = kappa_a s_a g_a + kappa_o s_o g_o under the masks, in
 //     place, in registers; then acc += c . other (product 2), in registers
-//     across all tiles; c never leaves the registers (see the kernel). A
+//     over one tile, added to the output after each tile (mma.sync's
+//     truncating sums stay short); c never leaves the registers. A
 //     warp whose own rows lie past the count skips the products. dE also
 //     skips the pixels whose cotangents are all zero, where c is 0 on
 //     every pair: a warp none of whose rows carries a nonzero cotangent
@@ -602,11 +603,51 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
     if (!__syncthreads_or(warp_live)) o_end = o_begin;  // the whole block
   }
   float acc[2][KD][4];
+  auto clear = [&] {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int dn = 0; dn < KD; ++dn)
-      acc[mt][dn][0] = acc[mt][dn][1] = acc[mt][dn][2] = acc[mt][dn][3] = 0.f;
+      for (int dn = 0; dn < KD; ++dn)
+        acc[mt][dn][0] = acc[mt][dn][1] = acc[mt][dn][2] = acc[mt][dn][3] =
+            0.f;
+  };
+  // acc[mt][dn][2 h + e]: own row m0 + 16 mt + g + 8 h, column 8 dn + 2 t
+  // + e; stored to the thread's output elements, or added to them (out +
+  // acc, float32, round to nearest). The loads of an m tile's rows go
+  // first, so a warp waits on two round trips (the registers of c are
+  // free by then; all four rows' loads at once spilled at D = 64).
+  auto row_out = [&](int mt, int h) -> float* {
+    const int row = m0 + 16 * mt + g + 8 * h;
+    if constexpr (DP) return out + ((size_t)blockIdx.x * OWN + row) * D;
+    return own0 + row < n ? out + (size_t)(own0 + row) * D : nullptr;
+  };
+  auto write = [&](bool add) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float2 sum[2][KD];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* dst = row_out(mt, h);
+#pragma unroll
+        for (int dn = 0; dn < KD; ++dn)
+          sum[h][dn] = add && dst ? *reinterpret_cast<const float2*>(
+                                        dst + 8 * dn + 2 * t)
+                                  : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* dst = row_out(mt, h);
+        if (!dst) continue;
+#pragma unroll
+        for (int dn = 0; dn < KD; ++dn)
+          *reinterpret_cast<float2*>(dst + 8 * dn + 2 * t) = make_float2(
+              add ? sum[h][dn].x + acc[mt][dn][2 * h] : acc[mt][dn][2 * h],
+              add ? sum[h][dn].y + acc[mt][dn][2 * h + 1]
+                  : acc[mt][dn][2 * h + 1]);
+      }
+    }
+  };
+  clear();
 
   auto stage = [&](int buf, int r0) {
     if constexpr (DP) {
@@ -685,7 +726,16 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
 
     // product 2: acc[mt][dn] += c (own rows x streamed rows) . streamed
     // rows' columns 8 dn .. 8 dn + 7, k step ks = streamed rows 8 ks +
-    // (2 t, 2 t + 1) as k = (t, t + 4)
+    // (2 t, 2 t + 1) as k = (t, t + 4). acc holds one tile (8 k steps)
+    // and is then added to the output in float32 (round to nearest):
+    // mma.sync's sums truncate against the accumulator, and one
+    // accumulator over every streamed row (hundreds of k steps) cost a dE
+    // whose terms cancel (the log-likelihood cotangents of the VOC
+    // scribble driver's stage 1) up to ~1e-5 of its terms' magnitude, 3x
+    // the plain float32 version's error (measured on an H100); per tile,
+    // 0.25x. A fresh accumulator per k step, as stats_logits has, made
+    // ptxas spill every D = 32 and 64 form; the flush costs 4-14% a
+    // launch.
 #pragma unroll
     for (int ks = 0; ks < NT; ++ks) {
       unsigned ahi[2][4], alo[2][4];
@@ -708,27 +758,11 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
           mma_split(acc[mt][dn], ahi[mt], alo[mt], bhi, blo);
       }
     }
+    // the tile's sums, out of the accumulator: see product 2's note
+    write(t0 != o_begin);
+    clear();
   }
-
-  // acc[mt][dn][2 h + e]: own row m0 + 16 mt + g + 8 h, column 8 dn + 2 t
-  // + e
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + 16 * mt + g + 8 * h;
-      float* dst;
-      if constexpr (DP) {
-        dst = out + ((size_t)blockIdx.x * OWN + row) * D;
-      } else {
-        if (own0 + row >= n) continue;
-        dst = out + (size_t)(own0 + row) * D;
-      }
-#pragma unroll
-      for (int dn = 0; dn < KD; ++dn)
-        *reinterpret_cast<float2*>(dst + 8 * dn + 2 * t) =
-            make_float2(acc[mt][dn][2 * h], acc[mt][dn][2 * h + 1]);
-    }
+  if (!warp_live || o_begin == o_end) write(false);  // +0 rows
 }
 
 // 2^x by the SFU (ex2.approx, ~2 ulp); x = kappa l log2(e) lies far above

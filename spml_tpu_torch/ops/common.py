@@ -78,3 +78,25 @@ def generate_location_features(height: int, width: int,
     yy = y[:, None].expand(height, width)
     xx = x[None, :].expand(height, width)
     return torch.stack([yy, xx], dim=-1)
+
+
+def calculate_principal_components(embeddings: torch.Tensor,
+                                   num_components: int = 3) -> torch.Tensor:
+    """Principal directions [D, num_components] of [N, D] embeddings (for
+    PCA visualisation); each direction's sign is the SVD's."""
+    centered = embeddings - embeddings.mean(dim=0, keepdim=True)
+    _, _, vt = torch.linalg.svd(centered, full_matrices=False)
+    return vt[:num_components].T
+
+
+def pca(embeddings: torch.Tensor, num_components: int = 3,
+        principal_components: torch.Tensor | None = None) -> torch.Tensor:
+    """[..., D] embeddings projected on their (or the given) principal
+    directions -> [..., num_components]."""
+    shape = embeddings.shape
+    flat = embeddings.reshape(-1, shape[-1])
+    if principal_components is None:
+        principal_components = calculate_principal_components(
+            flat, num_components)
+    return (flat @ principal_components).reshape(*shape[:-1],
+                                                 num_components)

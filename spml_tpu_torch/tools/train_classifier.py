@@ -1,0 +1,24 @@
+"""Stage-2 softmax classifier training over a frozen embedding model, on
+the card.
+
+The port's counterpart of pyscripts/train/train_classifier.py, with its
+flags (the reference's, twke18/SPML) and --device:
+
+    python -m spml_tpu_torch.tools.train_classifier \
+        --cfg_path CONFIG.yaml --data_dir DATA --data_list LIST \
+        --snapshot_dir SNAPSHOT
+"""
+
+from spml_tpu_torch import cli
+from spml_tpu_torch.data import datasets
+from spml_tpu_torch.train import driver
+
+
+def main():
+    args, config = cli.parse_args("Training softmax classifier.")
+    driver.train_classifier(args, config, datasets.ListTagClassifierDataset,
+                            device=args.device)
+
+
+if __name__ == "__main__":
+    main()

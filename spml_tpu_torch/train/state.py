@@ -1,6 +1,6 @@
 """Training state: the models (which hold parameters and BN statistics),
-the SGD momentum buffers, the dropout generator and the prototype memory
-bank.
+the optimizer's buffers (SGD momentum; Adam moments and count), the
+dropout generator and the prototype memory bank.
 
 Port of spml_tpu/train/state.py (reference: pyscripts/train/train.py
 :147-293 in twke18/SPML — prototypes FIFO'd over the last
@@ -66,9 +66,16 @@ class MemoryBank:
 
 @dataclasses.dataclass
 class TrainState:
+    """The stage-2 classifier's state has no embedding model (it is
+    frozen outside the state) and no memory bank: both None."""
     step: int
-    emb_model: nn.Module
+    emb_model: nn.Module | None
     cls_model: nn.Module
     momentum: dict          # parameter name -> SGD momentum buffer
-    memory: MemoryBank
+    memory: MemoryBank | None
     generator: torch.Generator  # dropout draws
+    # Adam (train.optimizer 'adam'): parameter name -> first / second
+    # moment, and the update count of the bias correction
+    adam_mu: dict = dataclasses.field(default_factory=dict)
+    adam_nu: dict = dataclasses.field(default_factory=dict)
+    adam_count: int = 0

@@ -25,7 +25,14 @@ the groups (the reference's per-GPU mean, train.py:211-219).
 With sem_ann off (the VOC image-tag recipe's "tags only" arm), the
 sem_ann metric is the classifier head's cross-entropy alone.
 
-Not ported yet: the softmax_classifier baseline.
+network.prediction_types 'softmax_classifier' is the fully supervised
+baseline (spml_tpu/train/step.py:192-222; softmax_classifier.py:50-90):
+the classifier head's cross-entropy on the L2-normalized embeddings
+trains the backbone end to end (nothing detached), with no k-means, no
+SegSort loss and no memory-bank push.
+
+The update is train.optimizer's: SGD or the reference's Adam
+(train/optim.py).
 """
 
 from __future__ import annotations
@@ -122,6 +129,14 @@ def _cross_entropy(logits, labels, num_classes, n_groups=1):
     return _grouped_masked_mean(nll, valid, n_groups)
 
 
+def _accuracy(logits, labels, num_classes):
+    """Share of the pixels with labels < num_classes whose argmax is their
+    label."""
+    valid = labels < num_classes
+    hit = (torch.argmax(logits, dim=-1) == labels) & valid
+    return hit.sum() / torch.clamp(valid.sum(), min=1)
+
+
 def _named_params(state: TrainState):
     yield from (("embedding." + n, p)
                 for n, p in state.emb_model.named_parameters())
@@ -134,8 +149,8 @@ def make_train_step(config):
 
     batch: image [B, H, W, 3] float, semantic_label / instance_label
     [B, H, W] integer (uint8 widens here), semantic_tag [B, tag_width],
-    all on the state's device. The models and momentum buffers are
-    updated in place.
+    all on the state's device. The models and the optimizer's buffers
+    are updated in place.
 
     Sets torch.backends.{cuda.matmul,cudnn}.allow_tf32 = False: the
     k-means E-step, the top-5 ranking and the dense losses stay full
@@ -144,13 +159,6 @@ def make_train_step(config):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if config.network.prediction_types != "segsort":
-        raise NotImplementedError(
-            f"prediction_types {config.network.prediction_types!r} (the "
-            "fully supervised classifier baseline) is not ported yet")
-    if config.train.optimizer != "sgd":
-        raise NotImplementedError(
-            f"train.optimizer {config.train.optimizer!r} is not ported yet")
     if config.tpu.loss_operand_dtype not in ("", "float32"):
         raise NotImplementedError(
             f"tpu.loss_operand_dtype {config.tpu.loss_operand_dtype!r}: the "
@@ -172,7 +180,9 @@ def make_train_step(config):
                     and config.tpu.apply_feat_aff)
     densepose = "densepose" in config.network.backbone_types
     fused = config.tpu.use_fused_loss
+    softmax = config.network.prediction_types == "softmax_classifier"
     schedule = optim.make_schedule(tcfg)
+    update = optim.build_optimizer(tcfg)
 
     def _n_groups(b):
         bs = tcfg.batch_size
@@ -192,6 +202,15 @@ def make_train_step(config):
         dev = images.device
 
         emb, loc = state.emb_model(images)
+        if softmax:
+            # the fully supervised baseline: CE through the backbone
+            logits = state.cls_model(
+                common.normalize_embedding(emb.float()), state.generator)
+            logits_up = resize_bilinear(logits, images.shape[1:3])
+            ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B))
+            return ce, ({"sem_ann_loss": ce,
+                         "accuracy": _accuracy(logits_up, sem_full, C)},
+                        None)
         h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
         N = h * w
         sem = common.resize_labels(sem_full, (h, w))
@@ -372,9 +391,8 @@ def make_train_step(config):
             p.grad = None
         total.backward()
         lr = schedule(state.step)
-        optim.sgd_step(params, state.momentum, lr, tcfg.weight_decay,
-                       tcfg.momentum)
-        memory = state.memory.push(
+        state = update(params, state, lr)
+        memory = state.memory if softmax else state.memory.push(
             cur["prototype"].detach(), cur["prototype_with_loc"].detach(),
             cur["semantic_label"], cur["instance_label"],
             cur["batch_index"], cur["tag"], cur["valid"],

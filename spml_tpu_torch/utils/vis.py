@@ -1,8 +1,8 @@
-"""Visualization helpers: label colorization.
+"""Visualization helpers: label colorization and PCA-RGB embeddings.
 
 The port's own copy of spml_tpu/utils/vis.py (numpy; scipy only to read a
-.mat colormap). embedding_to_rgb is not ported yet. Behavioral reference:
-spml/utils/general/vis.py:41-61 in twke18/SPML.
+.mat colormap). Behavioral reference: spml/utils/general/vis.py:41-101 in
+twke18/SPML.
 The VOC colormap is generated algorithmically (bit-interleave) instead of
 loading misc/colormapvoc.mat — identical values to the standard VOC
 palette the .mat encodes.
@@ -52,3 +52,16 @@ def label_to_color(label: np.ndarray, colormap: np.ndarray | None = None
     if colormap is None:
         colormap = voc_colormap()
     return colormap[np.clip(label, 0, len(colormap) - 1)]
+
+
+def embedding_to_rgb(embedding: np.ndarray) -> np.ndarray:
+    """[..., D] -> [..., 3] uint8: the first three principal components
+    (float64 SVD), each scaled to [0, 255] (vis.py:62-101)."""
+    shape = embedding.shape
+    flat = embedding.reshape(-1, shape[-1]).astype(np.float64)
+    flat = flat - flat.mean(0, keepdims=True)
+    _, _, vt = np.linalg.svd(flat, full_matrices=False)
+    proj = flat @ vt[:3].T
+    lo, hi = proj.min(0, keepdims=True), proj.max(0, keepdims=True)
+    rgb = (proj - lo) / np.maximum(hi - lo, 1e-12)
+    return (rgb.reshape(*shape[:-1], 3) * 255).astype(np.uint8)

@@ -332,18 +332,14 @@ def test_dilated_conv_dispatch(monkeypatch):
             torch.Tensor._make_subclass(_FakeCuda, x, False), w, 2)
 
 
-@pytest.mark.parametrize("what", ["softmax_classifier",
-                                  "loss_operand_dtype"])
+@pytest.mark.parametrize("what", ["loss_operand_dtype"])
 def test_unported_paths_raise(what):
-    cfg = _tiny_config()
-    if what == "softmax_classifier":
-        cfg.network.prediction_types = "softmax_classifier"
-    else:  # the JAX package would run its fused losses on bf16 operands
-        cfg = load_config(overrides={
-            "network": {"backbone_types": "panoptic_deeplab_10",
-                        "embedding_dim": 8},
-            "tpu": {"loss_operand_dtype": "bfloat16"}})
-        assert cfg.tpu.loss_operand_dtype == "bfloat16"
+    # the JAX package would run its fused losses on bf16 operands
+    cfg = load_config(overrides={
+        "network": {"backbone_types": "panoptic_deeplab_10",
+                    "embedding_dim": 8},
+        "tpu": {"loss_operand_dtype": "bfloat16"}})
+    assert cfg.tpu.loss_operand_dtype == "bfloat16"
     with pytest.raises(NotImplementedError, match=what):
         tstep.make_train_step(cfg)
 

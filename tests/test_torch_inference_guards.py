@@ -1,7 +1,7 @@
 """The inference path's ground rules, on the CPU:
 
 * every branch not ported yet raises NotImplementedError (MSC, CRF,
-  batched prediction, the training dataset, an orbax snapshot);
+  batched prediction, an orbax snapshot);
 * the entry points default to the CUDA card and raise without one;
 * the engine imports and predicts with PIL unimportable;
 * the new modules are under tests/test_torch_guards.py's import scan and
@@ -22,7 +22,6 @@ import torch
 
 from spml_tpu_torch import cli
 from spml_tpu_torch.config import load_config
-from spml_tpu_torch.data import datasets
 from spml_tpu_torch.inference import engine, runner
 from spml_tpu_torch.models.embeddings import build_embedding_model
 from test_torch_guards import ROOT, _forbidden, _imported_modules
@@ -58,13 +57,6 @@ def test_unported_inference_branches_raise(what, tmp_path):
     kw = {what: True} if what != "infer_batch" else {}
     with pytest.raises(NotImplementedError, match=what):
         runner.run_knn_inference(args, cfg, device="cpu", **kw)
-
-
-def test_training_dataset_raises(tmp_path):
-    (tmp_path / "list.txt").write_text("a.jpg\n")
-    with pytest.raises(NotImplementedError, match="training"):
-        datasets.ListDataset(str(tmp_path), str(tmp_path / "list.txt"),
-                             training=True)
 
 
 def test_orbax_snapshot_raises(tmp_path):
