@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The port on one CUDA card, end to end: build the kernels, hold each
 against its plain version, drive the three ported SPML train steps, the
-dilated-conv probe, the single-scale KNN inference path and the training
-drivers from an image list on disk, report.
+dilated-conv probe, the single-scale KNN inference path, the training
+drivers from an image list on disk and the self-training chain after
+them (MSC, CRF, softmax inference, pseudo-labels), report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -144,8 +145,29 @@ Phases, each printing one line or more:
     step's wait, the first step; then the same step replayed on the
     run's last batch with the loader closed, timed the same way and back
     to back (as the recipes are); peak memory, the nvidia-smi line;
- 7. the kernel list as one JSON line;
- 8. the card's name and power limit (nvidia-smi), then the last line
+ 7. selftrain, the VOC scribble recipe after stage 1
+    (train_spml_scribble.sh:82-170) on the driver phase's world and
+    snapshots, at full width (no custom kernel on it): (a)
+    run_knn_inference on the stage-1 snapshot and bank over 4 images with
+    MSC (scales 0.5-1.5 x flips) + CRF, and with MSC alone, whose labels
+    must equal the float64 argmax of the very float32 sums it resized
+    but at near-ties (MSC_TIE_GAP); (b) run_softmax_inference of the
+    stage-2 snapshot with MSC + CRF and without; (c) run_pseudo_softmax
+    (walk, CRF, scales (1.0,)) over the 24 images, run_benchmark on it,
+    the list rewritten to the pseudo-labels as the recipe's sed does, 2
+    steps of train_classifier on it; (d) run_pseudo_knn and
+    run_pseudo_camrw_crf (CAMs from data/synthetic.py) over 4 images,
+    run_pseudo_densepose over 2 point-labelled images on
+    panoptic_pspnet_101_densepose from seed 0 weights; (e) the walk at a
+    500 x 375 image's grid (n = 2852) against float64 on the card, the
+    KNN and softmax pyramids against the CPU in float32 (crop 128, stride
+    64, 192 x 160), the CRF twice equal, no SegSort or K10 launch in the
+    phase; one [selftrain] line: ms/image of KNN MSC + CRF (device
+    pyramid, float16 download, host CRF), of the softmax pyramid and of
+    the pseudo-label step (forward, affinity, walk, CRF), peak memory,
+    the nvidia-smi line;
+ 8. the kernel list as one JSON line;
+ 9. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -155,7 +177,14 @@ order, amplified by exp(kappa * logit)); dE and dP rtol 1e-4 with atol
 the output) with atol 1e-3 * max|reference| (float32 sums of 9 C terms
 that cancel near zero); inference TIE_GAP 1e-5 (float32 rounding of a
 64-term dot of unit vectors stays below 3.8e-6), the stitched map rtol
-1e-4 with atol 1e-5 * max|CPU| (cuDNN against oneDNN through ResNet-101).
+1e-4 with atol 1e-5 * max|CPU| (cuDNN against oneDNN through ResNet-101);
+selftrain: MSC_TIE_GAP 1e-4 (float32 sums of 10 members' values up to
+1), the walk rtol 1e-3 with atol 1e-4 * max|float64| (six float32
+squarings of [n, n] products), the pyramids' float32 probabilities card
+against CPU rtol 1e-5 / atol 1e-6 (KNN: exact one-hot means, resize sums
+alone differ) and rtol 1e-3 / atol 1e-4 (softmax: the stitch's rtol
+through the logits), their labels equal but where the CPU's top two lie
+within that tolerance.
 """
 
 from __future__ import annotations
@@ -1338,17 +1367,19 @@ class DriverProbe:
             f"card {nvidia_smi_line()}")
 
 
-def run_driver(torch, fused):
+def run_driver(torch, fused, dc):
     """Stage 1 (train_spml, ListTagDataset, K1-K3 on every step) for 4
     iterations and resumed to 6, the single-scale KNN chain on its
     snapshot, stage 2 (train_classifier over it), and the baseline
     (softmax_classifier with Adam), on a world of WORLD_IMAGES images
-    written from seed 0 into a temporary directory; the checks of the
-    module docstring."""
+    written from seed 0 into a temporary directory; then the
+    self-training phase on that world and those snapshots; the checks of
+    the module docstring."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="spml_driver_") as root:
-        drive_all(torch, fused, root)
+        world = drive_all(torch, fused, root)
+        run_selftrain(torch, fused, dc, world)
 
 
 def drive_all(torch, fused, root):
@@ -1505,6 +1536,548 @@ def drive_all(torch, fused, root):
         f"sem_ann_loss {probe.metrics[-1]['sem_ann_loss']:.4f}")
     probe.line("baseline (panoptic_deeplab_101 bf16, ListTagDataset, crop "
                "512, Adam)", base.train.batch_size, state)
+    return argparse.Namespace(root=root, data=data, list=lst,
+                              lists=lists, stage1_dir=stage1_dir,
+                              stage1=stage1, stage2=stage2,
+                              stage2_dir=os.path.join(root, "stage2"),
+                              bank=os.path.join(train_out,
+                                                "semantic_prototype"))
+
+
+# ---------------------------------------------------------------------------
+# Self-training: MSC, CRF, softmax and the pseudo-labels on the world and
+# snapshots of the driver phase
+# ---------------------------------------------------------------------------
+
+MSC_SCALES = (0.5, 0.75, 1, 1.25, 1.5)  # inference_msc.py
+# cli.parse_args's --crf_* defaults: the recipe passes none
+# (train_spml_scribble.sh:140, 168, CRF_FLAGS unset)
+CRF_FLAGS = dict(crf_iter_max=10, crf_pos_xy_std=1, crf_pos_w=3,
+                 crf_bi_xy_std=67, crf_bi_w=4, crf_bi_rgb_std=3)
+# float32 label path against float64: a sum of 10 members' values up to 1
+# through two bilinear resizes, a few tens of roundings of 2^-24 * 10
+MSC_TIE_GAP = 1e-4
+# the walk (T ** 64 by six float32 squarings of [n, n] products) against
+# float64, and the pyramids' float32 probabilities card against CPU: the
+# KNN one's are sums of exact one-hot means (resize sums alone differ),
+# the softmax one's carry the conv stack's STITCH_RTOL through the logits
+WALK_RTOL, WALK_ATOL_REL = 1e-3, 1e-4
+KNN_PROB_RTOL, KNN_PROB_ATOL = 1e-5, 1e-6
+# a member pixel may join another cluster on the card only where the
+# CPU's last k-means E-step, in float64, puts its two best clusters this
+# close: the card's stitched map is within STITCH_RTOL 1e-4 of the CPU's,
+# so each unit-vector affinity moves by ~2e-4 at most
+KMEANS_TIE_GAP = 1e-3
+SOFTMAX_PROB_RTOL, SOFTMAX_PROB_ATOL = 1e-3, 1e-4
+DENSEPOSE_POINTS = 300  # labelled pixels an image, the rest 255
+PSEUDO_STAGES = ("forward", "affinity", "walk", "pseudo_crf")
+
+
+def quiet(torch, fn, *a, **k):
+    """fn(*a, **k) with its per-image lines kept from the log; (seconds
+    to the card's last result, lines printed)."""
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fn(*a, **k)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out.getvalue().count("\n")
+
+
+def read_pngs(save_dir, n, num_classes, what):
+    """The n gray PNGs of a run, {name: labels}; each label in [0, C) or
+    the ignore label."""
+    import PIL.Image
+
+    gray = os.path.join(save_dir, "semantic_gray")
+    names = sorted(os.listdir(gray))
+    colour = sorted(os.listdir(os.path.join(save_dir, "semantic_color")))
+    if len(names) != n or colour != names:
+        raise AssertionError(f"{what}: {len(names)} gray and {len(colour)} "
+                             f"colour PNGs, want {n}")
+    out = {}
+    for name in names:
+        lab = np.array(PIL.Image.open(os.path.join(gray, name)))
+        bad = (lab >= num_classes) & (lab != 255)
+        if bad.any():
+            raise AssertionError(f"{what}: {name} holds labels "
+                                 f"{np.unique(lab[bad])}")
+        out[name] = lab
+    return out
+
+
+def check_msc_labels(torch, recorded, pngs):
+    """(a) the MSC labels of the runner against the float64 argmax of the
+    very sums it resized (recorded): equal but where the float64 top two
+    lie within MSC_TIE_GAP. Returns (pixels, near-tie pixels)."""
+    from spml_tpu_torch.inference import msc
+
+    pixels = near = 0
+    for (acc, final_hw), (name, lab) in zip(recorded, sorted(pngs.items())):
+        h, w = acc.shape[:2]
+        wr = msc.bilinear_resize_weights(final_hw[0], h, final_hw[0], h,
+                                         False, acc.device).double()
+        wc = msc.bilinear_resize_weights(final_hw[1], w, final_hw[1], w,
+                                         False, acc.device).double()
+        res = torch.einsum("pw,owc->opc", wc,
+                           torch.einsum("oi,iwc->owc", wr, acc.double()))
+        top2 = torch.topk(res, 2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+        want = res.argmax(-1).cpu().numpy()
+        off = lab != want
+        if (gap[off] >= MSC_TIE_GAP).any():
+            raise AssertionError(
+                f"selftrain (a): {name}: {int(off.sum())} labels off the "
+                f"float64 argmax, largest gap {gap[off].max():.3e}")
+        pixels += lab.size
+        near += int(off.sum())
+    return pixels, near
+
+
+def near_tie_mismatch(got, want, probs, rtol, atol, what, skip=None):
+    """Labels of the card against the CPU's: equal but where the CPU's
+    top two probabilities lie within the probabilities' tolerance, and
+    outside `skip`. Returns the excused pixels."""
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    tol = atol + rtol * top2[..., 1]
+    off = got != want
+    if skip is not None:
+        off &= ~skip
+    if (top2[..., 1] - top2[..., 0] >= tol)[off].any():
+        raise AssertionError(f"selftrain (e): card and CPU {what} labels "
+                             f"differ in {int(off.sum())} places")
+    return int(off.sum())
+
+
+def kmeans_gap64(torch, eng, emb_map, hw, pixels):
+    """The float64 gap between a member's two best clusters at `pixels`
+    in the last E-step of engine.segment's k-means on emb_map: the first
+    iterations in float32 as segment runs them, the last M-step and
+    E-step in float64."""
+    from spml_tpu_torch.ops import common, kmeans
+
+    net = eng.config.network
+    hb, wb, d = emb_map.shape
+    k = net.kmeans_num_clusters[0] * net.kmeans_num_clusters[1]
+    rows = torch.arange(hb)[:, None] < hw[0]
+    cols = torch.arange(wb)[None, :] < hw[1]
+    valid = (rows & cols).reshape(-1)
+    loc = common.generate_location_features(hb, wb) - 0.5
+    emb_loc = common.normalize_embedding(torch.cat(
+        [common.normalize_embedding(emb_map.reshape(-1, d)),
+         loc.reshape(-1, 2)], dim=-1))
+    grid = kmeans.initialize_cluster_labels(
+        tuple(net.kmeans_num_clusters), (hb, wb)).reshape(-1)
+    labels = kmeans.kmeans_with_initial_labels(
+        emb_loc[None], grid[None], k, net.kmeans_iterations - 1,
+        valid[None].float())[0]
+    protos = kmeans.calculate_prototypes_from_labels(
+        emb_loc.double(), labels, k, valid.double())
+    top2 = torch.topk(emb_loc.double()[pixels] @ protos.T, 2, dim=-1).values
+    return top2[:, 0] - top2[:, 1]
+
+
+def knn_cluster_footprint(torch, engines, image, scales):
+    """Each pyramid member on the card against the CPU: the stitched maps
+    within STITCH_RTOL, the cluster maps equal but at float64 near-ties
+    of the last E-step (gap below KMEANS_TIE_GAP). Returns (the base
+    pixels those near-tie pixels feed through the resize, [h, w] bool;
+    the near-tie pixels)."""
+    from spml_tpu_torch.inference import msc
+
+    h, w = image.shape[:2]
+    footprint = torch.zeros(h, w, dtype=torch.bool)
+    near = 0
+    for scale in scales:
+        member_hw = (int(h * scale), int(w * scale))
+        out = {}
+        for dev, eng in engines.items():
+            members = eng.members(eng.upload_image(image), (h, w), member_hw,
+                                  (False, True))
+            emb = eng.stitch(members)
+            out[dev] = (emb.cpu(), [eng.segment(e, member_hw)[0].cpu()
+                                    for e in emb])
+        (emb, want), (emb_card, got) = out["cpu"], out[DEVICE]
+        torch.testing.assert_close(
+            emb_card, emb, rtol=STITCH_RTOL,
+            atol=STITCH_ATOL_REL * float(emb.abs().max()),
+            msg=lambda m: f"selftrain (e) member {member_hw} stitch: {m}")
+        hb, wb = emb.shape[1:3]
+        inside = torch.zeros(hb, wb, dtype=torch.bool)
+        inside[:member_hw[0], :member_hw[1]] = True
+        for i, flip in enumerate((False, True)):
+            off = (got[i] != want[i]) & inside.reshape(-1)
+            if not off.any():
+                continue
+            gap = kmeans_gap64(torch, engines["cpu"], emb[i], member_hw,
+                               off)
+            if (gap >= KMEANS_TIE_GAP).any():
+                raise AssertionError(
+                    f"selftrain (e): member {member_hw} flip {flip}: "
+                    f"{int(off.sum())} pixels in other clusters on the "
+                    f"card, float64 gap up to {float(gap.max()):.3e}")
+            near += int(off.sum())
+            fed = msc.bilinear_resize(off.reshape(hb, wb, 1).float(),
+                                      member_hw, (h, w), flip=flip)
+            footprint |= fed[..., 0] > 0
+    return footprint.numpy(), near
+
+
+def check_pyramids_card_against_cpu(torch):
+    """(e) the KNN and softmax device pyramids, float32, crop 128, stride
+    64, a 192 x 160 image, scales (0.75, 1) with flips, card against CPU:
+    the softmax probabilities within their tolerance and the labels equal
+    but at near-ties; the KNN members' clusters equal but at k-means
+    near-ties, and outside the base pixels those feed, the probabilities
+    within their tolerance and the labels equal but at near-ties.
+    Returns {engine: (max abs error outside near-ties, excused labels,
+    k-means near-tie pixels)}."""
+    import copy
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.inference import engine, msc
+    from spml_tpu_torch.inference.softmax import SoftmaxInferenceEngine
+    from spml_tpu_torch.models.embeddings import (build_classifier_head,
+                                                  build_embedding_model)
+
+    over = dict(INFERENCE, test={"image_size": 0, "crop_size": [128, 128],
+                                 "stride": [64, 64]},
+                tpu={"compute_dtype": "float32"})
+    cfg = load_config(overrides=over)
+    net, c = cfg.network, cfg.dataset.num_classes
+    model = build_embedding_model(net.backbone_types, net.embedding_dim)
+    head = build_classifier_head(c, net.embedding_dim)
+    image = inference_images(cfg, 1, seed=2)[0][0][:192, :160]
+    scales = (0.75, 1.0)
+    rng = np.random.RandomState(1)
+    bank_p = rng.randn(2000, net.embedding_dim).astype(np.float32)
+    bank_p /= np.linalg.norm(bank_p, axis=1, keepdims=True)
+    bank = (bank_p, rng.randint(0, c, 2000), np.ones(2000, bool))
+    out = {}
+    for kind, rtol, atol in (("knn", KNN_PROB_RTOL, KNN_PROB_ATOL),
+                             ("softmax", SOFTMAX_PROB_RTOL,
+                              SOFTMAX_PROB_ATOL)):
+        engines, args = {}, {}
+        for dev in ("cpu", DEVICE):
+            if kind == "knn":
+                engines[dev] = engine.InferenceEngine(
+                    cfg, copy.deepcopy(model), dev)
+                args[dev] = engines[dev].memory(*bank)
+            else:
+                engines[dev] = SoftmaxInferenceEngine(
+                    cfg, copy.deepcopy(model), copy.deepcopy(head), dev)
+                args[dev] = ()
+        skip, near = np.zeros(image.shape[:2], bool), 0
+        if kind == "knn":
+            skip, near = knn_cluster_footprint(torch, engines, image, scales)
+        res = {dev: (msc.msc_predict_probs_device(
+            eng, image, args[dev], scales, transfer_dtype=np.float32),
+            msc.msc_predict_labels_device(eng, image, args[dev], scales))
+            for dev, eng in engines.items()}
+        (want, wlab), (got, glab) = res["cpu"], res[DEVICE]
+        torch.testing.assert_close(
+            torch.from_numpy(got[~skip]), torch.from_numpy(want[~skip]),
+            rtol=rtol, atol=atol,
+            msg=lambda m, kind=kind: f"selftrain (e) {kind}: {m}")
+        out[kind] = (float(np.abs(got - want)[~skip].max()),
+                     near_tie_mismatch(glab, wlab, want, rtol, atol, kind,
+                                       skip), near)
+    return out
+
+
+def check_walk_float64(torch, config, emb_model, image, scores):
+    """(e) the walk on the card against float64 on the card, at the grid
+    of a 500 x 375 image (n = 62 * 46). Returns (n, max abs error,
+    float64 ms, float32 ms)."""
+    from spml_tpu_torch.inference import runner
+    from spml_tpu_torch.ops import randomwalk
+
+    h, w = image.shape[:2]
+    aff = runner._stride8_affinity(config, emb_model, image)
+    c = scores.shape[0]
+    s8 = torch.nn.functional.interpolate(
+        torch.from_numpy(scores)[None].to(aff.device), size=(h // 8, w // 8),
+        mode="bilinear", align_corners=False)[0].reshape(c, -1)
+    randomwalk.random_walk_from_affinity(aff, s8)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = randomwalk.random_walk_from_affinity(aff, s8)
+    torch.cuda.synchronize()
+    f32_ms = (time.perf_counter() - t0) * 1000
+    t0 = time.perf_counter()
+    trans = aff.double() ** 20
+    trans = trans / trans.sum(0, keepdim=True)
+    for _ in range(6):
+        trans = trans @ trans
+    want = s8.double() @ trans
+    torch.cuda.synchronize()
+    f64_ms = (time.perf_counter() - t0) * 1000
+    torch.testing.assert_close(
+        got.double(), want, rtol=WALK_RTOL,
+        atol=WALK_ATOL_REL * float(want.abs().max()),
+        msg=lambda m: f"selftrain (e) walk: {m}")
+    return aff.shape[0], float((got.double() - want).abs().max()), \
+        f64_ms, f32_ms
+
+
+def time_selftrain(torch, eng, memory, seng, peng, images, crf_model,
+                   config):
+    """(f) ms/image over `images` (normalized, with their labels), each
+    stage ended by a synchronize: KNN MSC + CRF split into the device
+    pyramid, the float16 download, the host resize and CRF; the softmax
+    pyramid; the pseudo-label step split into forward (the softmax
+    pyramid and the stride-8 embeddings), affinity, walk and CRF."""
+    from spml_tpu_torch import cli
+    from spml_tpu_torch.data import transforms
+    from spml_tpu_torch.inference import msc, runner
+    from spml_tpu_torch.ops import randomwalk
+
+    t = dict.fromkeys(("pyramid", "download", "crf", "softmax", "forward",
+                       "affinity", "walk", "pseudo_crf"), 0.0)
+
+    def clock(key, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        t[key] += (time.perf_counter() - t0) * 1000 / len(images)
+        return out
+
+    c = config.dataset.num_classes
+    for image0, sem in images:
+        oh, ow = image0.shape[:2]
+        image = runner._maybe_resize_input(eng.config, image0)[0]
+        acc, n = clock("pyramid", msc._msc_accumulate_device, eng, image,
+                       memory, MSC_SCALES, True)
+        small = clock("download", lambda: acc.half().cpu().numpy())
+        rgb = cli.denormalize_image(image0, config)
+        clock("crf", lambda: crf_model(rgb, transforms._resize_image(
+            small.astype(np.float32) / n, oh, ow).transpose(2, 0, 1)))
+        clock("softmax", msc._msc_accumulate_device, seng, image, (),
+              MSC_SCALES, True)
+        h, w = image0.shape[:2]
+        probs = clock("forward", msc.msc_predict_probs_device, peng, image0,
+                      (), (1.0,), True)
+        e = clock("forward", runner._stride8_embeddings, config,
+                  peng.emb_model, image0)
+        aff = clock("affinity", lambda: (randomwalk.pixel_affinity(e[0])
+                                         + randomwalk.pixel_affinity(e[1]))
+                    * 0.5)
+        probs = runner._tag_mask(probs.transpose(2, 0, 1), sem, c)
+        probs = probs / np.maximum(probs.max(axis=(1, 2), keepdims=True),
+                                   1e-8)
+        walked = clock("walk", runner._walk_scores, aff, probs,
+                       (h // 8, w // 8))
+        clock("pseudo_crf", crf_model, rgb, np.ascontiguousarray(walked))
+    return t
+
+
+def run_selftrain(torch, fused, dc, w):
+    """The VOC scribble recipe after stage 1 (train_spml_scribble.sh:82-170)
+    on the driver phase's world and snapshots, at full width: (a) KNN with
+    MSC and CRF, and MSC alone; (b) softmax inference of the stage-2
+    snapshot with and without MSC + CRF; (c) the recipe's pseudo-labels
+    (pseudo_softmaxrw_crf) over the 24 training images, their mIoU, the
+    list rewritten to them and 2 steps of train_classifier on it; (d)
+    run_pseudo_knn, run_pseudo_camrw_crf (synthetic CAMs) and
+    run_pseudo_densepose (a point-labelled world); (e) the card checks;
+    (f) one [selftrain] line."""
+    import argparse
+    import copy
+    from unittest import mock
+
+    from spml_tpu_torch import cli, crf
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.data import datasets, synthetic
+    from spml_tpu_torch.inference import engine, msc, runner
+    from spml_tpu_torch.inference.softmax import SoftmaxInferenceEngine
+    from spml_tpu_torch.train import densepose_point, driver
+
+    t_phase = time.perf_counter()
+    fused.reset_launch_counts()
+    dc.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    root, stage1_dir, test4 = w.root, w.stage1_dir, w.lists["test"]
+    infer = load_infer_config(w.stage1)
+    c = infer.dataset.num_classes
+
+    def args(snapshot, data_list, save, **extra):
+        return argparse.Namespace(
+            data_dir=w.data, data_list=data_list, snapshot_dir=snapshot,
+            save_dir=os.path.join(root, "selftrain", save),
+            semantic_memory_dir=w.bank, cam_dir=None, **CRF_FLAGS, **extra)
+
+    # (a) KNN with MSC + CRF, and MSC alone with its sums recorded
+    runs = {}
+    runs["knn msc+crf"] = quiet(torch, runner.run_knn_inference,
+                                args(stage1_dir, test4, "knn_msc_crf"),
+                                infer, msc=True, crf=True, device=DEVICE)
+    recorded = []
+    resize_argmax = msc.resize_argmax
+
+    def recording(acc, final_hw):
+        recorded.append((acc.clone(), tuple(final_hw)))
+        return resize_argmax(acc, final_hw)
+
+    with mock.patch.object(msc, "resize_argmax", recording):
+        runs["knn msc"] = quiet(torch, runner.run_knn_inference,
+                                args(stage1_dir, test4, "knn_msc"), infer,
+                                msc=True, device=DEVICE)
+    read_pngs(os.path.join(root, "selftrain", "knn_msc_crf"), 4, c, "(a)")
+    pixels, near = check_msc_labels(torch, recorded, read_pngs(
+        os.path.join(root, "selftrain", "knn_msc"), 4, c, "(a)"))
+    log("selftrain", f"(a) KNN MSC (scales {MSC_SCALES} x flips) + CRF and "
+        f"MSC alone over 4 images: PNGs written; MSC labels equal the "
+        f"float64 argmax of the resized float32 sums on {pixels - near} of "
+        f"{pixels} pixels, {near} near-ties (gap < {MSC_TIE_GAP})")
+
+    # (b) softmax inference of the stage-2 snapshot
+    for name, kw in (("softmax msc+crf", dict(msc=True, crf=True)),
+                     ("softmax", {})):
+        save = name.replace(" ", "_").replace("+", "_")
+        runs[name] = quiet(torch, runner.run_softmax_inference,
+                           args(w.stage2_dir, test4, save), w.stage2,
+                           device=DEVICE, **kw)
+        read_pngs(os.path.join(root, "selftrain", save), 4, c, "(b)")
+    log("selftrain", "(b) run_softmax_inference of the stage-2 snapshot "
+        "(its frozen embedding from stage 1) over 4 images, MSC + CRF and "
+        "single scale: PNGs written")
+
+    # (c) the recipe's pseudo-labels, their mIoU, stage 2 on them
+    pcfg = copy.deepcopy(infer)
+    pcfg.network.kmeans_num_clusters = (1, 1)  # the recipe's flag
+    pseudo = os.path.join(root, "selftrain", "pseudo_cam_rw")
+    runs["pseudo softmax"] = quiet(
+        torch, runner.run_pseudo_softmax, args(stage1_dir, w.list,
+                                               "pseudo_cam_rw"), pcfg,
+        with_crf=True, with_walk=True, scales=(1.0,), device=DEVICE)
+    read_pngs(pseudo, WORLD_IMAGES, c, "(c)")
+    with contextlib.redirect_stdout(None):
+        miou = runner.run_benchmark(
+            args(stage1_dir, w.list, "pseudo_cam_rw"), pcfg)["mean_iou"]
+    if not (math.isfinite(miou) and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"selftrain (c): pseudo-label mIoU {miou}")
+    with open(w.list) as f:  # the recipe's sed: labels -> pseudo-labels
+        items = f.read().replace(
+            "semantic/", os.path.join(pseudo, "semantic_gray") + "/")
+    plist = os.path.join(pseudo, "list.txt")
+    with open(plist, "w") as f:
+        f.write(items)
+    cls_cfg = copy.deepcopy(w.stage2)
+    cls_cfg.train.max_iteration = 2
+    with DriverProbe(torch) as probe:
+        quiet(torch, driver.train_classifier,
+              args(os.path.join(root, "softmax_classifier_stage1"), plist,
+                   "unused"), cls_cfg, datasets.ListTagClassifierDataset,
+              device=DEVICE)
+    probe.check_finite("selftrain (c) classifier")
+    if len(probe.metrics) != 2:
+        raise AssertionError(f"selftrain (c): {len(probe.metrics)} stage-2 "
+                             "steps, want 2")
+    log("selftrain", f"(c) pseudo_softmaxrw_crf over {WORLD_IMAGES} images "
+        f"(scales (1.0,) x flips, walk, CRF): mIoU {miou:.4f} against the "
+        f"world's labels; the list rewritten to them; train_classifier 2 "
+        f"steps, loss {probe.metrics[-1]['loss']:.4f}")
+
+    # (d) the other pseudo-label paths
+    runs["pseudo knn"] = quiet(torch, runner.run_pseudo_knn,
+                               args(stage1_dir, test4, "pseudo_knn"), infer,
+                               device=DEVICE)
+    read_pngs(os.path.join(root, "selftrain", "pseudo_knn"), 4, c, "(d)")
+    cams = os.path.join(root, "selftrain", "cams")
+    synthetic.write_cams(cams, w.data, test4, num_classes=c, seed=0)
+    camrw_args = args(stage1_dir, test4, "pseudo_camrw")
+    camrw_args.cam_dir = cams
+    runs["pseudo camrw"] = quiet(torch, runner.run_pseudo_camrw_crf,
+                                 camrw_args, infer, device=DEVICE)
+    read_pngs(camrw_args.save_dir, 4, c, "(d)")
+    dp_data = os.path.join(root, "densepose")
+    dp_list = synthetic.write_world(
+        dp_data, 2, shapes=((427, 640), (640, 427)),
+        num_classes=densepose_point.NUM_CLASSES, seed=0,
+        points=DENSEPOSE_POINTS)
+    dp_cfg = load_config(overrides=densepose_point.OVERRIDES)
+    dp_cfg.network.kmeans_num_clusters = (24, 24)  # the recipe's flag
+    dp_cfg.test.image_size = 640
+    dp_cfg.test.crop_size = dp_cfg.test.stride = (640, 640)
+    dp_args = args(os.path.join(root, "no_snapshot"), dp_list, "densepose")
+    dp_args.data_dir = dp_data
+    runs["pseudo densepose"] = quiet(torch, runner.run_pseudo_densepose,
+                                     dp_args, dp_cfg, device=DEVICE)
+    dp = read_pngs(dp_args.save_dir, 2, densepose_point.NUM_CLASSES, "(d)")
+    for name, lab in dp.items():
+        sem = datasets.read_label(os.path.join(dp_data, "semantic", name))
+        if not ((lab == 255) == (sem == 255)).all():
+            raise AssertionError(f"selftrain (d): {name}: the pixels "
+                                 "without a point are not exactly the 255s")
+    log("selftrain", "(d) run_pseudo_knn (scales (0.5, 1, 1.5, 2) x flips, "
+        "tag mask, CRF, floor 0.15) and run_pseudo_camrw_crf over 4 images; "
+        "run_pseudo_densepose over 2 images of 427 x 640 / 640 x 427 with "
+        f"{DENSEPOSE_POINTS} points (panoptic_pspnet_101_densepose, seed 0, "
+        "24 x 24 clusters, crop 640; train_spml_point.sh:49-53, 97-104): "
+        "PNGs written, 255 exactly off the points")
+
+    # (e) the card checks
+    eng = engine.InferenceEngine(
+        infer, cli.build_eval_models(infer, stage1_dir, DEVICE), DEVICE)
+    memory = runner._load_memory(args(stage1_dir, test4, "unused"), infer,
+                                 eng)
+    seng = SoftmaxInferenceEngine(w.stage2, *cli.build_eval_models(
+        w.stage2, w.stage2_dir, DEVICE, with_classifier=True), DEVICE)
+    peng = SoftmaxInferenceEngine(pcfg, *cli.build_eval_models(
+        pcfg, stage1_dir, DEVICE, with_classifier=True), DEVICE)
+    items = [(img, sem) for _, _, img, sem, _ in cli.iterate_test_images(
+        infer, w.data, test4)]
+    probs = msc.msc_predict_probs_device(peng, items[0][0], (), (1.0,))
+    n, walk_err, f64_ms, f32_ms = check_walk_float64(
+        torch, pcfg, peng.emb_model, items[0][0],
+        np.ascontiguousarray(probs.transpose(2, 0, 1)))
+    crf_model = cli.crf_from_args(argparse.Namespace(**CRF_FLAGS))
+    rgb = cli.denormalize_image(items[0][0], infer)
+    unary = np.ascontiguousarray(probs.transpose(2, 0, 1))
+    if not np.array_equal(crf_model(rgb, unary), crf_model(rgb, unary)):
+        raise AssertionError("selftrain (e): the CRF gave two answers")
+    pyramids = check_pyramids_card_against_cpu(torch)
+    launches = {k: v for k, v in {**fused.LAUNCHES, **dc.LAUNCHES}.items()
+                if v}
+    if launches:
+        raise AssertionError(f"selftrain (e): kernels launched: {launches}")
+    log("selftrain", f"(e) checks ok: the walk at n = {n} (a 500 x 375 "
+        f"image's grid) against float64 on the card, max_abs_err "
+        f"{walk_err:.3e} (rtol {WALK_RTOL}; float32 {f32_ms:.2f} ms, "
+        f"float64 {f64_ms:.2f} ms); card vs CPU float32 (crop 128, stride "
+        f"64, 192 x 160, scales (0.75, 1) x flips): KNN members' clusters "
+        f"equal but {pyramids['knn'][2]} k-means near-tie pixels (float64 "
+        f"gap < {KMEANS_TIE_GAP}), outside the base pixels they feed the "
+        f"probabilities' max_abs_err {pyramids['knn'][0]:.3e} (rtol "
+        f"{KNN_PROB_RTOL}) and labels equal but {pyramids['knn'][1]} "
+        "near-ties; softmax "
+        f"{pyramids['softmax'][0]:.3e} (rtol {SOFTMAX_PROB_RTOL}), labels "
+        f"equal but {pyramids['softmax'][1]} near-ties; the CRF the same "
+        "twice; no SegSort or K10 launch in the phase")
+
+    # (f) the split, on the 4 test images once more
+    times = time_selftrain(torch, eng, memory, seng, peng, items, crf_model,
+                           infer)
+    peak = torch.cuda.max_memory_allocated()
+    log("selftrain", "panoptic_deeplab_101 bf16, 4 images of 500 x 375 / "
+        "375 x 500 (512 on the larger side for KNN and softmax), ms/image, "
+        "each stage ended by a synchronize: KNN MSC + CRF "
+        f"{times['pyramid'] + times['download'] + times['crf']:.2f} (device "
+        f"pyramid {times['pyramid']:.2f}, float16 download "
+        f"{times['download']:.2f}, host resize + CRF {times['crf']:.2f}); "
+        f"softmax MSC pyramid {times['softmax']:.2f}; pseudo-label step "
+        f"{sum(times[k] for k in PSEUDO_STAGES):.2f} (forward "
+        f"{times['forward']:.2f}, affinity {times['affinity']:.2f}, walk "
+        f"{times['walk']:.2f}, CRF {times['pseudo_crf']:.2f}); runner "
+        "wall s, model build included: "
+        + ", ".join(f"{k} {v[0]:.1f}" for k, v in runs.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} held "
+        f"as the phase began); phase {time.perf_counter() - t_phase:.1f} s; "
+        f"card {nvidia_smi_line()}")
 
 
 def loader_ms(cfg, dataset_cls, args, batches=8):
@@ -1597,7 +2170,7 @@ def main() -> int:
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
     run_inference(torch)
-    run_driver(torch, fused)
+    run_driver(torch, fused, dc)
 
     err_name = {"stats": "stats", "grad_emb": "dE", "grad_proto": "dP"}
     table = []

@@ -2,9 +2,9 @@
 models of a snapshot, the test-image iterator and the prediction PNGs.
 
 Port of spml_tpu/cli.py (reference: spml/config/parse_args.py:8-53 in
-twke18/SPML). parse_args has the reference's flags but the DenseCRF ones
-(CRF is not ported yet; crf_from_args neither), plus --device, the port's
-counterpart of the JAX package's SPML_TPU_PLATFORM.
+twke18/SPML). parse_args has the reference's flags, the six DenseCRF
+ones with their defaults among them, plus --device, the port's counterpart
+of the JAX package's SPML_TPU_PLATFORM.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from spml_tpu_torch.config import Config, load_config
-from spml_tpu_torch.utils.device import resolve_device
+from spml_tpu_torch.utils.device import float32_matmuls, resolve_device
 
 
 def parse_args(description: str = "") -> tuple[argparse.Namespace, Config]:
@@ -34,6 +34,12 @@ def parse_args(description: str = "") -> tuple[argparse.Namespace, Config]:
     parser.add_argument("--kmeans_num_clusters", type=str, default=None,
                         help="H,W")
     parser.add_argument("--label_divisor", type=int, default=None)
+    parser.add_argument("--crf_iter_max", type=int, default=10)
+    parser.add_argument("--crf_pos_xy_std", type=int, default=1)
+    parser.add_argument("--crf_pos_w", type=int, default=3)
+    parser.add_argument("--crf_bi_xy_std", type=int, default=67)
+    parser.add_argument("--crf_bi_w", type=int, default=4)
+    parser.add_argument("--crf_bi_rgb_std", type=int, default=3)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cpu for the plain "
                         "versions of the kernels)")
@@ -50,18 +56,30 @@ def parse_args(description: str = "") -> tuple[argparse.Namespace, Config]:
     return args, config
 
 
+def crf_from_args(args):
+    """The DenseCRF of the --crf_* flags."""
+    from spml_tpu_torch.crf import DenseCRF
+    return DenseCRF(iter_max=args.crf_iter_max, pos_w=args.crf_pos_w,
+                    pos_xy_std=args.crf_pos_xy_std, bi_w=args.crf_bi_w,
+                    bi_xy_std=args.crf_bi_xy_std,
+                    bi_rgb_std=args.crf_bi_rgb_std)
+
+
 def build_eval_models(config, snapshot_dir: str, device="cuda",
                       with_classifier=False):
     """The embedding model (and, with_classifier, the classifier head) of a
     snapshot, in eval mode on `device`; utils/checkpoint.py::
     restore_models says what is read. With nothing to read the weights
     are random, drawn from a torch.Generator of seed 0: not the values
-    the JAX package draws from PRNGKey(0)."""
+    the JAX package draws from PRNGKey(0). Turns TF32 off
+    (utils/device.py::float32_matmuls) for every inference path, the
+    forwards of the pseudo-label paths without an engine too."""
     from spml_tpu_torch.models.embeddings import (build_classifier_head,
                                                   build_embedding_model)
     from spml_tpu_torch.utils import checkpoint as ckpt
 
     device = resolve_device(device)
+    float32_matmuls()
     dtype = (torch.bfloat16 if config.tpu.compute_dtype == "bfloat16"
              else torch.float32)
     model = build_embedding_model(

@@ -8,6 +8,10 @@ where a scribble would leave pixels unlabelled). Instance maps are the
 Voronoi cells of `segments` random seeds, a stand-in for the HED
 segments the reference trains on. The image is a colour per class with a
 shade per cell and noise, so it correlates with both maps.
+
+A point-label world (points=N) keeps N labelled pixels of each semantic
+map and 255 elsewhere, as DensePose's point annotations do. write_cams
+adds SEAM-style class activation maps of a world's images.
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ def _item(rng, h, w, num_classes, segments):
 
 def write_world(directory: str, n: int, shapes=((375, 500), (500, 375)),
                 num_classes: int = 21, segments: int = 30,
-                seed: int = 0) -> str:
+                seed: int = 0, points: int | None = None) -> str:
     """Writes n items under `directory` (images/, semantic/, instance/),
     their shapes (H, W) taken from `shapes` in turn, and list.txt; returns
-    the list's path."""
+    the list's path. With `points`, each semantic map keeps the labels of
+    `points` random pixels (those of the map's 255 rings stay 255) and is
+    255 elsewhere."""
     import PIL.Image
 
     rng = np.random.default_rng(seed)
@@ -52,6 +58,10 @@ def write_world(directory: str, n: int, shapes=((375, 500), (500, 375)),
     for i in range(n):
         h, w = shapes[i % len(shapes)]
         img, sem, inst = _item(rng, h, w, num_classes, segments)
+        if points is not None:
+            keep = np.zeros(h * w, bool)
+            keep[rng.choice(h * w, points, replace=False)] = True
+            sem = np.where(keep.reshape(h, w), sem, 255).astype(np.uint8)
         names = (f"images/{i:04d}.jpg", f"semantic/{i:04d}.png",
                  f"instance/{i:04d}.png")
         PIL.Image.fromarray(img, mode="RGB").save(
@@ -65,3 +75,32 @@ def write_world(directory: str, n: int, shapes=((375, 500), (500, 375)),
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
+
+
+def write_cams(directory: str, data_dir: str, data_list: str,
+               num_classes: int = 21, seed: int = 0) -> None:
+    """SEAM-style CAMs of a world's images, one .npy of a pickled dict
+    {class - 1: [H, W] float32 in [0, 1]} an image, named as the image
+    with .npy (what run_pseudo_camrw_crf reads): for each class of the
+    semantic map but background, its mask blurred, scaled by a random
+    peak and noised, from `seed`."""
+    from scipy import ndimage
+
+    from spml_tpu_torch.data import datasets
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    images, labels, _ = datasets.read_list(data_dir, data_list)
+    for image, label in zip(images, labels):
+        sem = datasets.read_label(label)
+        cam = {}
+        for k in np.unique(sem):
+            if 1 <= k < num_classes:
+                act = ndimage.gaussian_filter((sem == k).astype(np.float32),
+                                              sigma=6.0)
+                act = act * rng.uniform(0.6, 1.0) + rng.uniform(
+                    0, 0.05, sem.shape)
+                cam[int(k) - 1] = np.clip(act, 0, 1).astype(np.float32)
+        base = os.path.splitext(os.path.basename(image))[0]
+        np.save(os.path.join(directory, base + ".npy"), cam,
+                allow_pickle=True)

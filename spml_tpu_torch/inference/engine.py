@@ -16,8 +16,15 @@ probabilities come down. Each public method runs the one path that the
 JAX package's `fused=True` form runs (its eager twin is equal by the JAX
 package's own tests), so there is no `fused` flag. Nothing here has a
 counterpart of `warmup`, which pre-compiles the XLA programs of each pad
-bucket: eager PyTorch has nothing to compile. The multi-scale members and
-`predict_semantic_batch` are not ported yet.
+bucket: eager PyTorch has nothing to compile. `predict_semantic_batch`
+is not ported yet.
+
+The multi-scale members (engine.py:553-743 in the JAX package) are built
+from the base image on the device (device_member_resize); both flips of
+a scale share one window forward (eval BN: each window's result is its
+own), and each member's k-means runs under its own bucket's fake labels.
+WindowEngine holds what the KNN engine and the softmax engine
+(inference/softmax.py) share: buckets, upload, windows and members.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ import numpy as np
 import torch
 
 from spml_tpu_torch.data import transforms
+from spml_tpu_torch.inference import msc
 from spml_tpu_torch.ops import common, kmeans, knn
-from spml_tpu_torch.utils.device import resolve_device
+from spml_tpu_torch.utils.device import float32_matmuls, resolve_device
 
 TOP_K = 20  # retrieved prototypes per segment (segsort.py:68-125)
 LABEL_BINS = 256  # histogram bins of the ground-truth labels (uint8)
@@ -51,16 +59,39 @@ def bucket_dim(size: int, crop: int, stride: int) -> int:
     return crop + k * stride
 
 
-class InferenceEngine:
-    """KNN inference of one embedding model on one device.
+def device_member_resize(base: torch.Tensor, base_hw, member_hw, flip: bool,
+                         member_bucket) -> torch.Tensor:
+    """One pyramid member [Hb, Wb, 3] float32 from the padded base image on
+    the device: the valid base_hw region resized bilinearly to member_hw
+    (cv2.INTER_LINEAR, inference_msc.py:150-160), flipped horizontally
+    inside the valid region when flip (the bucket padding stays at the
+    bottom right), zero past member_hw up to the member's bucket."""
+    member = msc.bilinear_resize(base.float(), base_hw, member_hw,
+                                 out_shape=member_bucket, flip=flip)
+    rows = torch.arange(member_bucket[0], device=base.device)[:, None]
+    cols = torch.arange(member_bucket[1], device=base.device)[None, :]
+    inside = (rows < member_hw[0]) & (cols < member_hw[1])
+    return torch.where(inside[..., None], member, 0.0)
+
+
+class WindowEngine:
+    """What the sliding-window engines of one embedding model share on
+    one device: pad buckets, the image upload, the windows' embeddings
+    and the multi-scale members.
 
     emb_model: the port's EmbeddingModel (moved to `device`, put in eval
     mode: running-average BN). Images are [H, W, 3] float32 numpy arrays,
-    already resized and normalized; memory banks are (prototypes [P, D],
-    labels [P], valid [P]) tensors or arrays.
+    already resized and normalized.
+
+    Turns TF32 off (utils/device.py::float32_matmuls), as the train
+    steps do: near-ties of the affinities decide cluster and retrieved
+    labels. Subclasses define
+    member_probs(members [n, Hb, Wb, 3], member_hw, *member_args) ->
+    [n, Hb, Wb, C] probabilities.
     """
 
     def __init__(self, config, emb_model, device="cuda"):
+        float32_matmuls()
         self.device = resolve_device(device)
         self.config = config
         self.emb_model = emb_model.to(self.device).eval()
@@ -89,6 +120,85 @@ class InferenceEngine:
         return torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
             self.device).to(self.img_dtype)
 
+    def windows(self, pad_h: int, pad_w: int) -> list[tuple[int, int]]:
+        """Top-left corners of the sliding windows, row-major."""
+        ch, cw = self.crop
+        return [(int(eh) - ch, int(ew) - cw)
+                for eh in patch_ends(pad_h, ch, self.stride[0])
+                for ew in patch_ends(pad_w, cw, self.stride[1])]
+
+    def patches(self, img: torch.Tensor) -> torch.Tensor:
+        """The windows of a padded image [..., Hb, Wb, 3] (a batch of one
+        shape or one image): [n_windows, ..., crop_h, crop_w, 3]."""
+        ch, cw = self.crop
+        return torch.stack([img[..., sh:sh + ch, sw:sw + cw, :]
+                            for sh, sw in self.windows(*img.shape[-3:-1])])
+
+    @torch.no_grad()
+    def embed_windows(self, img: torch.Tensor) -> torch.Tensor:
+        """Every window of a padded image [..., Hb, Wb, 3] through one
+        batched forward: [n_windows, ..., crop_h, crop_w, D] L2-normalized
+        float32."""
+        patches = self.patches(img)
+        emb, _ = self.emb_model(patches.flatten(0, -4),
+                                resize_as_input=True)
+        emb = common.normalize_embedding(emb.float())
+        return emb.reshape(*patches.shape[:-1], emb.shape[-1])
+
+    def sum_windows(self, values: torch.Tensor, pad_h: int,
+                    pad_w: int) -> torch.Tensor:
+        """Window values [n_windows, ..., crop_h, crop_w, K] summed into
+        the [..., pad_h, pad_w, K] map in window order."""
+        ch, cw = self.crop
+        total = torch.zeros(*values.shape[1:-3], pad_h, pad_w,
+                            values.shape[-1], device=values.device)
+        for v, (sh, sw) in zip(values, self.windows(pad_h, pad_w)):
+            total[..., sh:sh + ch, sw:sw + cw, :] += v
+        return total
+
+    # -- multi-scale members --
+
+    def members(self, base: torch.Tensor, base_hw, member_hw,
+                flips) -> torch.Tensor:
+        """The members [len(flips), Hb, Wb, 3] of one scale, in the member
+        size's bucket."""
+        bucket = self.bucket_shape(*member_hw)
+        return torch.stack([device_member_resize(base, base_hw, member_hw,
+                                                 f, bucket) for f in flips])
+
+    def predict_member_probs(self, base: torch.Tensor, base_hw, member_hw,
+                             flip: bool, *member_args) -> torch.Tensor:
+        """One member's probabilities [Hb, Wb, C] in its bucket from the
+        padded base image on the device (base_hw its valid size), still
+        flipped when flip."""
+        return self.member_probs(
+            self.members(base, base_hw, member_hw, (flip,)), member_hw,
+            *member_args)[0]
+
+    def predict_member_pair_probs(self, base: torch.Tensor, base_hw,
+                                  member_hw, *member_args) -> torch.Tensor:
+        """Both flips of one scale through one window forward: [2, Hb, Wb,
+        C], index 1 still flipped."""
+        return self.member_probs(
+            self.members(base, base_hw, member_hw, (False, True)),
+            member_hw, *member_args)
+
+    def accumulate_member_pair(self, acc: torch.Tensor, base: torch.Tensor,
+                               base_hw, member_hw,
+                               *member_args) -> torch.Tensor:
+        """acc [h, w, C] plus both flips' probabilities of one scale,
+        resized to acc's size and un-flipped."""
+        pair = self.predict_member_pair_probs(base, base_hw, member_hw,
+                                              *member_args)
+        acc = msc.resize_accumulate(acc, pair[0], member_hw, flip=False)
+        return msc.resize_accumulate(acc, pair[1], member_hw, flip=True)
+
+
+class InferenceEngine(WindowEngine):
+    """KNN inference of one embedding model on one device (WindowEngine's
+    arguments); memory banks are (prototypes [P, D], labels [P], valid
+    [P]) tensors or arrays."""
+
     def memory(self, prototypes, labels, valid):
         """A memory bank as tensors on the engine's device."""
         return (torch.as_tensor(prototypes, dtype=torch.float32,
@@ -99,39 +209,19 @@ class InferenceEngine:
 
     # -- the stages of one image, each on the device --
 
-    def windows(self, pad_h: int, pad_w: int) -> list[tuple[int, int]]:
-        """Top-left corners of the sliding windows, row-major."""
-        ch, cw = self.crop
-        return [(int(eh) - ch, int(ew) - cw)
-                for eh in patch_ends(pad_h, ch, self.stride[0])
-                for ew in patch_ends(pad_w, cw, self.stride[1])]
-
-    @torch.no_grad()
-    def embed_windows(self, img: torch.Tensor) -> torch.Tensor:
-        """Every window of a padded image through one batched forward:
-        [n_windows, crop_h, crop_w, D] L2-normalized float32."""
-        ch, cw = self.crop
-        patches = torch.stack([img[sh:sh + ch, sw:sw + cw]
-                               for sh, sw in self.windows(*img.shape[:2])])
-        emb, _ = self.emb_model(patches, resize_as_input=True)
-        return common.normalize_embedding(emb.float())
-
     def overlap_average(self, emb: torch.Tensor, pad_h: int,
                         pad_w: int) -> torch.Tensor:
-        """Window embeddings summed into the [pad_h, pad_w, D] map in
+        """Window embeddings summed into the [..., pad_h, pad_w, D] map in
         window order, over the count of windows at each pixel."""
-        ch, cw = self.crop
-        total = torch.zeros(pad_h, pad_w, emb.shape[-1], device=emb.device)
-        counts = torch.zeros(pad_h, pad_w, 1, device=emb.device)
-        for e, (sh, sw) in zip(emb, self.windows(pad_h, pad_w)):
-            total[sh:sh + ch, sw:sw + cw] += e
-            counts[sh:sh + ch, sw:sw + cw] += 1.0
-        return total / counts
+        ones = torch.ones(emb.shape[0], *self.crop, 1, device=emb.device)
+        return (self.sum_windows(emb, pad_h, pad_w)
+                / self.sum_windows(ones, pad_h, pad_w))
 
     def stitch(self, img: torch.Tensor) -> torch.Tensor:
-        """Padded image -> overlap-averaged embedding map [Hb, Wb, D]."""
+        """Padded image(s) [..., Hb, Wb, 3] -> overlap-averaged embedding
+        map [..., Hb, Wb, D]."""
         return self.overlap_average(self.embed_windows(img),
-                                    *img.shape[:2])
+                                    *img.shape[-3:-1])
 
     @torch.no_grad()
     def segment(self, emb_map: torch.Tensor, hw: tuple[int, int]):
@@ -210,17 +300,34 @@ class InferenceEngine:
         return pred[:h, :w].cpu().numpy().astype(np.int32)
 
     @torch.no_grad()
+    def cluster_probs(self, emb_map: torch.Tensor, hw: tuple[int, int],
+                      memory) -> torch.Tensor:
+        """[Hb, Wb, C] probabilities of a stitched map under fake labels
+        of valid size hw: each segment's mean one-hot of its top-20
+        retrieved labels (inference_msc.py:221-240)."""
+        c = self.config.dataset.num_classes
+        seg_ids, protos, seg_valid = self.segment(emb_map, hw)
+        topk = self.retrieve(protos, seg_valid, memory)
+        seg_probs = common.one_hot(topk, c).mean(dim=1)
+        return seg_probs[seg_ids].reshape(*emb_map.shape[:2], c)
+
     def predict_topk_probs(self, image: np.ndarray, memory_protos,
                            memory_labels, memory_valid) -> np.ndarray:
-        """[H, W, C] float32 probabilities: each segment's mean one-hot
-        of its top-20 retrieved labels (inference_msc.py:221-240)."""
+        """[H, W, C] float32 probabilities of one image (cluster_probs)."""
         h, w = image.shape[:2]
-        c = self.config.dataset.num_classes
-        topk, seg_ids, pad = self._topk(
-            image, (memory_protos, memory_labels, memory_valid))
-        seg_probs = common.one_hot(topk, c).mean(dim=1)
-        probs = seg_probs[seg_ids].reshape(*pad, c)
+        probs = self.cluster_probs(
+            self.stitched_embeddings(image), (h, w),
+            self.memory(memory_protos, memory_labels, memory_valid))
         return probs[:h, :w].cpu().numpy()
+
+    def member_probs(self, members: torch.Tensor, member_hw, memory_protos,
+                     memory_labels, memory_valid) -> torch.Tensor:
+        """Pyramid members [n, Hb, Wb, 3] of valid size member_hw through
+        one window forward, each clustered under its bucket's fake labels:
+        [n, Hb, Wb, C] probabilities."""
+        memory = self.memory(memory_protos, memory_labels, memory_valid)
+        return torch.stack([self.cluster_probs(e, member_hw, memory)
+                            for e in self.stitch(members)])
 
     @torch.no_grad()
     def build_prototypes(self, image: np.ndarray,

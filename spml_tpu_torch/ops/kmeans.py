@@ -216,3 +216,25 @@ def segment_batch_single_group(embeddings: torch.Tensor,
                                      device=emb.device),
         segment_cluster=torch.arange(k, device=emb.device).expand(b, k))
     return segs, emb_flat
+
+
+def find_majority_label_index(semantic_labels: torch.Tensor,
+                              cluster_labels: torch.Tensor,
+                              num_clusters: int, num_classes: int,
+                              valid: torch.Tensor | None = None):
+    """Majority semantic label of each cluster and the pixels that agree
+    with their cluster's (reference common.py:221): (select [N] bool,
+    majority [num_clusters] int32). Labels outside [0, num_classes) vote
+    for none; ties go to the lower class; an empty cluster's majority is
+    0."""
+    oh_sem = common.one_hot(semantic_labels, num_classes)
+    if valid is not None:
+        oh_sem = oh_sem * valid[:, None].to(oh_sem.dtype)
+    counts = common.segment_sum(oh_sem, cluster_labels, num_clusters)
+    majority = torch.argmax(counts, dim=-1).int()
+    pixel_majority = majority[torch.clamp(cluster_labels, 0,
+                                          num_clusters - 1)]
+    select = pixel_majority == semantic_labels
+    if valid is not None:
+        select = select & valid
+    return select, majority

@@ -1,0 +1,23 @@
+"""Pseudo labels from MSC softmax probs via random walk (no CRF).
+
+The port's counterpart of
+pyscripts/inference/pseudo_softmax.py: the reference's flags
+(twke18/SPML) and --device (default cuda):
+
+    python -m spml_tpu_torch.tools.pseudo_softmax \
+        --cfg_path CONFIG.yaml --data_dir DATA --data_list LIST \
+        --snapshot_dir SNAPSHOT --save_dir OUT
+"""
+
+from spml_tpu_torch import cli
+from spml_tpu_torch.inference import runner
+
+
+def main():
+    args, config = cli.parse_args(__doc__.splitlines()[0])
+    runner.run_pseudo_softmax(args, config, with_crf=False, with_walk=True,
+                              device=args.device)
+
+
+if __name__ == "__main__":
+    main()

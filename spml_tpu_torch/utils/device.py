@@ -14,3 +14,13 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return device
+
+
+def float32_matmuls() -> None:
+    """torch.backends.{cuda.matmul,cudnn}.allow_tf32 = False for the
+    process, as the train steps set it: inference's k-means E-step, KNN
+    ranking, classifier logits and the random walk's 64 powers of a
+    transition stay full float32, since near-ties of affinities decide
+    labels and TF32's 10-bit mantissa moves them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,7 +1,7 @@
 """The inference path's ground rules, on the CPU:
 
-* every branch not ported yet raises NotImplementedError (MSC, CRF,
-  batched prediction, an orbax snapshot);
+* every branch not ported yet raises NotImplementedError (batched
+  prediction, an orbax snapshot);
 * the entry points default to the CUDA card and raise without one;
 * the engine imports and predicts with PIL unimportable;
 * the new modules are under tests/test_torch_guards.py's import scan and
@@ -48,15 +48,14 @@ def test_new_modules_pass_the_import_scan(module):
     assert [m for m in _imported_modules(path) if _forbidden(m)] == []
 
 
-@pytest.mark.parametrize("what", ["msc", "crf", "infer_batch"])
+@pytest.mark.parametrize("what", ["infer_batch"])
 def test_unported_inference_branches_raise(what, tmp_path):
-    cfg = _config(infer_batch=2 if what == "infer_batch" else 1)
+    cfg = _config(infer_batch=2)
     args = argparse.Namespace(snapshot_dir=str(tmp_path),
                               save_dir=str(tmp_path), data_dir="",
                               data_list="", semantic_memory_dir="")
-    kw = {what: True} if what != "infer_batch" else {}
     with pytest.raises(NotImplementedError, match=what):
-        runner.run_knn_inference(args, cfg, device="cpu", **kw)
+        runner.run_knn_inference(args, cfg, device="cpu")
 
 
 def test_orbax_snapshot_raises(tmp_path):
