@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """The port on one CUDA card, end to end: build the kernels, hold each
 against its plain version, drive the three ported SPML train steps, the
-dilated-conv probe, the single-scale KNN inference path, the training
-drivers from an image list on disk and the self-training chain after
-them (MSC, CRF, softmax inference, pseudo-labels), report.
+dilated-conv probe, the flagship step with backbone remat, the
+single-scale KNN inference path per image and batched, the training
+drivers from an image list on disk (with a profiler window) and the
+self-training chain after them (MSC, CRF, softmax inference,
+pseudo-labels), report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -83,7 +85,15 @@ Phases, each printing one line or more:
       at its two shapes: K10, then K10 timed at the first shape (res4 d2)
       beside its plain version, cuDNN (F.conv2d, the library yardstick)
       and its bound at the bf16 tensor-core peak;
- 5. inference, the single-scale KNN path at VOC's test geometry
+ 5. remat, the flagship recipe from one seed-0 state and one batch with
+    no remat, tpu.remat_backbone (every block of res3-res5 under
+    torch.utils.checkpoint; the frozen stem and res2 run plainly) and
+    tpu.remat_stages (4,): after one step the losses and every parameter
+    within REMAT_RTOL / REMAT_ATOL of the no-remat step's, every BN
+    buffer and num_batches_tracked equal; 3 warm-up and 10 timed steps
+    (CUDA events), K1-K3 once a step and no other kernel; one [remat]
+    line: ms/step, peak memory, the largest difference in tolerances;
+ 6. inference, the single-scale KNN path at VOC's test geometry
     (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
     kernel on it): panoptic_deeplab_101 from random weights of seed 0
     (cli.build_eval_models without a snapshot; eval mode, bf16 convs),
@@ -104,8 +114,16 @@ Phases, each printing one line or more:
     line: build and predict ms/image and images/s (CUDA events, 3
     warm-up and 10 timed images), the split of a prediction (upload,
     forward, stitch, kmeans, knn, vote), peak memory, the nvidia-smi
-    line;
- 6. driver, the train entry points as a user runs them, on a world of 24
+    line. Then (d) batched prediction, predict_semantic_batch over
+    groups of INFER_BATCH 4 of the 8 images (one bucket) against the
+    same bank: in bf16 each prediction equals the stages run on its
+    group's stitched map, which lies within BF16_STITCH_ATOL of the
+    image's own (cuDNN rounds otherwise at batch 4), and the pixels that
+    differ from predict_semantic's are counted; in float32 (TF32 off,
+    the same weights) each prediction equals predict_semantic's; a
+    second [inference] line: batched ms/image (CUDA events, 4 groups
+    after one) and peak memory beside the per-image ones;
+ 7. driver, the train entry points as a user runs them, on a world of 24
     JPEGs (500 x 375 and 375 x 500) with blobby 21-class PNG labels
     (255 around each blob) and ~30 Voronoi segments each as instance
     maps, written from seed 0 (spml_tpu_torch/data/synthetic.py):
@@ -121,7 +139,13 @@ Phases, each printing one line or more:
       4 and 6; then K1-K3 on the stats inputs of step 6 (N = 65536,
       P = 3072, D = 64, kappa 6 / 12), on the cotangents its backward
       handed them and on randn ones, against the plain version as in
-      phase 3;
+      phase 3; a line saying the C++ train item (native/dataio) is not
+      ported and which of its headers g++ cannot include on the host
+      (tools/dataio_probe.py); then stage 1 from scratch for 3
+      iterations with the profiler window tpu.profile_start 1,
+      profile_steps 2 (train/driver.py::TraceWindow): one Chrome trace
+      holding exactly 2 launches each of K1, K2 and K3 and no other
+      SegSort kernel, its path, size and event count printed;
     - the single-scale KNN chain on that snapshot (cli.build_eval_models
       reads the port checkpoint): run_prototype over 8 images,
       run_knn_inference over 4 (12 x 12 clusters), run_benchmark: the
@@ -145,7 +169,7 @@ Phases, each printing one line or more:
     step's wait, the first step; then the same step replayed on the
     run's last batch with the loader closed, timed the same way and back
     to back (as the recipes are); peak memory, the nvidia-smi line;
- 7. selftrain, the VOC scribble recipe after stage 1
+ 8. selftrain, the VOC scribble recipe after stage 1
     (train_spml_scribble.sh:82-170) on the driver phase's world and
     snapshots, at full width (no custom kernel on it): (a)
     run_knn_inference on the stage-1 snapshot and bank over 4 images with
@@ -166,8 +190,8 @@ Phases, each printing one line or more:
     pyramid, float16 download, host CRF), of the softmax pyramid and of
     the pseudo-label step (forward, affinity, walk, CRF), peak memory,
     the nvidia-smi line;
- 8. the kernel list as one JSON line;
- 9. the card's name and power limit (nvidia-smi), then the last line
+ 9. the kernel list as one JSON line;
+10. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -184,7 +208,10 @@ squarings of [n, n] products), the pyramids' float32 probabilities card
 against CPU rtol 1e-5 / atol 1e-6 (KNN: exact one-hot means, resize sums
 alone differ) and rtol 1e-3 / atol 1e-4 (softmax: the stitch's rtol
 through the logits), their labels equal but where the CPU's top two lie
-within that tolerance.
+within that tolerance; remat REMAT_RTOL 2e-4 with REMAT_ATOL 1e-6 (the
+JAX package's tests/test_train_step.py::test_remat_stages_exactness: the
+backward's sums in another order); batched bf16 BF16_STITCH_ATOL 2^-6
+(two bf16 roundings of a unit-scale component).
 """
 
 from __future__ import annotations
@@ -662,6 +689,114 @@ def run_main_path(torch, fused, recipe):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
         f"{launches}, card {nvidia_smi_line()}")
     return launches, last["args"], last["grads"]
+
+
+# ---------------------------------------------------------------------------
+# Remat: the flagship step with the backbone's activation checkpointing
+# ---------------------------------------------------------------------------
+
+REMAT = (("no remat", {}), ("remat_backbone", {"remat_backbone": True}),
+         ("remat_stages (4,)", {"remat_stages": (4,)}))
+# tests/test_train_step.py::test_remat_stages_exactness
+REMAT_RTOL, REMAT_ATOL = 2e-4, 1e-6
+
+
+def model_tensors(state):
+    """{name: clone} of every parameter and buffer of both models."""
+    return {f"{prefix}.{k}": v.detach().clone()
+            for prefix, model in (("emb", state.emb_model),
+                                  ("cls", state.cls_model))
+            for k, v in model.state_dict().items()}
+
+
+def run_remat(torch, fused):
+    """The flagship recipe (train/recipes.py, batch 8, crop 512, bf16, the
+    fused joint loss) from one seed-0 state and one batch with no remat,
+    tpu.remat_backbone and tpu.remat_stages (4,): after one step the
+    losses and every parameter within REMAT_RTOL / REMAT_ATOL of the
+    no-remat step's, every BN buffer and num_batches_tracked
+    torch.equal; then 3 warm-up and 10 timed steps (CUDA events); K1-K3
+    once a step, no other kernel. One [remat] line."""
+    import copy
+
+    from spml_tpu_torch.train import recipes
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg0, batch = recipes.setup("flagship", device=DEVICE)
+    ref = None
+    results = []
+    for label, tpu in REMAT:
+        cfg = copy.deepcopy(cfg0)
+        for k, v in tpu.items():
+            setattr(cfg.tpu, k, v)
+        state = step_lib.init_state(cfg, 0, batch["image"], device=DEVICE)
+        train_step = step_lib.make_train_step(cfg)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fused.reset_launch_counts()
+        state, m = train_step(state, batch)
+        losses = {k: float(v) for k, v in m.items() if k.endswith("loss")}
+        after = model_tensors(state)
+        if ref is None:
+            ref, worst = (losses, after), 0.0
+        else:
+            worst = check_remat_step(torch, label, ref, losses, after)
+        after = None
+        for _ in range(3):
+            state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            state, m = train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"remat {label}: non-finite loss")
+        launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+        want = dict.fromkeys(("joint_stats", "joint_grad_emb",
+                              "joint_grad_proto"), 14)
+        if launches != want:
+            raise AssertionError(f"remat {label}: launches {launches}, want "
+                                 f"{want} (K1-K3 once a step, no other)")
+        results.append((label, start.elapsed_time(end) / 10,
+                        torch.cuda.max_memory_allocated() / 2**30,
+                        held / 2**30, worst))
+        state = train_step = m = None
+    log("remat", "flagship (panoptic_deeplab_101 bf16, batch 8, crop 512, "
+        "K1-K3 once a step): " + "; ".join(
+            f"{label}: {ms:.2f} ms/step, peak {peak:.2f} GiB ({held:.2f} "
+            f"held before), step 1 vs no remat: largest |a - b| / "
+            f"({REMAT_ATOL} + {REMAT_RTOL} |b|) {worst:.3f}"
+            for label, ms, peak, held, worst in results)
+        + f"; every BN buffer torch.equal; card {nvidia_smi_line()}")
+
+
+def check_remat_step(torch, label, ref, losses, after):
+    """One remat step against the no-remat one: losses and parameters
+    within REMAT_RTOL / REMAT_ATOL, buffers equal. Returns the largest
+    |a - b| / (atol + rtol |b|) over every parameter element."""
+    ref_losses, ref_after = ref
+    for k, v in ref_losses.items():
+        if abs(losses[k] - v) > REMAT_ATOL + REMAT_RTOL * abs(v):
+            raise AssertionError(f"remat {label}: {k} {losses[k]} against "
+                                 f"{v} without remat")
+    worst = 0.0
+    for name, want in ref_after.items():
+        got = after[name]
+        if not want.is_floating_point() or "running_" in name:
+            if not torch.equal(got, want):
+                raise AssertionError(f"remat {label}: buffer {name} differs "
+                                     "from the no-remat step's")
+            continue
+        ratio = float(((got - want).abs()
+                       / (REMAT_ATOL + REMAT_RTOL * want.abs())).max())
+        if ratio > 1.0:
+            raise AssertionError(f"remat {label}: {name} off the no-remat "
+                                 f"step by {ratio:.3f} of the tolerance")
+        worst = max(worst, ratio)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1145,6 +1280,118 @@ def run_inference(torch):
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f" ms; peak memory {peak / 2**30:.2f} GiB; card "
         f"{nvidia_smi_line()}")
+    differ, moved, worst = check_batched(torch, eng, images, bank)
+    f32_exact = check_batched_float32(torch, images, bank)
+    batch_ms, batch_peak = time_batched(torch, eng, images, bank)
+    pixels = sum(im.shape[0] * im.shape[1] for im, _ in images)
+    log("inference", f"batched (tpu.infer_batch {INFER_BATCH}, "
+        f"predict_semantic_batch, one window forward a group of "
+        f"{INFER_BATCH}): (d) bf16: each prediction equal to the stages run "
+        f"on its group's stitched map, which lies within {worst:.3e} of the "
+        f"image's own (atol {BF16_STITCH_ATOL}); {differ} of {pixels} "
+        f"pixels differ from predict_semantic's, {moved} pixels in other "
+        f"clusters; float32 (TF32 off): predictions equal to "
+        f"predict_semantic's ({f32_exact} of {len(images)} stitched maps "
+        f"bit-equal); {batch_ms:.2f} ms/image ({1000 / batch_ms:.2f} "
+        f"images/s), peak {batch_peak / 2**30:.2f} GiB, against per image "
+        f"{predict_ms:.2f} ms/image, peak {peak / 2**30:.2f} GiB; card "
+        f"{nvidia_smi_line()}")
+
+
+INFER_BATCH = 4  # images a group of the batched prediction
+# a group's bf16 window forward against the image's own: at batch 4
+# cuDNN may pick other algorithms, so the embeddings round otherwise in
+# bf16; two roundings of 2^-7 each of a unit-scale embedding component
+BF16_STITCH_ATOL = 2.0 ** -6
+
+
+def groups_of(images):
+    return [[im for im, _ in images[g:g + INFER_BATCH]]
+            for g in range(0, len(images), INFER_BATCH)]
+
+
+def check_batched(torch, eng, images, bank):
+    """(d) in bf16, predict_semantic_batch over groups of INFER_BATCH (all 8
+    images share the 512 x 512 bucket): each prediction equal to the
+    stages (segment, retrieve, vote) run on its group's stitched map,
+    and that map within BF16_STITCH_ATOL of the image's own. Returns
+    (pixels whose prediction differs from predict_semantic's, pixels in
+    other clusters than the image's own map gives, the largest stitched
+    difference)."""
+    differ = moved = 0
+    worst = 0.0
+    for group in groups_of(images):
+        preds = eng.predict_semantic_batch(group, *bank)
+        together = eng.stitch(torch.stack([eng.upload_image(im)
+                                           for im in group]))
+        memory = eng.memory(*bank)
+        for pred, image, emb in zip(preds, group, together):
+            h, w = image.shape[:2]
+            pad = tuple(emb.shape[:2])
+            alone = eng.stitch(eng.upload_image(image))
+            worst = max(worst, float((alone - emb).abs().max()))
+            seg, protos, valid = eng.segment(emb, (h, w))
+            topk = eng.retrieve(protos, valid, memory)
+            staged = eng.vote(topk, seg, pad)[:h, :w].cpu().numpy()
+            if not np.array_equal(staged, pred):
+                raise AssertionError("inference (d): a batched prediction "
+                                     "differs from the stages on its map")
+            seg_alone = eng.segment(alone, (h, w))[0]
+            moved += int((seg_alone != seg).reshape(pad)[:h, :w].sum())
+            differ += int((pred != eng.predict_semantic(image, *bank)).sum())
+    if worst > BF16_STITCH_ATOL:
+        raise AssertionError(f"inference (d): a group's stitched map lies "
+                             f"{worst:.3e} from the image's own")
+    return differ, moved, worst
+
+
+def check_batched_float32(torch, images, bank):
+    """(d) in float32 (TF32 off; the same seed-0 weights), the same groups
+    and bank: each batched prediction equal to predict_semantic's.
+    Returns the stitched maps bit-equal to the image's own."""
+    import tempfile
+
+    from spml_tpu_torch import cli
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.inference import engine
+
+    cfg = load_config(overrides=dict(INFERENCE,
+                                     tpu={"compute_dtype": "float32"}))
+    with tempfile.TemporaryDirectory() as snapshot:  # none: seed 0 weights
+        eng = engine.InferenceEngine(
+            cfg, cli.build_eval_models(cfg, snapshot, DEVICE), DEVICE)
+    exact = 0
+    for group in groups_of(images):
+        preds = eng.predict_semantic_batch(group, *bank)
+        together = eng.stitch(torch.stack([eng.upload_image(im)
+                                           for im in group]))
+        for pred, image, emb in zip(preds, group, together):
+            exact += bool(torch.equal(eng.stitch(eng.upload_image(image)),
+                                      emb))
+            off = pred != eng.predict_semantic(image, *bank)
+            if off.any():
+                raise AssertionError(
+                    f"inference (d) float32: {int(off.sum())} pixels off "
+                    "predict_semantic")
+    return exact
+
+
+def time_batched(torch, eng, images, bank):
+    """CUDA events around 4 groups of INFER_BATCH (16 images) after one
+    warm-up group: (ms/image, peak bytes)."""
+    groups = groups_of(images)
+    eng.predict_semantic_batch(groups[0], *bank)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(4):
+        eng.predict_semantic_batch(groups[k % len(groups)], *bank)
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / (4 * INFER_BATCH),
+            torch.cuda.max_memory_allocated())
 
 
 # ---------------------------------------------------------------------------
@@ -1452,6 +1699,9 @@ def drive_all(torch, fused, root):
     check_recorded(torch, fused, "joint", "stage 1 step 6", probe.recorded,
                    seed=40)
     state = probe = None
+    log_native_item()
+    trace_stage1(torch, fused, stage1, args(os.path.join(root, "traced")),
+                 os.path.join(root, "profile"))
 
     # ---- the single-scale KNN chain on the stage-1 snapshot ----
     infer = load_infer_config(stage1)
@@ -2080,6 +2330,84 @@ def run_selftrain(torch, fused, dc, w):
         f"card {nvidia_smi_line()}")
 
 
+def log_native_item():
+    """The JAX package's fused C++ train item (native/dataio) is not
+    ported: it needs libjpeg's and libpng's headers, which the card's
+    machine lacks. The driver line says so from this host's own probe."""
+    from spml_tpu_torch.tools import dataio_probe
+
+    missing = dataio_probe.missing_headers()
+    log("driver", "C++ train item (native/dataio): not ported, every item "
+        "through the Python path; headers g++ cannot include here: "
+        f"{', '.join(missing) or 'none'} "
+        "(spml_tpu_torch/tools/dataio_probe.py)")
+
+
+TRACE_START, TRACE_STEPS = 1, 2  # tpu.profile_start, tpu.profile_steps
+# the kernels of csrc/segsort_joint.cu a trace names: (template, family
+# argument, DP argument) -> launch counter; the family is 0 for JOINT
+TRACE_KERNEL = re.compile(r"(stats_tile_kernel|grad_tile_kernel)<"
+                          r"\s*\d+\s*,\s*(\d+)\s*,\s*(true|false|1|0)\s*>")
+TRACE_FAMILY = {0: "joint", 1: "hard", 2: "set"}
+
+
+def traced_kernel(name):
+    """The launch counter of a SegSort kernel's name in a trace (mangled
+    or demangled), or None."""
+    m = TRACE_KERNEL.search(kernel_name(name))
+    if not m:
+        return None
+    family = TRACE_FAMILY.get(int(m.group(2)), m.group(2))
+    if m.group(1) == "stats_tile_kernel":
+        return f"{family}_stats"
+    dp = m.group(3) in ("true", "1")
+    return f"{family}_grad_proto" if dp else f"{family}_grad_emb"
+
+
+def trace_stage1(torch, fused, stage1, args, profile_dir):
+    """(c) stage 1 from scratch for 3 iterations with the profiler window
+    of tpu.profile_start TRACE_START, profile_steps TRACE_STEPS: one Chrome
+    trace in profile_dir holding exactly TRACE_STEPS launches each of K1,
+    K2 and K3 (their kernel names read with kernel_name) and no other
+    SegSort kernel; K1-K3 launched once a step."""
+    import collections
+    import copy
+
+    from spml_tpu_torch.train import driver
+
+    cfg = copy.deepcopy(stage1)
+    cfg.train.max_iteration = 3
+    cfg.train.resume = False
+    cfg.tpu.profile_dir = profile_dir
+    cfg.tpu.profile_start, cfg.tpu.profile_steps = TRACE_START, TRACE_STEPS
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    driver.train_spml(args, cfg, device=DEVICE)
+    launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+    files = sorted(os.listdir(profile_dir))
+    want_file = (f"steps_{TRACE_START}-{TRACE_START + TRACE_STEPS}"
+                 ".pt.trace.json")
+    if files != [want_file]:
+        raise AssertionError(f"trace: {files} in {profile_dir}, want "
+                             f"[{want_file}]")
+    path = os.path.join(profile_dir, want_file)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = collections.Counter(
+        k for k in (traced_kernel(e["name"]) for e in kernels) if k)
+    want = dict.fromkeys(("joint_stats", "joint_grad_emb",
+                          "joint_grad_proto"), TRACE_STEPS)
+    if dict(counts) != want or launches != dict.fromkeys(want, 3):
+        raise AssertionError(f"trace: SegSort kernels {dict(counts)}, want "
+                             f"{want}; launches {launches}")
+    log("driver", f"profiler window (tpu.profile_start {TRACE_START}, "
+        f"profile_steps {TRACE_STEPS}) on stage 1 from scratch, 3 "
+        f"iterations in {time.perf_counter() - t0:.1f} s: {path}, "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} events, "
+        f"{len(kernels)} kernel launches, K1-K3 {dict(counts)}")
+
+
 def loader_ms(cfg, dataset_cls, args, batches=8):
     """ms per batch of the driver's loader with nothing consuming it: the
     rate the host makes batches at, prefetch included."""
@@ -2169,6 +2497,7 @@ def main() -> int:
     conv_launches = run_probe_path(torch, dc)
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
+    run_remat(torch, fused)
     run_inference(torch)
     run_driver(torch, fused, dc)
 

@@ -93,7 +93,9 @@ class TestConfig:
 class TpuConfig:
     """Static-shape knobs shared with the JAX package (the section name is
     kept so one overrides dict configures both). The JAX package's knobs
-    for XLA and the TPU mesh have no counterpart here and are skipped."""
+    for XLA and the TPU mesh have no counterpart here and are skipped:
+    compilation_cache_dir among them, since eager PyTorch compiles no
+    program it could cache."""
     # max distinct (cluster, semantic, instance) segments per image
     segment_capacity: int = 256
     # value bound used to pack labels into sort keys
@@ -121,13 +123,28 @@ class TpuConfig:
     # inference: round padded shapes up to crop + k*stride (False: pad
     # only up to the crop); changes the sliding-window grid
     pad_to_stride_buckets: bool = True
-    # inference: images per prediction batch; only 1 is ported
-    # (inference/runner.py raises for more)
+    # inference: single-scale KNN prediction of this many same-bucket
+    # images through one window forward (engine.predict_semantic_batch);
+    # 1 = per image
     infer_batch: int = 1
     # training feed: labels and tags as uint8 and, under bf16
     # convolutions, the image as bf16 on the host (a quarter of the
     # host-to-device bytes; both casts are exact, train/driver.py)
     compact_feed: bool = True
+    # torch.profiler trace of profile_steps iterations from iteration
+    # profile_start of a run (relative to its first, so a resumed run
+    # traces too) into profile_dir as a Chrome trace ('' disables;
+    # train/driver.py::TraceWindow)
+    profile_dir: str = ""
+    profile_start: int = 10
+    profile_steps: int = 5
+    # activation checkpointing of every backbone block: only block inputs
+    # are kept, each block's convolutions run again in backward
+    # (models/resnet.py); the memory lever for a larger batch or crop
+    remat_backbone: bool = False
+    # the same for these stages alone (2-5, e.g. [4] or [4, 5]); wins
+    # over remat_backbone when not empty
+    remat_stages: tuple = ()
 
 
 @dataclass

@@ -17,7 +17,8 @@ JAX package's `fused=True` form runs (its eager twin is equal by the JAX
 package's own tests), so there is no `fused` flag. Nothing here has a
 counterpart of `warmup`, which pre-compiles the XLA programs of each pad
 bucket: eager PyTorch has nothing to compile. `predict_semantic_batch`
-is not ported yet.
+runs a group of images through one window forward on one device (the
+JAX package's with mesh=None).
 
 The multi-scale members (engine.py:553-743 in the JAX package) are built
 from the base image on the device (device_member_resize); both flips of
@@ -298,6 +299,32 @@ class InferenceEngine(WindowEngine):
             image, (memory_protos, memory_labels, memory_valid))
         pred = self.vote(topk, seg_ids, pad)
         return pred[:h, :w].cpu().numpy().astype(np.int32)
+
+    def predict_semantic_batch(self, images, memory_protos, memory_labels,
+                               memory_valid) -> list[np.ndarray]:
+        """Single-scale KNN prediction of a group of (resized) images: each
+        padded to the group's largest bucket, every window of the group
+        through one forward, then clustering, retrieval and vote per
+        image; per-image [h, w] int32 classes. Retrieval stays per image:
+        its ranking holds ~0.9 GB of float32 scores an image against a
+        VOC-sized bank. An image in the group's own bucket gets
+        predict_semantic's result; a smaller bucket's image sees another
+        window grid (runner.py groups by bucket)."""
+        if not images:
+            return []
+        shapes = [im.shape[:2] for im in images]
+        pads = [self.bucket_shape(h, w) for h, w in shapes]
+        pad = (max(p[0] for p in pads), max(p[1] for p in pads))
+        imgs = np.stack([transforms.resize_with_pad(im, pad, 0.0)
+                         for im in images]).astype(np.float32, copy=False)
+        imgs = torch.from_numpy(imgs).to(self.device).to(self.img_dtype)
+        memory = self.memory(memory_protos, memory_labels, memory_valid)
+        preds = []
+        for emb_map, (h, w) in zip(self.stitch(imgs), shapes):
+            seg_ids, protos, seg_valid = self.segment(emb_map, (h, w))
+            topk = self.retrieve(protos, seg_valid, memory)
+            preds.append(self.vote(topk, seg_ids, pad)[:h, :w])
+        return [p.cpu().numpy().astype(np.int32) for p in preds]
 
     @torch.no_grad()
     def cluster_probs(self, emb_map: torch.Tensor, hw: tuple[int, int],

@@ -13,9 +13,12 @@ from CAM, softmax, KNN or DensePose point scores, the stride-8 affinity
 random walk and the CRF); pyscripts/benchmark/benchmark_by_{mIoU,
 instance}.py. Predictions go back to each image's original size (nearest
 for labels, inference.py:236-240; bilinear for probabilities before a
-CRF). Batched prediction (tpu.infer_batch > 1) is not ported yet and
-raises. The JAX runner's per-bucket warm-up and its cache of compiled
-affinity programs have no counterpart: eager PyTorch compiles nothing.
+CRF). With tpu.infer_batch > 1 the single-scale KNN path without a CRF
+predicts groups of that many same-bucket images through one window
+forward (_PredictBatcher, on one device; MSC and the CRF ignore it, as
+in the JAX package). The JAX runner's per-bucket warm-up and its cache of
+compiled affinity programs have no counterpart: eager PyTorch compiles
+nothing.
 
 The host tail of an image (download, resize, CRF, argmax, PNGs) runs on
 _AsyncSink's threads, over the next image's device work. `args` carries
@@ -76,6 +79,40 @@ class _AsyncSink:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class _PredictBatcher:
+    """Groups images by pad bucket and predicts each group of `group_size`
+    (at least 2) through engine.predict_semantic_batch, which equals
+    predict_semantic within a bucket; save(pred, base, oh, ow) takes each
+    result. flush_all() predicts the groups left over at the end."""
+
+    def __init__(self, eng, memory, group_size: int, save):
+        self.eng = eng
+        self.memory = memory
+        self.group = max(2, int(group_size))
+        self.save = save
+        self._buckets: dict = {}
+
+    def add(self, base: str, image: np.ndarray, oh: int, ow: int):
+        key = self.eng.bucket_shape(*image.shape[:2])
+        pending = self._buckets.setdefault(key, [])
+        pending.append((base, image, oh, ow))
+        if len(pending) >= self.group:
+            self._flush(key)
+
+    def _flush(self, key):
+        pending = self._buckets.pop(key, [])
+        if not pending:
+            return
+        preds = self.eng.predict_semantic_batch([p[1] for p in pending],
+                                                *self.memory)
+        for (base, _, oh, ow), pred in zip(pending, preds):
+            self.save(pred, base, oh, ow)
+
+    def flush_all(self):
+        for key in list(self._buckets):
+            self._flush(key)
 
 
 def _maybe_resize_input(config, image, sem=None, inst=None):
@@ -218,11 +255,9 @@ def run_knn_inference(args, config, msc=False, crf=False, scales=MSC_SCALES,
     """KNN prediction of a list against args.semantic_memory_dir:
     save_dir/semantic_gray/ and semantic_color/ PNGs at each image's
     original size. msc: the mean of the scales x flips pyramid; crf: the
-    DenseCRF of the crf_* flags over the top-20 probabilities."""
-    if not (msc or crf) and config.tpu.infer_batch > 1:
-        raise NotImplementedError(
-            "run_knn_inference: tpu.infer_batch > 1 (batched prediction) "
-            "is not ported yet")
+    DenseCRF of the crf_* flags over the top-20 probabilities; without
+    either, tpu.infer_batch > 1 predicts same-bucket groups
+    (_PredictBatcher)."""
     eng = engine_lib.InferenceEngine(
         config, cli.build_eval_models(config, args.snapshot_dir, device),
         device)
@@ -233,13 +268,24 @@ def run_knn_inference(args, config, msc=False, crf=False, scales=MSC_SCALES,
                    msc, crf, scales, "inference")
         return
     color_map = vis.load_color_map(config.dataset.color_map_path)
+
+    def save(pred, base, oh, ow):
+        cli.save_semantic_pngs(_resize_pred_to(pred, oh, ow), base,
+                               args.save_dir, color_map)
+        print(f"inference {base}", flush=True)
+
+    batcher = (_PredictBatcher(eng, memory, config.tpu.infer_batch, save)
+               if config.tpu.infer_batch > 1 else None)
     for _, base, image0, _, _ in cli.iterate_test_images(
             config, args.data_dir, args.data_list):
         oh, ow = image0.shape[:2]
         image, _, _ = _maybe_resize_input(config, image0)
-        pred = _resize_pred_to(eng.predict_semantic(image, *memory), oh, ow)
-        cli.save_semantic_pngs(pred, base, args.save_dir, color_map)
-        print(f"inference {base}", flush=True)
+        if batcher is None:
+            save(eng.predict_semantic(image, *memory), base, oh, ow)
+        else:
+            batcher.add(base, image, oh, ow)
+    if batcher is not None:
+        batcher.flush_all()
 
 
 def run_softmax_inference(args, config, msc=False, crf=False,

@@ -47,21 +47,22 @@ class EmbeddingModel(nn.Module):
     input's H x W, and the local features are made at that size.
     head "aspp": ASPP(2048 -> dim); "pspp": PSPP(2048 -> 512) then a 1x1
     conv with bias to dim (module `pspp` = (PSPP, conv), the reference's
-    names).
+    names). remat: the backbone's (models/resnet.py::stage_remat).
     """
 
     def __init__(self, depth: int = 101, embedding_dim: int = 64,
                  compute_dtype: torch.dtype = torch.float32,
                  bn_momentum: float = BN_MOMENTUM, head: str = "aspp",
                  use_color: bool = False, norm_color: bool = False,
-                 smooth_ksize: int | None = None):
+                 smooth_ksize: int | None = None, remat=False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.use_color, self.norm_color = use_color, norm_color
         self.smooth_ksize = smooth_ksize
         self.head = head
         self.resnet_backbone = ResnetBackbone(RESNET_DEPTHS[depth],
-                                              momentum=bn_momentum)
+                                              momentum=bn_momentum,
+                                              remat=remat)
         if head == "aspp":
             self.aspp = ASPP(2048, embedding_dim)
         elif head == "pspp":
@@ -145,18 +146,20 @@ _TABLE = {
 def build_embedding_model(backbone_types: str, embedding_dim: int,
                           compute_dtype: torch.dtype = torch.float32,
                           bn_momentum: float = BN_MOMENTUM,
-                          generator: torch.Generator | None = None
-                          ) -> EmbeddingModel:
+                          generator: torch.Generator | None = None,
+                          remat=False) -> EmbeddingModel:
     """Factory over the reference's network.backbone_types strings
     (spml_tpu/models/embeddings.py:160-174). Weights are drawn on the CPU
-    from `generator` (seed 0 when None)."""
+    from `generator` (seed 0 when None); remat: the backbone's
+    activation checkpointing (models/resnet.py::stage_remat)."""
     if backbone_types not in _TABLE:
         raise ValueError(f"backbone {backbone_types!r} is not ported")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = EmbeddingModel(embedding_dim=embedding_dim,
                            compute_dtype=compute_dtype,
-                           bn_momentum=bn_momentum, **_TABLE[backbone_types])
+                           bn_momentum=bn_momentum, remat=remat,
+                           **_TABLE[backbone_types])
     init_backbone_(model.resnet_backbone, generator)
     for m in getattr(model, model.head).modules():
         if isinstance(m, nn.Conv2d):

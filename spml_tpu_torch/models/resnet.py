@@ -11,13 +11,23 @@ state dict loads with strict=True.
 * the first block of a stage gets reduced dilation (stage dilation 1|2
   -> 1, 4 -> 2), the others the full stage dilation;
 * r101 = [3,4,23,3], strides [1,2,1,1], dilations [1,1,2,4]: stride 8.
+
+remat (the JAX package's Stage.remat, flax nn.remat per block): a block
+runs under torch.utils.checkpoint, which keeps only its input and runs its
+convolutions, BNs and ReLUs again in backward. The recomputation
+normalizes with the same batch statistics but leaves the BN buffers as
+the forward left them (flax's remat updates them once, too).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 BN_MOMENTUM = 3e-4  # torch convention; flax momentum 1 - 3e-4
 BN_EPS = 1e-5
@@ -27,6 +37,24 @@ RESNET_DEPTHS = {
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
 }
+
+
+_RECOMPUTE = threading.local()  # .active: inside a block's recomputation
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = False
+
+
+def _remat_contexts():
+    """checkpoint's (forward, recompute) contexts: the recompute flags
+    itself, so BatchNorm2d does not update its buffers a second time."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -40,7 +68,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     The batch statistics come out of the normalization itself: it runs
     with zeroed scratch running buffers and momentum 1, which leaves the
     batch mean and unbiased variance there, so no second pass reads the
-    input.
+    input. Inside a remat block's recomputation the buffers stay as they
+    are.
     """
 
     def forward(self, x):
@@ -53,6 +82,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             device=x.device)
         out = F.batch_norm(x, batch_mean, batch_var, self.weight, self.bias,
                            True, 1.0, self.eps)
+        if getattr(_RECOMPUTE, "active", False):
+            return out
         with torch.no_grad():
             n = x.numel() // x.shape[1]
             m = self.momentum
@@ -70,11 +101,14 @@ def conv_bn(cin, cout, kernel, stride=1, dilation=1, momentum=BN_MOMENTUM):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3(stride, dilation) -> 1x1(x4) with projection shortcut."""
+    """1x1 -> 3x3(stride, dilation) -> 1x1(x4) with projection shortcut;
+    remat: checkpointed where backward reaches the block (the frozen
+    stem and res2 run plainly, as does a forward without grad)."""
 
     def __init__(self, cin, planes, stride=1, dilation=1,
-                 has_downsample=False, momentum=BN_MOMENTUM):
+                 has_downsample=False, momentum=BN_MOMENTUM, remat=False):
         super().__init__()
+        self.remat = remat
         self.conv1, self.bn1 = conv_bn(cin, planes, 1, momentum=momentum)
         self.conv2, self.bn2 = conv_bn(planes, planes, 3, stride, dilation,
                                        momentum)
@@ -86,12 +120,22 @@ class Bottleneck(nn.Module):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def _block(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
+
+    def forward(self, x):
+        if self.remat and torch.is_grad_enabled() and (
+                x.requires_grad
+                or any(p.requires_grad for p in self.parameters())):
+            # no randomness in a block: its RNG state need not be kept
+            return torch.utils.checkpoint.checkpoint(
+                self._block, x, use_reentrant=False,
+                context_fn=_remat_contexts, preserve_rng_state=False)
+        return self._block(x)
 
 
 class Stem(nn.Module):
@@ -109,28 +153,43 @@ class Stem(nn.Module):
         return F.max_pool2d(x, 3, 2, 1)
 
 
-def make_stage(cin, planes, blocks, stride, dilation, momentum):
+def make_stage(cin, planes, blocks, stride, dilation, momentum,
+               remat=False):
     first_dil = 1 if dilation in (1, 2) else 2
     layers = [Bottleneck(cin, planes, stride, first_dil,
                          has_downsample=(stride != 1 or cin != planes * 4),
-                         momentum=momentum)]
-    layers += [Bottleneck(planes * 4, planes, 1, dilation, momentum=momentum)
+                         momentum=momentum, remat=remat)]
+    layers += [Bottleneck(planes * 4, planes, 1, dilation, momentum=momentum,
+                          remat=remat)
                for _ in range(1, blocks)]
     return nn.Sequential(*layers)
 
 
+def stage_remat(remat) -> tuple[bool, bool, bool, bool]:
+    """remat as one bool a stage for (res2, res3, res4, res5): a bool for
+    all four, or a tuple of four."""
+    if isinstance(remat, (tuple, list)):
+        if len(remat) != 4:
+            raise ValueError(f"remat {remat!r}: one bool for each of "
+                             "res2-res5")
+        return tuple(bool(r) for r in remat)
+    return (bool(remat),) * 4
+
+
 class ResnetBackbone(nn.Module):
-    """NCHW images -> (res2, res3, res4, res5) feature maps."""
+    """NCHW images -> (res2, res3, res4, res5) feature maps. remat: a bool
+    or a (res2, res3, res4, res5) tuple of bools (stage_remat)."""
 
     def __init__(self, blocks, strides=(1, 2, 1, 1), dilations=(1, 1, 2, 4),
-                 momentum=BN_MOMENTUM):
+                 momentum=BN_MOMENTUM, remat=False):
         super().__init__()
         self.conv1 = Stem(momentum)
         cin = 128
-        for i, planes in enumerate((64, 128, 256, 512)):
+        for i, (planes, rm) in enumerate(zip((64, 128, 256, 512),
+                                             stage_remat(remat))):
             setattr(self, f"res{i + 2}",
                     make_stage(cin, planes, blocks[i], strides[i],
-                               dilations[i], momentum))
+                               dilations[i], momentum, rm))
             cin = planes * 4
 
     def forward(self, x):

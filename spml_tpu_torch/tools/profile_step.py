@@ -2,19 +2,20 @@
 
     python -m spml_tpu_torch.tools.profile_step [--recipe flagship |
         densepose_point | voc_tag]
-        [--steps 3] [--out DIR]
+        [--steps 3] [--out DIR] [--remat-stages 3,4,5]
 
 Needs one CUDA card. Builds the recipe's configuration from seed 0 —
 flagship (spml_tpu_torch/train/flagship.py, blobby synthetic labels),
 densepose_point (spml_tpu_torch/train/densepose_point.py, synthetic point
 labels) or voc_tag (spml_tpu_torch/train/voc_tag.py, the flagship's
-blobby labels) — runs 3 warm-up steps, times 5 steps with CUDA events, then
+blobby labels), with tpu.remat_stages set to --remat-stages (default
+none) — runs 3 warm-up steps, times 5 steps with CUDA events, then
 traces --steps steps with torch.profiler (CPU + CUDA activity) and
 prints:
 
 * step ms untraced and traced (CUDA events), images/s;
 * device busy ms per step (union of kernel, copy and set intervals) and
-  the device's idle share of the traced steps;
+  the device's idle share of the traced steps; host operators per step;
 * device ms per step by kernel category (name patterns below) and the
   15 kernels that take the most time.
 
@@ -86,6 +87,8 @@ def main(argv=None) -> int:
                     default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--remat-stages", default="",
+                    help="backbone stages to checkpoint, e.g. 3,4,5")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -93,6 +96,8 @@ def main(argv=None) -> int:
     from spml_tpu_torch.train import step as step_lib
 
     cfg, batch = recipes.setup(args.recipe)
+    cfg.tpu.remat_stages = tuple(int(x) for x in args.remat_stages.split(",")
+                                 if x)
     b = cfg.train.batch_size
     state = step_lib.init_state(cfg, 0, batch["image"], device="cuda")
     train_step = step_lib.make_train_step(cfg)
@@ -104,7 +109,10 @@ def main(argv=None) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         state, traced_ms = _time_steps(train_step, state, batch, args.steps)
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, f"profile_step_{args.recipe}_trace.json")
+    remat = "_remat" + "".join(map(str, cfg.tpu.remat_stages)) \
+        if cfg.tpu.remat_stages else ""
+    path = os.path.join(args.out,
+                        f"profile_step_{args.recipe}{remat}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -112,6 +120,8 @@ def main(argv=None) -> int:
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
         raise SystemExit("profile_step: the trace holds no device events")
+    host_ops = sum(e.get("ph") == "X" and e.get("cat") == "cpu_op"
+                   for e in events)
 
     n = args.steps
     busy_ms = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev]) \
@@ -125,12 +135,15 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"recipe: {args.recipe}; card: {smi}; torch {torch.__version__}")
+    print(f"recipe: {args.recipe}; remat stages "
+          f"{cfg.tpu.remat_stages or 'none'}; card: {smi}; torch "
+          f"{torch.__version__}")
     print(f"step: {plain_ms:.2f} ms untraced ({b * 1000 / plain_ms:.2f} "
           f"imgs/s), {traced_ms:.2f} ms traced; device busy "
           f"{busy_ms:.2f} ms/step, idle share "
           f"{1 - busy_ms / traced_ms:.3f} of the traced steps; "
-          f"{len(dev) / n:.0f} device events/step")
+          f"{len(dev) / n:.0f} device events/step, {host_ops / n:.0f} host "
+          "operators/step")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:28s} {ms:8.3f} ms/step")
     print("top kernels (ms/step):")

@@ -12,11 +12,13 @@ pinned host memory. A resumed run starts at the latest checkpoint's step
 (the schedule reads the restored state's step) and restarts the loader's
 index stream from its beginning, as the JAX package's does. The first
 logging interval reports its seconds as warmup_secs: it holds the
-kernels' build at first use and cuDNN's autotuning.
+kernels' build at first use and cuDNN's autotuning. tpu.profile_dir
+traces a window of steps with torch.profiler (TraceWindow).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -134,6 +136,60 @@ def _loader(args, config, dataset_cls):
         seed=config.train.seed, num_workers=config.num_threads))
 
 
+class TraceWindow:
+    """A torch.profiler trace of tpu.profile_steps iterations from
+    iteration start_iter + tpu.profile_start (relative to the run's first
+    iteration, so a resumed run traces too) into tpu.profile_dir as a
+    Chrome trace, steps_<first>-<end>.pt.trace.json; an empty profile_dir
+    traces nothing (spml_tpu/train/driver.py::_TraceWindow). CPU and CUDA
+    activity on a card, CPU alone on the CPU; the card is synchronized
+    before the window opens (the steps before it stay out) and before it
+    closes (its steps' kernels stay in). step(it) at the top of every
+    iteration; close() (or leaving the with block) ends a window the run
+    ends inside."""
+
+    def __init__(self, config, start_iter, device: torch.device):
+        self.dir = os.path.expanduser(config.tpu.profile_dir)
+        self.begin = start_iter + config.tpu.profile_start
+        self.end = self.begin + config.tpu.profile_steps
+        self.device = device
+        self.prof = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def step(self, it):
+        if not self.dir or self.end <= self.begin:
+            return
+        if it == self.begin and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._sync()
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif it == self.end and self.prof is not None:
+            self._sync()
+            self.prof.stop()
+            os.makedirs(self.dir, exist_ok=True)
+            path = os.path.join(
+                self.dir, f"steps_{self.begin}-{self.end}.pt.trace.json")
+            self.prof.export_chrome_trace(path)
+            self.prof = None
+            print(f"profiler trace written to {path}", flush=True)
+
+    def close(self):
+        if self.prof is not None:
+            self.step(self.end)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def _snapshot_due(config, it) -> bool:
     return ((it + 1) % config.train.snapshot_step == 0
             or it == config.train.max_iteration - 1)
@@ -163,8 +219,10 @@ def train_spml(args, config, dataset_cls=datasets_lib.ListTagDataset,
     train_step = step_lib.make_train_step(config)
     writer = _writer(args.snapshot_dir)
     t0 = time.time()
-    try:
+    with contextlib.closing(loader), \
+            TraceWindow(config, start, device) as trace:
         for it in range(start, config.train.max_iteration):
+            trace.step(it)
             batch = _to_device(_to_train_batch(next(loader), config),
                                device)
             state, metrics = train_step(state, batch)
@@ -182,8 +240,6 @@ def train_spml(args, config, dataset_cls=datasets_lib.ListTagDataset,
             if _snapshot_due(config, it):
                 ckpt.save(ck_dir, it + 1, state)
                 print(f"snapshot at iteration {it + 1}")
-    finally:
-        loader.close()
     return state
 
 
@@ -215,8 +271,10 @@ def train_classifier(args, config,
 
     train_step = cstep_lib.make_classifier_train_step(config, emb_model)
     writer = _writer(args.snapshot_dir)
-    try:
+    with contextlib.closing(loader), \
+            TraceWindow(config, start, device) as trace:
         for it in range(start, config.train.max_iteration):
+            trace.step(it)
             batch = _to_device(_to_train_batch(next(loader), config),
                                device)
             state, metrics = train_step(state, batch)
@@ -225,6 +283,4 @@ def train_classifier(args, config,
                 _log_metrics(writer, metrics, it, prefix="classifier/")
             if _snapshot_due(config, it):
                 ckpt.save(ck_dir, it + 1, state)
-    finally:
-        loader.close()
     return state

@@ -66,6 +66,15 @@ def _compute_dtype(config) -> torch.dtype:
             else torch.float32)
 
 
+def backbone_remat(config):
+    """tpu.remat_stages as a (res2, res3, res4, res5) tuple when it names
+    any stage, else tpu.remat_backbone (spml_tpu/train/step.py:50-53)."""
+    stages = tuple(config.tpu.remat_stages)
+    if stages:
+        return tuple(i in stages for i in (2, 3, 4, 5))
+    return config.tpu.remat_backbone
+
+
 def build_models(config, device="cuda", generator=None):
     """(embedding model, classifier head) on `device`, weights drawn from
     `generator` (seeded with train.seed when None)."""
@@ -76,7 +85,7 @@ def build_models(config, device="cuda", generator=None):
     emb_model = build_embedding_model(
         config.network.backbone_types, config.network.embedding_dim,
         compute_dtype=dtype, bn_momentum=config.network.bn_momentum,
-        generator=generator)
+        generator=generator, remat=backbone_remat(config))
     cls_model = build_classifier_head(
         config.dataset.num_classes, config.network.embedding_dim,
         dropout_rate=0.75, compute_dtype=dtype, generator=generator)

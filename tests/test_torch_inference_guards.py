@@ -1,18 +1,17 @@
 """The inference path's ground rules, on the CPU:
 
-* every branch not ported yet raises NotImplementedError (batched
-  prediction, an orbax snapshot);
+* a branch not ported raises NotImplementedError (an orbax snapshot);
 * the entry points default to the CUDA card and raise without one;
 * the engine imports and predicts with PIL unimportable;
 * the new modules are under tests/test_torch_guards.py's import scan and
   pass its rules.
 
-One test marked gpu runs the engine on the card at the small size
-against its CPU run (`python -m pytest --noconftest -m gpu
-tests/test_torch_inference_guards.py` on a CUDA host); it skips here.
+Two tests marked gpu run the engine on the card at the small size
+against its CPU run, and its batched prediction against its per-image
+one (`python -m pytest --noconftest -m gpu
+tests/test_torch_inference_guards.py` on a CUDA host); they skip here.
 """
 
-import argparse
 import subprocess
 import sys
 
@@ -22,7 +21,7 @@ import torch
 
 from spml_tpu_torch import cli
 from spml_tpu_torch.config import load_config
-from spml_tpu_torch.inference import engine, runner
+from spml_tpu_torch.inference import engine
 from spml_tpu_torch.models.embeddings import build_embedding_model
 from test_torch_guards import ROOT, _forbidden, _imported_modules
 
@@ -46,16 +45,6 @@ def test_new_modules_pass_the_import_scan(module):
     path = ROOT / "spml_tpu_torch" / module
     assert path in set((ROOT / "spml_tpu_torch").rglob("*.py"))
     assert [m for m in _imported_modules(path) if _forbidden(m)] == []
-
-
-@pytest.mark.parametrize("what", ["infer_batch"])
-def test_unported_inference_branches_raise(what, tmp_path):
-    cfg = _config(infer_batch=2)
-    args = argparse.Namespace(snapshot_dir=str(tmp_path),
-                              save_dir=str(tmp_path), data_dir="",
-                              data_list="", semantic_memory_dir="")
-    with pytest.raises(NotImplementedError, match=what):
-        runner.run_knn_inference(args, cfg, device="cpu")
 
 
 def test_orbax_snapshot_raises(tmp_path):
@@ -156,3 +145,30 @@ def test_engine_on_card_matches_cpu():
            np.ones(12 * int(vc.sum()), bool))
     np.testing.assert_array_equal(gpu.predict_semantic(img, *mem),
                                   cpu.predict_semantic(img, *mem))
+
+
+@pytest.mark.gpu
+def test_batch_on_card_equals_per_image():
+    """predict_semantic_batch on the card, float32 with TF32 off, over
+    three images of one bucket and a mixed group: the same-bucket
+    predictions equal predict_semantic's, every one lies in [0, C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _config()
+    cfg.test.stride = (16, 16)
+    gpu = engine.InferenceEngine(
+        cfg, build_embedding_model("panoptic_deeplab_10", 8), device="cuda")
+    rng = np.random.RandomState(2)
+    images = [rng.randn(h, w, 3).astype(np.float32)
+              for h, w in ((32, 32), (30, 28), (25, 32), (40, 36))]
+    bank = rng.randn(40, 8).astype(np.float32)
+    bank /= np.linalg.norm(bank, axis=1, keepdims=True)
+    mem = (bank, rng.randint(0, 4, 40), np.ones(40, bool))
+    for got, img in zip(gpu.predict_semantic_batch(images[:3], *mem),
+                        images[:3]):
+        np.testing.assert_array_equal(got, gpu.predict_semantic(img, *mem))
+    mixed = gpu.predict_semantic_batch(images, *mem)
+    assert [p.shape for p in mixed] == [im.shape[:2] for im in images]
+    assert all(0 <= p.min() and p.max() < 4 for p in mixed)
