@@ -5,7 +5,8 @@ dilated-conv probe, the flagship step with backbone remat, the
 single-scale KNN inference path per image and batched, the training
 drivers from an image list on disk (with a profiler window) and the
 self-training chain after them (MSC, CRF, softmax inference,
-pseudo-labels), report.
+pseudo-labels), two data-parallel ranks of the flagship step, the
+drivers and batched inference, report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -93,7 +94,49 @@ Phases, each printing one line or more:
     buffer and num_batches_tracked equal; 3 warm-up and 10 timed steps
     (CUDA events), K1-K3 once a step and no other kernel; one [remat]
     line: ms/step, peak memory, the largest difference in tolerances;
- 6. inference, the single-scale KNN path at VOC's test geometry
+ 6. dp, DP_WORLD = 2 ranks (parallel/mesh.py::spawn, once, the kernels
+    built before it): NCCL on cuda:0 / cuda:1 with two or more cards,
+    else gloo with both ranks on cuda:0 (NCCL refuses two ranks on one
+    card), the case printed; a rank that fails fails the script.
+    (a) float32 with TF32 off, the classifier's dropout 0: one flagship
+    step (train.batch_size DP_BATCH 4 a rank) of 2 ranks x 4 against
+    one process x 8 (train.batch_size 4: the same two loss groups), from
+    one seed-0 state and one global batch, once on the one process's
+    k-means segments and once free (each side clustering its own
+    embeddings; compare_step, DP_CHECKS): losses within DP_LOSS_RTOL;
+    the bank's labels, tags, validity and batch indices and the integer
+    buffers equal; the L2 of every update's difference within
+    DP_UPDATE_RTOL of the updates'; bank prototypes of the segments with
+    the same pixels in both within DP_BANK_ATOL; and, on the one
+    process's segments, every bank prototype within DP_BANK_ATOL and the
+    update of each tensor tests/test_torch_train_step.py checks
+    (DP_CHECKED) within DP_UPDATE_RTOL max|update| + one float32 unit.
+    Each tolerance adds the float32 floor of its mode: the largest
+    difference between the one-process step and the same step in
+    DP_FLOOR_RUNS (the halves swapped; plain-autograd BN in float32 and
+    with float64 statistics), which run none of the data-parallel code.
+    Free, k-means near-ties move pixels to other segments in every
+    arithmetic, so the updates and the whole bank are printed there
+    beside the floor runs', each of those held to the floor of the other
+    two, and the pixels in other segments counted. The ranks'
+    parameters, buffers and banks equal (sha256). (b) K1-K3 once a rank
+    in each of those steps, at N 65,536 and P 6,144; (c) bf16, 3 warm-up
+    and 10 timed steps a rank (CUDA events), then 3 with every collective
+    timed by what it serves (the gradient sum, batch norms, the
+    prototype gather, the rest; a collective of no known caller fails),
+    beside one process x 8 timed the same way; (d)
+    train_spml (the driver phase's stage 1 at batch 4 a rank) on a world
+    of WORLD_IMAGES images for 4 iterations and resumed to 6: K1-K3 once
+    a step a rank, iterations 0-3 then 4-5, checkpoints 2, 4, 6 from rank
+    0 with both ranks' generator states, tpu.num_devices 2, the ranks
+    equal; (e) train_classifier over that snapshot, 2 iterations, no
+    kernel, the heads equal; (f) run_knn_inference in float32 with
+    infer_batch DP_INFER_BATCH 4 over DP_INFER_IMAGES 8 images sharded
+    over the ranks (the bank from run_prototype on rank 0), run_benchmark
+    on rank 0: its PNGs equal a one-process run's. Lines (a)-(f) and a
+    summary: the case, ms/step, global images/s, peak a rank, the
+    nvidia-smi line;
+ 7. inference, the single-scale KNN path at VOC's test geometry
     (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
     kernel on it): panoptic_deeplab_101 from random weights of seed 0
     (cli.build_eval_models without a snapshot; eval mode, bf16 convs),
@@ -123,7 +166,7 @@ Phases, each printing one line or more:
     the same weights) each prediction equals predict_semantic's; a
     second [inference] line: batched ms/image (CUDA events, 4 groups
     after one) and peak memory beside the per-image ones;
- 7. driver, the train entry points as a user runs them, on a world of 24
+ 8. driver, the train entry points as a user runs them, on a world of 24
     JPEGs (500 x 375 and 375 x 500) with blobby 21-class PNG labels
     (255 around each blob) and ~30 Voronoi segments each as instance
     maps, written from seed 0 (spml_tpu_torch/data/synthetic.py):
@@ -169,7 +212,7 @@ Phases, each printing one line or more:
     step's wait, the first step; then the same step replayed on the
     run's last batch with the loader closed, timed the same way and back
     to back (as the recipes are); peak memory, the nvidia-smi line;
- 8. selftrain, the VOC scribble recipe after stage 1
+ 9. selftrain, the VOC scribble recipe after stage 1
     (train_spml_scribble.sh:82-170) on the driver phase's world and
     snapshots, at full width (no custom kernel on it): (a)
     run_knn_inference on the stage-1 snapshot and bank over 4 images with
@@ -190,8 +233,8 @@ Phases, each printing one line or more:
     pyramid, float16 download, host CRF), of the softmax pyramid and of
     the pseudo-label step (forward, affinity, walk, CRF), peak memory,
     the nvidia-smi line;
- 9. the kernel list as one JSON line;
-10. the card's name and power limit (nvidia-smi), then the last line
+10. the kernel list as one JSON line;
+11. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -211,7 +254,9 @@ through the logits), their labels equal but where the CPU's top two lie
 within that tolerance; remat REMAT_RTOL 2e-4 with REMAT_ATOL 1e-6 (the
 JAX package's tests/test_train_step.py::test_remat_stages_exactness: the
 backward's sums in another order); batched bf16 BF16_STITCH_ATOL 2^-6
-(two bf16 roundings of a unit-scale component).
+(two bf16 roundings of a unit-scale component); dp those of
+tests/test_torch_train_step.py for another reduction order (DP_*, at
+their definition).
 """
 
 from __future__ import annotations
@@ -224,6 +269,7 @@ import re
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -797,6 +843,850 @@ def check_remat_step(torch, label, ref, losses, after):
                                  f"step by {ratio:.3f} of the tolerance")
         worst = max(worst, ratio)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Data parallel: two ranks of the flagship step, the drivers and batched
+# inference (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_BATCH = 4  # train.batch_size a rank (train_spml_scribble.sh:29)
+# tests/test_torch_train_step.py's tolerances for another reduction
+# order: losses rtol 1e-4; the update of each tensor that file checks
+# (DP_CHECKED) within 1e-2 of its max|update| plus one float32 unit of
+# its largest value (no two float32 values differ by less); bank
+# prototypes atol 3e-4. Over every parameter and BN buffer the update
+# differences' L2 norm within 1e-2 of the updates' (DP_UPDATE_RTOL).
+# At ResNet-101's depth the float32 step itself is not that exact: a
+# tensor whose gradient mostly cancels (BN biases, res3.0.conv2, the
+# first trained conv) moves by rounding noise, and k-means near-ties
+# move pixels to other segments with it. So each checked tensor's
+# tolerance, and the bank's, adds the float32 floor of the one-process
+# step (dp_reference): its largest difference from the reference step
+# in DP_FLOOR_RUNS, other exact arithmetics of that same step that run
+# none of the data-parallel code (_SyncBatchNorm, parallel/mesh.py).
+DP_LOSS_RTOL, DP_UPDATE_RTOL, DP_BANK_ATOL = 1e-4, 1e-2, 3e-4
+DP_CHECKED = [  # tests/test_torch_train_step.py's CHECKED_PARAMS + _STATS
+    "emb.aspp.aspp_1.0.weight", "emb.aspp.aspp_3.0.bias",
+    "emb.resnet_backbone.res3.0.conv2.weight",
+    "emb.resnet_backbone.res4.0.bn1.weight",
+    "emb.resnet_backbone.res5.0.downsample.0.weight",
+    "emb.resnet_backbone.conv1.conv1.0.weight",
+    "cls.semantic_classifier.0.weight", "cls.semantic_classifier.4.bias",
+    "emb.resnet_backbone.conv1.bn1.running_mean",
+    "emb.resnet_backbone.res2.0.bn3.running_var",
+    "emb.resnet_backbone.res5.0.bn2.running_mean",
+    "cls.semantic_classifier.1.running_var"]
+# the floor's arithmetics of the one-process step (dp_one_process):
+# the global batch with its halves swapped (every reduction over the
+# batch, the convolutions' weight gradients and the BN statistics, in
+# another order), and BatchNorm2d's statistics and their gradient by
+# plain torch autograd with the statistics in float32 or in float64
+DP_FLOOR_RUNS = {"halves swapped": {"swap": True},
+                 "plain BN": {"bn": "float32"},
+                 "plain BN, float64 statistics": {"bn": "float64"}}
+# what compare_step checks; the free run, where each side clusters its
+# own embeddings, holds the first five: k-means near-ties move tens of
+# pixels to other segments in every float32 arithmetic of the step, and
+# one such pixel moves its segments' prototypes by up to ~1e-2 and the
+# gradients with them, so there the updates and the whole bank differ
+# by which pixels moved (the (a) line prints them for the ranks and for
+# each floor run held to the floor of the other two); the run on the
+# one process's segments holds all
+DP_CHECKS = ("losses", "bank labels", "buffers", "update L2",
+             "matched bank prototypes", "bank prototypes", "updates")
+DP_FREE_CHECKS = DP_CHECKS[:5]
+DP_INFER_IMAGES = 8
+DP_INFER_BATCH = 4
+
+
+def dp_flagship(dtype):
+    """The flagship recipe (train/flagship.py) at DP_BATCH a rank in
+    `dtype`: DP_WORLD ranks step the recipe's global batch of 8."""
+    import copy
+
+    from spml_tpu_torch.train import flagship
+
+    over = copy.deepcopy(flagship.OVERRIDES)
+    over["train"]["batch_size"] = DP_BATCH
+    over["tpu"]["compute_dtype"] = dtype
+    return over
+
+
+def dp_devices(torch):
+    """(rank devices, backend, the case in words): NCCL with one card a
+    rank when there are DP_WORLD cards, else gloo with every rank on
+    cuda:0 (NCCL refuses two ranks on one card)."""
+    count = torch.cuda.device_count()
+    if count >= DP_WORLD:
+        return ([f"cuda:{i}" for i in range(DP_WORLD)], "nccl",
+                f"NCCL, one card a rank ({count} cards)")
+    return (["cuda:0"] * DP_WORLD, "gloo",
+            f"gloo, {DP_WORLD} ranks share one card ({count} card): "
+            "two ranks share one card over gloo: not a scaling figure")
+
+
+def digest(tensors) -> str:
+    """sha256 of every tensor's bytes, by sorted name: equal digests are
+    torch.equal tensors."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        t = tensors[k].detach().cpu().contiguous().view(-1)
+        h.update(k.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class Clock:
+    """Milliseconds between start() and stop(): CUDA events on a card,
+    the host clock on the CPU (the phase's CPU rehearsal)."""
+
+    def __init__(self, torch, device):
+        self.torch, self.cuda = torch, device.type == "cuda"
+
+    def start(self):
+        if self.cuda:
+            self.a = self.torch.cuda.Event(enable_timing=True)
+            self.b = self.torch.cuda.Event(enable_timing=True)
+            self.a.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def stop(self):
+        if self.cuda:
+            self.b.record()
+        else:
+            self.t1 = time.perf_counter()
+        return self
+
+    def ms(self):
+        if self.cuda:
+            self.b.synchronize()
+            return self.a.elapsed_time(self.b)
+        return (self.t1 - self.t0) * 1e3
+
+
+COLLECTIVE_KINDS = ("gradient", "batch norm", "gather", "other")
+
+
+def collective_kind():
+    """What a collective serves, from its nearest caller that tells: the
+    gradient sum, a batch norm, the prototype gather, or other (the loss
+    groups' counts, the metrics). A collective of no known caller
+    raises, so a renamed caller fails the phase instead of moving its
+    time to another kind."""
+    rules = {"_sum_gradients": "gradient", "_grouped_masked_mean": "other",
+             "_accuracy": "other", "train_step": "other",
+             "forward_and_losses": "gather"}
+    f = sys._getframe(2)
+    while f is not None:
+        name = os.path.basename(f.f_code.co_filename)
+        if name == "resnet.py":
+            return "batch norm"
+        if f.f_code.co_name in rules:
+            return rules[f.f_code.co_name]
+        if name == "mesh.py" and f.f_code.co_name in ("forward", "backward"):
+            return "gather"  # _AllGather
+        f = f.f_back
+    raise AssertionError("dp: a collective of no known caller: "
+                         + "".join(traceback.format_stack(limit=8)))
+
+
+@contextlib.contextmanager
+def timing_collectives(torch, device, mesh_lib):
+    """Times every all_reduce and gather of parallel/mesh.py by what it
+    serves; yields {kind: [Clock, ...]}."""
+    kinds = {}
+    orig = mesh_lib.all_reduce, mesh_lib._gather
+
+    def timed(fn):
+        def wrapper(x):
+            clock = Clock(torch, device).start()
+            out = fn(x)
+            kinds.setdefault(collective_kind(), []).append(clock.stop())
+            return out
+        return wrapper
+
+    mesh_lib.all_reduce, mesh_lib._gather = map(timed, orig)
+    try:
+        yield kinds
+    finally:
+        mesh_lib.all_reduce, mesh_lib._gather = orig
+
+
+def dp_model_tensors(state):
+    return {k: v.cpu() for k, v in model_tensors(state).items()}
+
+
+def dp_setup(spec, dtype, device):
+    """(config, the global batch of the recipe from seed 0, the seed-0
+    state) of the flagship at DP_BATCH a rank in `dtype`. In float32 the
+    classifier's dropout is 0, as in the parity tests: rank r draws its
+    masks from seed + r over its own images, one process from seed over
+    all of them."""
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.train import flagship
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg = load_config(overrides=spec[dtype])
+    batch = flagship.blobby_batch(spec["global"], cfg.train.crop_size[0],
+                                  cfg.dataset.num_classes, device=device)
+    state = step_lib.init_state(cfg, 0, batch["image"], device=device)
+    if dtype == "f32":
+        state.cls_model.semantic_classifier[3].p = 0.0
+    return cfg, batch, state
+
+
+@contextlib.contextmanager
+def segments_of(torch, given=None, rows=slice(None)):
+    """Records the k-means segments of the train step (kmeans.
+    segment_batch) into the yielded dict; with `given` (a recorded
+    Segments, every image of the global batch), the step takes rows
+    `rows` of those in place of its own."""
+    from spml_tpu_torch.ops import kmeans
+
+    orig, rec = kmeans.segment_batch, {}
+
+    def recording(emb, *a, **k):
+        out = orig(emb, *a, **k)
+        if given is not None:
+            out = (kmeans.Segments(*[t[rows].to(emb.device)
+                                     for t in given]), *out[1:])
+        rec["segments"] = [t.cpu() for t in out[0]]
+        return out
+
+    kmeans.segment_batch = recording
+    try:
+        yield rec
+    finally:
+        kmeans.segment_batch = orig
+
+
+def dp_step_result(torch, state, m, rec):
+    return {"after": dp_model_tensors(state),
+            "losses": {k: float(v) for k, v in m.items()
+                       if k.endswith("loss")},
+            "memory": {k: v.cpu() for k, v in vars(state.memory).items()},
+            "segments": rec["segments"]}
+
+
+@contextlib.contextmanager
+def plain_batch_norm(torch, stats_dtype):
+    """models/resnet.py's BatchNorm2d in train mode by plain torch
+    autograd, in one process: the batch mean and biased variance in
+    `stats_dtype`, x normalized with them in its own type, the running
+    statistics updated as BatchNorm2d updates them (outside a remat
+    recomputation)."""
+    from spml_tpu_torch.models import resnet
+
+    orig = resnet.BatchNorm2d.forward
+    shape = (1, -1, 1, 1)
+
+    def forward(self, x):
+        if not self.training:
+            return orig(self, x)
+        var, mean = torch.var_mean(x.to(getattr(torch, stats_dtype)),
+                                   dim=(0, 2, 3), correction=0)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = ((x - mean.view(shape)) * scale.view(shape)
+             + self.bias.view(shape))
+        if not getattr(resnet._RECOMPUTE, "active", False):
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        return y
+
+    resnet.BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        resnet.BatchNorm2d.forward = orig
+
+
+def dp_one_process(torch, spec, device, given=None, swap=False, bn=None):
+    """One float32 step of one process at the global batch
+    (train.batch_size DP_BATCH, so the same loss groups) from the seed-0
+    state: its initial and updated tensors, losses, bank and k-means
+    segments. given: the segments to take in place of its own; swap: the
+    batch's halves swapped (the bank and segments handed back in the
+    batch's order); bn: plain_batch_norm's statistics type."""
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg, batch, state = dp_setup(spec, "f32", device)
+    init = dp_model_tensors(state)
+    g = spec["global"]
+    order = list(range(g))
+    if swap:  # swapping the halves twice is the identity
+        order = order[g // 2:] + order[:g // 2]
+    batch = {k: v[order] for k, v in batch.items()}
+    with segments_of(torch, given, order) as rec, \
+            (plain_batch_norm(torch, bn) if bn else contextlib.nullcontext()):
+        state, m = step_lib.make_train_step(cfg)(state, batch)
+    out = {"init": init, **dp_step_result(torch, state, m, rec)}
+    p = cfg.tpu.segment_capacity
+    out["memory"] = {k: v.reshape(v.shape[0], g, p, *v.shape[2:])[:, order]
+                     .reshape(v.shape) for k, v in out["memory"].items()}
+    out["segments"] = [t[order] for t in out["segments"]]
+    return out
+
+
+def dp_floor(measures):
+    """The float32 floor of a set of compare_step measures: each checked
+    tensor's, the bank prototypes' and those of segments with the same
+    pixels' largest difference."""
+    measures = list(measures)
+    return {"tensors": {k: max(m["diffs"][k] for m in measures)
+                        for k in DP_CHECKED},
+            "bank": max(m["bank_err"] for m in measures),
+            "matched": max(m["matched"][0] for m in measures)}
+
+
+def dp_reference(torch, spec, device):
+    """The one-process step the ranks hold theirs against, and its
+    float32 floor: the step in each of DP_FLOOR_RUNS, once free and once
+    on the reference's segments, against the reference (compare_step);
+    dp_floor of a mode's runs is that mode's floor. Each floor run is
+    also held to the floor of the other two ("alone"). Saves the
+    reference with its floors to spec["ref"]; returns {mode: {floor run:
+    its measures}}."""
+    ref = dp_one_process(torch, spec, device)
+    every = slice(0, spec["global"])
+    ref["floor"], runs = {}, {}
+    for mode, given in (("free", None), ("equal", ref["segments"])):
+        runs[mode] = {}
+        for name, kw in DP_FLOOR_RUNS.items():
+            run = dp_one_process(torch, spec, device, given, **kw)
+            runs[mode][name], _ = compare_step(torch, ref, run, every,
+                                               spec["capacity"])
+        ref["floor"][mode] = dp_floor(runs[mode].values())
+        for name, m in runs[mode].items():
+            m["alone"] = dp_shares(m, dp_floor(
+                o for n, o in runs[mode].items() if n != name))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    torch.save(ref, spec["ref"])
+    return runs
+
+
+def time_steps(torch, step, state, batch, device, barrier=None):
+    """3 warm-up and 10 timed steps (ranks meet at `barrier` first):
+    (state, ms/step, peak GiB)."""
+    for _ in range(3):
+        state, m = step(state, batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    if barrier is not None:
+        barrier()
+    clock = Clock(torch, device).start()
+    for _ in range(10):
+        state, m = step(state, batch)
+    ms = clock.stop().ms() / 10
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"dp: non-finite loss {float(m['loss'])}")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device.type == "cuda" else 0.0)
+    return state, ms, peak
+
+
+def dp_time_one_process(torch, spec, device):
+    """The bf16 step of one process at the global batch
+    (train.batch_size DP_BATCH), timed: (ms/step, peak GiB)."""
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg, batch, state = dp_setup(spec, "bf16", device)
+    _, ms, peak = time_steps(torch, step_lib.make_train_step(cfg), state,
+                             batch, device)
+    return ms, peak
+
+
+def matched_bank_err(torch, ref_seg, seg, ref_proto, proto, p):
+    """Bank prototypes of two runs over the segments that hold the same
+    pixels in both (a pixel that k-means puts in another segment changes
+    the members of two, and so their means): (max|difference|, segments
+    matched, segments of ref_seg). ref_seg, seg: the runs' Segments of
+    the same images; ref_proto, proto [images * p, D]: their prototypes
+    at segment capacity p."""
+    err, matched, total = 0.0, 0, 0
+    for i in range(ref_seg[0].shape[0]):
+        a = torch.where(ref_seg[1][i], ref_seg[0][i], -1) + 1
+        b = torch.where(seg[1][i], seg[0][i], -1) + 1
+        na = torch.bincount(a, minlength=p + 1)
+        nb = torch.bincount(b, minlength=p + 1)
+        pairs, n = torch.unique(a * (p + 1) + b, return_counts=True)
+        s, t = pairs // (p + 1), pairs % (p + 1)
+        ok = (n == na[s]) & (n == nb[t]) & (s > 0) & (t > 0)
+        total += int((na[1:] > 0).sum())
+        matched += int(ok.sum())
+        if ok.any():
+            d = ref_proto[i * p + s[ok] - 1] - proto[i * p + t[ok] - 1]
+            err = max(err, float(d.abs().max()))
+    return err, matched, total
+
+
+def dp_shares(m, floor=None):
+    """A step's shares of tolerance + floor (compare_step's measures,
+    dp_floor's floor): the checked updates' largest, the bank
+    prototypes', and theirs over segments with the same pixels."""
+    f = floor or {"tensors": dict.fromkeys(DP_CHECKED, 0.0), "bank": 0.0,
+                  "matched": 0.0}
+    return {"updates": max(m["diffs"][k] / (m["tol"][k] + f["tensors"][k])
+                           for k in DP_CHECKED),
+            "bank prototypes": m["bank_err"] / (DP_BANK_ATOL + f["bank"]),
+            "matched bank prototypes": (m["matched"][0]
+                                        / (DP_BANK_ATOL + f["matched"]))}
+
+
+def compare_step(torch, ref, got, rows, p, floor=None, checks=DP_CHECKS):
+    """One step's losses, tensors, bank and segments (got: dp_step_result
+    of images `rows` of the global batch) against the reference's at the
+    DP_* tolerances, each plus its float32 floor (dp_floor's, when given):
+    (measures, {check: failure} of `checks` that failed)."""
+    failed = {}
+    failed["losses"] = [
+        f"{k} {got['losses'][k]} against {v}"
+        for k, v in ref["losses"].items()
+        if abs(got["losses"][k] - v) > DP_LOSS_RTOL * abs(v)]
+    bank_err, memory = 0.0, got["memory"]
+    failed["bank labels"] = []
+    for k, want in ref["memory"].items():
+        if want.is_floating_point():
+            bank_err = max(bank_err, float((memory[k] - want).abs().max()))
+        elif not torch.equal(memory[k], want):
+            failed["bank labels"].append(
+                f"{k}: {int((memory[k] != want).sum())} entries differ")
+    ratios, diffs, tol, diff2, upd2 = {}, {}, {}, 0.0, 0.0
+    failed["buffers"] = []
+    for name, want in ref["after"].items():
+        after = got["after"][name]
+        if not want.is_floating_point():
+            if not torch.equal(after, want):
+                failed["buffers"].append(f"{name} differs")
+            continue
+        upd = want.double() - ref["init"][name].double()
+        diff = after.double() - want.double()
+        diff2 += float((diff ** 2).sum())
+        upd2 += float((upd ** 2).sum())
+        unit = float(np.spacing(np.float32(want.abs().max())))
+        diffs[name] = float(diff.abs().max())
+        tol[name] = DP_UPDATE_RTOL * float(upd.abs().max()) + unit
+        ratios[name] = diffs[name] / tol[name]
+    l2 = math.sqrt(diff2 / upd2)
+    if l2 > DP_UPDATE_RTOL:
+        failed["update L2"] = f"{l2:.3e}"
+    checked = {k: ratios[k] for k in DP_CHECKED}
+    top = sorted(ratios, key=ratios.get, reverse=True)[:3]
+    own = slice(rows.start * p, rows.stop * p)  # the bank's newest slot
+    m = {"worst": max(checked.values()),
+         "worst_name": max(checked, key=checked.get), "l2": l2,
+         "any": [(k, ratios[k]) for k in top], "diffs": diffs, "tol": tol,
+         "bank_err": bank_err,
+         "matched": matched_bank_err(
+             torch, [t[rows] for t in ref["segments"]], got["segments"],
+             ref["memory"]["prototype"][-1][own],
+             memory["prototype"][-1][own], p),
+         "flips": int((got["segments"][0]
+                       != ref["segments"][0][rows]).sum())}
+    m["shares"] = dp_shares(m, floor)
+    for k, share in m["shares"].items():
+        if share > 1.0:
+            failed[k] = f"{share:.3f} of tolerance + floor"
+    return m, {k: v for k, v in failed.items() if v and k in checks}
+
+
+def dp_equality(torch, fused, spec, device, mesh):
+    """(a), (b): this rank's float32 step against the one-process one,
+    first free (the pixels whose k-means segment differs counted), then
+    on the one-process run's segments, each held to every DP_* tolerance
+    plus that mode's float32 floor; K1-K3 once a step with their N and
+    P."""
+    from spml_tpu_torch.train import step as step_lib
+
+    ref = torch.load(spec["ref"], weights_only=True)
+    rows = mesh.shard(spec["global"])
+    out = {}
+    for run, given in (("free", None), ("equal", ref["segments"])):
+        cfg, batch, state = dp_setup(spec, "f32", device)
+        local = {k: v[rows] for k, v in batch.items()}
+        step = step_lib.make_train_step(cfg)
+        fused.reset_launch_counts()
+        with recording_stats(torch, fused, "joint") as last, \
+                segments_of(torch, given, rows) as rec:
+            state, m = step(state, local)
+        got = dp_step_result(torch, state, m, rec)
+        measures, bad = compare_step(
+            torch, ref, got, rows, spec["capacity"], ref["floor"][run],
+            DP_FREE_CHECKS if given is None else DP_CHECKS)
+        if bad:
+            raise AssertionError(f"dp rank {mesh.rank} against one process "
+                                 f"({run} segments): {bad} ({measures})")
+        out[run] = {**measures, "losses": got["losses"],
+                    "launches": {k: v for k, v in fused.LAUNCHES.items()
+                                 if v},
+                    "n": int(last["args"][0].shape[0]),
+                    "p": int(last["args"][4].shape[0]),
+                    "digest": digest({**got["after"], **{
+                        "bank." + k: v for k, v in got["memory"].items()}})}
+        state = m = None
+    return out
+
+
+def dp_timing(torch, fused, spec, device, mesh, mesh_lib):
+    """(c): 3 warm-up and 10 timed bf16 steps of this rank, then 3 with
+    every collective timed by what it serves."""
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg, batch, state = dp_setup(spec, "bf16", device)
+    local = {k: v[mesh.shard(spec["global"])] for k, v in batch.items()}
+    step = step_lib.make_train_step(cfg)
+    fused.reset_launch_counts()
+    state, ms, peak = time_steps(torch, step, state, local, device,
+                                 mesh_lib.barrier)
+    with timing_collectives(torch, device, mesh_lib) as kinds:
+        for _ in range(3):
+            state, m = step(state, local)
+    if set(kinds) != set(COLLECTIVE_KINDS):  # a caller renamed
+        raise AssertionError(f"dp: collectives of kinds {sorted(kinds)}, "
+                             f"want {COLLECTIVE_KINDS}")
+    coll = {k: (sum(c.ms() for c in v) / 3, len(v) // 3)
+            for k, v in kinds.items()}
+    launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+    return {"ms": ms, "peak": peak, "collectives": coll,
+            "launches": launches}
+
+
+def dp_driver(torch, fused, spec, device, mesh):
+    """(d), (e): train_spml on the world for 4 iterations and resumed to
+    6, then train_classifier over its snapshot for 2, on every rank."""
+    import argparse
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.data import datasets
+    from spml_tpu_torch.train import driver
+    from spml_tpu_torch.utils import checkpoint as ckpt
+
+    root = spec["root"]
+    stage1_dir = os.path.join(root, "dp_stage1")
+
+    def args(snapshot):
+        return argparse.Namespace(data_dir=spec["data"],
+                                  data_list=spec["list"],
+                                  snapshot_dir=snapshot)
+
+    logged = []
+    log_metrics = driver._log_metrics
+
+    def capture(writer, metrics, it, prefix=""):
+        logged.append(it)
+        log_metrics(writer, metrics, it, prefix)
+
+    driver._log_metrics = capture
+    out = {"runs": []}
+    try:
+        stage1 = load_config(overrides=spec["stage1"])
+        stage1.train.tensorboard_step = 1  # every iteration logged
+        for first, last in ((0, 4), (4, 6)):
+            stage1.train.max_iteration = last
+            stage1.train.resume = first > 0
+            logged.clear()
+            fused.reset_launch_counts()
+            state = driver.train_spml(args(stage1_dir), stage1,
+                                      datasets.ListTagDataset, device=device)
+            out["runs"].append((first, last, list(logged), {
+                k: v for k, v in fused.LAUNCHES.items() if v}))
+        out["stage1"] = digest({**model_tensors(state), **{
+            "bank." + k: v for k, v in vars(state.memory).items()}})
+        out["num_devices"] = stage1.tpu.num_devices
+        ck_dir = os.path.join(stage1_dir, "checkpoints")
+        saved = ckpt.read(ck_dir)
+        out["checkpoints"] = ckpt.steps(ck_dir)
+        out["rank_generators"] = len(saved.get("rank_generators", []))
+        state = None
+        stage2 = load_config(overrides=spec["stage1"])
+        stage2.network.pretrained = stage1_dir
+        stage2.network.prediction_types = "softmax_classifier"
+        stage2.network.kmeans_iterations = 0
+        stage2.network.kmeans_num_clusters = (1, 1)
+        stage2.train.max_iteration = 2
+        stage2.train.tensorboard_step = 1
+        fused.reset_launch_counts()
+        logged.clear()
+        head = driver.train_classifier(
+            args(os.path.join(root, "dp_stage2")), stage2,
+            datasets.ListTagClassifierDataset, device=device).cls_model
+        out["stage2"] = digest(head.state_dict())
+        out["stage2_launches"] = {k: v for k, v in fused.LAUNCHES.items()
+                                  if v}
+        out["stage2_iterations"] = list(logged)
+    finally:
+        driver._log_metrics = log_metrics
+    return out
+
+
+def dp_inference(spec, device, mesh, mesh_lib):
+    """(f): rank 0 builds the bank of the stage-1 snapshot, then every
+    rank predicts its share of each group of DP_INFER_BATCH (float32),
+    and rank 0 runs run_benchmark after the barrier."""
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.inference import runner
+
+    cfg = load_config(overrides=spec["infer"])
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        runner.run_prototype(dp_infer_args(spec, "bank"), cfg, device=device)
+    mesh_lib.barrier()
+    t1 = time.perf_counter()
+    runner.run_knn_inference(dp_infer_args(spec, "dp"), cfg, device=device)
+    t2 = time.perf_counter()
+    miou = None
+    if mesh.rank == 0:
+        miou = runner.run_benchmark(dp_infer_args(spec, "dp"),
+                                    cfg)["mean_iou"]
+    return {"bank_s": t1 - t0, "predict_s": t2 - t1, "miou": miou}
+
+
+def dp_infer_args(spec, out):
+    import argparse
+
+    root = spec["root"]
+    return argparse.Namespace(
+        data_dir=spec["data"], data_list=spec["infer_list"],
+        snapshot_dir=os.path.join(root, "dp_stage1"),
+        save_dir=os.path.join(root, "infer_" + out),
+        semantic_memory_dir=os.path.join(root, "infer_bank",
+                                         "semantic_prototype"))
+
+
+def dp_rank(spec, *, device):
+    """One rank of the [dp] phase, in a process of its own
+    (parallel/mesh.py::spawn): (a) and (b), (c), (d) and (e), (f)."""
+    import torch
+
+    from spml_tpu_torch.ops import _cuda
+    from spml_tpu_torch.ops import segsort_loss as fused
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    _cuda.CSRC = Path(spec["csrc"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_mesh()
+    t0 = time.perf_counter()
+    out = {"rank": mesh.rank, "world": mesh.world}
+    for name, run in (
+            ("equality", lambda: dp_equality(torch, fused, spec, device,
+                                             mesh)),
+            ("timing", lambda: dp_timing(torch, fused, spec, device, mesh,
+                                         mesh_lib)),
+            ("driver", lambda: dp_driver(torch, fused, spec, device, mesh)),
+            ("inference", lambda: dp_inference(spec, device, mesh,
+                                               mesh_lib))):
+        out[name] = run()
+        if device.type == "cuda":  # the ranks may share one card
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_dp(torch, fused, devices=None, backend=None, device=None):
+    """The [dp] phase: DP_WORLD ranks spawned once (the kernels already
+    built here, so no rank builds), each running dp_rank; this process
+    computes the one-process references before and after. devices,
+    backend, device: the CPU rehearsal's (cpu ranks, gloo, cpu)."""
+    import copy
+    import tempfile
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.data import synthetic
+    from spml_tpu_torch.inference import runner
+    from spml_tpu_torch.ops import _cuda
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    if devices is None:
+        devices, backend, case = dp_devices(torch)
+    else:
+        case = f"{backend} on {devices}"
+    device = torch.device(device or DEVICE)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="spml_dp_") as root:
+        data = os.path.join(root, "world")
+        lst = synthetic.write_world(data, WORLD_IMAGES, seed=0)
+        with open(lst) as f:
+            items = f.read().splitlines()
+        infer_list = os.path.join(root, "infer.txt")
+        with open(infer_list, "w") as f:
+            f.write("\n".join(items[:DP_INFER_IMAGES]) + "\n")
+        stage1 = copy.deepcopy(STAGE1)
+        stage1["train"]["batch_size"] = DP_BATCH
+        infer = copy.deepcopy(STAGE1)
+        infer["network"]["kmeans_num_clusters"] = [12, 12]
+        infer["tpu"].update(compute_dtype="float32",
+                            infer_batch=DP_INFER_BATCH)
+        spec = {"csrc": str(_cuda.CSRC), "root": root, "data": data,
+                "list": lst, "infer_list": infer_list,
+                "f32": dp_flagship("float32"), "bf16": dp_flagship("bfloat16"),
+                "global": DP_BATCH * DP_WORLD, "stage1": stage1,
+                "infer": infer, "ref": os.path.join(root, "ref.pt")}
+        f32 = load_config(overrides=spec["f32"])
+        spec["n"] = DP_BATCH * (f32.train.crop_size[0] // 4) ** 2
+        spec["capacity"] = f32.tpu.segment_capacity
+        spec["p"] = (spec["global"] * f32.tpu.segment_capacity
+                     * (1 + f32.train.memory_bank_size))
+        log("dp", f"{len(devices)} ranks on {devices}: {case}; "
+            f"torch.cuda.device_count() {torch.cuda.device_count()}")
+        floors = dp_reference(torch, spec, device)
+        one_ms, one_peak = dp_time_one_process(torch, spec, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(dp_rank, (spec,), devices, backend)
+        spawn_s = time.perf_counter() - t0
+        # the one-process inference over the same snapshot and bank
+        runner.run_knn_inference(dp_infer_args(spec, "one"),
+                                 load_config(overrides=spec["infer"]),
+                                 device=device)
+        pngs = {w: read_pngs(dp_infer_args(spec, w).save_dir,
+                             DP_INFER_IMAGES, 21, f"dp inference ({w})")
+                for w in ("dp", "one")}
+        check_dp(spec, ranks, pngs)
+        check_dp_launches(ranks)
+    eq = [r["equality"] for r in ranks]
+    tm = [r["timing"] for r in ranks]
+    dr = ranks[0]["driver"]
+    ms = max(t["ms"] for t in tm)
+    g = DP_BATCH * DP_WORLD
+    coll = {k: max(t["collectives"].get(k, (0.0, 0))[0] for t in tm)
+            for k in COLLECTIVE_KINDS}
+    counts = {k: tm[0]["collectives"].get(k, (0.0, 0))[1] for k in coll}
+    free = [e["free"] for e in eq]
+    equal = [e["equal"] for e in eq]
+    log("dp", f"(a) float32 (TF32 off, dropout 0), {DP_WORLD} ranks x "
+        f"{DP_BATCH} against one process x {g} (train.batch_size "
+        f"{DP_BATCH}), tolerances: losses rtol {DP_LOSS_RTOL}; bank labels, "
+        f"tags, validity and batch indices and the integer buffers equal; "
+        f"update L2 within {DP_UPDATE_RTOL}; the {len(DP_CHECKED)} checked "
+        f"updates within {DP_UPDATE_RTOL} max|update| and the bank "
+        f"prototypes (those of segments with the same pixels, and all) "
+        f"within atol {DP_BANK_ATOL}, each plus its float32 floor. "
+        + " ".join(dp_mode_words(mode, [e[mode] for e in eq], floors[mode],
+                                 g * spec["n"] // DP_BATCH)
+                   for mode in ("free", "equal"))
+        + f" Losses {free[0]['losses']}; the ranks' parameters, buffers "
+        "and banks torch.equal (sha256)")
+    log("dp", "(b) launches a rank in each f32 step "
+        + " / ".join(str(e["launches"]) for e in free + equal)
+        + f": K1-K3 once each at N {free[0]['n']}, P {free[0]['p']}")
+    log("dp", f"(c) bf16, 3 + 10 steps: {ms:.2f} ms/step (ranks "
+        + " / ".join(f"{t['ms']:.2f}" for t in tm)
+        + f"), {g * 1000 / ms:.2f} images/s global, peak "
+        + " / ".join(f"{t['peak']:.2f}" for t in tm)
+        + " GiB a rank; collectives a step (slowest rank, ms, count): "
+        + ", ".join(f"{k} {v:.2f} ({counts[k]})" for k, v in coll.items())
+        + f"; one process x {g}: {one_ms:.2f} ms/step, "
+        f"{g * 1000 / one_ms:.2f} images/s, peak {one_peak:.2f} GiB; "
+        f"case: {case}")
+    log("dp", f"(d) train_spml {DP_WORLD} ranks x {DP_BATCH}: runs "
+        + ", ".join(f"{a}-{b} launches {la}" for a, b, _, la in dr["runs"])
+        + f", tpu.num_devices {dr['num_devices']}, checkpoints "
+        f"{dr['checkpoints']} from rank 0 with {dr['rank_generators']} "
+        "generator states, resumed at step 4, ranks torch.equal; (e) "
+        f"train_classifier iterations {dr['stage2_iterations']}, launches "
+        f"{dr['stage2_launches']}, heads torch.equal; (f) "
+        "run_knn_inference, infer_batch "
+        f"{DP_INFER_BATCH}, {DP_INFER_IMAGES} images over {DP_WORLD} ranks "
+        f"in float32: PNGs equal the one-process run's, mIoU "
+        f"{ranks[0]['inference']['miou']:.4f}")
+    log("dp", f"summary, {case}: {ms:.2f} ms/step, {g * 1000 / ms:.2f} "
+        f"images/s, peak {max(t['peak'] for t in tm):.2f} GiB a rank "
+        f"(one process x {g}: {one_ms:.2f} ms/step); spawn to join "
+        f"{spawn_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s; "
+        f"card {nvidia_smi_line()}")
+
+
+def dp_mode_words(mode, ranks, floor_runs, pixels):
+    """(a)'s words on one mode: each rank's differences and shares of
+    tolerance + floor, then each floor run's, with its shares of
+    tolerance + the floor of the other two."""
+    def words(m):
+        s = m["shares"]
+        return (f"updates up to {m['worst']:.3f} tolerances "
+                f"({m['worst_name']}), {s['updates']:.3f} of tolerance + "
+                f"floor; bank {m['bank_err']:.3e} "
+                f"({s['bank prototypes']:.3f}), on the {m['matched'][1]} of "
+                f"{m['matched'][2]} segments with the same pixels "
+                f"{m['matched'][0]:.3e} ({s['matched bank prototypes']:.3f});"
+                f" L2 {m['l2']:.3e}; {m['flips']} pixels in other segments")
+
+    checks = DP_FREE_CHECKS if mode == "free" else DP_CHECKS
+    head = ("Free" if mode == "free"
+            else "On the one process's segments")
+    return (f"{head} (held: {', '.join(checks)}; {pixels} pixels): "
+            + " | ".join(f"rank {r}: {words(m)}" for r, m in enumerate(ranks))
+            + ". Floor runs: " + " | ".join(
+                f"{name}: {words(m)}; against the other two's floor: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in m["alone"].items())
+                for name, m in floor_runs.items()) + ".")
+
+
+def check_dp(spec, ranks, pngs):
+    """The ranks' results against each other, the driver's checkpoints
+    and logged iterations, and the sharded run's PNGs against the
+    one-process run's."""
+    a, b = ranks
+    digests = [(r["equality"]["free"]["digest"],
+                r["equality"]["equal"]["digest"], r["driver"]["stage1"],
+                r["driver"]["stage2"]) for r in ranks]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"dp: the ranks' tensors differ: {digests}")
+    for r in ranks:
+        dr = r["driver"]
+        for eq in r["equality"].values():
+            if (eq["n"], eq["p"]) != (spec["n"], spec["p"]):
+                raise AssertionError(f"dp rank {r['rank']}: K1-K3 at N "
+                                     f"{eq['n']}, P {eq['p']}, want "
+                                     f"{spec['n']}, {spec['p']}")
+        if [(f, la, it) for f, la, it, _ in dr["runs"]] != [
+                (0, 4, [0, 1, 2, 3]), (4, 6, [4, 5])]:
+            raise AssertionError(f"dp rank {r['rank']}: stage 1 runs "
+                                 f"{dr['runs']}")
+        if (dr["checkpoints"] != [2, 4, 6]
+                or dr["rank_generators"] != DP_WORLD
+                or dr["num_devices"] != DP_WORLD
+                or dr["stage2_iterations"] != [0, 1]):
+            raise AssertionError(f"dp rank {r['rank']} driver: {dr}")
+    miou = a["inference"]["miou"]
+    if not (math.isfinite(miou) and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"dp inference: mIoU {miou}")
+    got, want = pngs["dp"], pngs["one"]
+    if got.keys() != want.keys():
+        raise AssertionError(f"dp inference: PNGs {sorted(got)} against "
+                             f"{sorted(want)}")
+    bad = [k for k in got if not np.array_equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"dp inference: PNGs differ from one "
+                             f"process's: {bad}")
+
+
+def check_dp_launches(ranks):
+    """K1-K3 once a step a rank, and no kernel in stage 2."""
+    k13 = ("joint_stats", "joint_grad_emb", "joint_grad_proto")
+    for r in ranks:
+        runs = r["driver"]["runs"]
+        got = [*(e["launches"] for e in r["equality"].values()),
+               r["timing"]["launches"], *(la for *_, la in runs),
+               r["driver"]["stage2_launches"]]
+        want = [dict.fromkeys(k13, n) for n in (1, 1, 16, 4, 2)] + [{}]
+        if got != want:
+            raise AssertionError(f"dp rank {r['rank']}: launches {got}, "
+                                 f"want {want} (K1-K3 once a step)")
 
 
 # ---------------------------------------------------------------------------
@@ -2411,9 +3301,10 @@ def trace_stage1(torch, fused, stage1, args, profile_dir):
 def loader_ms(cfg, dataset_cls, args, batches=8):
     """ms per batch of the driver's loader with nothing consuming it: the
     rate the host makes batches at, prefetch included."""
+    from spml_tpu_torch.parallel import mesh as mesh_lib
     from spml_tpu_torch.train import driver
 
-    loader = driver._loader(args, cfg, dataset_cls)
+    loader = driver._loader(args, cfg, dataset_cls, mesh_lib.Mesh())
     try:
         t0 = time.perf_counter()
         for _ in range(batches):
@@ -2498,6 +3389,7 @@ def main() -> int:
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
     run_remat(torch, fused)
+    run_dp(torch, fused)
     run_inference(torch)
     run_driver(torch, fused, dc)
 

@@ -4,7 +4,10 @@ models of a snapshot, the test-image iterator and the prediction PNGs.
 Port of spml_tpu/cli.py (reference: spml/config/parse_args.py:8-53 in
 twke18/SPML). parse_args has the reference's flags, the six DenseCRF
 ones with their defaults among them, plus --device, the port's counterpart
-of the JAX package's SPML_TPU_PLATFORM.
+of the JAX package's SPML_TPU_PLATFORM: the training entry points (and
+batched KNN inference) run one rank on each card of 'cuda', N ranks on
+the CPU for 'cpu:N' (SPML_TPU_PLATFORM=cpu:N), or join a torchrun group
+(parallel/mesh.py::launch); the others run on the one device named.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ def parse_args(description: str = "") -> tuple[argparse.Namespace, Config]:
     parser.add_argument("--crf_bi_rgb_std", type=int, default=3)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cpu for the plain "
-                        "versions of the kernels)")
+                        "versions of the kernels); training: cuda = one "
+                        "rank a visible card, cpu:N = N ranks on the CPU")
     args = parser.parse_args()
 
     config = load_config(args.cfg_path)

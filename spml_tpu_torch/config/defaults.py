@@ -93,9 +93,19 @@ class TestConfig:
 class TpuConfig:
     """Static-shape knobs shared with the JAX package (the section name is
     kept so one overrides dict configures both). The JAX package's knobs
-    for XLA and the TPU mesh have no counterpart here and are skipped:
+    for XLA have no counterpart here and are skipped:
     compilation_cache_dir among them, since eager PyTorch compiles no
-    program it could cache."""
+    program it could cache. Its mesh knobs are here: num_devices, the
+    ranks of the data axis (parallel/mesh.py), and spatial_partition."""
+    # ranks of the 'data' axis; the training drivers set it to the
+    # process group's world size (the global batch is train.batch_size
+    # times it); the launch decides the ranks, so a value given as
+    # neither 1 nor that size raises there
+    num_devices: int = 1
+    # image height sharded over this many devices (the JAX package's
+    # ('data', 'space') mesh): only 1 is ported, more raises
+    # (parallel/mesh.py::make_mesh)
+    spatial_partition: int = 1
     # max distinct (cluster, semantic, instance) segments per image
     segment_capacity: int = 256
     # value bound used to pack labels into sort keys

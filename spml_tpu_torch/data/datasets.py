@@ -24,6 +24,7 @@ from typing import Iterator
 import numpy as np
 
 from spml_tpu_torch.data import transforms
+from spml_tpu_torch.parallel.mesh import Mesh
 
 TAG_WIDTH = 256
 
@@ -177,10 +178,17 @@ class Loader:
     the reference's re-initialised iterator at train.py:156-159). The
     index order comes from default_rng(seed) alone; a pool of
     num_workers threads makes the items, `prefetch` batches ahead.
+
+    shard (rank, world): `batch` is the global batch and this loader
+    yields rank's slice of it, batch // world items (parallel/mesh.py::
+    Mesh.shard): the index stream stays the global one and only the
+    slice's items are made. An item depends on (seed, index) alone, so a
+    rank's items equal a one-process loader's at the same indices.
     """
 
     def __init__(self, dataset, batch: int, shuffle=True, seed=0,
-                 num_workers: int = 8, prefetch: int = 4):
+                 num_workers: int = 8, prefetch: int = 4, shard=(0, 1)):
+        self.slice = Mesh(*shard).shard(batch)
         self.dataset = dataset
         self.batch = batch
         self.shuffle = shuffle
@@ -201,7 +209,7 @@ class Loader:
         stream = self._index_stream()
 
         def make_batch_async():
-            idxs = [next(stream) for _ in range(self.batch)]
+            idxs = [next(stream) for _ in range(self.batch)][self.slice]
             return [pool.submit(self.dataset.__getitem__, i) for i in idxs]
 
         pending = [make_batch_async() for _ in range(self.prefetch)]

@@ -15,10 +15,13 @@ instance}.py. Predictions go back to each image's original size (nearest
 for labels, inference.py:236-240; bilinear for probabilities before a
 CRF). With tpu.infer_batch > 1 the single-scale KNN path without a CRF
 predicts groups of that many same-bucket images through one window
-forward (_PredictBatcher, on one device; MSC and the CRF ignore it, as
-in the JAX package). The JAX runner's per-bucket warm-up and its cache of
-compiled affinity programs have no counterpart: eager PyTorch compiles
-nothing.
+forward (_PredictBatcher; MSC and the CRF ignore it, as in the JAX
+package). In a process group (parallel/mesh.py) each group is sharded
+over the ranks, as the JAX package shards a group over its device mesh:
+every rank loads the bank, reads the list and forms the same groups,
+predicts its share of each and writes its PNGs. The JAX runner's
+per-bucket warm-up and its cache of compiled affinity programs have no
+counterpart: eager PyTorch compiles nothing.
 
 The host tail of an image (download, resize, CRF, argmax, PNGs) runs on
 _AsyncSink's threads, over the next image's device work. `args` carries
@@ -42,6 +45,7 @@ from spml_tpu_torch.inference import msc as msc_lib
 from spml_tpu_torch.inference.softmax import SoftmaxInferenceEngine
 from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common, kmeans, knn, randomwalk
+from spml_tpu_torch.parallel import mesh as mesh_lib
 from spml_tpu_torch.utils import vis
 
 MSC_SCALES = (0.5, 0.75, 1, 1.25, 1.5)  # inference_msc.py
@@ -85,13 +89,19 @@ class _PredictBatcher:
     """Groups images by pad bucket and predicts each group of `group_size`
     (at least 2) through engine.predict_semantic_batch, which equals
     predict_semantic within a bucket; save(pred, base, oh, ow) takes each
-    result. flush_all() predicts the groups left over at the end."""
+    result. flush_all() predicts the groups left over at the end.
+
+    Over W ranks a group of n is padded to a multiple of W, as the JAX
+    package pads its sharded group (spml_tpu/inference/engine.py:484-530),
+    and rank r predicts and saves the images of its ceil(n / W) slice (the
+    padding is not predicted)."""
 
     def __init__(self, eng, memory, group_size: int, save):
         self.eng = eng
         self.memory = memory
         self.group = max(2, int(group_size))
         self.save = save
+        self.mesh = mesh_lib.make_mesh(eng.config.tpu.spatial_partition)
         self._buckets: dict = {}
 
     def add(self, base: str, image: np.ndarray, oh: int, ow: int):
@@ -103,6 +113,8 @@ class _PredictBatcher:
 
     def _flush(self, key):
         pending = self._buckets.pop(key, [])
+        per = -(-len(pending) // self.mesh.world)
+        pending = pending[self.mesh.rank * per:(self.mesh.rank + 1) * per]
         if not pending:
             return
         preds = self.eng.predict_semantic_batch([p[1] for p in pending],
@@ -257,7 +269,14 @@ def run_knn_inference(args, config, msc=False, crf=False, scales=MSC_SCALES,
     original size. msc: the mean of the scales x flips pyramid; crf: the
     DenseCRF of the crf_* flags over the top-20 probabilities; without
     either, tpu.infer_batch > 1 predicts same-bucket groups
-    (_PredictBatcher)."""
+    (_PredictBatcher). In a process group only that batched path runs
+    (sharded over the ranks, which meet at a barrier at the end); the
+    others raise."""
+    mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
+    if mesh.world > 1 and (msc or crf or config.tpu.infer_batch <= 1):
+        raise ValueError(
+            f"{mesh.world} ranks: only single-scale KNN inference without "
+            "a CRF and with tpu.infer_batch > 1 is sharded over ranks")
     eng = engine_lib.InferenceEngine(
         config, cli.build_eval_models(config, args.snapshot_dir, device),
         device)
@@ -286,6 +305,7 @@ def run_knn_inference(args, config, msc=False, crf=False, scales=MSC_SCALES,
             batcher.add(base, image, oh, ow)
     if batcher is not None:
         batcher.flush_all()
+    mesh_lib.barrier()
 
 
 def run_softmax_inference(args, config, msc=False, crf=False,

@@ -29,6 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from spml_tpu_torch.parallel import mesh as mesh_lib
+
 BN_MOMENTUM = 3e-4  # torch convention; flax momentum 1 - 3e-4
 BN_EPS = 1e-5
 
@@ -57,6 +59,60 @@ def _remat_contexts():
     return contextlib.nullcontext(), _recomputing()
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of every rank
+    (parallel/mesh.py).
+
+    Forward: each rank's count, per-channel mean and biased variance
+    (float32, two passes) are gathered in float64 and combined as
+    Chan's parallel variance, sum n_r (var_r + (mean_r - mean)^2) / n, the
+    same bits on every rank: the global sum, sum of squares and count
+    without the cancellation of sum(x^2) / n - mean^2. Then x is
+    normalized with the global mean and biased variance.
+    Backward: the all-reduced sum(dy) and sum(dy * x_hat) give dx; the
+    weight and bias get this rank's sums alone, since the train step sums
+    every parameter gradient over the ranks afterwards.
+    Returns (y, global mean, global biased variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        count = torch.full((1,), xf.numel() // xf.shape[1],
+                           dtype=torch.float64, device=x.device)
+        every = mesh_lib.all_gather(
+            torch.cat([count, mean_r.double(), var_r.double()])[None])
+        c = x.shape[1]
+        n_r, mean_rs = every[:, :1], every[:, 1:c + 1]
+        var_rs = every[:, c + 1:]
+        n = n_r.sum()
+        mean = (n_r * mean_rs).sum(0) / n
+        var = (n_r * (var_rs + (mean_rs - mean) ** 2)).sum(0) / n
+        mean, var = mean.float(), var.float()
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.n = float(n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (1, -1, 1, 1)
+        dyf = dy.float()
+        x_hat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sum_dy = dyf.sum((0, 2, 3))
+        sum_dy_xhat = (dyf * x_hat).sum((0, 2, 3))
+        dx = None
+        if ctx.needs_input_grad[0]:
+            glob = mesh_lib.all_reduce(torch.stack([sum_dy, sum_dy_xhat]))
+            dx = (weight * invstd).view(shape) * (
+                dyf - (glob[0] / ctx.n).view(shape)
+                - x_hat * (glob[1] / ctx.n).view(shape))
+            dx = dx.to(x.dtype)
+        return dx, sum_dy_xhat, sum_dy, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with the JAX package's (flax) train-mode statistics.
 
@@ -70,6 +126,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch mean and unbiased variance there, so no second pass reads the
     input. Inside a remat block's recomputation the buffers stay as they
     are.
+
+    In a process group of more than one rank the statistics are those of
+    the global batch (_SyncBatchNorm, as XLA computes them over the JAX
+    package's sharded batch); a remat recomputation issues its
+    collectives again and still leaves the buffers alone.
     """
 
     def forward(self, x):
@@ -77,6 +138,16 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
+        if mesh_lib.world_size() > 1:
+            out, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                  self.eps)
+            if not getattr(_RECOMPUTE, "active", False):
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                    self.num_batches_tracked.add_(1)
+            return out
         batch_mean, batch_var = torch.zeros(
             2, self.num_features, dtype=self.running_mean.dtype,
             device=x.device)

@@ -2,7 +2,11 @@
 
 The port's counterpart of
 pyscripts/inference/inference.py: the reference's flags
-(twke18/SPML) and --device (default cuda):
+(twke18/SPML) and --device (default cuda). With tpu.infer_batch > 1 the
+groups of images are sharded over the ranks --device asks for (cuda:
+every visible card; cpu:N: N ranks on the CPU; under torchrun each
+process is one rank), as the JAX package shards them over its chips;
+per image, one process runs on the device:
 
     python -m spml_tpu_torch.tools.inference \
         --cfg_path CONFIG.yaml --data_dir DATA --data_list LIST \
@@ -12,11 +16,15 @@ pyscripts/inference/inference.py: the reference's flags
 
 from spml_tpu_torch import cli
 from spml_tpu_torch.inference import runner
+from spml_tpu_torch.parallel import mesh
 
 
 def main():
     args, config = cli.parse_args(__doc__.splitlines()[0])
-    runner.run_knn_inference(args, config, device=args.device)
+    if config.tpu.infer_batch > 1:
+        mesh.launch(runner.run_knn_inference, (args, config), args.device)
+    else:
+        runner.run_knn_inference(args, config, device=args.device)
 
 
 if __name__ == "__main__":

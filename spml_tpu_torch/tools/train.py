@@ -1,7 +1,9 @@
 """SPML contrastive embedding training (VOC) on the card.
 
 The port's counterpart of pyscripts/train/train.py, with its
-flags (the reference's, twke18/SPML) and --device:
+flags (the reference's, twke18/SPML) and --device (cuda: every visible
+card, one rank each; cpu:N: N ranks on the CPU; under torchrun each
+process is one rank):
 
     python -m spml_tpu_torch.tools.train \
         --cfg_path CONFIG.yaml --data_dir DATA --data_list LIST \
@@ -10,13 +12,14 @@ flags (the reference's, twke18/SPML) and --device:
 
 from spml_tpu_torch import cli
 from spml_tpu_torch.data import datasets
+from spml_tpu_torch.parallel import mesh
 from spml_tpu_torch.train import driver
 
 
 def main():
     args, config = cli.parse_args("Training for pixel-wise embeddings.")
-    driver.train_spml(args, config, datasets.ListTagDataset,
-                      device=args.device)
+    mesh.launch(driver.train_spml,
+                (args, config, datasets.ListTagDataset), args.device)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,14 @@ no_grad, its output L2-normalized in float32; a classifier head (conv3x3
 -> BN -> ReLU -> Dropout .65 -> conv1x1) is trained with cross-entropy
 on the logits upsampled to the input, by SGD with the head's groups (x10
 weights, x20 biases without weight decay).
+
+Data parallel (parallel/mesh.py): each rank steps its slice of the global
+batch. The frozen embedding runs in eval mode, so nothing of it is
+synchronized; the head's batch norm takes the global batch's statistics,
+the cross-entropy is the one masked mean of the global batch (the
+all-reduced sum over the all-reduced count, as the JAX step's single
+mean, spml_tpu/train/classifier_step.py:75) and the head's gradients are
+summed over the ranks.
 """
 
 from __future__ import annotations
@@ -19,10 +27,11 @@ import torch
 from spml_tpu_torch.models.embeddings import build_classifier_head
 from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common
+from spml_tpu_torch.parallel import mesh as mesh_lib
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import TrainState
 from spml_tpu_torch.train.step import (_accuracy, _compute_dtype,
-                                       _cross_entropy)
+                                       _cross_entropy, _sum_gradients)
 from spml_tpu_torch.utils.device import resolve_device
 
 DROPOUT = 0.65
@@ -43,14 +52,15 @@ def build_classifier(config, device="cuda", generator=None):
 
 
 def init_classifier_state(config, seed: int, device="cuda") -> TrainState:
-    """The head, its SGD buffers and its dropout generator; no embedding
-    model and no memory bank."""
+    """The head, its SGD buffers and its dropout generator (seeded seed +
+    rank); no embedding model and no memory bank."""
     device = resolve_device(device)
     head = build_classifier(config, device,
                             torch.Generator().manual_seed(seed))
     return TrainState(step=0, emb_model=None, cls_model=head, momentum={},
                       memory=None,
-                      generator=torch.Generator(device).manual_seed(seed))
+                      generator=torch.Generator(device).manual_seed(
+                          seed + mesh_lib.make_mesh().rank))
 
 
 def make_classifier_train_step(config, emb_model):
@@ -66,6 +76,7 @@ def make_classifier_train_step(config, emb_model):
     C = config.dataset.num_classes
     tcfg = config.train
     schedule = optim.make_schedule(tcfg)
+    world = mesh_lib.make_mesh(config.tpu.spatial_partition).world
 
     def train_step(state: TrainState, batch):
         images = batch["image"]
@@ -76,17 +87,19 @@ def make_classifier_train_step(config, emb_model):
         state.cls_model.train()
         logits = state.cls_model(emb, state.generator)
         logits_up = resize_bilinear(logits, images.shape[1:3])
-        ce = _cross_entropy(logits_up, labels, C)
+        ce = _cross_entropy(logits_up, labels, C, world=world)
         params = [("prediction." + n, p)
                   for n, p in state.cls_model.named_parameters()]
         for _, p in params:
             p.grad = None
         ce.backward()
+        if world > 1:
+            _sum_gradients(params)
         lr = schedule(state.step)
         optim.sgd_step(params, state.momentum, lr, tcfg.weight_decay,
                        tcfg.momentum)
         return dataclasses.replace(state, step=state.step + 1), {
-            "loss": ce.detach(),
+            "loss": mesh_lib.all_reduce(ce.detach()),
             "accuracy": _accuracy(logits_up.detach(), labels, C),
             "learning_rate": lr}
 

@@ -7,13 +7,22 @@ the loop around the train step, scalars and image panels every
 tensorboard_step (vis.py:15-101), a checkpoint every snapshot_step and
 at the last iteration.
 
-One card: the batch is train.batch_size. Batches reach the card from
-pinned host memory. A resumed run starts at the latest checkpoint's step
-(the schedule reads the restored state's step) and restarts the loader's
-index stream from its beginning, as the JAX package's does. The first
-logging interval reports its seconds as warmup_secs: it holds the
-kernels' build at first use and cuDNN's autotuning. tpu.profile_dir
-traces a window of steps with torch.profiler (TraceWindow).
+Each rank of the process group (parallel/mesh.py; one process without
+one) steps train.batch_size images of a global batch of train.batch_size
+x ranks, as the JAX driver sizes its global batch by the device count
+(spml_tpu/train/driver.py:131-137), and sets tpu.num_devices to the rank
+count (a value given as neither 1 nor that count raises). Rank 0 alone
+writes the checkpoints (then every rank waits at a barrier), the
+TensorBoard scalars and images, the log lines and the profiler trace;
+every rank reads the same checkpoint on resume. A checkpoint also holds
+every rank's dropout generator state (utils/checkpoint.py). Batches
+reach the card from pinned host memory. A resumed run starts at the
+latest checkpoint's step (the schedule reads the restored state's step)
+and restarts the loader's index stream from its beginning, as the JAX
+package's does. The first logging interval reports its seconds as
+warmup_secs: it holds the kernels' build at first use and cuDNN's
+autotuning. tpu.profile_dir traces a window of steps with torch.profiler
+(TraceWindow).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 
 from spml_tpu_torch.data import datasets as datasets_lib
 from spml_tpu_torch.models.embeddings import build_embedding_model
+from spml_tpu_torch.parallel import mesh as mesh_lib
 from spml_tpu_torch.train import classifier_step as cstep_lib
 from spml_tpu_torch.train import step as step_lib
 from spml_tpu_torch.utils import checkpoint as ckpt
@@ -35,6 +45,8 @@ from spml_tpu_torch.utils.device import resolve_device
 
 
 def _writer(snapshot_dir):
+    if mesh_lib.make_mesh().rank != 0:
+        return None
     try:
         import tensorboardX
         return tensorboardX.SummaryWriter(logdir=snapshot_dir)
@@ -58,7 +70,15 @@ def _load_pretrained(config, state):
     return state
 
 
+def _closing(writer):
+    """Closes the writer (its event-file thread) when the run ends."""
+    return (contextlib.closing(writer) if writer is not None
+            else contextlib.nullcontext())
+
+
 def _log_metrics(writer, metrics, step, prefix=""):
+    if mesh_lib.make_mesh().rank != 0:
+        return
     line = " ".join(f"{k}={float(v):.4f}" for k, v in sorted(
         metrics.items()) if np.ndim(v) == 0)
     print(f"iter {step}: {line}", flush=True)
@@ -120,7 +140,8 @@ def _to_device(batch, device: torch.device):
             for k, v in batch.items()}
 
 
-def _loader(args, config, dataset_cls):
+def _loader(args, config, dataset_cls, mesh):
+    """This rank's slice of the global batch's loader."""
     dataset = dataset_cls(
         data_dir=args.data_dir or config.dataset.data_dir,
         data_list=args.data_list or config.dataset.train_data_list,
@@ -132,8 +153,9 @@ def _loader(args, config, dataset_cls):
         random_mirror=config.train.random_mirror, training=True,
         seed=config.train.seed)
     return iter(datasets_lib.Loader(
-        dataset, config.train.batch_size, shuffle=config.train.shuffle,
-        seed=config.train.seed, num_workers=config.num_threads))
+        dataset, config.train.batch_size * mesh.world,
+        shuffle=config.train.shuffle, seed=config.train.seed,
+        num_workers=config.num_threads, shard=(mesh.rank, mesh.world)))
 
 
 class TraceWindow:
@@ -146,10 +168,11 @@ class TraceWindow:
     before the window opens (the steps before it stay out) and before it
     closes (its steps' kernels stay in). step(it) at the top of every
     iteration; close() (or leaving the with block) ends a window the run
-    ends inside."""
+    ends inside. In a process group rank 0 alone traces."""
 
     def __init__(self, config, start_iter, device: torch.device):
-        self.dir = os.path.expanduser(config.tpu.profile_dir)
+        self.dir = (os.path.expanduser(config.tpu.profile_dir)
+                    if mesh_lib.make_mesh().rank == 0 else "")
         self.begin = start_iter + config.tpu.profile_start
         self.end = self.begin + config.tpu.profile_steps
         self.device = device
@@ -195,31 +218,58 @@ def _snapshot_due(config, it) -> bool:
             or it == config.train.max_iteration - 1)
 
 
+def _save(ck_dir, step, state, mesh) -> None:
+    """Rank 0 writes the checkpoint with every rank's generator state (a
+    collective), then every rank waits for the file."""
+    gens = mesh_lib.all_gather(state.generator.get_state()[None])
+    if mesh.rank == 0:
+        ckpt.save(ck_dir, step, state,
+                  rank_generators=list(gens) if mesh.world > 1 else None)
+    mesh_lib.barrier()
+
+
+def _mesh(config):
+    """The process group's mesh; tpu.num_devices set to its rank count.
+    The ranks come from the launch (--device, torchrun): a num_devices
+    given as neither the default 1 nor that count raises."""
+    mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
+    if config.tpu.num_devices not in (1, mesh.world):
+        raise ValueError(
+            f"tpu.num_devices {config.tpu.num_devices}, but the process "
+            f"group has {mesh.world} rank(s): the ranks are those the "
+            "launch starts (--device cuda: every visible card; cpu:N; "
+            "torchrun)")
+    config.tpu.num_devices = mesh.world
+    return mesh
+
+
 def train_spml(args, config, dataset_cls=datasets_lib.ListTagDataset,
                device="cuda"):
     """SPML contrastive training (reference train.py) on `device`; returns
     the final TrainState. args: data_dir, data_list, snapshot_dir
     (checkpoints go to snapshot_dir/checkpoints)."""
     device = resolve_device(device)
-    batch_size = config.train.batch_size
-    loader = _loader(args, config, dataset_cls)
+    mesh = _mesh(config)
+    global_batch = config.train.batch_size * mesh.world
+    loader = _loader(args, config, dataset_cls, mesh)
     state = step_lib.init_state(
         config, 235 + config.train.seed,
-        torch.zeros(batch_size, *config.train.crop_size, 3), device)
+        torch.zeros(global_batch, *config.train.crop_size, 3), device)
 
     ck_dir = os.path.join(args.snapshot_dir, "checkpoints")
     start = config.train.begin_iteration
     if config.train.resume and ckpt.latest_step(ck_dir) is not None:
         start = ckpt.latest_step(ck_dir)
         state = ckpt.restore(ck_dir, state)
-        print(f"resumed from iteration {start}")
+        if mesh.rank == 0:
+            print(f"resumed from iteration {start}")
     else:
         state = _load_pretrained(config, state)
 
     train_step = step_lib.make_train_step(config)
     writer = _writer(args.snapshot_dir)
     t0 = time.time()
-    with contextlib.closing(loader), \
+    with contextlib.closing(loader), _closing(writer), \
             TraceWindow(config, start, device) as trace:
         for it in range(start, config.train.max_iteration):
             trace.step(it)
@@ -231,15 +281,16 @@ def train_spml(args, config, dataset_cls=datasets_lib.ListTagDataset,
                 dt = time.time() - t0
                 if it > start:
                     metrics["imgs_per_sec"] = (
-                        batch_size * config.train.tensorboard_step / dt)
+                        global_batch * config.train.tensorboard_step / dt)
                 else:
                     metrics["warmup_secs"] = dt
                 _log_metrics(writer, metrics, it)
                 _log_images(writer, config, state.emb_model, batch, it)
                 t0 = time.time()
             if _snapshot_due(config, it):
-                ckpt.save(ck_dir, it + 1, state)
-                print(f"snapshot at iteration {it + 1}")
+                _save(ck_dir, it + 1, state, mesh)
+                if mesh.rank == 0:
+                    print(f"snapshot at iteration {it + 1}")
     return state
 
 
@@ -251,14 +302,17 @@ def train_classifier(args, config,
     port snapshot directory, the stage-1 one, or a reference .pth);
     returns the final TrainState of the head."""
     device = resolve_device(device)
-    loader = _loader(args, config, dataset_cls)
+    mesh = _mesh(config)
+    loader = _loader(args, config, dataset_cls, mesh)
     emb_model = build_embedding_model(
         config.network.backbone_types, config.network.embedding_dim,
         compute_dtype=step_lib._compute_dtype(config),
         bn_momentum=config.network.bn_momentum,
         generator=torch.Generator().manual_seed(0))
     ckpt.load_embedding(config, config.network.pretrained, emb_model)
-    print(f"loaded frozen embedding model from {config.network.pretrained}")
+    if mesh.rank == 0:
+        print("loaded frozen embedding model from "
+              f"{config.network.pretrained}")
     emb_model = emb_model.to(device, memory_format=torch.channels_last)
 
     state = cstep_lib.init_classifier_state(config, 235 + config.train.seed,
@@ -271,7 +325,7 @@ def train_classifier(args, config,
 
     train_step = cstep_lib.make_classifier_train_step(config, emb_model)
     writer = _writer(args.snapshot_dir)
-    with contextlib.closing(loader), \
+    with contextlib.closing(loader), _closing(writer), \
             TraceWindow(config, start, device) as trace:
         for it in range(start, config.train.max_iteration):
             trace.step(it)
@@ -282,5 +336,5 @@ def train_classifier(args, config,
                 metrics = {k: float(v) for k, v in metrics.items()}
                 _log_metrics(writer, metrics, it, prefix="classifier/")
             if _snapshot_due(config, it):
-                ckpt.save(ck_dir, it + 1, state)
+                _save(ck_dir, it + 1, state, mesh)
     return state

@@ -33,6 +33,23 @@ SegSort loss and no memory-bank push.
 
 The update is train.optimizer's: SGD or the reference's Adam
 (train/optim.py).
+
+Data parallel (parallel/mesh.py), the JAX step sharded over a 'data'
+mesh: in a process group of W ranks each rank steps its b images of the
+global batch of W * b (rank r: images r * b .. (r + 1) * b - 1). The
+prototypes, their labels, tags, validity and global batch indices are
+gathered from every rank (the prototypes with gradient, which the
+gather's backward returns to their owner); each rank's own segment ids
+point into the gathered list; the memory bank pushes the gathered
+prototypes and stays replicated. Each loss mean runs over the groups of
+the global batch: a rank's share of a group mean is scaled by the
+all-reduced count of non-empty groups (a single group, by the
+all-reduced count of its entries), so the shares sum to the JAX step's
+loss, and the parameter gradients are summed over the ranks. Batch-norm
+statistics are the global batch's (models/resnet.py::BatchNorm2d). The
+logged losses and accuracy are the global values. The dropout generator
+of rank r is seeded seed + r: the JAX step's one dropout stream over the
+global batch cannot be matched. At world size 1 nothing of this runs.
 """
 
 from __future__ import annotations
@@ -49,6 +66,7 @@ from spml_tpu_torch.ops import common, kmeans, knn, losses
 from spml_tpu_torch.ops.segsort_loss import (fused_joint_losses,
                                              fused_segsort_loss,
                                              fused_set_segsort_loss)
+from spml_tpu_torch.parallel import mesh as mesh_lib
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import MemoryBank, TrainState
 from spml_tpu_torch.utils.device import resolve_device
@@ -97,9 +115,11 @@ def build_models(config, device="cuda", generator=None):
 def init_state(config, seed: int, sample_image, device="cuda") -> TrainState:
     """Models, optimizer state and memory bank.
 
-    sample_image: [B_global, H, W, 3]; only its batch size is read. The
-    frozen groups (stem, res2) get requires_grad=False: their update is
-    zero either way, and the backward pass then stops at res3.
+    sample_image: [B_global, H, W, 3]; only its batch size is read (the
+    global batch of every rank: the bank holds every rank's prototypes).
+    The frozen groups (stem, res2) get requires_grad=False: their update
+    is zero either way, and the backward pass then stops at res3. The
+    dropout generator is seeded seed + rank (0 without a process group).
     """
     device = resolve_device(device)
     emb_model, cls_model = build_models(
@@ -114,36 +134,63 @@ def init_state(config, seed: int, sample_image, device="cuda") -> TrainState:
         config.tpu.tag_width, device)
     return TrainState(step=0, emb_model=emb_model, cls_model=cls_model,
                       momentum={}, memory=memory,
-                      generator=torch.Generator(device).manual_seed(seed))
+                      generator=torch.Generator(device).manual_seed(
+                          seed + mesh_lib.make_mesh().rank))
 
 
-def _grouped_masked_mean(values, mask, n_groups=1):
+def _grouped_masked_mean(values, mask, n_groups=1, world=1):
     """Mean over each group's masked entries, then over non-empty groups
-    (n_groups=1: plain masked mean)."""
-    v = values.reshape(n_groups, -1).float()
-    m = mask.reshape(n_groups, -1).float()
+    (n_groups=1: plain masked mean). n_groups counts the groups of the
+    global batch; with world > 1 ranks, values and mask are this rank's
+    share and the result is its share of the global mean: with whole
+    groups a rank (n_groups a multiple of world), its group means over
+    the all-reduced count of non-empty groups; with one group, its masked
+    sum over the all-reduced count."""
+    if world > 1 and n_groups == 1:
+        m = mask.reshape(-1).float()
+        count = mesh_lib.all_reduce(m.sum())
+        return (values.reshape(-1).float() * m).sum() / torch.clamp(
+            count, min=1.0)
+    if n_groups % world:
+        raise ValueError(f"{n_groups} loss groups do not split over {world} "
+                         "ranks")
+    v = values.reshape(n_groups // world, -1).float()
+    m = mask.reshape(n_groups // world, -1).float()
     gsum = torch.sum(v * m, dim=1)
     gcnt = torch.sum(m, dim=1)
     gmean = gsum / torch.clamp(gcnt, min=1.0)
     has = (gcnt > 0).float()
-    return torch.sum(gmean * has) / torch.clamp(torch.sum(has), min=1.0)
+    groups = mesh_lib.all_reduce(torch.sum(has))
+    return torch.sum(gmean * has) / torch.clamp(groups, min=1.0)
 
 
-def _cross_entropy(logits, labels, num_classes, n_groups=1):
+def _cross_entropy(logits, labels, num_classes, n_groups=1, world=1):
     """Softmax CE over pixels with labels < num_classes."""
     valid = labels < num_classes
     safe = torch.where(valid, labels, 0)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return _grouped_masked_mean(nll, valid, n_groups)
+    return _grouped_masked_mean(nll, valid, n_groups, world)
 
 
 def _accuracy(logits, labels, num_classes):
     """Share of the pixels with labels < num_classes whose argmax is their
-    label."""
+    label, over every rank's pixels."""
     valid = labels < num_classes
     hit = (torch.argmax(logits, dim=-1) == labels) & valid
-    return hit.sum() / torch.clamp(valid.sum(), min=1)
+    counts = mesh_lib.all_reduce(torch.stack([hit.sum(), valid.sum()]))
+    return counts[0] / torch.clamp(counts[1], min=1)
+
+
+def _sum_gradients(params) -> None:
+    """Every parameter gradient summed over the ranks, through one flat
+    all-reduce (a parameter without a gradient adds zeros)."""
+    live = [p for _, p in params if p.requires_grad]
+    flat = mesh_lib.all_reduce(torch.cat([
+        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+        for p in live]))
+    for p, g in zip(live, flat.split([p.numel() for p in live])):
+        p.grad = g.view_as(p)
 
 
 def _named_params(state: TrainState):
@@ -192,13 +239,19 @@ def make_train_step(config):
     softmax = config.network.prediction_types == "softmax_classifier"
     schedule = optim.make_schedule(tcfg)
     update = optim.build_optimizer(tcfg)
+    mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
+    world = mesh.world
 
     def _n_groups(b):
-        bs = tcfg.batch_size
+        """Loss groups of the global batch of a rank's b images."""
+        b, bs = b * world, tcfg.batch_size
         if (config.tpu.loss_reduction != "per_device_mean"
                 or bs <= 0 or b % bs != 0):
             return 1
         return b // bs
+
+    def mean(values, mask, b):
+        return _grouped_masked_mean(values, mask, _n_groups(b), world)
 
     def forward_and_losses(state: TrainState, batch, compute_metrics):
         """Total loss and (metrics, current prototypes) for one batch.
@@ -216,7 +269,7 @@ def make_train_step(config):
             logits = state.cls_model(
                 common.normalize_embedding(emb.float()), state.generator)
             logits_up = resize_bilinear(logits, images.shape[1:3])
-            ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B))
+            ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), world)
             return ce, ({"sem_ann_loss": ce,
                          "accuracy": _accuracy(logits_up, sem_full, C)},
                         None)
@@ -244,17 +297,20 @@ def make_train_step(config):
         protos_loc = kmeans.calculate_prototypes_from_labels(
             emb_loc, segs.pixel_segment_ids, P, weights)
 
-        img_idx = torch.arange(B, device=dev)
-        proto_sem = segs.segment_semantic.reshape(-1)
-        proto_valid = segs.segment_valid.reshape(-1)
-        proto_tag = tags.repeat_interleave(P, dim=0)
-        proto_batch = img_idx.repeat_interleave(P)
-        cur = dict(prototype=protos.reshape(B * P, D),
-                   prototype_with_loc=protos_loc.reshape(B * P, -1),
-                   semantic_label=proto_sem,
-                   instance_label=segs.segment_instance.reshape(-1),
-                   batch_index=proto_batch, tag=proto_tag,
-                   valid=proto_valid)
+        # global image indices: this rank's images of the global batch
+        img_idx = torch.arange(B, device=dev) + mesh.rank * B
+        # every rank's prototypes, in rank order (the prototypes with
+        # gradient); the names below hold the gathered lists
+        cur = {k: mesh_lib.all_gather(v) for k, v in dict(
+            prototype=protos.reshape(B * P, D),
+            prototype_with_loc=protos_loc.detach().reshape(B * P, -1),
+            semantic_label=segs.segment_semantic.reshape(-1),
+            instance_label=segs.segment_instance.reshape(-1),
+            batch_index=img_idx.repeat_interleave(P),
+            tag=tags.repeat_interleave(P, dim=0),
+            valid=segs.segment_valid.reshape(-1)).items()}
+        proto_sem, proto_valid = cur["semantic_label"], cur["valid"]
+        proto_tag, proto_batch = cur["tag"], cur["batch_index"]
 
         # ---- join the memory bank (snapshots without gradient) ----
         memory = state.memory
@@ -279,7 +335,7 @@ def make_train_step(config):
         cls_in = common.normalize_embedding(emb.float()).detach()
         logits = state.cls_model(cls_in, state.generator)
         logits_up = resize_bilinear(logits, images.shape[1:3])
-        ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B))
+        ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), world)
 
         # ---- semantic co-occurrence tags ----
         # VOC: the dataset-level tags (segsort_softmax.py:146-151).
@@ -319,8 +375,8 @@ def make_train_step(config):
                 torch.where(ann_proto_mask, all_sem, -1), occ_proto_tags,
                 tcfg.sem_ann_concentration, tcfg.sem_occ_concentration,
                 ann_pix_mask, pix_valid, all_valid, reduction="none")
-            ann = _grouped_masked_mean(ann_ll, ann_pix_mask, _n_groups(B))
-            occ = _grouped_masked_mean(occ_ll, pix_valid, _n_groups(B))
+            ann = mean(ann_ll, ann_pix_mask, B)
+            occ = mean(occ_ll, pix_valid, B)
         else:
             if use_sem_ann:
                 # the hard-label kernels or the dense loss: one signature
@@ -330,8 +386,7 @@ def make_train_step(config):
                     emb_rows, pix_sem, pix_own, all_protos, all_sem,
                     tcfg.sem_ann_concentration, ann_pix_mask,
                     ann_proto_mask, reduction="none")
-                ann = _grouped_masked_mean(ann_ll, ann_pix_mask,
-                                           _n_groups(B))
+                ann = mean(ann_ll, ann_pix_mask, B)
             if use_sem_occ:
                 # the tag-set kernels or the dense loss: one signature
                 occ_loss = fused_set_segsort_loss if fused else \
@@ -340,7 +395,7 @@ def make_train_step(config):
                     emb_rows, occ_pix_tags, pix_own, all_protos,
                     occ_proto_tags, tcfg.sem_occ_concentration, pix_valid,
                     all_valid, reduction="none")
-                occ = _grouped_masked_mean(occ_ll, pix_valid, _n_groups(B))
+                occ = mean(occ_ll, pix_valid, B)
 
         sem_ann = (ce + ann) * tcfg.sem_ann_loss_weight \
             if ann is not None else ce
@@ -361,8 +416,7 @@ def make_train_step(config):
                 segs.segment_instance,
                 tcfg.img_sim_concentration, segs.pixel_valid,
                 segs.segment_valid)
-            img_sim = _grouped_masked_mean(
-                per_img, segs.pixel_valid.any(dim=-1), _n_groups(B))
+            img_sim = mean(per_img, segs.pixel_valid.any(dim=-1), B)
             img_sim = img_sim * tcfg.img_sim_loss_weight
             metrics["img_sim_loss"] = img_sim
             total = total + img_sim
@@ -373,7 +427,7 @@ def make_train_step(config):
                 emb_rows, occ_pix_tags, pix_own, all_protos, occ_proto_tags,
                 tcfg.feat_aff_concentration, pix_valid, all_valid,
                 reduction="none")
-            aff = _grouped_masked_mean(aff_ll, pix_valid, _n_groups(B))
+            aff = mean(aff_ll, pix_valid, B)
             aff = aff * tcfg.feat_aff_loss_weight
             metrics["feat_aff_loss"] = aff
             total = total + aff
@@ -399,15 +453,22 @@ def make_train_step(config):
         for _, p in params:
             p.grad = None
         total.backward()
+        if world > 1:
+            _sum_gradients(params)
         lr = schedule(state.step)
         state = update(params, state, lr)
         memory = state.memory if softmax else state.memory.push(
             cur["prototype"].detach(), cur["prototype_with_loc"].detach(),
             cur["semantic_label"], cur["instance_label"],
             cur["batch_index"], cur["tag"], cur["valid"],
-            batch["image"].shape[0])
+            batch["image"].shape[0] * world)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = total.detach()
+        if world > 1:  # the ranks' shares of each loss sum to its value
+            names = [k for k in metrics if k.endswith("loss")]
+            summed = mesh_lib.all_reduce(torch.stack(
+                [metrics[k].float() for k in names]))
+            metrics.update(zip(names, summed))
         metrics["learning_rate"] = lr
         return dataclasses.replace(state, step=state.step + 1,
                                    memory=memory), metrics

@@ -9,6 +9,14 @@ bank, the step and the dropout generator's state, so a resumed run
 continues exactly. The name keeps a port checkpoint apart from an orbax
 step, which is a directory named by the step alone.
 
+A checkpoint of a run of W > 1 ranks (train/driver.py; rank 0 writes
+it) also holds `rank_generators`, every rank's generator state in rank
+order. A restore in a run of as many ranks gives each rank its own; in
+any other run rank 0 (or the one process) takes `generator`, rank 0's,
+and the other ranks keep the streams they were seeded with. Nothing else
+depends on the rank count: a checkpoint of W ranks restores in one
+process at the same global batch, and the other way round.
+
 A save writes a temporary file next to the target and moves it over the
 target with os.replace: a step saved again is overwritten, and a crash
 mid-save leaves the earlier file whole (the JAX package's staged
@@ -27,6 +35,7 @@ import re
 
 import torch
 
+from spml_tpu_torch.parallel import mesh as mesh_lib
 from spml_tpu_torch.train.state import MemoryBank
 from spml_tpu_torch.utils import torch_import
 
@@ -66,12 +75,19 @@ def _payload(state) -> dict:
     }
 
 
-def save(directory: str, step: int, state) -> str:
-    """Writes `state` as step `step` (overwriting it); returns the path."""
+def save(directory: str, step: int, state, rank_generators=None) -> str:
+    """Writes `state` as step `step` (overwriting it); returns the path.
+    rank_generators: every rank's generator state, in a run of ranks."""
     os.makedirs(directory, exist_ok=True)
     target = _path(directory, step)
     tmp = target + ".tmp"
-    torch.save(_payload(state), tmp)
+    payload = _payload(state)
+    if rank_generators is not None:
+        # each state in a storage of its own: a generator reads a state
+        # from the start of its storage
+        payload["rank_generators"] = [g.cpu().clone()
+                                      for g in rank_generators]
+    torch.save(payload, tmp)
     os.replace(tmp, target)
     return target
 
@@ -99,7 +115,12 @@ def restore(directory: str, state, step: int | None = None):
     if state.emb_model is not None:
         state.emb_model.load_state_dict(saved["emb_model"], strict=True)
     state.cls_model.load_state_dict(saved["cls_model"], strict=True)
-    state.generator.set_state(saved["generator"])
+    mesh = mesh_lib.make_mesh()
+    gens = saved.get("rank_generators")
+    if gens is not None and len(gens) == mesh.world:
+        state.generator.set_state(gens[mesh.rank])
+    elif mesh.rank == 0:
+        state.generator.set_state(saved["generator"])
 
     def to_device(tensors):
         return {k: v.to(device) for k, v in tensors.items()}
