@@ -6,7 +6,8 @@ single-scale KNN inference path per image and batched, the training
 drivers from an image list on disk (with a profiler window) and the
 self-training chain after them (MSC, CRF, softmax inference,
 pseudo-labels), two data-parallel ranks of the flagship step, the
-drivers and batched inference, report.
+drivers and batched inference, two height-sharded ranks of the flagship
+network, the softmax baseline and the drivers, report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -122,8 +123,8 @@ Phases, each printing one line or more:
     parameters, buffers and banks equal (sha256). (b) K1-K3 once a rank
     in each of those steps, at N 65,536 and P 6,144; (c) bf16, 3 warm-up
     and 10 timed steps a rank (CUDA events), then 3 with every collective
-    timed by what it serves (the gradient sum, batch norms, the
-    prototype gather, the rest; a collective of no known caller fails),
+    timed by the label its call site gives it (the gradient sum, batch
+    norms, the prototype gather, the rest; an unlabelled one fails),
     beside one process x 8 timed the same way; (d)
     train_spml (the driver phase's stage 1 at batch 4 a rank) on a world
     of WORLD_IMAGES images for 4 iterations and resumed to 6: K1-K3 once
@@ -136,7 +137,33 @@ Phases, each printing one line or more:
     on rank 0: its PNGs equal a one-process run's. Lines (a)-(f) and a
     summary: the case, ms/step, global images/s, peak a rank, the
     nvidia-smi line;
- 7. inference, the single-scale KNN path at VOC's test geometry
+ 7. sp, height-sharded training (tpu.spatial_partition, parallel/
+    halo.py): SP_SPACE = 2 space ranks of one data rank spawned once (as
+    dp: NCCL on two cards, else gloo with both on cuda:0). (a) float32
+    with TF32 off: the flagship network (panoptic_deeplab_101, 64-d) from
+    seed 0, BN momentum 0.1, every parameter trained, in train mode on
+    SP_BATCH 8 blobby images at crop 512, one forward and the backward
+    of a seeded cotangent: the ranks' rows (256 image rows each) joined
+    against one process's embeddings (SP_EMB_ATOL x max), location
+    features (equal), BN running statistics' updates (SP_STAT_RTOL) and
+    every parameter gradient (SP_GRAD_RTOL in L2, each and all), each
+    plus the float32 floor of SP_FLOOR_RUNS (the one process in cuDNN's
+    benchmark mode, with the images reversed, in NCHW), which run none of
+    the spatial code; (b) the softmax baseline (network.prediction_types
+    softmax_classifier) on the flagship recipe in bf16 at the global
+    batch 8: 3 warm-up and 10 timed steps a rank, then 3 with every
+    collective timed by its label (the gradient sum, batch norms, halo
+    exchanges, the rest), beside one process x 8 timed the same way;
+    (c) train_spml with the softmax baseline (the driver phase's stage
+    1, batch 4, tensorboard_step 1: the image panels' eval forward on
+    both ranks) on a fresh world of WORLD_IMAGES images for 4 iterations
+    and resumed to 6, then train_classifier over its snapshot for 2: the
+    iterations, checkpoints 2, 4, 6 from rank 0 with both generator
+    states, tpu.num_devices 2, finite losses, the ranks' tensors equal
+    (sha256), no kernel launched (the path has none). Lines (a)-(c) and
+    a summary: ms/step and peak a rank against one process, the
+    nvidia-smi line;
+ 8. inference, the single-scale KNN path at VOC's test geometry
     (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
     kernel on it): panoptic_deeplab_101 from random weights of seed 0
     (cli.build_eval_models without a snapshot; eval mode, bf16 convs),
@@ -166,7 +193,7 @@ Phases, each printing one line or more:
     the same weights) each prediction equals predict_semantic's; a
     second [inference] line: batched ms/image (CUDA events, 4 groups
     after one) and peak memory beside the per-image ones;
- 8. driver, the train entry points as a user runs them, on a world of 24
+ 9. driver, the train entry points as a user runs them, on a world of 24
     JPEGs (500 x 375 and 375 x 500) with blobby 21-class PNG labels
     (255 around each blob) and ~30 Voronoi segments each as instance
     maps, written from seed 0 (spml_tpu_torch/data/synthetic.py):
@@ -212,7 +239,7 @@ Phases, each printing one line or more:
     step's wait, the first step; then the same step replayed on the
     run's last batch with the loader closed, timed the same way and back
     to back (as the recipes are); peak memory, the nvidia-smi line;
- 9. selftrain, the VOC scribble recipe after stage 1
+10. selftrain, the VOC scribble recipe after stage 1
     (train_spml_scribble.sh:82-170) on the driver phase's world and
     snapshots, at full width (no custom kernel on it): (a)
     run_knn_inference on the stage-1 snapshot and bank over 4 images with
@@ -233,8 +260,8 @@ Phases, each printing one line or more:
     pyramid, float16 download, host CRF), of the softmax pyramid and of
     the pseudo-label step (forward, affinity, walk, CRF), peak memory,
     the nvidia-smi line;
-10. the kernel list as one JSON line;
-11. the card's name and power limit (nvidia-smi), then the last line
+11. the kernel list as one JSON line;
+12. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -256,7 +283,7 @@ JAX package's tests/test_train_step.py::test_remat_stages_exactness: the
 backward's sums in another order); batched bf16 BF16_STITCH_ATOL 2^-6
 (two bf16 roundings of a unit-scale component); dp those of
 tests/test_torch_train_step.py for another reduction order (DP_*, at
-their definition).
+their definition); sp SP_* at their definition.
 """
 
 from __future__ import annotations
@@ -975,49 +1002,30 @@ class Clock:
 COLLECTIVE_KINDS = ("gradient", "batch norm", "gather", "other")
 
 
-def collective_kind():
-    """What a collective serves, from its nearest caller that tells: the
-    gradient sum, a batch norm, the prototype gather, or other (the loss
-    groups' counts, the metrics). A collective of no known caller
-    raises, so a renamed caller fails the phase instead of moving its
-    time to another kind."""
-    rules = {"_sum_gradients": "gradient", "_grouped_masked_mean": "other",
-             "_accuracy": "other", "train_step": "other",
-             "forward_and_losses": "gather"}
-    f = sys._getframe(2)
-    while f is not None:
-        name = os.path.basename(f.f_code.co_filename)
-        if name == "resnet.py":
-            return "batch norm"
-        if f.f_code.co_name in rules:
-            return rules[f.f_code.co_name]
-        if name == "mesh.py" and f.f_code.co_name in ("forward", "backward"):
-            return "gather"  # _AllGather
-        f = f.f_back
-    raise AssertionError("dp: a collective of no known caller: "
-                         + "".join(traceback.format_stack(limit=8)))
-
-
 @contextlib.contextmanager
 def timing_collectives(torch, device, mesh_lib):
-    """Times every all_reduce and gather of parallel/mesh.py by what it
-    serves; yields {kind: [Clock, ...]}."""
+    """Times every collective of parallel/mesh.py by the label its call
+    site gives it (mesh_lib.collective: the gradient sum, a batch norm,
+    the prototype gather, a halo exchange, or other: the loss groups'
+    counts, the metrics); yields {kind: [Clock, ...]}. A collective
+    without a label raises, so a call site that loses its label fails
+    the phase instead of moving its time to another kind."""
     kinds = {}
-    orig = mesh_lib.all_reduce, mesh_lib._gather
 
-    def timed(fn):
-        def wrapper(x):
-            clock = Clock(torch, device).start()
-            out = fn(x)
-            kinds.setdefault(collective_kind(), []).append(clock.stop())
-            return out
-        return wrapper
+    @contextlib.contextmanager
+    def timer(kind):
+        if kind is None:
+            raise AssertionError("a collective without a label: "
+                                 + "".join(traceback.format_stack(limit=8)))
+        clock = Clock(torch, device).start()
+        yield
+        kinds.setdefault(kind, []).append(clock.stop())
 
-    mesh_lib.all_reduce, mesh_lib._gather = map(timed, orig)
+    mesh_lib.set_collective_timer(timer)
     try:
         yield kinds
     finally:
-        mesh_lib.all_reduce, mesh_lib._gather = orig
+        mesh_lib.set_collective_timer(None)
 
 
 def dp_model_tensors(state):
@@ -1687,6 +1695,497 @@ def check_dp_launches(ranks):
         if got != want:
             raise AssertionError(f"dp rank {r['rank']}: launches {got}, "
                                  f"want {want} (K1-K3 once a step)")
+
+
+# ---------------------------------------------------------------------------
+# Height-sharded training: two space ranks of the softmax baseline and the
+# stage-2 classifier (tpu.spatial_partition, parallel/halo.py)
+# ---------------------------------------------------------------------------
+
+SP_SPACE = 2  # space ranks, data 1
+SP_BATCH = 8  # the global batch of (a) and (b): each rank all 8 images
+SP_DRIVER_BATCH = 4  # train.batch_size of (c): the driver phase's stage 1
+# (a), TF32 off: one forward and backward of the ranks, their rows
+# joined, against one process, each tolerance plus the floor of that
+# precision's SP_FLOOR_RUNS: the largest difference from the one process
+# of the same forward and backward in other exact arithmetics, none of
+# them the spatial code (cuDNN's own choice of algorithms against its
+# heuristics' for the same shapes; the batch's images in reverse order,
+# every reduction over the batch in another order; the contiguous NCHW
+# layout, other convolution kernels).
+# float32 at SP_BATCH, set before the phase's first run on the card: the
+# embeddings within SP_EMB_ATOL x max|one process's|, the location
+# features equal, each BN running statistic's update within
+# SP_STAT_RTOL x max|update| + one float32 unit; each gradient's
+# difference in L2 printed as a share of SP_GRAD_RTOL of its L2 + floor,
+# not held: the first card run measured the float32 floor runs 3.3%
+# off the one process in the gradients' L2 (a stem gradient that is the
+# small remainder of large terms through 101 layers of batch norm), and
+# the ranks 3.6%.
+# float64 at SP_F64_BATCH (the same network, full width and depth), so
+# that the gradients can be held: the embeddings, the statistics'
+# updates, each gradient element (x max|gradient|) and each gradient
+# and all of them in L2 within SP_F64_RTOL, plus that floor.
+SP_EMB_ATOL, SP_STAT_RTOL, SP_GRAD_RTOL = 1e-4, 1e-3, 1e-3
+SP_F64_BATCH, SP_F64_RTOL = 2, 1e-7
+SP_FLOOR_RUNS = {"float32": {"cudnn.benchmark": {"benchmark": True},
+                             "images reversed": {"reverse": True},
+                             "NCHW": {"nchw": True}},
+                 "float64": {"images reversed": {"reverse": True},
+                             "NCHW": {"nchw": True}}}
+SP_KINDS = ("gradient", "batch norm", "halo", "other")
+
+
+def sp_spec_model(spec, torch, device, dtype):
+    """The flagship network (spec's: panoptic_deeplab_101, 64-d) from
+    seed 0 in `dtype` (float32 or float64), BN momentum 0.1 (the running
+    statistics move visibly in one forward), every parameter trained
+    (the stem's stride-2 halo too), in train mode; the global batch's
+    images (SP_BATCH in float32, SP_F64_BATCH in float64) and a seeded
+    cotangent."""
+    from spml_tpu_torch.models.embeddings import build_embedding_model
+    from spml_tpu_torch.train import flagship
+
+    dt = getattr(torch, dtype)
+    model = build_embedding_model(
+        spec["backbone"], spec["dim"], compute_dtype=dt, bn_momentum=0.1,
+        generator=torch.Generator().manual_seed(0))
+    model = model.to(device, dt, memory_format=torch.channels_last).train()
+    crop = spec["crop"]
+    b = SP_BATCH if dtype == "float32" else SP_F64_BATCH
+    images = flagship.blobby_batch(b, crop, 21, device=device)["image"]
+    cot = torch.randn((b, crop // 4, crop // 4, spec["dim"]),
+                      generator=torch.Generator().manual_seed(1))
+    return model, images.to(dt), cot.to(device, dt)
+
+
+def sp_forward_backward(torch, model, images, cot, mesh=None):
+    """One train-mode forward of `images` (this rank's rows inside
+    halo.sharded(mesh)) and the backward of sum(embeddings * cot): the
+    embeddings, location features, running statistics and every
+    parameter gradient (summed over the ranks)."""
+    from spml_tpu_torch.parallel import halo
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    def stats():
+        return {k: v.detach().clone() for k, v in
+                model.state_dict().items() if "running" in k}
+
+    before = stats()
+    with halo.sharded(mesh):
+        emb, loc = model(images)
+    (emb * cot).sum().backward()
+    params = list(model.named_parameters())
+    grads = torch.cat([p.grad.reshape(-1) for _, p in params])
+    with mesh_lib.collective("gradient"):
+        grads = mesh_lib.all_reduce(grads)
+    sizes = [p.numel() for _, p in params]
+    return {"emb": emb.detach(), "loc": loc, "stats": stats(),
+            "init_stats": before,
+            "grads": {n: g.view_as(p) for (n, p), g in zip(
+                params, grads.split(sizes))}}
+
+
+def sp_one_process(torch, spec, device, dtype, benchmark=False,
+                   reverse=False, nchw=False):
+    """sp_forward_backward of one process over the whole global batch
+    (benchmark: cuDNN's benchmark mode; reverse: the images in reverse
+    order, the outputs handed back in the batch's order; nchw: the model
+    and its activations in the contiguous NCHW layout, not
+    channels_last)."""
+    model, images, cot = sp_spec_model(spec, torch, device, dtype)
+    if nchw:
+        model = model.to(memory_format=torch.contiguous_format)
+        images = images.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    order = list(range(images.shape[0]))
+    if reverse:
+        order = order[::-1]
+    old = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = benchmark
+    try:
+        out = sp_forward_backward(torch, model, images[order], cot[order])
+    finally:
+        torch.backends.cudnn.benchmark = old
+    out["emb"], out["loc"] = out["emb"][order], out["loc"][order]
+    return out
+
+
+def sp_measures(ref, got):
+    """Each compared tensor's difference from the reference: the largest
+    of the embeddings', location features' and statistics', each
+    gradient's largest ("gmax.") and its L2 ("grads."), and the L2 of
+    all of them ("grads L2")."""
+    m = {"emb": float((got["emb"] - ref["emb"]).abs().max()),
+         "loc": float((got["loc"] - ref["loc"]).abs().max())}
+    for k, v in ref["stats"].items():
+        m["stats." + k] = float((got["stats"][k].to(v.device) - v)
+                                .abs().max())
+    diff2 = 0.0
+    for k, v in ref["grads"].items():
+        d = got["grads"][k].to(v.device) - v
+        m["grads." + k] = float(d.norm())
+        m["gmax." + k] = float(d.abs().max())
+        diff2 += m["grads." + k] ** 2
+    m["grads L2"] = math.sqrt(diff2)
+    return m
+
+
+def sp_reference(torch, spec, device):
+    """For each precision of (a): the one process's forward and backward,
+    its floor (the largest difference of SP_FLOOR_RUNS from it) and its
+    tolerances, saved to spec["ref"] + precision for the ranks. Returns
+    {precision: the floor runs' measures}."""
+    out = {}
+    for dtype, floor_runs in SP_FLOOR_RUNS.items():
+        ref = sp_one_process(torch, spec, device, dtype)
+        runs = {name: sp_measures(ref, sp_one_process(
+            torch, spec, device, dtype, **kw))
+            for name, kw in floor_runs.items()}
+        floor = {k: max(r[k] for r in runs.values())
+                 for k in runs[next(iter(runs))]}
+        f64 = dtype == "float64"
+        tol = {"emb": (SP_F64_RTOL if f64 else SP_EMB_ATOL)
+               * float(ref["emb"].abs().max()), "loc": 0.0}
+        for k, v in ref["stats"].items():
+            upd = float((v - ref["init_stats"][k]).abs().max())
+            unit = 0.0 if f64 else float(np.spacing(np.float32(
+                v.abs().max().item())))
+            tol["stats." + k] = (SP_F64_RTOL if f64 else SP_STAT_RTOL) \
+                * upd + unit
+        rtol = SP_F64_RTOL if f64 else SP_GRAD_RTOL
+        for k, v in ref["grads"].items():
+            tol["grads." + k] = rtol * float(v.norm())
+            tol["gmax." + k] = rtol * float(v.abs().max())
+        tol["grads L2"] = rtol * math.sqrt(sum(
+            float(v.norm()) ** 2 for v in ref["grads"].values()))
+        ref = {k: ({n: t.cpu() for n, t in v.items()}
+                   if isinstance(v, dict) else v.cpu())
+               for k, v in ref.items()}
+        torch.save({**ref, "floor": floor, "tol": tol},
+                   spec["ref"] + dtype)
+        out[dtype] = runs
+        ref = None
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sp_equality(torch, spec, device, mesh):
+    """(a): for each precision, this rank's rows of the forward and
+    backward, the ranks' embeddings and location features joined,
+    against the one process at tolerance + floor (in float32 the
+    gradients' shares printed, not held); the shares, the worst held
+    and the worst gradient ones first."""
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    for dtype in SP_FLOOR_RUNS:
+        model, images, cot = sp_spec_model(spec, torch, device, dtype)
+        rows = mesh.rows(images.shape[1])
+        got = sp_forward_backward(torch, model, images[:, rows],
+                                  cot[:, mesh.rows(cot.shape[1])], mesh)
+        model = images = cot = None
+        got["emb"] = mesh_lib.gather_rows(got["emb"].contiguous(), mesh)
+        got["loc"] = mesh_lib.gather_rows(got["loc"].contiguous(), mesh)
+        ref = torch.load(spec["ref"] + dtype, weights_only=True)
+        ref = {k: ({n: t.to(device) for n, t in v.items()}
+                   if k in ("stats", "grads") else v)
+               for k, v in ref.items()}
+        ref["emb"], ref["loc"] = ref["emb"].to(device), ref["loc"].to(
+            device)
+        m = sp_measures(ref, got)
+        limit = {k: ref["tol"][k] + ref["floor"][k] for k in m}
+        shares = {k: m[k] / limit[k] if limit[k] > 0 else (
+            0.0 if m[k] == 0 else math.inf) for k in m}
+        held = [k for k in m if dtype == "float64"
+                or not k.startswith(("grads", "gmax"))]
+        bad = {k: (m[k], ref["tol"][k], ref["floor"][k]) for k in held
+               if shares[k] > 1.0}
+        if bad:
+            raise AssertionError(f"sp rank {mesh.rank} against one "
+                                 f"process, {dtype} (difference, "
+                                 f"tolerance, floor): {bad}")
+        grads = [k for k in m if k.startswith("grads")]
+        out[dtype] = {
+            "held": sorted(((k, shares[k]) for k in held),
+                           key=lambda kv: -kv[1])[:3],
+            "grads": sorted(((k, shares[k]) for k in grads),
+                            key=lambda kv: -kv[1])[:3],
+            "emb": m["emb"], "floor_emb": ref["floor"]["emb"],
+            "l2": shares["grads L2"], "n_grads": len(ref["grads"]),
+            "n_stats": len(ref["stats"])}
+        got = ref = None
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sp_config():
+    """The softmax baseline on the flagship recipe (train/flagship.py,
+    bf16) at the global batch SP_BATCH (each of the SP_SPACE ranks its
+    rows of all of it)."""
+    import copy
+
+    from spml_tpu_torch.train import flagship
+
+    over = copy.deepcopy(flagship.OVERRIDES)
+    over["network"]["prediction_types"] = "softmax_classifier"
+    over["train"]["batch_size"] = SP_BATCH
+    return over
+
+
+def sp_time(torch, spec, device, mesh=None, mesh_lib=None):
+    """(b): the bf16 softmax-baseline step, 3 warm-up and 10 timed
+    steps: this rank's rows (mesh) or one process; then, for a rank, 3
+    steps with every collective timed by its label."""
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.train import flagship
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg = load_config(overrides=spec["bf16"])
+    if mesh is not None:
+        cfg.tpu.spatial_partition = SP_SPACE
+    batch = flagship.make_batch(cfg, device=device)
+    state = step_lib.init_state(cfg, 0, batch["image"], device=device)
+    step = step_lib.make_train_step(cfg)
+    if mesh is None:
+        _, ms, peak = time_steps(torch, step, state, batch, device)
+        return {"ms": ms, "peak": peak}
+    local = mesh_lib.shard_rows(batch, mesh)
+    state, ms, peak = time_steps(torch, step, state, local, device,
+                                 mesh_lib.barrier)
+    with timing_collectives(torch, device, mesh_lib) as kinds:
+        for _ in range(3):
+            state, m = step(state, local)
+    if set(kinds) != set(SP_KINDS):  # a call site lost its label
+        raise AssertionError(f"sp: collectives of kinds {sorted(kinds)}, "
+                             f"want {SP_KINDS}")
+    coll = {k: (sum(c.ms() for c in v) / 3, len(v) // 3)
+            for k, v in kinds.items()}
+    return {"ms": ms, "peak": peak, "collectives": coll,
+            "loss": float(m["loss"])}
+
+
+def sp_driver(torch, fused, spec, device, mesh):
+    """(c): train_spml with the softmax baseline for 4 iterations and
+    resumed to 6, then train_classifier over its snapshot for 2, on
+    every rank: iterations, checkpoints, launches, digests."""
+    import argparse
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.data import datasets
+    from spml_tpu_torch.train import driver
+    from spml_tpu_torch.utils import checkpoint as ckpt
+
+    root = spec["root"]
+    stage1_dir = os.path.join(root, "sp_stage1")
+
+    def args(snapshot):
+        return argparse.Namespace(data_dir=spec["data"],
+                                  data_list=spec["list"],
+                                  snapshot_dir=snapshot)
+
+    logged = []
+    log_metrics = driver._log_metrics
+
+    def capture(writer, metrics, it, prefix=""):
+        logged.append((it, float(metrics["loss"])))
+        log_metrics(writer, metrics, it, prefix)
+
+    driver._log_metrics = capture
+    out = {"runs": []}
+    try:
+        for first, last in ((0, 4), (4, 6)):
+            cfg = load_config(overrides=spec["stage1"])
+            cfg.train.max_iteration = last
+            cfg.train.resume = first > 0
+            cfg.train.tensorboard_step = 1  # every iteration, with panels
+            logged.clear()
+            fused.reset_launch_counts()
+            state = driver.train_spml(args(stage1_dir), cfg,
+                                      datasets.ListTagDataset, device=device)
+            out["runs"].append((first, last, [it for it, _ in logged],
+                                [loss for _, loss in logged], {
+                                    k: v for k, v in fused.LAUNCHES.items()
+                                    if v}))
+        out["stage1"] = digest(model_tensors(state))
+        out["num_devices"] = cfg.tpu.num_devices
+        ck_dir = os.path.join(stage1_dir, "checkpoints")
+        out["checkpoints"] = ckpt.steps(ck_dir)
+        out["rank_generators"] = len(ckpt.read(ck_dir).get(
+            "rank_generators", []))
+        state = None
+        stage2 = load_config(overrides=spec["stage1"])
+        stage2.network.pretrained = stage1_dir
+        stage2.train.max_iteration = 2
+        stage2.train.tensorboard_step = 1
+        logged.clear()
+        fused.reset_launch_counts()
+        head = driver.train_classifier(
+            args(os.path.join(root, "sp_stage2")), stage2,
+            datasets.ListTagClassifierDataset, device=device).cls_model
+        out["stage2"] = digest(head.state_dict())
+        out["stage2_iterations"] = [it for it, _ in logged]
+        out["stage2_losses"] = [loss for _, loss in logged]
+        out["stage2_launches"] = {k: v for k, v in fused.LAUNCHES.items()
+                                  if v}
+    finally:
+        driver._log_metrics = log_metrics
+    return out
+
+
+def sp_rank(spec, *, device):
+    """One rank of the [sp] phase, in a process of its own
+    (parallel/mesh.py::spawn): (a), (b), (c)."""
+    import torch
+
+    from spml_tpu_torch.ops import _cuda
+    from spml_tpu_torch.ops import segsort_loss as fused
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    _cuda.CSRC = Path(spec["csrc"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_mesh(SP_SPACE)
+    t0 = time.perf_counter()
+    out = {"rank": mesh.rank, "world": mesh.world, "space": mesh.space}
+    for name, run in (
+            ("equality", lambda: sp_equality(torch, spec, device, mesh)),
+            ("timing", lambda: sp_time(torch, spec, device, mesh,
+                                       mesh_lib)),
+            ("driver", lambda: sp_driver(torch, fused, spec, device,
+                                         mesh))):
+        out[name] = run()
+        if device.type == "cuda":  # the ranks may share one card
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_sp(ranks):
+    """The ranks against each other, the drivers' iterations,
+    checkpoints and launches (none: no kernel on this path)."""
+    a, b = ranks
+    digests = [(r["driver"]["stage1"], r["driver"]["stage2"])
+               for r in ranks]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"sp: the ranks' tensors differ: {digests}")
+    for r in ranks:
+        dr = r["driver"]
+        if [(f, la, it) for f, la, it, _, _ in dr["runs"]] != [
+                (0, 4, [0, 1, 2, 3]), (4, 6, [4, 5])]:
+            raise AssertionError(f"sp rank {r['rank']}: stage 1 runs "
+                                 f"{dr['runs']}")
+        if (dr["checkpoints"] != [2, 4, 6]
+                or dr["rank_generators"] != SP_SPACE
+                or dr["num_devices"] != SP_SPACE
+                or dr["stage2_iterations"] != [0, 1]):
+            raise AssertionError(f"sp rank {r['rank']} driver: {dr}")
+        losses = [x for *_, ls, _ in dr["runs"] for x in ls] + dr[
+            "stage2_losses"] + [r["timing"]["loss"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"sp rank {r['rank']}: losses {losses}")
+        launched = [la for *_, la in dr["runs"]] + [dr["stage2_launches"]]
+        if any(launched):
+            raise AssertionError(f"sp rank {r['rank']}: kernels launched "
+                                 f"{launched} on a path that has none")
+
+
+def run_sp(torch, devices=None, backend=None, device=None):
+    """The [sp] phase: SP_SPACE ranks of one data rank spawned once, each
+    running sp_rank; this process computes the one-process reference,
+    its floor and its timing first. devices, backend, device: the CPU
+    rehearsal's (cpu ranks, gloo, cpu)."""
+    import copy
+    import tempfile
+
+    from spml_tpu_torch.data import synthetic
+    from spml_tpu_torch.ops import _cuda
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    if devices is None:
+        devices, backend, case = dp_devices(torch)
+    else:
+        case = f"{backend} on {devices}"
+    device = torch.device(device or DEVICE)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="spml_sp_") as root:
+        data = os.path.join(root, "world")
+        lst = synthetic.write_world(data, WORLD_IMAGES, seed=0)
+        stage1 = copy.deepcopy(STAGE1)
+        stage1["network"]["prediction_types"] = "softmax_classifier"
+        stage1["train"]["batch_size"] = SP_DRIVER_BATCH
+        stage1["tpu"]["spatial_partition"] = SP_SPACE
+        spec = {"csrc": str(_cuda.CSRC), "root": root, "data": data,
+                "list": lst, "stage1": stage1,
+                "backbone": STAGE1["network"]["backbone_types"],
+                "dim": STAGE1["network"]["embedding_dim"],
+                "crop": STAGE1["train"]["crop_size"][0],
+                "bf16": sp_config(), "ref": os.path.join(root, "ref.pt")}
+        log("sp", f"{len(devices)} ranks (data 1 x space {SP_SPACE}) on "
+            f"{devices}: {case}")
+        floor_runs = sp_reference(torch, spec, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        one = sp_time(torch, spec, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(sp_rank, (spec,), devices, backend)
+        spawn_s = time.perf_counter() - t0
+        check_sp(ranks)
+    eq = [r["equality"] for r in ranks]
+    tm = [r["timing"] for r in ranks]
+    dr = ranks[0]["driver"]
+    ms = max(t["ms"] for t in tm)
+    coll = {k: max(t["collectives"][k][0] for t in tm) for k in SP_KINDS}
+    counts = {k: tm[0]["collectives"][k][1] for k in SP_KINDS}
+    a = eq[0]["float32"]
+    log("sp", f"(a) TF32 off, {spec['backbone']} {spec['dim']}-d, crop "
+        f"{spec['crop']}, train mode, every parameter trained, one forward "
+        f"and backward: the {SP_SPACE} ranks' rows joined against one "
+        f"process, each tolerance plus its floor. float32, batch "
+        f"{SP_BATCH}: embeddings atol {SP_EMB_ATOL} x max, location "
+        f"features equal, {a['n_stats']} running statistics' updates "
+        f"within {SP_STAT_RTOL} held; {a['n_grads']} gradients' L2 against "
+        f"{SP_GRAD_RTOL} printed. float64, batch {SP_F64_BATCH}: all of "
+        f"those and every gradient element and L2 within {SP_F64_RTOL} "
+        "held. " + " | ".join(
+            f"rank {r}, {dt}: embeddings {e[dt]['emb']:.3e} (floor "
+            f"{e[dt]['floor_emb']:.3e}), gradients' L2 {e[dt]['l2']:.3f} "
+            "of tolerance + floor; worst held " + ", ".join(
+                f"{k} {v:.3f}" for k, v in e[dt]["held"])
+            + "; worst gradients " + ", ".join(
+                f"{k} {v:.3f}" for k, v in e[dt]["grads"])
+            for r, e in enumerate(eq) for dt in SP_FLOOR_RUNS)
+        + ". Floor runs: " + " | ".join(
+            f"{dt} {name}: embeddings {m['emb']:.3e}, gradients' L2 "
+            f"{m['grads L2']:.3e}" for dt, runs in floor_runs.items()
+            for name, m in runs.items()))
+    log("sp", f"(b) bf16 softmax baseline, global batch {SP_BATCH}, 3 + 10 "
+        f"steps: {ms:.2f} ms/step (ranks "
+        + " / ".join(f"{t['ms']:.2f}" for t in tm)
+        + f"), {SP_BATCH * 1000 / ms:.2f} images/s, peak "
+        + " / ".join(f"{t['peak']:.2f}" for t in tm)
+        + " GiB a rank; collectives a step (slowest rank, ms, count): "
+        + ", ".join(f"{k} {coll[k]:.2f} ({counts[k]})" for k in SP_KINDS)
+        + f"; one process x {SP_BATCH}: {one['ms']:.2f} ms/step, peak "
+        f"{one['peak']:.2f} GiB; case: {case}")
+    log("sp", f"(c) train_spml softmax baseline, batch {SP_DRIVER_BATCH}, "
+        f"{SP_SPACE} space ranks: runs "
+        + ", ".join(f"{a}-{b} losses {[round(x, 4) for x in ls]}"
+                    for a, b, _, ls, _ in dr["runs"])
+        + f", tpu.num_devices {dr['num_devices']}, checkpoints "
+        f"{dr['checkpoints']} from rank 0 with {dr['rank_generators']} "
+        "generator states, resumed at step 4, ranks torch.equal; "
+        f"train_classifier iterations {dr['stage2_iterations']}, losses "
+        f"{[round(x, 4) for x in dr['stage2_losses']]}, heads torch.equal; "
+        "no kernel launched")
+    log("sp", f"summary, {case}: {ms:.2f} ms/step, peak "
+        f"{max(t['peak'] for t in tm):.2f} GiB a rank against "
+        f"{one['ms']:.2f} ms/step, {one['peak']:.2f} GiB one process; "
+        f"spawn to join {spawn_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s; card {nvidia_smi_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -3390,6 +3889,7 @@ def main() -> int:
         time_dilated_conv(torch, dc)
     run_remat(torch, fused)
     run_dp(torch, fused)
+    run_sp(torch)
     run_inference(torch)
     run_driver(torch, fused, dc)
 

@@ -101,7 +101,7 @@ class _PredictBatcher:
         self.memory = memory
         self.group = max(2, int(group_size))
         self.save = save
-        self.mesh = mesh_lib.make_mesh(eng.config.tpu.spatial_partition)
+        self.mesh = mesh_lib.make_mesh()
         self._buckets: dict = {}
 
     def add(self, base: str, image: np.ndarray, oh: int, ow: int):
@@ -272,7 +272,7 @@ def run_knn_inference(args, config, msc=False, crf=False, scales=MSC_SCALES,
     (_PredictBatcher). In a process group only that batched path runs
     (sharded over the ranks, which meet at a barrier at the end); the
     others raise."""
-    mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
+    mesh = mesh_lib.make_mesh()  # no space axis, as the JAX runner's
     if mesh.world > 1 and (msc or crf or config.tpu.infer_batch <= 1):
         raise ValueError(
             f"{mesh.world} ranks: only single-scale KNN inference without "

@@ -13,28 +13,37 @@ spml/models/predictions/segsort_softmax.py:22-37 — conv3x3 no bias -> BN
 Inputs and outputs are NHWC as in the JAX package; inside, the models run
 NCHW on the permuted NHWC tensor, which is channels_last in memory.
 Convolutions run in `compute_dtype` (autocast) with float32 parameters;
-the embeddings and local features leave the model in float32.
+the embeddings and local features leave the model in float32 (the
+embeddings of a float64 model, compute_dtype float64, in float64: the
+tests' exact reference).
+
+Height-sharded (tpu.spatial_partition, inside parallel/halo.py's
+sharded()): the images are this rank's rows of its images, and so are
+the outputs. The backbone, ASPP and the classifier head's 3x3 conv
+exchange halo rows; the x2 upsample reads one row above and below
+(halo.interpolate); the location features are the global grid's rows.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from spml_tpu_torch.models import local
 from spml_tpu_torch.models.resnet import (BN_EPS, BN_MOMENTUM,
                                           RESNET_DEPTHS, BatchNorm2d,
-                                          ResnetBackbone, init_backbone_)
+                                          ResnetBackbone, at_least_float32,
+                                          init_backbone_)
 from spml_tpu_torch.models.spp import (ASPP, PSPP, init_torch_conv_,
                                        resize_bilinear)
+from spml_tpu_torch.parallel import halo
 
 PSPP_FEATURE_DIM = 512
 
 
 def _autocast(x: torch.Tensor, dtype: torch.dtype):
     return torch.autocast(x.device.type, dtype=dtype,
-                          enabled=dtype != torch.float32)
+                          enabled=dtype in (torch.bfloat16, torch.float16))
 
 
 class EmbeddingModel(nn.Module):
@@ -73,20 +82,28 @@ class EmbeddingModel(nn.Module):
             raise ValueError(f"unknown head {head!r}")
 
     def forward(self, images: torch.Tensor, resize_as_input: bool = False):
+        mesh = halo.current()
+        shard = (0, 1)
+        if mesh is not None:
+            if resize_as_input:
+                raise NotImplementedError("resize_as_input (inference) "
+                                          "runs unsharded")
+            halo.check_height(images.shape[1] * mesh.space, mesh.space)
+            shard = (mesh.space_rank, mesh.space)
         x = images.permute(0, 3, 1, 2)
         with _autocast(x, self.compute_dtype):
             res5 = self.resnet_backbone(x.to(self.compute_dtype))[3]
             emb = getattr(self, self.head)(res5)
-        emb = emb.float()
+        emb = at_least_float32(emb)
         h, w = emb.shape[2], emb.shape[3]
-        emb = F.interpolate(emb, size=(2 * h, 2 * w), mode="bilinear",
-                            align_corners=False, antialias=False)
+        emb = halo.interpolate(emb, (2 * h, 2 * w))
         emb = emb.permute(0, 2, 3, 1)
         if resize_as_input:  # a second resize, not folded into the first
             emb = resize_bilinear(emb, tuple(images.shape[1:3]))
         loc = local.location_color_features(
             images.float(), tuple(emb.shape[1:3]), use_color=self.use_color,
-            norm_color=self.norm_color, smooth_ksize=self.smooth_ksize)
+            norm_color=self.norm_color, smooth_ksize=self.smooth_ksize,
+            shard=shard)
         return emb, loc
 
 
@@ -102,7 +119,8 @@ def dropout(x: torch.Tensor, rate: float,
 
 class ClassifierHead(nn.Module):
     """conv3x3 (no bias) -> BN -> ReLU -> Dropout -> conv1x1 logits on
-    L2-normalized NHWC embeddings; returns float32 NHWC logits."""
+    L2-normalized NHWC embeddings; returns float32 NHWC logits. The 3x3
+    conv exchanges halo rows inside halo.sharded()."""
 
     def __init__(self, num_classes: int, hidden_dim: int,
                  embedding_dim: int, dropout_rate: float = 0.75,
@@ -110,7 +128,8 @@ class ClassifierHead(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.semantic_classifier = nn.Sequential(
-            nn.Conv2d(embedding_dim, hidden_dim, 3, padding=1, bias=False),
+            halo.Conv2d(embedding_dim, hidden_dim, 3, padding=1,
+                        bias=False),
             # flax momentum 0.9 == torch momentum 0.1
             BatchNorm2d(hidden_dim, eps=BN_EPS, momentum=0.1),
             nn.ReLU(),

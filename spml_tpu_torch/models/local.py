@@ -17,11 +17,16 @@ from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common
 
 
-def location_features(batch: int, size: tuple[int, int],
-                      device=None) -> torch.Tensor:
-    """[B, h, w, 2] location features."""
+def location_features(batch: int, size: tuple[int, int], device=None,
+                      shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """[B, h, w, 2] location features. shard (rank, ranks): rows [rank h,
+    (rank + 1) h) of the grid of an image ranks x h rows high (its
+    height-sharded rows)."""
     h, w = size
-    loc = common.generate_location_features(h, w, device=device) - 0.5
+    rank, ranks = shard
+    loc = common.generate_location_features(h * ranks, w,
+                                            device=device) - 0.5
+    loc = loc[rank * h:(rank + 1) * h]
     return loc[None].expand(batch, h, w, 2)
 
 
@@ -49,10 +54,13 @@ def location_color_features(images: torch.Tensor, size: tuple[int, int],
                             use_color: bool = False,
                             use_location: bool = True,
                             norm_color: bool = False,
-                            smooth_ksize: int | None = None
+                            smooth_ksize: int | None = None,
+                            shard: tuple[int, int] = (0, 1)
                             ) -> torch.Tensor:
     """[B, H, W, 3] images -> [B, h, w, L] local features, channels
-    [y, x, r, g, b] (location, colour, each optional).
+    [y, x, r, g, b] (location, colour, each optional). shard: the
+    location grid's rows of a height-sharded image (location_features);
+    colour (per-image statistics) is not sharded.
 
     Colour, in float32: optionally blurred, bilinearly resized to `size`
     (antialias=False), and with norm_color centred on each image's
@@ -62,8 +70,12 @@ def location_color_features(images: torch.Tensor, size: tuple[int, int],
     n = images.shape[0]
     feats = []
     if use_location:
-        feats.append(location_features(n, size, device=images.device))
+        feats.append(location_features(n, size, device=images.device,
+                                       shard=shard))
     if use_color:
+        if shard[1] > 1:
+            raise NotImplementedError("colour features of a height-sharded "
+                                      "image")
         x = images.float()
         if smooth_ksize:
             x = smooth_colors(x, smooth_ksize)

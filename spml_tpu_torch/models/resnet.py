@@ -17,6 +17,15 @@ runs under torch.utils.checkpoint, which keeps only its input and runs its
 convolutions, BNs and ReLUs again in backward. The recomputation
 normalizes with the same batch statistics but leaves the BN buffers as
 the forward left them (flax's remat updates them once, too).
+
+Height-sharded (tpu.spatial_partition, parallel/halo.py): inside a
+sharded() block every 3x3 convolution (the stem's three, the first at
+stride 2, and each block's conv2, at stride 2 in res3.0 and dilations 2
+and 4 in res4 / res5) and the stem's max pool exchange their halo rows;
+the 1x1 convolutions and the batch norms run on the rank's rows (the
+batch norm's statistics over every rank's pixels, each counted once). A
+remat block issues its exchanges again in the recomputation, under the
+sharding its forward ran with.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from spml_tpu_torch.parallel import halo
 from spml_tpu_torch.parallel import mesh as mesh_lib
 
 BN_MOMENTUM = 3e-4  # torch convention; flax momentum 1 - 3e-4
@@ -59,12 +69,18 @@ def _remat_contexts():
     return contextlib.nullcontext(), _recomputing()
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or float64 where it is float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class _SyncBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of every rank
     (parallel/mesh.py).
 
     Forward: each rank's count, per-channel mean and biased variance
-    (float32, two passes) are gathered in float64 and combined as
+    (float32, or float64 for a float64 x, two passes) are gathered in
+    float64 and combined as
     Chan's parallel variance, sum n_r (var_r + (mean_r - mean)^2) / n, the
     same bits on every rank: the global sum, sum of squares and count
     without the cancellation of sum(x^2) / n - mean^2. Then x is
@@ -76,19 +92,20 @@ class _SyncBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
-        xf = x.float()
+        xf = at_least_float32(x)
         var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         count = torch.full((1,), xf.numel() // xf.shape[1],
                            dtype=torch.float64, device=x.device)
-        every = mesh_lib.all_gather(
-            torch.cat([count, mean_r.double(), var_r.double()])[None])
+        with mesh_lib.collective("batch norm"):
+            every = mesh_lib.all_gather(
+                torch.cat([count, mean_r.double(), var_r.double()])[None])
         c = x.shape[1]
         n_r, mean_rs = every[:, :1], every[:, 1:c + 1]
         var_rs = every[:, c + 1:]
         n = n_r.sum()
         mean = (n_r * mean_rs).sum(0) / n
         var = (n_r * (var_rs + (mean_rs - mean) ** 2)).sum(0) / n
-        mean, var = mean.float(), var.float()
+        mean, var = mean.to(xf.dtype), var.to(xf.dtype)
         y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
         ctx.n = float(n)
@@ -99,13 +116,15 @@ class _SyncBatchNorm(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, invstd = ctx.saved_tensors
         shape = (1, -1, 1, 1)
-        dyf = dy.float()
-        x_hat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dyf = at_least_float32(dy)
+        x_hat = (at_least_float32(x) - mean.view(shape)) * invstd.view(shape)
         sum_dy = dyf.sum((0, 2, 3))
         sum_dy_xhat = (dyf * x_hat).sum((0, 2, 3))
         dx = None
         if ctx.needs_input_grad[0]:
-            glob = mesh_lib.all_reduce(torch.stack([sum_dy, sum_dy_xhat]))
+            with mesh_lib.collective("batch norm"):
+                glob = mesh_lib.all_reduce(torch.stack([sum_dy,
+                                                        sum_dy_xhat]))
             dx = (weight * invstd).view(shape) * (
                 dyf - (glob[0] / ctx.n).view(shape)
                 - x_hat * (glob[1] / ctx.n).view(shape))
@@ -167,7 +186,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def conv_bn(cin, cout, kernel, stride=1, dilation=1, momentum=BN_MOMENTUM):
     pad = dilation * (kernel - 1) // 2
-    return (nn.Conv2d(cin, cout, kernel, stride, pad, dilation, bias=False),
+    return (halo.Conv2d(cin, cout, kernel, stride, pad, dilation, bias=False),
             BatchNorm2d(cout, eps=BN_EPS, momentum=momentum))
 
 
@@ -198,13 +217,18 @@ class Bottleneck(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
 
+    def _block_sharded(self, mesh, x):
+        with halo.sharded(mesh):
+            return self._block(x)
+
     def forward(self, x):
         if self.remat and torch.is_grad_enabled() and (
                 x.requires_grad
                 or any(p.requires_grad for p in self.parameters())):
-            # no randomness in a block: its RNG state need not be kept
+            # no randomness in a block: its RNG state need not be kept;
+            # the recomputation runs under the forward's sharding
             return torch.utils.checkpoint.checkpoint(
-                self._block, x, use_reentrant=False,
+                self._block_sharded, halo.current(), x, use_reentrant=False,
                 context_fn=_remat_contexts, preserve_rng_state=False)
         return self._block(x)
 
@@ -221,7 +245,7 @@ class Stem(nn.Module):
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
-        return F.max_pool2d(x, 3, 2, 1)
+        return halo.max_pool2d(x, 3, 2, 1)
 
 
 def make_stage(cin, planes, blocks, stride, dilation, momentum,

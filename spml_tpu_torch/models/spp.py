@@ -6,6 +6,10 @@ twke18/SPML). As an SPML embedding head, ASPP runs without BN or ReLU
 6/12/18/24. PSPP (spp.py:46, resnet_pspnet.py:36-40): adaptive average
 pools to 1/2/3/6 bins, each a 1x1 conv -> BN -> ReLU resized back,
 concatenated with the input and fused by a 3x3 conv -> BN -> ReLU.
+
+Height-sharded (parallel/halo.py): ASPP exchanges its input's halo once,
+at dilation 24, and each branch reads its rows of it. PSPP's adaptive
+pools reduce over the whole height, which is not ported: it raises.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from spml_tpu_torch.models.resnet import BN_EPS, BatchNorm2d
+from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 
 # PSPP's BatchNorms use the reference's momentum whatever
 # network.bn_momentum says (the JAX package hard-codes flax 1 - 3e-4)
@@ -52,8 +57,8 @@ class ASPP(nn.Module):
                 bias=True)))
 
     def forward(self, x):
-        return (self.aspp_1(x) + self.aspp_2(x) + self.aspp_3(x)
-                + self.aspp_4(x))
+        return halo.aspp_sum(x, [getattr(self, f"aspp_{i + 1}")[0]
+                                 for i in range(4)])
 
 
 def _conv_bn_relu(cin, cout, kernel):
@@ -79,6 +84,11 @@ class PSPP(nn.Module):
             in_channels + len(PSPP_BINS) * out_channels, out_channels, 3))
 
     def forward(self, x):
+        if halo.current() is not None:
+            raise NotImplementedError(
+                "PSPP (panoptic_pspnet_*, DensePose) under "
+                "tpu.spatial_partition > 1: its pools span the whole "
+                "height; " + mesh_lib.SPATIAL_NEXT)
         size = x.shape[2:]
         xs = [x]
         for i in range(len(PSPP_BINS)):

@@ -2,9 +2,10 @@
 torch.distributed process group.
 
 Port of spml_tpu/parallel/mesh.py:27-108. There, the train step is one
-SPMD program over a 1-D 'data' mesh and XLA inserts the collectives. Here
-each rank runs the step on its own slice of the global batch and the
-port issues the collectives itself:
+SPMD program over a 1-D 'data' mesh, or a 2-D ('data', 'space') mesh
+that also shards the image height (tpu.spatial_partition), and XLA
+inserts the collectives. Here each rank runs the step on its own slice
+of the global batch and the port issues the collectives itself:
 
 * batch-norm statistics over the global batch (models/resnet.py::
   BatchNorm2d);
@@ -19,6 +20,14 @@ Rank r of a global batch of W * b images takes images [r * b, (r + 1) * b)
 every helper here returns its input unchanged and the callers keep their
 single-process code.
 
+With space S > 1 (make_mesh(spatial=S)), rank r is data rank r // S and
+space rank r % S, row-major as the JAX package's
+devices.reshape(-1, spatial): the D = W / S data ranks split the batch
+and the S space ranks of a data rank split each of its images' rows
+(Mesh.rows), the leaves of SPATIAL_KEYS alone. The halo exchanges around
+the row-coupled operations (parallel/halo.py) run within a space group;
+the loss groups are counted over a data group.
+
 Backends: NCCL when every rank has its own card, gloo on the CPU. gloo on
 CUDA tensors, ranks sharing a card, is the one-card case a caller may ask
 for by name (NCCL refuses two ranks on one card). A backend or a rank
@@ -27,41 +36,118 @@ that fails raises; nothing falls back to one process or to the CPU.
 Collectives use all_reduce and barrier alone, which every backend has on
 every device: a gather is the sum of zero buffers each rank filled at its
 own slice (exact: the other ranks add zeros).
+
+Each collective runs under the label of what it serves (collective():
+"gradient", "batch norm", "gather", "halo", "other"); a timer set with
+set_collective_timer wraps every collective with its label. None is set
+unless a caller sets one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
 import socket
 import tempfile
+import threading
 
 import torch
 import torch.distributed as dist
 
 from spml_tpu_torch.utils.device import resolve_device
 
-SPATIAL_NEXT = ("tpu.spatial_partition > 1 (image height sharded over "
-                "devices, with halo exchange for the dilated convolutions, "
-                "batch norm and k-means) is not ported: it is the next slice "
-                "of the port; tests/test_spatial_partition.py is its JAX "
-                "reference")
+SPATIAL_NEXT = ("tpu.spatial_partition > 1 is ported for the softmax "
+                "baseline (network.prediction_types softmax_classifier) and "
+                "the stage-2 classifier; the SegSort branch (k-means, "
+                "prototypes, the losses and the memory bank over height "
+                "shards) and PSPP's whole-height pools are the next slice, "
+                "ROADMAP Queue 1 item 1(b)")
+
+# Batch keys whose axis 1 is the image height: the only leaves that shard
+# over 'space' (spml_tpu/parallel/mesh.py:58-63).
+SPATIAL_KEYS = frozenset({"image", "semantic_label", "instance_label"})
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The 'data' axis seen from one process: rank `rank` of `world`."""
+    """The ('data', 'space') mesh seen from one process: rank `rank` of
+    `world`, `space` ranks a data rank (1: the 'data' axis alone)."""
     rank: int = 0
     world: int = 1
+    space: int = 1
+
+    @property
+    def data(self) -> int:
+        """Data ranks: the ranks that split the batch."""
+        return self.world // self.space
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space
 
     def shard(self, global_batch: int) -> slice:
-        """This rank's images of a global batch."""
-        if global_batch % self.world:
+        """This rank's images of a global batch (its data rank's)."""
+        if global_batch % self.data:
             raise ValueError(f"global batch {global_batch} does not split "
-                             f"over {self.world} ranks")
-        b = global_batch // self.world
-        return slice(self.rank * b, (self.rank + 1) * b)
+                             f"over {self.data} ranks")
+        b = global_batch // self.data
+        return slice(self.data_rank * b, (self.data_rank + 1) * b)
+
+    def rows(self, height: int) -> slice:
+        """This rank's rows of an image `height` rows high."""
+        if height % self.space:
+            raise ValueError(f"height {height} does not split over "
+                             f"{self.space} space ranks")
+        h = height // self.space
+        return slice(self.space_rank * h, (self.space_rank + 1) * h)
+
+    def space_group(self):
+        """The process group of this rank's space ranks (None at space
+        1: no collective runs over it)."""
+        return _groups(self.space)[0][self.data_rank] if self.space > 1 \
+            else None
+
+    def data_group(self):
+        """The process group of the data ranks of this space rank (None
+        at space 1: the whole group)."""
+        return _groups(self.space)[1][self.space_rank] if self.space > 1 \
+            else None
+
+
+_GROUPS: dict = {}
+
+
+def _groups(space: int):
+    """(space groups by data rank, data groups by space rank) of the
+    current process group, made once: every rank makes every group, in
+    the same order, as dist.new_group requires."""
+    world = dist.group.WORLD
+    if _GROUPS.get("world") is not world:
+        _GROUPS.clear()
+        _GROUPS["world"] = world
+    if space not in _GROUPS:
+        n = world_size()
+        spaces = [dist.new_group(list(range(d * space, (d + 1) * space)))
+                  for d in range(n // space)]
+        datas = [dist.new_group(list(range(s, n, space)))
+                 for s in range(space)]
+        _GROUPS[space] = (spaces, datas)
+    return _GROUPS[space]
+
+
+def destroy_groups() -> None:
+    """Destroys the space and data groups, then the process group."""
+    for spaces, datas in (v for k, v in _GROUPS.items() if k != "world"):
+        for g in spaces + datas:
+            dist.destroy_process_group(g)
+    _GROUPS.clear()
+    dist.destroy_process_group()
 
 
 def world_size() -> int:
@@ -70,13 +156,52 @@ def world_size() -> int:
 
 
 def make_mesh(spatial: int = 1) -> Mesh:
-    """The mesh of this process's group (rank 0 of 1 without one). spatial
-    > 1, the JAX package's ('data', 'space') mesh, raises."""
-    if spatial > 1:
-        raise NotImplementedError(SPATIAL_NEXT)
-    if world_size() == 1:
+    """The mesh of this process's group (rank 0 of 1 without one), with
+    `spatial` space ranks a data rank; a group whose size spatial does
+    not divide raises ValueError, as the JAX package's make_mesh does."""
+    n = world_size()
+    if spatial < 1 or n % spatial:
+        raise ValueError(f"{n} rank(s) not divisible by spatial={spatial}")
+    if n == 1:
         return Mesh()
-    return Mesh(dist.get_rank(), dist.get_world_size())
+    mesh = Mesh(dist.get_rank(), n, spatial)
+    if spatial > 1:
+        _groups(spatial)
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+_LABEL = threading.local()  # .kind: what the collectives issued now serve
+_TIMER = None
+
+
+def set_collective_timer(timer) -> None:
+    """timer(kind) -> a context manager around each collective, kind its
+    label (None for an unlabelled one); None: no timing."""
+    global _TIMER
+    _TIMER = timer
+
+
+@contextlib.contextmanager
+def collective(kind: str):
+    """Labels the collectives issued inside as serving `kind`; an outer
+    label holds (a batch norm's gather is the batch norm's)."""
+    outer = getattr(_LABEL, "kind", None)
+    _LABEL.kind = outer or kind
+    try:
+        yield
+    finally:
+        _LABEL.kind = outer
+
+
+def _timed():
+    timer = _TIMER
+    if timer is None:
+        return contextlib.nullcontext()
+    return timer(getattr(_LABEL, "kind", None))
 
 
 def _comm_device(x: torch.Tensor) -> torch.device:
@@ -87,26 +212,45 @@ def _comm_device(x: torch.Tensor) -> torch.device:
     return x.device
 
 
-def all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """The sum of x over every rank, as a new tensor on x's device, without
-    gradient; x itself at world size 1."""
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of x over every rank of `group` (None: every rank), as a
+    new tensor on x's device, without gradient; x itself at world size
+    1."""
     if world_size() == 1:
         return x
-    out = x.detach().to(_comm_device(x), copy=True)
-    dist.all_reduce(out)
-    return out.to(x.device)
+    with _timed():
+        out = x.detach().to(_comm_device(x), copy=True)
+        dist.all_reduce(out, group=group)
+        return out.to(x.device)
+
+
+def sum_disjoint(buf: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of `group` of buffers each element of which
+    is nonzero on one rank at most: that rank's bits, whatever the dtype
+    (the bytes travel as int32 words, whose sum of disjoint bytes never
+    carries). A new tensor of buf's shape, dtype and device."""
+    with _timed():
+        flat = buf.detach().contiguous().reshape(-1).view(torch.uint8)
+        pad = -flat.numel() % 4
+        words = torch.cat([flat, flat.new_zeros(pad)]) if pad else \
+            flat.clone()
+        words = words.view(torch.int32).to(_comm_device(buf))
+        dist.all_reduce(words, group=group)
+        flat = words.to(buf.device).view(torch.uint8)[:flat.numel()]
+        return flat.view(buf.dtype).reshape(buf.shape)
 
 
 def _gather(x: torch.Tensor) -> torch.Tensor:
-    rank, n = dist.get_rank(), x.shape[0]
-    src = x.detach()
-    if src.dtype == torch.bool:
-        src = src.to(torch.uint8)
-    out = src.new_zeros((world_size() * n, *x.shape[1:]),
-                        device=_comm_device(x))
-    out[rank * n:(rank + 1) * n] = src
-    dist.all_reduce(out)
-    return out.to(x.device, x.dtype)
+    with _timed():
+        rank, n = dist.get_rank(), x.shape[0]
+        src = x.detach()
+        if src.dtype == torch.bool:
+            src = src.to(torch.uint8)
+        out = src.new_zeros((world_size() * n, *x.shape[1:]),
+                            device=_comm_device(x))
+        out[rank * n:(rank + 1) * n] = src
+        dist.all_reduce(out)
+        return out.to(x.device, x.dtype)
 
 
 class _AllGather(torch.autograd.Function):
@@ -122,8 +266,9 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         rank = dist.get_rank()
-        return all_reduce(grad.contiguous())[rank * ctx.n:
-                                             (rank + 1) * ctx.n]
+        with collective("gather"):
+            return all_reduce(grad.contiguous())[rank * ctx.n:
+                                                 (rank + 1) * ctx.n]
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:
@@ -132,9 +277,34 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     this rank's rows is their gradient summed over every rank's use."""
     if world_size() == 1:
         return x
-    if x.requires_grad and torch.is_grad_enabled():
-        return _AllGather.apply(x)
-    return _gather(x)
+    with collective("gather"):
+        if x.requires_grad and torch.is_grad_enabled():
+            return _AllGather.apply(x)
+        return _gather(x)
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """The rows along `dim` of every space rank of this rank's data rank,
+    joined in order (x itself at space 1); without gradient."""
+    if mesh.space == 1:
+        return x
+    h = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = h * mesh.space
+    buf = x.new_zeros(shape)
+    buf.narrow(dim, mesh.space_rank * h, h).copy_(x.detach())
+    with collective("gather"):
+        return sum_disjoint(buf, mesh.space_group())
+
+
+def shard_rows(batch: dict, mesh: Mesh) -> dict:
+    """A batch of this rank's images with the SPATIAL_KEYS leaves ([B, H,
+    ...], ndim >= 3) cut to this rank's rows; the other leaves whole."""
+    if mesh.space == 1:
+        return batch
+    return {k: (v[:, mesh.rows(v.shape[1])]
+                if k in SPATIAL_KEYS and v.ndim >= 3 else v)
+            for k, v in batch.items()}
 
 
 def barrier() -> None:
@@ -199,7 +369,7 @@ def _rank_main(rank, fn, args, devices, backend, port, out_dir):
         result = fn(*args, device=device)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        destroy_groups()
 
 
 def spawn(fn, args, devices, backend: str | None = None) -> list:
@@ -243,7 +413,7 @@ def launch(fn, args=(), device: str = "cuda") -> None:
         try:
             fn(*args, device=dev)
         finally:
-            dist.destroy_process_group()
+            destroy_groups()
         return
     devices = rank_devices(device)
     if len(devices) == 1:

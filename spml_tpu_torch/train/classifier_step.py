@@ -16,6 +16,12 @@ the cross-entropy is the one masked mean of the global batch (the
 all-reduced sum over the all-reduced count, as the JAX step's single
 mean, spml_tpu/train/classifier_step.py:75) and the head's gradients are
 summed over the ranks.
+
+Height-sharded (tpu.spatial_partition > 1, parallel/halo.py): each rank
+holds its rows of its data rank's images. The frozen embedding (eval
+mode: no batch-norm collective) and the head exchange halo rows on every
+rank, the logits are resized to the rank's rows of the full-resolution
+grid, and the cross-entropy is the same global masked mean.
 """
 
 from __future__ import annotations
@@ -25,13 +31,13 @@ import dataclasses
 import torch
 
 from spml_tpu_torch.models.embeddings import build_classifier_head
-from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common
-from spml_tpu_torch.parallel import mesh as mesh_lib
+from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import TrainState
 from spml_tpu_torch.train.step import (_accuracy, _compute_dtype,
-                                       _cross_entropy, _sum_gradients)
+                                       _cross_entropy, _sum_gradients,
+                                       check_spatial)
 from spml_tpu_torch.utils.device import resolve_device
 
 DROPOUT = 0.65
@@ -53,7 +59,7 @@ def build_classifier(config, device="cuda", generator=None):
 
 def init_classifier_state(config, seed: int, device="cuda") -> TrainState:
     """The head, its SGD buffers and its dropout generator (seeded seed +
-    rank); no embedding model and no memory bank."""
+    the world rank); no embedding model and no memory bank."""
     device = resolve_device(device)
     head = build_classifier(config, device,
                             torch.Generator().manual_seed(seed))
@@ -76,18 +82,21 @@ def make_classifier_train_step(config, emb_model):
     C = config.dataset.num_classes
     tcfg = config.train
     schedule = optim.make_schedule(tcfg)
-    world = mesh_lib.make_mesh(config.tpu.spatial_partition).world
+    mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
+    world = mesh.world
+    check_spatial(config, mesh, stage2=True)
 
     def train_step(state: TrainState, batch):
         images = batch["image"]
         labels = batch["semantic_label"].long()
-        with torch.no_grad():
-            emb, _ = emb_model(images)
-            emb = common.normalize_embedding(emb.float())
-        state.cls_model.train()
-        logits = state.cls_model(emb, state.generator)
-        logits_up = resize_bilinear(logits, images.shape[1:3])
-        ce = _cross_entropy(logits_up, labels, C, world=world)
+        with halo.sharded(mesh):
+            with torch.no_grad():
+                emb, _ = emb_model(images)
+                emb = common.normalize_embedding(emb.float())
+            state.cls_model.train()
+            logits = state.cls_model(emb, state.generator)
+            logits_up = halo.resize_bilinear(logits, images.shape[1:3])
+        ce = _cross_entropy(logits_up, labels, C, mesh=mesh)
         params = [("prediction." + n, p)
                   for n, p in state.cls_model.named_parameters()]
         for _, p in params:
@@ -98,8 +107,10 @@ def make_classifier_train_step(config, emb_model):
         lr = schedule(state.step)
         optim.sgd_step(params, state.momentum, lr, tcfg.weight_decay,
                        tcfg.momentum)
+        with mesh_lib.collective("other"):
+            loss = mesh_lib.all_reduce(ce.detach())
         return dataclasses.replace(state, step=state.step + 1), {
-            "loss": mesh_lib.all_reduce(ce.detach()),
+            "loss": loss,
             "accuracy": _accuracy(logits_up.detach(), labels, C),
             "learning_rate": lr}
 

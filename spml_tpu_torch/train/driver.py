@@ -23,6 +23,15 @@ package's does. The first logging interval reports its seconds as
 warmup_secs: it holds the kernels' build at first use and cuDNN's
 autotuning. tpu.profile_dir traces a window of steps with torch.profiler
 (TraceWindow).
+
+With tpu.spatial_partition S > 1 (the JAX package's ('data', 'space')
+mesh, spml_tpu/train/driver.py:134-137) the ranks form W / S data ranks
+of S space ranks each: the global batch is train.batch_size x the data
+ranks, every space rank of a data rank loads that data rank's images
+and keeps its rows of the image and label leaves (parallel/mesh.py::
+shard_rows). The crop height must be a multiple of 8 x S. The image
+panels' eval forward runs on every space rank of data rank 0, and rank
+0 joins their rows.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import torch
 
 from spml_tpu_torch.data import datasets as datasets_lib
 from spml_tpu_torch.models.embeddings import build_embedding_model
-from spml_tpu_torch.parallel import mesh as mesh_lib
+from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 from spml_tpu_torch.train import classifier_step as cstep_lib
 from spml_tpu_torch.train import step as step_lib
 from spml_tpu_torch.utils import checkpoint as ckpt
@@ -88,22 +97,28 @@ def _log_metrics(writer, metrics, step, prefix=""):
                 writer.add_scalar(prefix + k, float(v), step)
 
 
-def _log_images(writer, config, emb_model, batch, step):
+def _log_images(writer, config, emb_model, batch, step,
+                mesh=mesh_lib.Mesh()):
     """Image panels: colorized semantic and instance labels and PCA-RGB
-    embeddings in eval mode (reference train.py:222-258, vis.py:15-101)."""
-    if writer is None:
+    embeddings in eval mode (reference train.py:222-258, vis.py:15-101).
+    Height-sharded, every space rank of data rank 0 runs the forward on
+    its rows (its halo exchanges need them all), writer or not, and the
+    rows are joined."""
+    if (writer is None if mesh.space == 1 else mesh.data_rank != 0):
         return
     emb_model.eval()
-    with torch.no_grad():
+    with torch.no_grad(), halo.sharded(mesh):
         emb, _ = emb_model(batch["image"][:2])
     emb_model.train()
+    emb, sem, inst = (mesh_lib.gather_rows(t, mesh) for t in (
+        emb, batch["semantic_label"][:2], batch["instance_label"][:2]))
+    if writer is None:
+        return
     emb_rgb = vis.embedding_to_rgb(emb.float().cpu().numpy())
     cmap = vis.load_color_map(config.dataset.color_map_path)
-    sem_rgb = vis.label_to_color(
-        batch["semantic_label"][:2].cpu().numpy().astype(np.int32), cmap)
+    sem_rgb = vis.label_to_color(sem.cpu().numpy().astype(np.int32), cmap)
     inst_rgb = vis.label_to_color(
-        batch["instance_label"][:2].cpu().numpy().astype(np.int32) % 256,
-        cmap)
+        inst.cpu().numpy().astype(np.int32) % 256, cmap)
     for i in range(emb_rgb.shape[0]):
         writer.add_image(f"embedding_pca/{i}", emb_rgb[i], step,
                          dataformats="HWC")
@@ -141,7 +156,8 @@ def _to_device(batch, device: torch.device):
 
 
 def _loader(args, config, dataset_cls, mesh):
-    """This rank's slice of the global batch's loader."""
+    """This rank's slice of the global batch's loader (its data rank's;
+    the space ranks cut their rows with mesh_lib.shard_rows)."""
     dataset = dataset_cls(
         data_dir=args.data_dir or config.dataset.data_dir,
         data_list=args.data_list or config.dataset.train_data_list,
@@ -153,9 +169,16 @@ def _loader(args, config, dataset_cls, mesh):
         random_mirror=config.train.random_mirror, training=True,
         seed=config.train.seed)
     return iter(datasets_lib.Loader(
-        dataset, config.train.batch_size * mesh.world,
+        dataset, config.train.batch_size * mesh.data,
         shuffle=config.train.shuffle, seed=config.train.seed,
-        num_workers=config.num_threads, shard=(mesh.rank, mesh.world)))
+        num_workers=config.num_threads,
+        shard=(mesh.data_rank, mesh.data)))
+
+
+def _next_batch(loader, config, mesh, device):
+    """The loader's next batch, this rank's rows of it, on `device`."""
+    return _to_device(_to_train_batch(
+        mesh_lib.shard_rows(next(loader), mesh), config), device)
 
 
 class TraceWindow:
@@ -231,8 +254,11 @@ def _save(ck_dir, step, state, mesh) -> None:
 def _mesh(config):
     """The process group's mesh; tpu.num_devices set to its rank count.
     The ranks come from the launch (--device, torchrun): a num_devices
-    given as neither the default 1 nor that count raises."""
+    given as neither the default 1 nor that count raises, and so does a
+    count that tpu.spatial_partition does not divide or a crop height
+    that is not a multiple of 8 x spatial_partition."""
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
+    halo.check_height(config.train.crop_size[0], mesh.space)
     if config.tpu.num_devices not in (1, mesh.world):
         raise ValueError(
             f"tpu.num_devices {config.tpu.num_devices}, but the process "
@@ -250,7 +276,7 @@ def train_spml(args, config, dataset_cls=datasets_lib.ListTagDataset,
     (checkpoints go to snapshot_dir/checkpoints)."""
     device = resolve_device(device)
     mesh = _mesh(config)
-    global_batch = config.train.batch_size * mesh.world
+    global_batch = config.train.batch_size * mesh.data
     loader = _loader(args, config, dataset_cls, mesh)
     state = step_lib.init_state(
         config, 235 + config.train.seed,
@@ -273,8 +299,7 @@ def train_spml(args, config, dataset_cls=datasets_lib.ListTagDataset,
             TraceWindow(config, start, device) as trace:
         for it in range(start, config.train.max_iteration):
             trace.step(it)
-            batch = _to_device(_to_train_batch(next(loader), config),
-                               device)
+            batch = _next_batch(loader, config, mesh, device)
             state, metrics = train_step(state, batch)
             if it % config.train.tensorboard_step == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
@@ -285,7 +310,8 @@ def train_spml(args, config, dataset_cls=datasets_lib.ListTagDataset,
                 else:
                     metrics["warmup_secs"] = dt
                 _log_metrics(writer, metrics, it)
-                _log_images(writer, config, state.emb_model, batch, it)
+                _log_images(writer, config, state.emb_model, batch, it,
+                            mesh)
                 t0 = time.time()
             if _snapshot_due(config, it):
                 _save(ck_dir, it + 1, state, mesh)
@@ -329,8 +355,7 @@ def train_classifier(args, config,
             TraceWindow(config, start, device) as trace:
         for it in range(start, config.train.max_iteration):
             trace.step(it)
-            batch = _to_device(_to_train_batch(next(loader), config),
-                               device)
+            batch = _next_batch(loader, config, mesh, device)
             state, metrics = train_step(state, batch)
             if it % config.train.tensorboard_step == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}

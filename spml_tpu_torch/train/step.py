@@ -50,6 +50,20 @@ statistics are the global batch's (models/resnet.py::BatchNorm2d). The
 logged losses and accuracy are the global values. The dropout generator
 of rank r is seeded seed + r: the JAX step's one dropout stream over the
 global batch cannot be matched. At world size 1 nothing of this runs.
+
+Height-sharded (tpu.spatial_partition S > 1, the JAX step on a ('data',
+'space') mesh; parallel/halo.py): the softmax baseline alone. Each rank
+steps its data rank's b images of the global batch of D * b (D = W / S
+data ranks), its rows of them (the image and labels cut by
+parallel/mesh.py::shard_rows). The forward runs under halo.sharded():
+the networks exchange halo rows, the logits are resized to the rank's
+rows of the full-resolution grid. The loss groups are those of the
+global batch of D * b images; a group's pixel count is all-reduced over
+the space ranks that hold its images' rows, and each rank's share of a
+group mean is its masked sum over that count. The SegSort branch raises
+(ROADMAP Queue 1 item 1(b)). Ranks: the loss groups and the global image
+indices are the data rank's; the dropout generator, the world rank's
+(init_state).
 """
 
 from __future__ import annotations
@@ -66,7 +80,7 @@ from spml_tpu_torch.ops import common, kmeans, knn, losses
 from spml_tpu_torch.ops.segsort_loss import (fused_joint_losses,
                                              fused_segsort_loss,
                                              fused_set_segsort_loss)
-from spml_tpu_torch.parallel import mesh as mesh_lib
+from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import MemoryBank, TrainState
 from spml_tpu_torch.utils.device import resolve_device
@@ -119,7 +133,9 @@ def init_state(config, seed: int, sample_image, device="cuda") -> TrainState:
     global batch of every rank: the bank holds every rank's prototypes).
     The frozen groups (stem, res2) get requires_grad=False: their update
     is zero either way, and the backward pass then stops at res3. The
-    dropout generator is seeded seed + rank (0 without a process group).
+    dropout generator is seeded seed + the world rank (0 without a
+    process group): under spatial partitioning the space ranks of an
+    image draw its rows' masks from their own streams.
     """
     device = resolve_device(device)
     emb_model, cls_model = build_models(
@@ -138,39 +154,44 @@ def init_state(config, seed: int, sample_image, device="cuda") -> TrainState:
                           seed + mesh_lib.make_mesh().rank))
 
 
-def _grouped_masked_mean(values, mask, n_groups=1, world=1):
+def _grouped_masked_mean(values, mask, n_groups=1, mesh=mesh_lib.Mesh()):
     """Mean over each group's masked entries, then over non-empty groups
     (n_groups=1: plain masked mean). n_groups counts the groups of the
-    global batch; with world > 1 ranks, values and mask are this rank's
-    share and the result is its share of the global mean: with whole
-    groups a rank (n_groups a multiple of world), its group means over
-    the all-reduced count of non-empty groups; with one group, its masked
-    sum over the all-reduced count."""
-    if world > 1 and n_groups == 1:
-        m = mask.reshape(-1).float()
-        count = mesh_lib.all_reduce(m.sum())
-        return (values.reshape(-1).float() * m).sum() / torch.clamp(
-            count, min=1.0)
-    if n_groups % world:
-        raise ValueError(f"{n_groups} loss groups do not split over {world} "
-                         "ranks")
-    v = values.reshape(n_groups // world, -1).float()
-    m = mask.reshape(n_groups // world, -1).float()
-    gsum = torch.sum(v * m, dim=1)
-    gcnt = torch.sum(m, dim=1)
-    gmean = gsum / torch.clamp(gcnt, min=1.0)
-    has = (gcnt > 0).float()
-    groups = mesh_lib.all_reduce(torch.sum(has))
-    return torch.sum(gmean * has) / torch.clamp(groups, min=1.0)
+    global batch; with mesh.world > 1 ranks, values and mask are this
+    rank's share and the result is its share of the global mean: with
+    whole groups a data rank (n_groups a multiple of mesh.data), its
+    masked sum of each group over the group's count (all-reduced over
+    the space ranks holding the group's rows), over the all-reduced
+    count of non-empty groups of the data ranks; with one group, its
+    masked sum over the all-reduced count."""
+    with mesh_lib.collective("other"):
+        if mesh.world > 1 and n_groups == 1:
+            m = mask.reshape(-1).float()
+            count = mesh_lib.all_reduce(m.sum())
+            return (values.reshape(-1).float() * m).sum() / torch.clamp(
+                count, min=1.0)
+        if n_groups % mesh.data:
+            raise ValueError(f"{n_groups} loss groups do not split over "
+                             f"{mesh.data} ranks")
+        v = values.reshape(n_groups // mesh.data, -1).float()
+        m = mask.reshape(n_groups // mesh.data, -1).float()
+        gsum = torch.sum(v * m, dim=1)
+        gcnt = mesh_lib.all_reduce(torch.sum(m, dim=1), mesh.space_group()) \
+            if mesh.space > 1 else torch.sum(m, dim=1)
+        share = gsum / torch.clamp(gcnt, min=1.0)  # the group mean's
+        has = (gcnt > 0).float()
+        groups = mesh_lib.all_reduce(torch.sum(has), mesh.data_group())
+        return torch.sum(share * has) / torch.clamp(groups, min=1.0)
 
 
-def _cross_entropy(logits, labels, num_classes, n_groups=1, world=1):
+def _cross_entropy(logits, labels, num_classes, n_groups=1,
+                   mesh=mesh_lib.Mesh()):
     """Softmax CE over pixels with labels < num_classes."""
     valid = labels < num_classes
     safe = torch.where(valid, labels, 0)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return _grouped_masked_mean(nll, valid, n_groups, world)
+    return _grouped_masked_mean(nll, valid, n_groups, mesh)
 
 
 def _accuracy(logits, labels, num_classes):
@@ -178,7 +199,8 @@ def _accuracy(logits, labels, num_classes):
     label, over every rank's pixels."""
     valid = labels < num_classes
     hit = (torch.argmax(logits, dim=-1) == labels) & valid
-    counts = mesh_lib.all_reduce(torch.stack([hit.sum(), valid.sum()]))
+    with mesh_lib.collective("other"):
+        counts = mesh_lib.all_reduce(torch.stack([hit.sum(), valid.sum()]))
     return counts[0] / torch.clamp(counts[1], min=1)
 
 
@@ -186,9 +208,10 @@ def _sum_gradients(params) -> None:
     """Every parameter gradient summed over the ranks, through one flat
     all-reduce (a parameter without a gradient adds zeros)."""
     live = [p for _, p in params if p.requires_grad]
-    flat = mesh_lib.all_reduce(torch.cat([
-        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-        for p in live]))
+    with mesh_lib.collective("gradient"):
+        flat = mesh_lib.all_reduce(torch.cat([
+            (p.grad if p.grad is not None else torch.zeros_like(p))
+            .reshape(-1) for p in live]))
     for p, g in zip(live, flat.split([p.numel() for p in live])):
         p.grad = g.view_as(p)
 
@@ -198,6 +221,25 @@ def _named_params(state: TrainState):
                 for n, p in state.emb_model.named_parameters())
     yield from (("prediction." + n, p)
                 for n, p in state.cls_model.named_parameters())
+
+
+def check_spatial(config, mesh, stage2: bool = False) -> None:
+    """What a height-sharded step (mesh.space > 1) refuses: the SegSort
+    branch (stage 1 alone) and PSPP (NotImplementedError, ROADMAP Queue
+    1 item 1(b)), and a crop height that is not a multiple of 8 x space
+    (ValueError)."""
+    if mesh.space == 1:
+        return
+    if (not stage2
+            and config.network.prediction_types != "softmax_classifier"):
+        raise NotImplementedError(
+            f"network.prediction_types {config.network.prediction_types!r} "
+            "under tpu.spatial_partition > 1: " + mesh_lib.SPATIAL_NEXT)
+    if "pspnet" in config.network.backbone_types:
+        raise NotImplementedError(
+            f"{config.network.backbone_types} (PSPP) under "
+            "tpu.spatial_partition > 1: " + mesh_lib.SPATIAL_NEXT)
+    halo.check_height(config.train.crop_size[0], mesh.space)
 
 
 def make_train_step(config):
@@ -241,17 +283,18 @@ def make_train_step(config):
     update = optim.build_optimizer(tcfg)
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
     world = mesh.world
+    check_spatial(config, mesh)
 
     def _n_groups(b):
         """Loss groups of the global batch of a rank's b images."""
-        b, bs = b * world, tcfg.batch_size
+        b, bs = b * mesh.data, tcfg.batch_size
         if (config.tpu.loss_reduction != "per_device_mean"
                 or bs <= 0 or b % bs != 0):
             return 1
         return b // bs
 
     def mean(values, mask, b):
-        return _grouped_masked_mean(values, mask, _n_groups(b), world)
+        return _grouped_masked_mean(values, mask, _n_groups(b), mesh)
 
     def forward_and_losses(state: TrainState, batch, compute_metrics):
         """Total loss and (metrics, current prototypes) for one batch.
@@ -263,16 +306,18 @@ def make_train_step(config):
         B = images.shape[0]
         dev = images.device
 
-        emb, loc = state.emb_model(images)
         if softmax:
             # the fully supervised baseline: CE through the backbone
-            logits = state.cls_model(
-                common.normalize_embedding(emb.float()), state.generator)
-            logits_up = resize_bilinear(logits, images.shape[1:3])
-            ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), world)
+            with halo.sharded(mesh):
+                emb, _ = state.emb_model(images)
+                logits = state.cls_model(
+                    common.normalize_embedding(emb.float()), state.generator)
+                logits_up = halo.resize_bilinear(logits, images.shape[1:3])
+            ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
             return ce, ({"sem_ann_loss": ce,
                          "accuracy": _accuracy(logits_up, sem_full, C)},
                         None)
+        emb, loc = state.emb_model(images)
         h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
         N = h * w
         sem = common.resize_labels(sem_full, (h, w))
@@ -297,8 +342,9 @@ def make_train_step(config):
         protos_loc = kmeans.calculate_prototypes_from_labels(
             emb_loc, segs.pixel_segment_ids, P, weights)
 
-        # global image indices: this rank's images of the global batch
-        img_idx = torch.arange(B, device=dev) + mesh.rank * B
+        # global image indices: this (data) rank's images of the global
+        # batch
+        img_idx = torch.arange(B, device=dev) + mesh.data_rank * B
         # every rank's prototypes, in rank order (the prototypes with
         # gradient); the names below hold the gathered lists
         cur = {k: mesh_lib.all_gather(v) for k, v in dict(
@@ -335,7 +381,7 @@ def make_train_step(config):
         cls_in = common.normalize_embedding(emb.float()).detach()
         logits = state.cls_model(cls_in, state.generator)
         logits_up = resize_bilinear(logits, images.shape[1:3])
-        ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), world)
+        ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
 
         # ---- semantic co-occurrence tags ----
         # VOC: the dataset-level tags (segsort_softmax.py:146-151).
@@ -461,13 +507,14 @@ def make_train_step(config):
             cur["prototype"].detach(), cur["prototype_with_loc"].detach(),
             cur["semantic_label"], cur["instance_label"],
             cur["batch_index"], cur["tag"], cur["valid"],
-            batch["image"].shape[0] * world)
+            batch["image"].shape[0] * mesh.data)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = total.detach()
         if world > 1:  # the ranks' shares of each loss sum to its value
             names = [k for k in metrics if k.endswith("loss")]
-            summed = mesh_lib.all_reduce(torch.stack(
-                [metrics[k].float() for k in names]))
+            with mesh_lib.collective("other"):
+                summed = mesh_lib.all_reduce(torch.stack(
+                    [metrics[k].float() for k in names]))
             metrics.update(zip(names, summed))
         metrics["learning_rate"] = lr
         return dataclasses.replace(state, step=state.step + 1,

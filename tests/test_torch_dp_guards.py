@@ -3,10 +3,13 @@ mesh.py), on the CPU and without JAX:
 
 * the parallel package is under tests/test_torch_guards.py's import scan
   and passes its rules;
-* tpu.spatial_partition > 1 and make_mesh(spatial > 1) raise
-  NotImplementedError naming the next slice; the drivers set
-  tpu.num_devices to the world size, and one given as neither 1 nor that
-  size raises;
+* what tpu.spatial_partition > 1 still refuses (parametrised cases):
+  make_mesh(spatial) in a group whose size spatial does not divide
+  (ValueError, as the JAX package's make_mesh), the SegSort branch of
+  the train step and PSPP (NotImplementedError naming ROADMAP Queue 1
+  item 1(b)), and a crop height that is not a multiple of 8 x spatial
+  (ValueError naming the rule); the drivers set tpu.num_devices to the
+  world size, and one given as neither 1 nor that size raises;
 * --device values and backends: 'cuda' raises on a host without a card,
   'cpu:N' is N CPU ranks; NCCL for one card a rank, gloo on the CPU, a
   shared card only by name;
@@ -57,17 +60,56 @@ def test_parallel_modules_pass_the_import_scan(module):
     assert [m for m in _imported_modules(path) if _forbidden(m)] == []
 
 
-def test_spatial_partition_raises():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        mesh_lib.make_mesh(spatial=2)
-    cfg = load_config(overrides={**OVERRIDES,
-                                 "tpu": {**OVERRIDES["tpu"],
-                                         "spatial_partition": 2}})
+def _spatial_config(**network):
+    return load_config(overrides={
+        **OVERRIDES, "network": {**OVERRIDES["network"], **network},
+        "tpu": {**OVERRIDES["tpu"], "spatial_partition": 2}})
+
+
+@pytest.mark.parametrize("case", ["no dividing group", "segsort branch",
+                                  "pspp", "uneven height"])
+def test_spatial_partition_raises(case, monkeypatch):
+    """What tpu.spatial_partition 2 still refuses. Outside a group of two
+    ranks make_mesh itself refuses; for the others a 2-rank mesh stands
+    in for make_mesh's (the guards run before any collective)."""
+    cfg = _spatial_config(prediction_types="softmax_classifier")
     assert cfg.tpu.spatial_partition == 2 and cfg.tpu.num_devices == 1
-    with pytest.raises(NotImplementedError, match="spatial_partition"):
-        tstep.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="spatial_partition"):
+    if case == "no dividing group":
+        for spatial in (2, 3):
+            with pytest.raises(ValueError, match="not divisible"):
+                mesh_lib.make_mesh(spatial=spatial)
+        with pytest.raises(ValueError, match="not divisible"):
+            driver._mesh(cfg)
+        with pytest.raises(ValueError, match="not divisible"):
+            tstep.make_train_step(cfg)
+        return
+    monkeypatch.setattr(mesh_lib, "make_mesh",
+                        lambda spatial=1: mesh_lib.Mesh(0, 2, spatial))
+    if case == "segsort branch":
+        cfg = _spatial_config()
+        with pytest.raises(NotImplementedError, match=r"item 1\(b\)"):
+            tstep.make_train_step(cfg)
         cstep.make_classifier_train_step(cfg, torch.nn.Identity())
+    elif case == "pspp":
+        cfg = _spatial_config(prediction_types="softmax_classifier",
+                              backbone_types="panoptic_pspnet_10_densepose")
+        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(b\)"):
+            tstep.make_train_step(cfg)
+        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(b\)"):
+            cstep.make_classifier_train_step(cfg, torch.nn.Identity())
+        from spml_tpu_torch.models.spp import PSPP
+        from spml_tpu_torch.parallel import halo
+        with halo.sharded(mesh_lib.Mesh(0, 2, 2)), \
+                pytest.raises(NotImplementedError, match="whole height"):
+            PSPP(8, 4)(torch.zeros(1, 8, 4, 4))
+    else:
+        cfg.train.crop_size = (40, 32)
+        rule = "multiple of 8 x spatial_partition = 16"
+        for build in (tstep.make_train_step, driver._mesh,
+                      lambda c: cstep.make_classifier_train_step(
+                          c, torch.nn.Identity())):
+            with pytest.raises(ValueError, match=rule):
+                build(cfg)
 
 
 @pytest.mark.parametrize("given", [1, 3])

@@ -1,0 +1,150 @@
+"""The training drivers with tpu.spatial_partition 2 on two gloo ranks on
+the CPU (data 1 x space 2: each rank loads the global batch and keeps its
+rows), spawned once, against the port's one-process drivers at the same
+global batch, on tests/test_torch_driver.py's synthetic world:
+
+* train_spml with the softmax baseline (network.prediction_types
+  softmax_classifier), 2 iterations, tensorboard_step 1: every logged
+  loss and the accuracy within rtol 1e-4 and the learning rate equal;
+  the image panels drawn at every iteration, rank 0 drawing the rows of
+  both ranks (the embeddings drawn within 1e-5 x max|ref| of one
+  process's: one eval forward); the checkpoint from rank 0 with both
+  ranks' generator states; the L2 norm of the update differences over
+  every parameter and BN buffer within 1e-2 of the updates' (the
+  chip_smoke.py [dp] rule: single tensors whose updates mostly cancel,
+  res3.0.conv2.weight here, move by float32 rounding alone, which
+  tests/test_torch_sp_step.py measures); the two ranks' tensors
+  torch.equal and their dropout generators distinct;
+* the same run resumed with train.resume to 3 iterations: its first
+  logged iteration is the saved step 2, checkpoints 2 and 3;
+* train_classifier over that snapshot, 2 iterations: losses rtol 1e-4,
+  each of the head's updates within 1e-2 x max|update| plus one float32
+  spacing, the ranks' heads torch.equal.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from spml_tpu_torch.config import load_config
+from spml_tpu_torch.parallel import mesh as mesh_lib
+from spml_tpu_torch.train import step as tstep
+from spml_tpu_torch.utils import checkpoint as ckpt
+import torch_dp_ranks
+import torch_sp_ranks
+from test_torch_driver import world  # noqa: F401
+
+SP = {
+    "network": {"backbone_types": "panoptic_deeplab_10", "embedding_dim": 8,
+                "kmeans_num_clusters": [1, 1], "kmeans_iterations": 0,
+                "prediction_types": "softmax_classifier"},
+    "dataset": {"num_classes": 5},
+    "train": {"batch_size": 2, "crop_size": [32, 32], "max_iteration": 2,
+              "snapshot_step": 1000, "tensorboard_step": 1,
+              "warmup_iteration": 10},
+    "tpu": {"compute_dtype": "float32", "spatial_partition": 2},
+    "num_threads": 2,
+}
+ONE = copy.deepcopy(SP)
+ONE["tpu"]["spatial_partition"] = 1
+
+
+@pytest.fixture(scope="module")
+def runs(world, tmp_path_factory):  # noqa: F811
+    _, data, lst = world
+    root = tmp_path_factory.mktemp("sp_driver")
+    st = tstep.init_state(load_config(overrides=ONE), 0,
+                          torch.zeros(2, 1, 1, 3), "cpu")
+    init = torch_dp_ranks.model_tensors(st)
+    head = {k: v for k, v in init.items() if k.startswith("prediction.")}
+    head = {k: v + 0.01 * torch.randn(v.shape, generator=torch.Generator()
+                                      .manual_seed(1))
+            if v.is_floating_point() else v for k, v in head.items()}
+    ranks = mesh_lib.spawn(torch_sp_ranks.drivers,
+                           (SP, init, head, data, lst, str(root / "sp")),
+                           ["cpu", "cpu"])
+    one = torch_sp_ranks.drivers(ONE, init, head, data, lst,
+                                 str(root / "one"), device="cpu")
+    return ranks, one, init, head, root
+
+
+def _assert_logged(got, want, names):
+    assert [it for it, _ in got] == [it for it, _ in want]
+    for (it, g), (_, w) in zip(got, want):
+        for k in names:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-7,
+                                       err_msg=f"iter {it} {k}")
+        assert g["learning_rate"] == w["learning_rate"]
+
+
+def _assert_updates(got, want, before, names):
+    for k in names:
+        upd = (want[k].double() - before[k].double()).abs().max()
+        diff = (got[k].double() - want[k].double()).abs().max()
+        tol = 1e-2 * upd + np.spacing(np.float32(want[k].abs().max()))
+        assert diff <= tol, (k, float(diff), float(tol))
+
+
+def _assert_update_l2(got, want, before):
+    diff2 = upd2 = 0.0
+    for k, w in want.items():
+        if w.is_floating_point():
+            diff2 += float(((got[k].double() - w.double()) ** 2).sum())
+            upd2 += float(((w.double() - before[k].double()) ** 2).sum())
+    assert diff2 ** 0.5 <= 1e-2 * upd2 ** 0.5, (diff2, upd2)
+
+
+def _assert_ranks_equal(a, b):
+    assert a["tensors"].keys() == b["tensors"].keys()
+    for k, v in a["tensors"].items():
+        assert torch.equal(v, b["tensors"][k]), k
+    timing = ("warmup_secs", "imgs_per_sec")  # each rank's own clock
+    assert [(it, {k: v for k, v in m.items() if k not in timing})
+            for it, m in a["logged"]] == [
+        (it, {k: v for k, v in m.items() if k not in timing})
+        for it, m in b["logged"]]
+
+
+def test_train_spml_on_a_space_axis_matches_one_process(runs):
+    ranks, one, init, _, root = runs
+    a, b = (r["first"] for r in ranks)
+    _assert_ranks_equal(a, b)
+    assert not torch.equal(a["generator"], b["generator"])
+    _assert_logged(a["logged"], one["first"]["logged"],
+                   ("loss", "sem_ann_loss", "accuracy"))
+    _assert_update_l2(a["tensors"], one["first"]["tensors"], init)
+    assert [it for it, _ in a["logged"]] == [0, 1]
+    # the panels of both iterations: rank 0 draws both ranks' rows
+    assert len(a["drawn"]) == 2 and b["drawn"] == []
+    for got, want in zip(a["drawn"], one["first"]["drawn"]):
+        assert got.shape == want.shape == (2, 8, 8, 8)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    events = (root / "sp" / "stage1").glob("events.out.tfevents.*")
+    assert any(b"embedding_pca/0" in e.read_bytes() for e in events)
+    d = str(root / "sp" / "stage1" / "checkpoints")
+    saved = ckpt.read(d, 2)
+    assert len(saved["rank_generators"]) == 2
+
+
+def test_resume_on_a_space_axis(runs):
+    ranks, one, _, _, root = runs
+    a, b = (r["resumed"] for r in ranks)
+    _assert_ranks_equal(a, b)
+    assert [it for it, _ in a["logged"]] == [2]
+    _assert_logged(a["logged"], one["resumed"]["logged"],
+                   ("loss", "sem_ann_loss", "accuracy"))
+    assert ckpt.steps(str(root / "sp" / "stage1" / "checkpoints")) == [2, 3]
+
+
+def test_train_classifier_on_a_space_axis_matches_one_process(runs):
+    ranks, one, _, head, _ = runs
+    a, b = (r["stage2"] for r in ranks)
+    _assert_ranks_equal(a, b)
+    _assert_logged(a["logged"], one["stage2"]["logged"],
+                   ("loss", "accuracy"))
+    names = [k for k, v in head.items() if v.is_floating_point()
+             and not k.endswith("num_batches_tracked")]
+    _assert_updates(a["tensors"], one["stage2"]["tensors"], head, names)

@@ -1,0 +1,258 @@
+"""Rank functions of the height-sharded tests (tests/test_torch_sp_*.py).
+
+The ranks are spawned processes (spml_tpu_torch/parallel/mesh.py::spawn)
+that import this module by name, so it imports torch and the port alone:
+no JAX. Every function takes its inputs as numpy arrays or CPU tensors,
+returns CPU tensors, and cuts its rank's images (Mesh.shard) and rows
+(Mesh.rows, mesh_lib.shard_rows) from the global batch itself; without a
+process group it runs as one process, the tests' one-process reference.
+"""
+
+import numpy as np
+import torch
+
+from spml_tpu_torch.models.embeddings import build_embedding_model
+from spml_tpu_torch.parallel import halo
+from spml_tpu_torch.parallel import mesh as mesh_lib
+from spml_tpu_torch.train import classifier_step as cstep
+from spml_tpu_torch.train import step as tstep
+import torch_dp_ranks
+
+
+def _mesh(spatial):
+    return mesh_lib.make_mesh(spatial if mesh_lib.world_size() > 1 else 1)
+
+
+def _local(mesh, batch, device, rows=()):
+    """This rank's images and rows of a global numpy batch (the leaves
+    of SPATIAL_KEYS and `rows` cut to its rows)."""
+    part = {k: np.ascontiguousarray(v[mesh.shard(v.shape[0])])
+            for k, v in batch.items()}
+    part = {k: v[:, mesh.rows(v.shape[1])] if k in rows else v
+            for k, v in mesh_lib.shard_rows(part, mesh).items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in part.items()}
+
+
+def _join(x, mesh):
+    """The rows of every space rank, then the images of every data rank,
+    of an NHWC tensor: the global batch in order (x at world size 1)."""
+    if mesh.world == 1:
+        return x
+    every = mesh_lib.all_gather(mesh_lib.gather_rows(x.contiguous(), mesh))
+    return every.reshape(mesh.data, mesh.space, *x.shape[:1],
+                         *every.shape[1:])[:, 0].flatten(0, 1)
+
+
+def forward_backward(backbone, dim, init, images, cot, spatial, remat=False,
+                     *, device):
+    """The embedding model (state dict `init`, BN momentum 0.1 so the
+    running statistics move) in train mode on this rank's rows of its
+    images, in the images' dtype (float32 or float64): the global
+    batch's embeddings and location features joined from every rank, the
+    running statistics after the forward, and every parameter's gradient
+    of sum(embeddings * cot) summed over the ranks."""
+    mesh = _mesh(spatial)
+    dtype = torch.from_numpy(images[:0]).dtype
+    model = build_embedding_model(backbone, dim, compute_dtype=dtype,
+                                  bn_momentum=0.1, remat=remat)
+    model.load_state_dict(init, strict=True)
+    model = model.to(device, dtype,
+                     memory_format=torch.channels_last).train()
+    local = _local(mesh, {"image": images, "cot": cot}, device, ("cot",))
+    with halo.sharded(mesh):
+        emb, loc = model(local["image"])
+    (emb * local["cot"]).sum().backward()
+    grads = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    grads = mesh_lib.all_reduce(grads)
+    sizes = [p.numel() for p in model.parameters()]
+    return {"emb": _join(emb.detach(), mesh).cpu(),
+            "loc": _join(loc, mesh).cpu(),
+            "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                      if "running" in k},
+            "grads": {n: g.view_as(p).cpu() for (n, p), g in zip(
+                model.named_parameters(), grads.split(sizes))}}
+
+
+def softmax_steps(cfg, init, batches, *, device):
+    """len(batches) steps of the softmax baseline (make_train_step) from
+    the model state dict `init`, dropout 0, on this rank's rows of its
+    images: each step's metrics and the model tensors after."""
+    mesh = _mesh(cfg.tpu.spatial_partition)
+    if mesh.world == 1:
+        cfg.tpu.spatial_partition = 1
+    b_global = batches[0]["image"].shape[0]
+    state = tstep.init_state(cfg, 0, torch.zeros(b_global, 1, 1, 3),
+                             device=device)
+    load_init(state, init)
+    step = tstep.make_train_step(cfg)
+    metrics = []
+    for nb in batches:
+        state, m = step(state, _local(mesh, nb, device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics,
+            "tensors": torch_dp_ranks.model_tensors(state)}
+
+
+def load_init(state, init):
+    state.emb_model.load_state_dict(
+        {k[len("embedding."):]: v for k, v in init.items()
+         if k.startswith("embedding.")}, strict=True)
+    state.cls_model.load_state_dict(
+        {k[len("prediction."):]: v for k, v in init.items()
+         if k.startswith("prediction.")}, strict=True)
+    state.cls_model.semantic_classifier[3].p = 0.0
+
+
+def classifier_steps(cfg, emb_init, head_init, batches, *, device):
+    """Stage-2 classifier steps over a frozen embedding of the state dict
+    emb_init, from the head head_init (dropout 0), on this rank's rows of
+    its images: the logged metrics and the head after."""
+    mesh = _mesh(cfg.tpu.spatial_partition)
+    if mesh.world == 1:
+        cfg.tpu.spatial_partition = 1
+    emb = build_embedding_model(cfg.network.backbone_types,
+                                cfg.network.embedding_dim)
+    emb.load_state_dict(emb_init, strict=True)
+    st = cstep.init_classifier_state(cfg, 0, device)
+    st.cls_model.load_state_dict(head_init, strict=True)
+    st.cls_model.semantic_classifier[3].p = 0.0
+    step = cstep.make_classifier_train_step(
+        cfg, emb.to(device, memory_format=torch.channels_last))
+    metrics = []
+    for nb in batches:
+        st, m = step(st, _local(mesh, nb, device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics,
+            "head": {k: v.cpu() for k, v in
+                     st.cls_model.state_dict().items()}}
+
+
+def many(jobs, *, device):
+    """Each (function name, args) job in turn: one spawn serves every case
+    of a test file."""
+    return [globals()[name](*args, device=device) for name, args in jobs]
+
+
+def driver_run(fn, init, args, config, *, device):
+    """A training driver fn(args, config, device=...) with the initial
+    model state dict `init` in place of the port's init (the embedding
+    and head of train_spml, the head of train_classifier) and the
+    classifier's dropout 0: the metrics logged and the iterations whose
+    image panels were drawn (with the embeddings drawn, rank 0), the
+    final tensors and generator state."""
+    from spml_tpu_torch.train import driver
+    from spml_tpu_torch.utils import vis
+
+    init_state, init_cls = tstep.init_state, cstep.init_classifier_state
+
+    def from_init(*a, **k):
+        st = init_state(*a, **k)
+        load_init(st, init)
+        return st
+
+    def cls_from_init(*a, **k):
+        st = init_cls(*a, **k)
+        st.cls_model.load_state_dict(
+            {k[len("prediction."):]: v for k, v in init.items()
+             if k.startswith("prediction.")}, strict=True)
+        st.cls_model.semantic_classifier[3].p = 0.0
+        return st
+
+    logged, drawn = [], []
+    log_metrics, to_rgb = driver._log_metrics, vis.embedding_to_rgb
+
+    def capture(writer, metrics, it, prefix=""):
+        logged.append((it, {k: float(v) for k, v in metrics.items()}))
+        log_metrics(writer, metrics, it, prefix)
+
+    def capture_rgb(emb, *a, **k):
+        drawn.append(torch.from_numpy(np.array(emb)))
+        return to_rgb(emb, *a, **k)
+
+    tstep.init_state, cstep.init_classifier_state = from_init, cls_from_init
+    driver._log_metrics, vis.embedding_to_rgb = capture, capture_rgb
+    try:
+        state = fn(args, config, device=device)
+    finally:
+        tstep.init_state, cstep.init_classifier_state = init_state, init_cls
+        driver._log_metrics, vis.embedding_to_rgb = log_metrics, to_rgb
+    tensors = {"prediction." + k: v.detach().cpu().clone()
+               for k, v in state.cls_model.state_dict().items()}
+    if state.emb_model is not None:
+        tensors.update(torch_dp_ranks.model_tensors(state))
+    return {"logged": logged, "drawn": drawn, "tensors": tensors,
+            "generator": state.generator.get_state()}
+
+
+def drivers(overrides, init, head_init, data_dir, data_list, root, *,
+            device):
+    """train_spml (the softmax baseline) for train.max_iteration
+    iterations, the same resumed for one more, then train_classifier
+    over its snapshot from the head head_init: driver_run's results of
+    each."""
+    import argparse
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.train import driver
+
+    def args(name):
+        return argparse.Namespace(data_dir=data_dir, data_list=data_list,
+                                  snapshot_dir=f"{root}/{name}")
+
+    cfg = load_config(overrides=overrides)
+    first = driver_run(driver.train_spml, init, args("stage1"), cfg,
+                       device=device)
+    cfg = load_config(overrides=overrides)
+    cfg.train.max_iteration += 1
+    cfg.train.resume = True
+    resumed = driver_run(driver.train_spml, init, args("stage1"), cfg,
+                         device=device)
+    cfg = load_config(overrides=overrides)
+    cfg.network.pretrained = f"{root}/stage1"
+    stage2 = driver_run(driver.train_classifier, head_init, args("stage2"),
+                        cfg, device=device)
+    return {"first": first, "resumed": resumed, "stage2": stage2}
+
+
+def halo_ops(spatial, *, device):
+    """halo.conv2d (ASPP's dilation 24 over 2-row shards, the stem's
+    stride 2), halo.max_pool2d and halo.interpolate (x4) on this rank's
+    rows, in float64, forward and backward, against the whole operation
+    on the whole tensor on the same device: the largest difference of
+    the outputs and of the input gradients over every case."""
+    import torch.nn.functional as F
+
+    mesh = _mesh(spatial)
+    g = torch.Generator().manual_seed(0)
+    cases = [  # (height, op on a tensor, its sharded form)
+        (4, lambda x, w: F.conv2d(x, w, None, 1, 24, 24),
+         lambda x, w: halo.conv2d(x, w, None, (1, 1), (24, 24), (24, 24))),
+        (16, lambda x, w: F.conv2d(x, w, None, 2, 1, 1),
+         lambda x, w: halo.conv2d(x, w, None, (2, 2), (1, 1), (1, 1))),
+        (8, lambda x, w: F.max_pool2d(x, 3, 2, 1),
+         lambda x, w: halo.max_pool2d(x, 3, 2, 1)),
+        (4, lambda x, w: F.interpolate(x, size=(16, 20), mode="bilinear",
+                                       align_corners=False),
+         lambda x, w: halo.interpolate(x, (x.shape[2] * 4, 20)))]
+    out = []
+    for height, whole, part in cases:
+        x = torch.randn(2 * mesh.data, 3, height, 5, generator=g,
+                        dtype=torch.float64).to(device)
+        w = torch.randn(4, 3, 3, 3, generator=g,
+                        dtype=torch.float64).to(device)
+        xf = x.clone().requires_grad_()
+        yf = whole(xf, w)
+        cot = torch.randn(yf.shape, generator=g,
+                          dtype=torch.float64).to(device)
+        (yf * cot).sum().backward()
+        imgs = mesh.shard(x.shape[0])
+        xl = x[imgs, :, mesh.rows(height)].clone().requires_grad_()
+        with halo.sharded(mesh):
+            y = part(xl, w)
+        rows = mesh.rows(yf.shape[2])
+        (y * cot[imgs, :, rows]).sum().backward()
+        out.append((float((y - yf[imgs, :, rows]).detach().abs().max()),
+                    float((xl.grad - xf.grad[imgs, :, mesh.rows(height)])
+                          .abs().max())))
+    return out
