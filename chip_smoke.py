@@ -7,7 +7,7 @@ drivers from an image list on disk (with a profiler window) and the
 self-training chain after them (MSC, CRF, softmax inference,
 pseudo-labels), two data-parallel ranks of the flagship step, the
 drivers and batched inference, two height-sharded ranks of the flagship
-network, the softmax baseline and the drivers, report.
+network, the softmax baseline, the SegSort step and the drivers, report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -160,9 +160,27 @@ Phases, each printing one line or more:
     and resumed to 6, then train_classifier over its snapshot for 2: the
     iterations, checkpoints 2, 4, 6 from rank 0 with both generator
     states, tpu.num_devices 2, finite losses, the ranks' tensors equal
-    (sha256), no kernel launched (the path has none). Lines (a)-(c) and
-    a summary: ms/step and peak a rank against one process, the
-    nvidia-smi line;
+    (sha256), no kernel launched (the path has none). The SegSort branch
+    on the flagship recipe (fused joint loss, bank 2): (d) float32 (TF32
+    off, dropout 0) at SP_SEG_BATCH 8, free and on the one process's
+    k-means segments (each rank its rows of them), [dp] (a)'s checks and
+    DP_* tolerances, each plus the floor of SP_SEG_FLOOR_RUNS (the one
+    process with the batch's halves swapped, with batch norm by plain
+    autograd, in NCHW: none of the spatial code), K1-K3 once a step a
+    rank at N 65,536 (its rows) and P 6,144, the ranks equal (sha256);
+    float64 at SP_SEG_F64_BATCH 2 with the dense losses: the segments
+    and bank labels equal the one process's, the losses, every gradient
+    element (over its max) and the bank within SP_F64_RTOL + the floor
+    of the batch reversed; (e) the tags-only and sem_ann-only arms, one
+    float32 step at batch 2 on the one process's segments: losses
+    within DP_LOSS_RTOL, K7-K9 and K4-K6 once a rank; (f) the bf16 step,
+    3 warm-up and 10 timed steps a rank, then 3 with every collective
+    timed by its label (SP_SEG_KINDS: with "segments", k-means' and the
+    prototypes' sums over the space group), beside one process x 8;
+    (g) train_spml on the driver phase's stage 1 (SegSort, batch 4) for
+    4 iterations resumed to 6: K1-K3 once an iteration, checkpoints 2,
+    4, 6 from rank 0, the ranks equal. Lines (a)-(g) and a summary:
+    ms/step and peak a rank against one process, the nvidia-smi line;
  8. inference, the single-scale KNN path at VOC's test geometry
     (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
     kernel on it): panoptic_deeplab_101 from random weights of seed 0
@@ -1052,20 +1070,29 @@ def dp_setup(spec, dtype, device):
 
 
 @contextlib.contextmanager
-def segments_of(torch, given=None, rows=slice(None)):
+def segments_of(torch, given=None, rows=slice(None), shard=(0, 1)):
     """Records the k-means segments of the train step (kmeans.
     segment_batch) into the yielded dict; with `given` (a recorded
-    Segments, every image of the global batch), the step takes rows
-    `rows` of those in place of its own."""
+    Segments, every image of the global batch), the step takes images
+    `rows` of those in place of its own; height-sharded (shard = (space
+    rank, space)), the rank's rows of their pixel fields (the segment
+    fields whole)."""
     from spml_tpu_torch.ops import kmeans
 
     orig, rec = kmeans.segment_batch, {}
+    s, space = shard
+
+    def cut(t, pixel):
+        t = t[rows]
+        return t.reshape(t.shape[0], space, -1)[:, s] if pixel else t
 
     def recording(emb, *a, **k):
         out = orig(emb, *a, **k)
         if given is not None:
-            out = (kmeans.Segments(*[t[rows].to(emb.device)
-                                     for t in given]), *out[1:])
+            out = (kmeans.Segments(*[
+                cut(t, name.startswith("pixel")).to(emb.device)
+                for name, t in zip(kmeans.Segments._fields, given)]),
+                *out[1:])
         rec["segments"] = [t.cpu() for t in out[0]]
         return out
 
@@ -1120,13 +1147,15 @@ def plain_batch_norm(torch, stats_dtype):
         resnet.BatchNorm2d.forward = orig
 
 
-def dp_one_process(torch, spec, device, given=None, swap=False, bn=None):
+def dp_one_process(torch, spec, device, given=None, swap=False, bn=None,
+                   nchw=False):
     """One float32 step of one process at the global batch
     (train.batch_size DP_BATCH, so the same loss groups) from the seed-0
     state: its initial and updated tensors, losses, bank and k-means
     segments. given: the segments to take in place of its own; swap: the
     batch's halves swapped (the bank and segments handed back in the
-    batch's order); bn: plain_batch_norm's statistics type."""
+    batch's order); bn: plain_batch_norm's statistics type; nchw: the
+    models and the images in the contiguous NCHW layout."""
     from spml_tpu_torch.train import step as step_lib
 
     cfg, batch, state = dp_setup(spec, "f32", device)
@@ -1136,6 +1165,11 @@ def dp_one_process(torch, spec, device, given=None, swap=False, bn=None):
     if swap:  # swapping the halves twice is the identity
         order = order[g // 2:] + order[:g // 2]
     batch = {k: v[order] for k, v in batch.items()}
+    if nchw:
+        for model in (state.emb_model, state.cls_model):
+            model.to(memory_format=torch.contiguous_format)
+        batch["image"] = (batch["image"].permute(0, 3, 1, 2).contiguous()
+                          .permute(0, 2, 3, 1))
     with segments_of(torch, given, order) as rec, \
             (plain_batch_norm(torch, bn) if bn else contextlib.nullcontext()):
         state, m = step_lib.make_train_step(cfg)(state, batch)
@@ -1158,12 +1192,12 @@ def dp_floor(measures):
             "matched": max(m["matched"][0] for m in measures)}
 
 
-def dp_reference(torch, spec, device):
+def dp_reference(torch, spec, device, floor_runs=DP_FLOOR_RUNS):
     """The one-process step the ranks hold theirs against, and its
-    float32 floor: the step in each of DP_FLOOR_RUNS, once free and once
+    float32 floor: the step in each of floor_runs, once free and once
     on the reference's segments, against the reference (compare_step);
     dp_floor of a mode's runs is that mode's floor. Each floor run is
-    also held to the floor of the other two ("alone"). Saves the
+    also held to the floor of the others ("alone"). Saves the
     reference with its floors to spec["ref"]; returns {mode: {floor run:
     its measures}}."""
     ref = dp_one_process(torch, spec, device)
@@ -1171,7 +1205,7 @@ def dp_reference(torch, spec, device):
     ref["floor"], runs = {}, {}
     for mode, given in (("free", None), ("equal", ref["segments"])):
         runs[mode] = {}
-        for name, kw in DP_FLOOR_RUNS.items():
+        for name, kw in floor_runs.items():
             run = dp_one_process(torch, spec, device, given, **kw)
             runs[mode][name], _ = compare_step(torch, ref, run, every,
                                                spec["capacity"])
@@ -1734,6 +1768,33 @@ SP_FLOOR_RUNS = {"float32": {"cudnn.benchmark": {"benchmark": True},
                  "float64": {"images reversed": {"reverse": True},
                              "NCHW": {"nchw": True}}}
 SP_KINDS = ("gradient", "batch norm", "halo", "other")
+# (d)-(g): the SegSort branch on the flagship recipe (train/flagship.py:
+# panoptic_deeplab_101, 64-d, crop 512, 6x6 k-means x10, capacity 256,
+# bank 2, the fused joint loss). (d) float32 at SP_SEG_BATCH (one loss
+# group), TF32 off, dropout 0, free and on the one process's segments,
+# held to [dp] (a)'s checks and DP_* tolerances, each plus the float32
+# floor of SP_SEG_FLOOR_RUNS: the one-process step in other exact
+# arithmetics that run none of the spatial code (the batch's halves
+# swapped; batch norm by plain autograd; the NCHW layout, other
+# convolution kernels). float64 at SP_SEG_F64_BATCH with the dense
+# losses (the kernels take float32 alone): the k-means Segments equal,
+# every gradient element within SP_F64_RTOL x max|gradient|, the bank
+# prototypes within SP_F64_RTOL and the losses within SP_F64_RTOL
+# relative, each plus the floor of the one process with its images in
+# the other order. All set before the phase's first chip run.
+SP_SEG_BATCH, SP_SEG_F64_BATCH, SP_ARM_BATCH = 8, 2, 2
+SP_SEG_FLOOR_RUNS = {"halves swapped": {"swap": True},
+                     "plain BN": {"bn": "float32"}, "NCHW": {"nchw": True}}
+# (e) one float32 step of each arm at SP_ARM_BATCH on the one process's
+# segments: losses within DP_LOSS_RTOL of the one process; the arm's
+# kernel family launched once a rank
+SP_ARMS = {"tags only": ({"sem_ann_loss_types": "none"}, "set"),
+           "sem_ann only": ({"sem_occ_loss_types": "none"}, "hard")}
+# (f) the labels of the SegSort step's collectives at data 1: the
+# prototypes' gather runs over a data group of one rank, which takes no
+# collective
+SP_SEG_KINDS = ("gradient", "batch norm", "halo", "segments", "other")
+K13 = ("joint_stats", "joint_grad_emb", "joint_grad_proto")
 
 
 def sp_spec_model(spec, torch, device, dtype):
@@ -1934,15 +1995,18 @@ def sp_config():
     return over
 
 
-def sp_time(torch, spec, device, mesh=None, mesh_lib=None):
-    """(b): the bf16 softmax-baseline step, 3 warm-up and 10 timed
-    steps: this rank's rows (mesh) or one process; then, for a rank, 3
-    steps with every collective timed by its label."""
+def sp_time(torch, spec, device, mesh=None, mesh_lib=None, key="bf16",
+            fused=None):
+    """(b), (f): the bf16 step of spec[key] (the softmax baseline, the
+    SegSort step), 3 warm-up and 10 timed steps: this rank's rows (mesh)
+    or one process; then, for a rank, 3 steps with every collective
+    timed by its label (SP_KINDS, SP_SEG_KINDS), and the kernels
+    launched in all 16 (fused)."""
     from spml_tpu_torch.config import load_config
     from spml_tpu_torch.train import flagship
     from spml_tpu_torch.train import step as step_lib
 
-    cfg = load_config(overrides=spec["bf16"])
+    cfg = load_config(overrides=spec[key])
     if mesh is not None:
         cfg.tpu.spatial_partition = SP_SPACE
     batch = flagship.make_batch(cfg, device=device)
@@ -1951,19 +2015,25 @@ def sp_time(torch, spec, device, mesh=None, mesh_lib=None):
     if mesh is None:
         _, ms, peak = time_steps(torch, step, state, batch, device)
         return {"ms": ms, "peak": peak}
+    if fused is not None:
+        fused.reset_launch_counts()
     local = mesh_lib.shard_rows(batch, mesh)
     state, ms, peak = time_steps(torch, step, state, local, device,
                                  mesh_lib.barrier)
     with timing_collectives(torch, device, mesh_lib) as kinds:
         for _ in range(3):
             state, m = step(state, local)
-    if set(kinds) != set(SP_KINDS):  # a call site lost its label
+    want = SP_KINDS if key == "bf16" else SP_SEG_KINDS
+    if set(kinds) != set(want):  # a call site lost its label
         raise AssertionError(f"sp: collectives of kinds {sorted(kinds)}, "
-                             f"want {SP_KINDS}")
+                             f"want {want}")
     coll = {k: (sum(c.ms() for c in v) / 3, len(v) // 3)
             for k, v in kinds.items()}
-    return {"ms": ms, "peak": peak, "collectives": coll,
-            "loss": float(m["loss"])}
+    out = {"ms": ms, "peak": peak, "collectives": coll,
+           "loss": float(m["loss"])}
+    if fused is not None:
+        out["launches"] = {k: v for k, v in fused.LAUNCHES.items() if v}
+    return out
 
 
 def sp_driver(torch, fused, spec, device, mesh):
@@ -2034,9 +2104,298 @@ def sp_driver(torch, fused, spec, device, mesh):
     return out
 
 
+def sp_segsort_config(dtype, batch, fused=True, **train):
+    """The flagship SegSort recipe (train/flagship.py) at train.batch_size
+    `batch` in `dtype`, the fused loss on or off, with `train`'s
+    overrides."""
+    import copy
+
+    from spml_tpu_torch.train import flagship
+
+    over = copy.deepcopy(flagship.OVERRIDES)
+    over["train"].update(batch_size=batch, **train)
+    over["tpu"].update(compute_dtype=dtype, use_fused_loss=fused)
+    return over
+
+
+def sp_join_segments(torch, segs, mesh):
+    """A rank's Segments with its pixel fields ([B, rows x W]) joined
+    with the other space ranks' rows, in order: the whole images'."""
+    from spml_tpu_torch.ops import kmeans
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    return [mesh_lib.gather_rows(t.contiguous(), mesh).cpu()
+            if name.startswith("pixel") else t
+            for name, t in zip(kmeans.Segments._fields, segs)]
+
+
+def sp_segsort_equality(torch, fused, spec, device, mesh):
+    """(d) float32: this rank's rows of the flagship SegSort step against
+    the one process (dp_reference over SP_SEG_FLOOR_RUNS), free and on
+    the one process's segments, each held to [dp] (a)'s checks at
+    tolerance + that mode's floor; K1-K3 once a step with their N and
+    P."""
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+    from spml_tpu_torch.train import step as step_lib
+
+    seg = spec["seg"]
+    ref = torch.load(seg["ref"], weights_only=True)
+    every = slice(0, seg["global"])
+    out = {}
+    for run, given in (("free", None), ("equal", ref["segments"])):
+        cfg, batch, state = dp_setup(seg, "f32", device)
+        cfg.tpu.spatial_partition = SP_SPACE
+        local = mesh_lib.shard_rows(batch, mesh)
+        step = step_lib.make_train_step(cfg)
+        fused.reset_launch_counts()
+        with recording_stats(torch, fused, "joint") as last, \
+                segments_of(torch, given, every,
+                            (mesh.space_rank, mesh.space)) as rec:
+            state, m = step(state, local)
+        launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+        got = dp_step_result(torch, state, m, rec)
+        got["segments"] = sp_join_segments(torch, got["segments"], mesh)
+        measures, bad = compare_step(
+            torch, ref, got, every, seg["capacity"], ref["floor"][run],
+            DP_FREE_CHECKS if given is None else DP_CHECKS)
+        if bad:
+            raise AssertionError(f"sp rank {mesh.rank} SegSort against one "
+                                 f"process ({run} segments): {bad} "
+                                 f"({measures})")
+        out[run] = {**measures, "losses": got["losses"],
+                    "launches": launches,
+                    "n": int(last["args"][0].shape[0]),
+                    "p": int(last["args"][4].shape[0]),
+                    "digest": digest({**got["after"], **{
+                        "bank." + k: v for k, v in got["memory"].items()}})}
+        state = m = got = None
+    return out
+
+
+def sp_f64_step(torch, spec, device, mesh=None, swap=False):
+    """One float64 step of the flagship SegSort recipe at
+    SP_SEG_F64_BATCH with the dense losses (spec["seg"]["f64"]) from the
+    seed-0 state, dropout 0, the models, bank and images in float64:
+    losses, k-means Segments (a rank's rows joined), every parameter's
+    gradient and the bank. mesh: this rank's rows; swap: the images in
+    the other order (handed back in the batch's)."""
+    import dataclasses
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+    from spml_tpu_torch.train import flagship
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg = load_config(overrides=spec["seg"]["f64"])
+    if mesh is not None:
+        cfg.tpu.spatial_partition = SP_SPACE
+    g = cfg.train.batch_size
+    batch = flagship.blobby_batch(g, cfg.train.crop_size[0],
+                                  cfg.dataset.num_classes, device=device)
+    state = step_lib.init_state(cfg, 0, batch["image"], device=device)
+    state.cls_model.semantic_classifier[3].p = 0.0
+    for model in (state.emb_model, state.cls_model):
+        model.double()
+        model.compute_dtype = torch.float64
+    state.memory = dataclasses.replace(state.memory, **{
+        k: v.double() for k, v in vars(state.memory).items()
+        if v.is_floating_point()})
+    order = list(range(g))[::-1] if swap else list(range(g))
+    batch = {k: v[order] for k, v in batch.items()}
+    batch["image"] = batch["image"].double()
+    if mesh is not None:
+        batch = mesh_lib.shard_rows(batch, mesh)
+    with segments_of(torch) as rec:
+        state, m = step_lib.make_train_step(cfg)(state, batch)
+    segs = rec["segments"]
+    if mesh is not None:
+        segs = sp_join_segments(torch, segs, mesh)
+    p = cfg.tpu.segment_capacity
+    return {"losses": {k: float(v) for k, v in m.items()
+                       if k.endswith("loss")},
+            "segments": [t[order] for t in segs],
+            "grads": {n: q.grad.detach().cpu()
+                      for n, q in step_lib._named_params(state)
+                      if q.grad is not None},
+            "bank": {k: v.cpu().reshape(v.shape[0], g, p, *v.shape[2:])
+                     [:, order].reshape(v.shape)
+                     for k, v in vars(state.memory).items()}}
+
+
+def sp_f64_measures(ref, got):
+    """got's differences from ref: each loss (relative), each gradient
+    element (over the gradient's max |ref|), the bank's floats, and the
+    Segments' and bank labels' equality."""
+    m = {"loss." + k: abs(got["losses"][k] - v) / max(abs(v), 1e-300)
+         for k, v in ref["losses"].items()}
+    for k, v in ref["grads"].items():
+        m["grad." + k] = float((got["grads"][k] - v).abs().max()
+                               / v.abs().max().clamp(min=1e-300))
+    m["bank"] = max(float((got["bank"][k] - v).abs().max())
+                    for k, v in ref["bank"].items() if v.is_floating_point())
+    equal = all(a.equal(b) for a, b in zip(got["segments"],
+                                           ref["segments"]))
+    labels = all(got["bank"][k].equal(v) for k, v in ref["bank"].items()
+                 if not v.is_floating_point())
+    return m, equal, labels
+
+
+def sp_seg_reference(torch, spec, device):
+    """The one-process references of (d), (e) and (f): (d) float32 with
+    dp_reference over SP_SEG_FLOOR_RUNS, float64 with its floor run;
+    (e) each arm's step; (f) the bf16 step timed. Returns what (d)'s
+    line prints of the floor runs and (f)'s one-process timing."""
+    seg = spec["seg"]
+    out = {"f32": dp_reference(torch, seg, device, SP_SEG_FLOOR_RUNS)}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ref = sp_f64_step(torch, spec, device)
+    floor, equal, _ = sp_f64_measures(
+        ref, sp_f64_step(torch, spec, device, swap=True))
+    if not equal:  # float64 has no k-means near-ties to move a pixel
+        raise AssertionError("sp float64 floor run: the segments of the "
+                             "reversed batch differ")
+    torch.save({**ref, "floor": floor}, seg["ref64"])
+    out["f64_floor"] = max(floor.values())
+    ref = None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    arms = {arm: sp_arm_step(torch, None, spec, arm, device)
+            for arm in SP_ARMS}
+    torch.save(arms, seg["ref_arms"])
+    out["arms"] = {a: r["losses"] for a, r in arms.items()}
+    out["time"] = sp_time(torch, spec, device, key="seg_bf16")
+    return out
+
+
+def sp_f64_equality(torch, spec, device, mesh):
+    """(d) float64: this rank's rows of the dense step against the one
+    process: the Segments and bank labels equal, every measure within
+    SP_F64_RTOL + its floor."""
+    ref = torch.load(spec["seg"]["ref64"], weights_only=True)
+    got = sp_f64_step(torch, spec, device, mesh)
+    m, equal, labels = sp_f64_measures(ref, got)
+    bad = {k: (v, ref["floor"][k]) for k, v in m.items()
+           if v > SP_F64_RTOL + ref["floor"][k]}
+    if bad or not (equal and labels):
+        raise AssertionError(f"sp rank {mesh.rank} float64 SegSort step: "
+                             f"segments equal {equal}, bank labels equal "
+                             f"{labels}, over tolerance + floor: {bad}")
+    worst = max(m, key=lambda k: m[k] / (SP_F64_RTOL + ref["floor"][k]))
+    return {"worst": (worst, m[worst], ref["floor"][worst]),
+            "n_grads": len(ref["grads"]),
+            "pixels": int(ref["segments"][0].numel())}
+
+
+def sp_arm_step(torch, fused, spec, arm, device, mesh=None, given=None):
+    """(e): one float32 step of an arm (SP_ARMS) of the flagship recipe
+    at SP_ARM_BATCH from the seed-0 state, dropout 0: losses, k-means
+    Segments and the kernels launched. mesh: this rank's rows; given:
+    the one process's Segments to take in place of its own."""
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+    from spml_tpu_torch.train import flagship
+    from spml_tpu_torch.train import step as step_lib
+
+    cfg = load_config(overrides=spec["seg"]["arms"][arm])
+    shard = (0, 1)
+    if mesh is not None:
+        cfg.tpu.spatial_partition = SP_SPACE
+        shard = (mesh.space_rank, mesh.space)
+    batch = flagship.blobby_batch(SP_ARM_BATCH, cfg.train.crop_size[0],
+                                  cfg.dataset.num_classes, device=device)
+    state = step_lib.init_state(cfg, 0, batch["image"], device=device)
+    state.cls_model.semantic_classifier[3].p = 0.0
+    if mesh is not None:
+        batch = mesh_lib.shard_rows(batch, mesh)
+    step = step_lib.make_train_step(cfg)
+    if fused is not None:
+        fused.reset_launch_counts()
+    with segments_of(torch, given, slice(None), shard) as rec:
+        state, m = step(state, batch)
+    out = {"losses": {k: float(v) for k, v in m.items()
+                      if k.endswith("loss")},
+           "segments": rec["segments"]}
+    if fused is not None:
+        out["launches"] = {k: v for k, v in fused.LAUNCHES.items() if v}
+    return out
+
+
+def sp_arms(torch, fused, spec, device, mesh):
+    """(e) on this rank: each arm's step on the one process's segments,
+    its losses within DP_LOSS_RTOL of the one process's."""
+    refs = torch.load(spec["seg"]["ref_arms"], weights_only=True)
+    out = {}
+    for arm in SP_ARMS:
+        got = sp_arm_step(torch, fused, spec, arm, device, mesh,
+                          refs[arm]["segments"])
+        want = refs[arm]["losses"]
+        bad = {k: (got["losses"][k], v) for k, v in want.items()
+               if abs(got["losses"][k] - v) > DP_LOSS_RTOL * abs(v)}
+        if bad or got["losses"].keys() != want.keys():
+            raise AssertionError(f"sp rank {mesh.rank} {arm}: losses "
+                                 f"(rank, one process) {bad}")
+        out[arm] = {"launches": got["launches"],
+                    "rel": max(abs(got["losses"][k] - v) / (abs(v) or 1.0)
+                               for k, v in want.items())}
+    return out
+
+
+def sp_segsort_driver(torch, fused, spec, device, mesh):
+    """(g): train_spml on the flagship SegSort recipe (the driver phase's
+    stage 1, batch SP_DRIVER_BATCH, tensorboard_step 1) for 4 iterations
+    and resumed to 6: iterations, launches, checkpoints, digests."""
+    import argparse
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.data import datasets
+    from spml_tpu_torch.train import driver
+    from spml_tpu_torch.utils import checkpoint as ckpt
+
+    snapshot = os.path.join(spec["root"], "sp_segsort")
+    args = argparse.Namespace(data_dir=spec["data"], data_list=spec["list"],
+                              snapshot_dir=snapshot)
+    logged = []
+    log_metrics = driver._log_metrics
+
+    def capture(writer, metrics, it, prefix=""):
+        logged.append((it, float(metrics["loss"])))
+        log_metrics(writer, metrics, it, prefix)
+
+    driver._log_metrics = capture
+    out = {"runs": []}
+    try:
+        for first, last in ((0, 4), (4, 6)):
+            cfg = load_config(overrides=spec["seg"]["stage1"])
+            cfg.train.max_iteration = last
+            cfg.train.resume = first > 0
+            cfg.train.tensorboard_step = 1  # every iteration, with panels
+            logged.clear()
+            fused.reset_launch_counts()
+            state = driver.train_spml(args, cfg, datasets.ListTagDataset,
+                                      device=device)
+            out["runs"].append((first, last, [it for it, _ in logged],
+                                [loss for _, loss in logged], {
+                                    k: v for k, v in fused.LAUNCHES.items()
+                                    if v}))
+        out["digest"] = digest({**model_tensors(state), **{
+            "bank." + k: v for k, v in vars(state.memory).items()}})
+        out["bank_images"] = int(state.memory.prototype.shape[1]
+                                 // cfg.tpu.segment_capacity)
+        out["num_devices"] = cfg.tpu.num_devices
+        ck_dir = os.path.join(snapshot, "checkpoints")
+        out["checkpoints"] = ckpt.steps(ck_dir)
+        out["rank_generators"] = len(ckpt.read(ck_dir).get(
+            "rank_generators", []))
+    finally:
+        driver._log_metrics = log_metrics
+    return out
+
+
 def sp_rank(spec, *, device):
     """One rank of the [sp] phase, in a process of its own
-    (parallel/mesh.py::spawn): (a), (b), (c)."""
+    (parallel/mesh.py::spawn): (a), (b), (c), then the SegSort branch's
+    (d), (e), (f) and (g)."""
     import torch
 
     from spml_tpu_torch.ops import _cuda
@@ -2054,7 +2413,16 @@ def sp_rank(spec, *, device):
             ("timing", lambda: sp_time(torch, spec, device, mesh,
                                        mesh_lib)),
             ("driver", lambda: sp_driver(torch, fused, spec, device,
-                                         mesh))):
+                                         mesh)),
+            ("segsort", lambda: sp_segsort_equality(torch, fused, spec,
+                                                    device, mesh)),
+            ("segsort64", lambda: sp_f64_equality(torch, spec, device,
+                                                  mesh)),
+            ("arms", lambda: sp_arms(torch, fused, spec, device, mesh)),
+            ("seg_timing", lambda: sp_time(torch, spec, device, mesh,
+                                           mesh_lib, "seg_bf16", fused)),
+            ("seg_driver", lambda: sp_segsort_driver(torch, fused, spec,
+                                                     device, mesh))):
         out[name] = run()
         if device.type == "cuda":  # the ranks may share one card
             torch.cuda.empty_cache()
@@ -2062,11 +2430,13 @@ def sp_rank(spec, *, device):
     return out
 
 
-def check_sp(ranks):
+def check_sp(spec, ranks):
     """The ranks against each other, the drivers' iterations,
-    checkpoints and launches (none: no kernel on this path)."""
-    a, b = ranks
-    digests = [(r["driver"]["stage1"], r["driver"]["stage2"])
+    checkpoints and launches (none on the softmax path; K1-K3 once a
+    step on the SegSort path)."""
+    digests = [(r["driver"]["stage1"], r["driver"]["stage2"],
+                r["segsort"]["free"]["digest"],
+                r["segsort"]["equal"]["digest"], r["seg_driver"]["digest"])
                for r in ranks]
     if digests[0] != digests[1]:
         raise AssertionError(f"sp: the ranks' tensors differ: {digests}")
@@ -2089,6 +2459,42 @@ def check_sp(ranks):
         if any(launched):
             raise AssertionError(f"sp rank {r['rank']}: kernels launched "
                                  f"{launched} on a path that has none")
+        check_sp_segsort(spec, r)
+
+
+def check_sp_segsort(spec, r):
+    """(d)-(g) of one rank: K1-K3 once a step at the rank's N and P, each
+    arm's family once, the driver's iterations, checkpoints and
+    launches."""
+    seg = spec["seg"]
+    for run, eq in r["segsort"].items():
+        if (eq["n"], eq["p"]) != (seg["n"], seg["p"]):
+            raise AssertionError(f"sp rank {r['rank']} ({run}): K1-K3 at N "
+                                 f"{eq['n']}, P {eq['p']}, want {seg['n']}, "
+                                 f"{seg['p']}")
+    for arm, (_, family) in SP_ARMS.items():
+        want = {f"{family}_{kind}": 1 for kind in KINDS}
+        if r["arms"][arm]["launches"] != want:
+            raise AssertionError(f"sp rank {r['rank']} {arm}: launches "
+                                 f"{r['arms'][arm]['launches']}, want {want}")
+    dr = r["seg_driver"]
+    got = [*(e["launches"] for e in r["segsort"].values()),
+           r["seg_timing"]["launches"], *(la for *_, la in dr["runs"])]
+    want = [dict.fromkeys(K13, n) for n in (1, 1, 16, 4, 2)]
+    if got != want:
+        raise AssertionError(f"sp rank {r['rank']}: SegSort launches {got}, "
+                             f"want {want} (K1-K3 once a step)")
+    if ([(f, la, it) for f, la, it, _, _ in dr["runs"]] != [
+            (0, 4, [0, 1, 2, 3]), (4, 6, [4, 5])]
+            or dr["checkpoints"] != [2, 4, 6]
+            or dr["rank_generators"] != SP_SPACE
+            or dr["num_devices"] != SP_SPACE
+            or dr["bank_images"] != SP_DRIVER_BATCH):
+        raise AssertionError(f"sp rank {r['rank']} SegSort driver: {dr}")
+    losses = [x for *_, ls, _ in dr["runs"] for x in ls] + [
+        r["seg_timing"]["loss"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"sp rank {r['rank']}: SegSort losses {losses}")
 
 
 def run_sp(torch, devices=None, backend=None, device=None):
@@ -2116,12 +2522,34 @@ def run_sp(torch, devices=None, backend=None, device=None):
         stage1["network"]["prediction_types"] = "softmax_classifier"
         stage1["train"]["batch_size"] = SP_DRIVER_BATCH
         stage1["tpu"]["spatial_partition"] = SP_SPACE
+        seg_stage1 = copy.deepcopy(STAGE1)
+        seg_stage1["train"]["batch_size"] = SP_DRIVER_BATCH
+        seg_stage1["tpu"]["spatial_partition"] = SP_SPACE
+        f32 = sp_segsort_config("float32", SP_SEG_BATCH)
+        crop = f32["train"]["crop_size"][0]
+        capacity = f32["tpu"]["segment_capacity"]
+        seg = {"f32": f32, "global": SP_SEG_BATCH, "capacity": capacity,
+               "f64": sp_segsort_config("float64", SP_SEG_F64_BATCH,
+                                        fused=False),
+               "arms": {a: sp_segsort_config("float32", SP_ARM_BATCH, **t)
+                        for a, (t, _) in SP_ARMS.items()},
+               "stage1": seg_stage1,
+               # K1-K3 on a rank: its rows' pixels of every image, against
+               # the global batch's prototypes and the bank's
+               "n": SP_SEG_BATCH * (crop // 4) ** 2 // SP_SPACE,
+               "p": SP_SEG_BATCH * capacity
+               * (1 + f32["train"]["memory_bank_size"]),
+               "ref": os.path.join(root, "seg_ref.pt"),
+               "ref64": os.path.join(root, "seg_ref64.pt"),
+               "ref_arms": os.path.join(root, "seg_arms.pt")}
         spec = {"csrc": str(_cuda.CSRC), "root": root, "data": data,
                 "list": lst, "stage1": stage1,
                 "backbone": STAGE1["network"]["backbone_types"],
                 "dim": STAGE1["network"]["embedding_dim"],
                 "crop": STAGE1["train"]["crop_size"][0],
-                "bf16": sp_config(), "ref": os.path.join(root, "ref.pt")}
+                "bf16": sp_config(), "ref": os.path.join(root, "ref.pt"),
+                "seg_bf16": sp_segsort_config("bfloat16", SP_SEG_BATCH),
+                "seg": seg}
         log("sp", f"{len(devices)} ranks (data 1 x space {SP_SPACE}) on "
             f"{devices}: {case}")
         floor_runs = sp_reference(torch, spec, device)
@@ -2130,12 +2558,18 @@ def run_sp(torch, devices=None, backend=None, device=None):
         one = sp_time(torch, spec, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
+        t_ref = time.perf_counter()
+        seg_one = sp_seg_reference(torch, spec, device)
+        t_ref = time.perf_counter() - t_ref
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = mesh_lib.spawn(sp_rank, (spec,), devices, backend)
         spawn_s = time.perf_counter() - t0
-        check_sp(ranks)
+        check_sp(spec, ranks)
     eq = [r["equality"] for r in ranks]
     tm = [r["timing"] for r in ranks]
+    st = [r["seg_timing"] for r in ranks]
     dr = ranks[0]["driver"]
     ms = max(t["ms"] for t in tm)
     coll = {k: max(t["collectives"][k][0] for t in tm) for k in SP_KINDS}
@@ -2181,11 +2615,84 @@ def run_sp(torch, devices=None, backend=None, device=None):
         f"train_classifier iterations {dr['stage2_iterations']}, losses "
         f"{[round(x, 4) for x in dr['stage2_losses']]}, heads torch.equal; "
         "no kernel launched")
+    log_sp_segsort(spec, ranks, seg_one)
     log("sp", f"summary, {case}: {ms:.2f} ms/step, peak "
         f"{max(t['peak'] for t in tm):.2f} GiB a rank against "
-        f"{one['ms']:.2f} ms/step, {one['peak']:.2f} GiB one process; "
-        f"spawn to join {spawn_s:.1f} s, phase "
-        f"{time.perf_counter() - t_phase:.1f} s; card {nvidia_smi_line()}")
+        f"{one['ms']:.2f} ms/step, {one['peak']:.2f} GiB one process "
+        f"(softmax baseline); SegSort {max(t['ms'] for t in st):.2f} "
+        f"ms/step, peak {max(t['peak'] for t in st):.2f} GiB a rank against "
+        f"{seg_one['time']['ms']:.2f} ms/step, "
+        f"{seg_one['time']['peak']:.2f} GiB one process; one-process "
+        f"SegSort references {t_ref:.1f} s, spawn to join {spawn_s:.1f} s, "
+        f"phase {time.perf_counter() - t_phase:.1f} s; card "
+        f"{nvidia_smi_line()}")
+
+
+def log_sp_segsort(spec, ranks, one):
+    """Lines (d)-(g) of the [sp] phase."""
+    seg = spec["seg"]
+    eq = [r["segsort"] for r in ranks]
+    log("sp", f"(d) float32 (TF32 off, dropout 0), the flagship SegSort "
+        f"step (fused joint loss, bank 2) at batch {SP_SEG_BATCH} over "
+        f"{SP_SPACE} space ranks against one process, [dp] (a)'s "
+        f"tolerances (losses rtol {DP_LOSS_RTOL}; bank labels, tags, "
+        f"validity, batch indices and integer buffers equal; update L2 "
+        f"{DP_UPDATE_RTOL}; the {len(DP_CHECKED)} checked updates "
+        f"{DP_UPDATE_RTOL} max|update|; bank prototypes atol "
+        f"{DP_BANK_ATOL}), each plus the floor of "
+        f"{', '.join(SP_SEG_FLOOR_RUNS)}. "
+        + " ".join(dp_mode_words(mode, [e[mode] for e in eq],
+                                 one["f32"][mode], seg["n"] * SP_SPACE)
+                   for mode in ("free", "equal"))
+        + f" Losses {eq[0]['free']['losses']}; the ranks' parameters, "
+        "buffers and banks torch.equal (sha256)")
+    f64 = [r["segsort64"] for r in ranks]
+    log("sp", f"(d) float64, batch {SP_SEG_F64_BATCH}, dense losses: the "
+        f"{f64[0]['pixels']} pixels' k-means segments and the bank labels "
+        f"equal one process's; losses, {f64[0]['n_grads']} gradients (each "
+        f"element over its max) and the bank prototypes within "
+        f"{SP_F64_RTOL} + the floor (images reversed, largest "
+        f"{one['f64_floor']:.3e}); worst " + " | ".join(
+            f"rank {r}: {w[0]} {w[1]:.3e} (floor {w[2]:.3e})"
+            for r, w in enumerate(f["worst"] for f in f64)))
+    log("sp", "(d) launches a rank in each float32 step " + " / ".join(
+        str(e[m]["launches"]) for e in eq for m in ("free", "equal"))
+        + f": K1-K3 once each at N {eq[0]['free']['n']} (a rank's rows), "
+        f"P {eq[0]['free']['p']}")
+    log("sp", f"(e) one float32 step at batch {SP_ARM_BATCH} on the one "
+        f"process's segments, losses within rtol {DP_LOSS_RTOL}: " + "; ".join(
+            f"{arm} (losses {one['arms'][arm]}) worst relative "
+            + " / ".join(f"{r['arms'][arm]['rel']:.2e}" for r in ranks)
+            + " , launches a rank " + " / ".join(
+                str(r["arms"][arm]["launches"]) for r in ranks)
+            for arm in SP_ARMS))
+    st = [r["seg_timing"] for r in ranks]
+    ms = max(t["ms"] for t in st)
+    kinds = SP_SEG_KINDS + ("gather",)
+    coll = {k: max(t["collectives"].get(k, (0.0, 0))[0] for t in st)
+            for k in kinds}
+    counts = {k: st[0]["collectives"].get(k, (0.0, 0))[1] for k in kinds}
+    log("sp", f"(f) bf16 flagship SegSort step, global batch "
+        f"{SP_SEG_BATCH}, 3 + 10 steps: {ms:.2f} ms/step (ranks "
+        + " / ".join(f"{t['ms']:.2f}" for t in st)
+        + f"), {SP_SEG_BATCH * 1000 / ms:.2f} images/s, peak "
+        + " / ".join(f"{t['peak']:.2f}" for t in st)
+        + " GiB a rank; collectives a step (slowest rank, ms, count): "
+        + ", ".join(f"{k} {coll[k]:.2f} ({counts[k]})" for k in kinds)
+        + " (gather: the prototypes' data group is one rank, no "
+        f"collective); one process x {SP_SEG_BATCH}: "
+        f"{one['time']['ms']:.2f} ms/step, peak {one['time']['peak']:.2f} "
+        "GiB; launches a rank " + " / ".join(str(t["launches"])
+                                             for t in st))
+    dr = ranks[0]["seg_driver"]
+    log("sp", f"(g) train_spml on the SegSort recipe (fused joint loss, "
+        f"batch {SP_DRIVER_BATCH}, bank of the global batch), "
+        f"{SP_SPACE} space ranks: runs "
+        + ", ".join(f"{a}-{b} losses {[round(x, 4) for x in ls]} launches "
+                    f"{la}" for a, b, _, ls, la in dr["runs"])
+        + f", tpu.num_devices {dr['num_devices']}, checkpoints "
+        f"{dr['checkpoints']} from rank 0 with {dr['rank_generators']} "
+        "generator states, resumed at step 4, ranks torch.equal")
 
 
 # ---------------------------------------------------------------------------

@@ -32,10 +32,10 @@ import torch.nn as nn
 from spml_tpu_torch.models import local
 from spml_tpu_torch.models.resnet import (BN_EPS, BN_MOMENTUM,
                                           RESNET_DEPTHS, BatchNorm2d,
-                                          ResnetBackbone, at_least_float32,
-                                          init_backbone_)
+                                          ResnetBackbone, init_backbone_)
 from spml_tpu_torch.models.spp import (ASPP, PSPP, init_torch_conv_,
                                        resize_bilinear)
+from spml_tpu_torch.ops.common import at_least_float32
 from spml_tpu_torch.parallel import halo
 
 PSPP_FEATURE_DIM = 512
@@ -144,8 +144,9 @@ class ClassifierHead(nn.Module):
             x = relu(bn(conv1(x.to(self.compute_dtype))))
             if self.training:
                 x = dropout(x, drop.p, generator)
-        # the logits conv runs in float32, as in the JAX package
-        x = conv2(x.float())
+        # the logits conv runs in float32, as in the JAX package (float64
+        # stays float64)
+        x = conv2(at_least_float32(x))
         return x.permute(0, 2, 3, 1)
 
 

@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from spml_tpu_torch.ops.common import at_least_float32
 from spml_tpu_torch.parallel import halo
 from spml_tpu_torch.parallel import mesh as mesh_lib
 
@@ -67,11 +68,6 @@ def _remat_contexts():
     """checkpoint's (forward, recompute) contexts: the recompute flags
     itself, so BatchNorm2d does not update its buffers a second time."""
     return contextlib.nullcontext(), _recomputing()
-
-
-def at_least_float32(x: torch.Tensor) -> torch.Tensor:
-    """x in float32, or float64 where it is float64."""
-    return x if x.dtype == torch.float64 else x.float()
 
 
 class _SyncBatchNorm(torch.autograd.Function):

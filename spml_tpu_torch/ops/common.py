@@ -25,6 +25,12 @@ def normalize_embedding(embeddings: torch.Tensor,
     return embeddings / torch.sqrt(torch.clamp(sq, min=eps * eps))
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in float64 when it is float64 (a float64 step
+    stays float64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def one_hot(labels: torch.Tensor, num_classes: int,
             dtype=torch.float32) -> torch.Tensor:
     """One-hot encoding; out-of-range labels give all-zero rows."""
@@ -56,15 +62,26 @@ def segment_mean(values: torch.Tensor, seg_ids: torch.Tensor,
     return sums / torch.clamp(counts, min=1.0)
 
 
-def resize_labels(labels: torch.Tensor, size: tuple[int, int]
-                  ) -> torch.Tensor:
+def resize_labels(labels: torch.Tensor, size: tuple[int, int],
+                  shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Nearest-neighbour label resize, torch 'nearest' index rule:
-    src = floor(dst * in/out), computed in float32."""
+    src = floor(dst * in/out), computed in float32.
+
+    shard (s, S): labels and size are rank s's rows of an image split
+    over S ranks in equal row blocks; the source rows come from the
+    global coordinates (the global resize's rows s * nh .. (s + 1) * nh
+    - 1), which must lie in the rank's own rows (ValueError)."""
     h, w = labels.shape[-2:]
     nh, nw = size
+    s, space = shard
     dev = labels.device
-    ys = torch.floor(torch.arange(nh, dtype=torch.float32, device=dev)
-                     * (h / nh)).long()
+    ys = torch.floor(torch.arange(nh * space, dtype=torch.float32,
+                                  device=dev)
+                     * (h * space / (nh * space))).long()
+    ys = ys[s * nh:(s + 1) * nh] - s * h
+    if space > 1 and not bool(((ys >= 0) & (ys < h)).all()):
+        raise ValueError(f"a label resize of {h} rows to {nh} a rank reads "
+                         "rows of another rank")
     xs = torch.floor(torch.arange(nw, dtype=torch.float32, device=dev)
                      * (w / nw)).long()
     return labels.index_select(-2, ys).index_select(-1, xs)

@@ -11,6 +11,17 @@ here:
 * torch.unique-style segment compaction is a stable sort + adjacent-diff
   + cumsum under a fixed per-image capacity; overflowed and invalid
   pixels go to bin capacity-1 with keep=False.
+
+Height-sharded (segment_batch's mesh with space S > 1: each of an
+image's S space ranks holds its rows of the image, parallel/halo.py),
+the result is that of the whole image, the rank's rows of its pixel
+fields and every segment field whole: the grid initialisation takes the
+global grid's rows; each M-step's per-cluster sums are added over the
+space group in rank order (parallel/mesh.py::group_sum, the same bits on
+every rank) and the E-step reads the rank's pixels; a segment's id is
+its key's rank among the image's unique keys over every rank
+(merge_unique_keys of each rank's first `capacity` unique keys); a
+segment's presence and attributes are combined over the space group.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from spml_tpu_torch.ops import common
+from spml_tpu_torch.parallel import mesh as mesh_lib
 
 INVALID_KEY = 2**31 - 1
 
@@ -57,14 +69,18 @@ def find_nearest_prototypes(embeddings: torch.Tensor,
 def kmeans_with_initial_labels(embeddings: torch.Tensor,
                                initial_labels: torch.Tensor,
                                num_clusters: int, iterations: int,
-                               weights: torch.Tensor | None = None
-                               ) -> torch.Tensor:
-    """vMF k-means: `iterations` x (M-step, E-step)."""
+                               weights: torch.Tensor | None = None,
+                               sum_over=None) -> torch.Tensor:
+    """vMF k-means: `iterations` x (M-step, E-step). sum_over: applied
+    to each M-step's per-cluster sums before they are normalized (the
+    sum over an image's space ranks)."""
     labels = initial_labels
     for _ in range(iterations):
-        protos = calculate_prototypes_from_labels(
-            embeddings, labels, num_clusters, weights)
-        labels = find_nearest_prototypes(embeddings, protos)
+        sums = common.segment_sum(embeddings, labels, num_clusters, weights)
+        if sum_over is not None:
+            sums = sum_over(sums)
+        labels = find_nearest_prototypes(embeddings,
+                                         common.normalize_embedding(sums))
     return labels
 
 
@@ -104,6 +120,51 @@ def compact_unique_segments(keys: torch.Tensor, valid: torch.Tensor,
     return torch.clamp(seg_ids, max=capacity - 1), keep
 
 
+def local_unique_keys(keys: torch.Tensor, valid: torch.Tensor,
+                      capacity: int) -> torch.Tensor:
+    """[..., capacity] int64: the smallest `capacity` unique keys of the
+    valid pixels along the last axis, ascending, INVALID_KEY after the
+    last."""
+    masked = torch.where(valid, keys.long(), INVALID_KEY)
+    sorted_keys, _ = torch.sort(masked, dim=-1)
+    first = torch.ones_like(sorted_keys, dtype=torch.bool)
+    first[..., 1:] = sorted_keys[..., 1:] != sorted_keys[..., :-1]
+    rank = torch.cumsum(first.long(), dim=-1) - 1
+    slot = torch.where(first & (rank < capacity)
+                       & (sorted_keys != INVALID_KEY), rank, capacity)
+    out = torch.full((*keys.shape[:-1], capacity + 1), INVALID_KEY,
+                     dtype=torch.long, device=keys.device)
+    out.scatter_(-1, slot, sorted_keys)
+    return out[..., :capacity]
+
+
+def merge_unique_keys(lists: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The first `capacity` unique keys of the union of each rank's list
+    (lists [S, ..., capacity], local_unique_keys of each rank's pixels):
+    [..., capacity], ascending, INVALID_KEY after the last. The smallest
+    `capacity` keys of the union lie among the ranks' own smallest
+    `capacity`."""
+    joined = torch.cat(list(lists), dim=-1)
+    srt, _ = torch.sort(joined, dim=-1)
+    dup = torch.zeros_like(srt, dtype=torch.bool)
+    dup[..., 1:] = srt[..., 1:] == srt[..., :-1]
+    srt, _ = torch.sort(torch.where(dup, INVALID_KEY, srt), dim=-1)
+    return srt[..., :capacity].contiguous()
+
+
+def ids_from_unique_keys(keys: torch.Tensor, valid: torch.Tensor,
+                         unique: torch.Tensor, capacity: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """compact_unique_segments' (seg_ids, keep) from the image's first
+    `capacity` unique keys (merge_unique_keys): a valid pixel whose key
+    is the i-th takes id i; the others capacity-1 with keep=False."""
+    masked = torch.where(valid, keys.long(), INVALID_KEY)
+    idx = torch.searchsorted(unique, masked)
+    at = torch.gather(unique, -1, torch.clamp(idx, max=capacity - 1))
+    keep = valid & (idx < capacity) & (at == masked)
+    return torch.where(keep, idx, capacity - 1), keep
+
+
 def _segment_attrs(seg_ids: torch.Tensor, keep: torch.Tensor, attrs,
                    fills, capacity: int):
     """Per-segment attribute readout + validity, in exact integers.
@@ -127,12 +188,26 @@ def _segment_attrs(seg_ids: torch.Tensor, keep: torch.Tensor, attrs,
     return vals, present
 
 
+def _combine_attrs(vals, present, fills, group):
+    """Each segment's presence and attributes over the ranks of `group`:
+    present on any rank; an attribute the largest of the ranks' values
+    where present (the same value wherever its pixels lie), the fill
+    where present on none."""
+    low = torch.iinfo(torch.int64).min  # below any value
+    own = torch.stack([present.long()] + [
+        torch.where(present, v.long(), low) for v in vals])
+    every = mesh_lib.gather_stack(own, group).amax(dim=0)
+    present = every[0] > 0
+    return [torch.where(present, v, fill).to(orig.dtype)
+            for v, fill, orig in zip(every[1:], fills, vals)], present
+
+
 def segment_batch(embeddings: torch.Tensor, local_features: torch.Tensor,
                   semantic_labels: torch.Tensor,
                   instance_labels: torch.Tensor,
                   num_clusters: tuple[int, int], capacity: int,
                   iterations: int = 10, ignore_index: int = 255,
-                  label_cap: int = 256):
+                  label_cap: int = 256, mesh=None):
     """Batched segment formation (reference segment_by_kmeans:270).
 
     1. vMF k-means on (embedding ++ location) over valid pixels from a
@@ -140,36 +215,65 @@ def segment_batch(embeddings: torch.Tensor, local_features: torch.Tensor,
     2. segments = unique (cluster, semantic, instance) triples per image.
 
     embeddings [B, H, W, D] raw; local_features [B, H, W, L];
-    semantic/instance labels [B, H, W] integer.
+    semantic/instance labels [B, H, W] integer. float64 inputs are
+    clustered in float64, others in float32.
+
+    mesh (parallel/mesh.py::Mesh) with space > 1: the inputs are this
+    rank's rows of its images (H its rows); every rank of the space
+    group calls this together (the module docstring).
 
     Returns (Segments, emb_flat [B, N, D], emb_loc [B, N, D+L]), the last
     two L2-normalized.
     """
     b, h, w, d = embeddings.shape
-    emb = common.normalize_embedding(embeddings.float())
+    emb = common.normalize_embedding(common.at_least_float32(embeddings))
     emb_flat = emb.reshape(b, h * w, d)
-    loc_flat = local_features.float().reshape(b, h * w, -1)
+    loc_flat = common.at_least_float32(local_features).reshape(b, h * w, -1)
     emb_loc = common.normalize_embedding(
         torch.cat([emb_flat, loc_flat], dim=-1))
 
+    sharded = mesh is not None and mesh.space > 1
+    group = mesh.space_group() if sharded else None
+    space = mesh.space if sharded else 1
     k = num_clusters[0] * num_clusters[1]
-    grid = initialize_cluster_labels(num_clusters, (h, w),
-                                     device=embeddings.device).reshape(-1)
+    grid = initialize_cluster_labels(num_clusters, (h * space, w),
+                                     device=embeddings.device)
+    if sharded:  # this rank's rows of the global grid
+        grid = grid[mesh.rows(h * space)]
+    grid = grid.reshape(-1)
     sem = semantic_labels.reshape(b, h * w).long()
     inst = instance_labels.reshape(b, h * w).long()
     valid = sem != ignore_index
 
+    def over_space(sums):
+        with mesh_lib.collective("segments"):
+            return mesh_lib.group_sum(sums, group)
+
     cluster = kmeans_with_initial_labels(
-        emb_loc, grid.expand(b, -1), k, iterations, valid.float())
+        emb_loc, grid.expand(b, -1), k, iterations, valid.float(),
+        over_space if sharded else None)
 
     if k * label_cap * label_cap >= 2**31:
         raise ValueError("composite segment key overflows int32")
     keys = (cluster * (label_cap * label_cap)
             + torch.clamp(sem, 0, label_cap - 1) * label_cap
             + torch.clamp(inst, 0, label_cap - 1))
-    seg_ids, keep = compact_unique_segments(keys, valid, capacity)
-    (seg_sem, seg_inst, seg_cluster), seg_valid = _segment_attrs(
-        seg_ids, keep, (sem, inst, cluster), (ignore_index, 0, 0), capacity)
+    fills = (ignore_index, 0, 0)
+    if sharded:
+        with mesh_lib.collective("segments"):
+            lists = mesh_lib.gather_stack(
+                local_unique_keys(keys, valid, capacity), group)
+        seg_ids, keep = ids_from_unique_keys(
+            keys, valid, merge_unique_keys(lists, capacity), capacity)
+        vals, seg_valid = _segment_attrs(
+            seg_ids, keep, (sem, inst, cluster), fills, capacity)
+        with mesh_lib.collective("segments"):
+            (seg_sem, seg_inst, seg_cluster), seg_valid = _combine_attrs(
+                vals, seg_valid, fills, group)
+    else:
+        seg_ids, keep = compact_unique_segments(keys, valid, capacity)
+        (seg_sem, seg_inst, seg_cluster), seg_valid = _segment_attrs(
+            seg_ids, keep, (sem, inst, cluster), fills, capacity)
     segs = Segments(pixel_segment_ids=seg_ids, pixel_valid=keep,
                     segment_valid=seg_valid, segment_semantic=seg_sem,
                     segment_instance=seg_inst, segment_cluster=seg_cluster)

@@ -25,7 +25,9 @@ space rank r % S, row-major as the JAX package's
 devices.reshape(-1, spatial): the D = W / S data ranks split the batch
 and the S space ranks of a data rank split each of its images' rows
 (Mesh.rows), the leaves of SPATIAL_KEYS alone. The halo exchanges around
-the row-coupled operations (parallel/halo.py) run within a space group;
+the row-coupled operations (parallel/halo.py) and the per-segment sums of
+an image (k-means, the prototypes) run within a space group; the
+prototypes are gathered over a data group (each data rank's once), and
 the loss groups are counted over a data group.
 
 Backends: NCCL when every rank has its own card, gloo on the CPU. gloo on
@@ -35,10 +37,13 @@ that fails raises; nothing falls back to one process or to the CPU.
 
 Collectives use all_reduce and barrier alone, which every backend has on
 every device: a gather is the sum of zero buffers each rank filled at its
-own slice (exact: the other ranks add zeros).
+own slice (exact: the other ranks add zeros). A sum that must give the
+same bits on every rank and in every run (group_sum, sum_in_order: the
+per-segment sums of a height-sharded image) gathers the ranks' partial
+sums and adds them in rank order.
 
 Each collective runs under the label of what it serves (collective():
-"gradient", "batch norm", "gather", "halo", "other"); a timer set with
+"gradient", "batch norm", "gather", "halo", "segments", "other"); a timer set with
 set_collective_timer wraps every collective with its label. None is set
 unless a caller sets one.
 """
@@ -58,12 +63,12 @@ import torch.distributed as dist
 
 from spml_tpu_torch.utils.device import resolve_device
 
-SPATIAL_NEXT = ("tpu.spatial_partition > 1 is ported for the softmax "
-                "baseline (network.prediction_types softmax_classifier) and "
-                "the stage-2 classifier; the SegSort branch (k-means, "
-                "prototypes, the losses and the memory bank over height "
-                "shards) and PSPP's whole-height pools are the next slice, "
-                "ROADMAP Queue 1 item 1(b)")
+SPATIAL_NEXT = ("tpu.spatial_partition > 1 is ported for the DeepLab "
+                "backbones (the SegSort branch, the softmax baseline and "
+                "the stage-2 classifier); PSPP's whole-height pools and "
+                "DensePose's colour features, NN tags and feat_aff over "
+                "height shards are the next slice, ROADMAP Queue 1 item "
+                "1(c)")
 
 # Batch keys whose axis 1 is the image height: the only leaves that shard
 # over 'space' (spml_tpu/parallel/mesh.py:58-63).
@@ -240,47 +245,105 @@ def sum_disjoint(buf: torch.Tensor, group) -> torch.Tensor:
         return flat.view(buf.dtype).reshape(buf.shape)
 
 
-def _gather(x: torch.Tensor) -> torch.Tensor:
+def group_size(group=None) -> int:
+    """Ranks in `group` (None: every rank)."""
+    return dist.get_world_size(group) if world_size() > 1 else 1
+
+
+def _gather(x: torch.Tensor, group=None) -> torch.Tensor:
     with _timed():
-        rank, n = dist.get_rank(), x.shape[0]
+        rank, n = dist.get_rank(group), x.shape[0]
         src = x.detach()
         if src.dtype == torch.bool:
             src = src.to(torch.uint8)
-        out = src.new_zeros((world_size() * n, *x.shape[1:]),
+        out = src.new_zeros((group_size(group) * n, *x.shape[1:]),
                             device=_comm_device(x))
         out[rank * n:(rank + 1) * n] = src
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out.to(x.device, x.dtype)
 
 
 class _AllGather(torch.autograd.Function):
-    """Concatenation of every rank's x along dim 0, in rank order. The
-    backward sums the gathered gradient over the ranks (each rank's loss
-    reads every rank's rows) and keeps this rank's slice."""
+    """Concatenation of every rank's x of `group` along dim 0, in the
+    group's rank order. The backward sums the gathered gradient over the
+    group's ranks (each rank's loss reads every rank's rows) and keeps
+    this rank's slice."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.n = x.shape[0]
-        return _gather(x)
+    def forward(ctx, x, group):
+        ctx.n, ctx.group = x.shape[0], group
+        return _gather(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        rank = dist.get_rank()
+        rank, n = dist.get_rank(ctx.group), ctx.n
         with collective("gather"):
-            return all_reduce(grad.contiguous())[rank * ctx.n:
-                                                 (rank + 1) * ctx.n]
+            return all_reduce(grad.contiguous(), ctx.group)[
+                rank * n:(rank + 1) * n], None
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's x concatenated along dim 0 in rank order (x itself at
-    world size 1). Differentiable when x requires grad: the gradient of
-    this rank's rows is their gradient summed over every rank's use."""
-    if world_size() == 1:
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's x of `group` (None: every rank) concatenated along
+    dim 0 in the group's rank order (x itself in a group of one).
+    Differentiable when x requires grad: the gradient of this rank's rows
+    is their gradient summed over every use by the group's ranks."""
+    if group_size(group) == 1:
         return x
     with collective("gather"):
         if x.requires_grad and torch.is_grad_enabled():
-            return _AllGather.apply(x)
-        return _gather(x)
+            return _AllGather.apply(x, group)
+        return _gather(x, group)
+
+
+def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """[group size, *x.shape]: every rank's x of `group` in its rank
+    order, each with its own bits (sum_disjoint of zero-filled slots);
+    without gradient."""
+    if group_size(group) == 1:
+        return x.detach()[None]
+    buf = x.new_zeros((group_size(group), *x.shape))
+    buf[dist.get_rank(group)] = x.detach()
+    return sum_disjoint(buf, group)
+
+
+def sum_in_order(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the ranks of `group`, added in rank order after
+    a gather of every rank's x: the same bits on every rank and in every
+    run at the same group size (x itself in a group of one); without
+    gradient."""
+    if group_size(group) == 1:
+        return x
+    parts = gather_stack(x, group)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+class _GroupSum(torch.autograd.Function):
+    """sum_in_order with gradient: the gradient of each rank's x is the
+    sum of the output's gradient over the group's ranks (every rank reads
+    the sum), added in the same order, under the forward's label."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.kind = group, getattr(_LABEL, "kind", None)
+        return sum_in_order(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with collective(ctx.kind):
+            return sum_in_order(grad.contiguous(), ctx.group), None
+
+
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the ranks of `group` in rank order
+    (sum_in_order), differentiable when x requires grad."""
+    if group_size(group) == 1:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GroupSum.apply(x, group)
+    return sum_in_order(x, group)
 
 
 def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:

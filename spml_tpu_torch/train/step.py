@@ -52,18 +52,31 @@ of rank r is seeded seed + r: the JAX step's one dropout stream over the
 global batch cannot be matched. At world size 1 nothing of this runs.
 
 Height-sharded (tpu.spatial_partition S > 1, the JAX step on a ('data',
-'space') mesh; parallel/halo.py): the softmax baseline alone. Each rank
-steps its data rank's b images of the global batch of D * b (D = W / S
-data ranks), its rows of them (the image and labels cut by
-parallel/mesh.py::shard_rows). The forward runs under halo.sharded():
-the networks exchange halo rows, the logits are resized to the rank's
-rows of the full-resolution grid. The loss groups are those of the
-global batch of D * b images; a group's pixel count is all-reduced over
-the space ranks that hold its images' rows, and each rank's share of a
-group mean is its masked sum over that count. The SegSort branch raises
-(ROADMAP Queue 1 item 1(b)). Ranks: the loss groups and the global image
-indices are the data rank's; the dropout generator, the world rank's
-(init_state).
+'space') mesh; parallel/halo.py), the DeepLab backbones: each rank steps
+its data rank's b images of the global batch of D * b (D = W / S data
+ranks), its rows of them (the image and labels cut by
+parallel/mesh.py::shard_rows). The forwards of the embedding network and
+the classifier head run under halo.sharded(): the networks exchange halo
+rows, the logits are resized to the rank's rows of the full-resolution
+grid. The loss groups are those of the global batch of D * b images; a
+group's pixel count is all-reduced over the space ranks that hold its
+images' rows, and each rank's share of a group mean is its masked sum
+over that count. The SegSort branch: the labels are resized to the
+rank's rows of the embedding grid from global coordinates; k-means runs
+over the space group (ops/kmeans.py::segment_batch); each prototype is
+its segment's sums over the rank's pixels added over the space group
+with gradient (parallel/mesh.py::group_sum), then normalized; the
+prototypes are gathered over the data group (each data rank's once) and
+the losses (K1-K9 or the dense ones) read the rank's pixel rows against
+them and the bank; img_sim's per-image mean is the sum over the rank's
+pixels over the image's count over the space group, and each image
+counts once in the mean over images. PSPP and DensePose raise
+(ROADMAP Queue 1 item 1(c)). Ranks: the loss groups and the global
+image indices are the data rank's; the dropout generator, the world
+rank's (init_state).
+
+float64 models and images (the parity checks' runs) keep the step in
+float64 with the dense losses.
 """
 
 from __future__ import annotations
@@ -75,7 +88,6 @@ import torch.nn.functional as F
 
 from spml_tpu_torch.models.embeddings import (build_classifier_head,
                                               build_embedding_model)
-from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common, kmeans, knn, losses
 from spml_tpu_torch.ops.segsort_loss import (fused_joint_losses,
                                              fused_segsort_loss,
@@ -154,7 +166,8 @@ def init_state(config, seed: int, sample_image, device="cuda") -> TrainState:
                           seed + mesh_lib.make_mesh().rank))
 
 
-def _grouped_masked_mean(values, mask, n_groups=1, mesh=mesh_lib.Mesh()):
+def _grouped_masked_mean(values, mask, n_groups=1, mesh=mesh_lib.Mesh(),
+                         per_image=False):
     """Mean over each group's masked entries, then over non-empty groups
     (n_groups=1: plain masked mean). n_groups counts the groups of the
     global batch; with mesh.world > 1 ranks, values and mask are this
@@ -163,21 +176,25 @@ def _grouped_masked_mean(values, mask, n_groups=1, mesh=mesh_lib.Mesh()):
     masked sum of each group over the group's count (all-reduced over
     the space ranks holding the group's rows), over the all-reduced
     count of non-empty groups of the data ranks; with one group, its
-    masked sum over the all-reduced count."""
+    masked sum over the all-reduced count. per_image: an entry is an
+    image's, its mask the same on each of the image's space ranks and
+    its value the sum of their shares: each image counts once (no count
+    is summed over the space group)."""
     with mesh_lib.collective("other"):
         if mesh.world > 1 and n_groups == 1:
             m = mask.reshape(-1).float()
-            count = mesh_lib.all_reduce(m.sum())
-            return (values.reshape(-1).float() * m).sum() / torch.clamp(
-                count, min=1.0)
+            count = mesh_lib.all_reduce(
+                m.sum(), mesh.data_group() if per_image else None)
+            v = common.at_least_float32(values.reshape(-1))
+            return (v * m).sum() / torch.clamp(count, min=1.0)
         if n_groups % mesh.data:
             raise ValueError(f"{n_groups} loss groups do not split over "
                              f"{mesh.data} ranks")
-        v = values.reshape(n_groups // mesh.data, -1).float()
+        v = common.at_least_float32(values.reshape(n_groups // mesh.data, -1))
         m = mask.reshape(n_groups // mesh.data, -1).float()
         gsum = torch.sum(v * m, dim=1)
         gcnt = mesh_lib.all_reduce(torch.sum(m, dim=1), mesh.space_group()) \
-            if mesh.space > 1 else torch.sum(m, dim=1)
+            if mesh.space > 1 and not per_image else torch.sum(m, dim=1)
         share = gsum / torch.clamp(gcnt, min=1.0)  # the group mean's
         has = (gcnt > 0).float()
         groups = mesh_lib.all_reduce(torch.sum(has), mesh.data_group())
@@ -224,21 +241,20 @@ def _named_params(state: TrainState):
 
 
 def check_spatial(config, mesh, stage2: bool = False) -> None:
-    """What a height-sharded step (mesh.space > 1) refuses: the SegSort
-    branch (stage 1 alone) and PSPP (NotImplementedError, ROADMAP Queue
-    1 item 1(b)), and a crop height that is not a multiple of 8 x space
-    (ValueError)."""
+    """What a height-sharded step (mesh.space > 1) refuses: DensePose and
+    PSPP (NotImplementedError, ROADMAP Queue 1 item 1(c)), and a crop
+    height that is not a multiple of 8 x space (ValueError)."""
     if mesh.space == 1:
         return
-    if (not stage2
-            and config.network.prediction_types != "softmax_classifier"):
-        raise NotImplementedError(
-            f"network.prediction_types {config.network.prediction_types!r} "
-            "under tpu.spatial_partition > 1: " + mesh_lib.SPATIAL_NEXT)
     if "pspnet" in config.network.backbone_types:
         raise NotImplementedError(
             f"{config.network.backbone_types} (PSPP) under "
             "tpu.spatial_partition > 1: " + mesh_lib.SPATIAL_NEXT)
+    if "densepose" in config.network.backbone_types:
+        raise NotImplementedError(
+            f"{config.network.backbone_types} (DensePose: colour features, "
+            "NN tags, feat_aff) under tpu.spatial_partition > 1: "
+            + mesh_lib.SPATIAL_NEXT)
     halo.check_height(config.train.crop_size[0], mesh.space)
 
 
@@ -283,7 +299,9 @@ def make_train_step(config):
     update = optim.build_optimizer(tcfg)
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
     world = mesh.world
+    shard = (mesh.space_rank, mesh.space)  # the labels' rows
     check_spatial(config, mesh)
+    wide = common.at_least_float32
 
     def _n_groups(b):
         """Loss groups of the global batch of a rank's b images."""
@@ -311,43 +329,51 @@ def make_train_step(config):
             with halo.sharded(mesh):
                 emb, _ = state.emb_model(images)
                 logits = state.cls_model(
-                    common.normalize_embedding(emb.float()), state.generator)
+                    common.normalize_embedding(wide(emb)), state.generator)
                 logits_up = halo.resize_bilinear(logits, images.shape[1:3])
             ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
             return ce, ({"sem_ann_loss": ce,
                          "accuracy": _accuracy(logits_up, sem_full, C)},
                         None)
-        emb, loc = state.emb_model(images)
+        with halo.sharded(mesh):
+            emb, loc = state.emb_model(images)
         h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
         N = h * w
-        sem = common.resize_labels(sem_full, (h, w))
-        inst = common.resize_labels(inst_full, (h, w))
+        sem = common.resize_labels(sem_full, (h, w), shard)
+        inst = common.resize_labels(inst_full, (h, w), shard)
 
         # ---- clustering (no gradient through assignments) ----
         with torch.no_grad():
             segs, _, _ = kmeans.segment_batch(
                 emb.detach(), loc, sem, inst, n_clusters, P, km_iters,
-                ignore, label_cap=config.tpu.label_cap)
+                ignore, label_cap=config.tpu.label_cap, mesh=mesh)
 
         # ---- differentiable pixel embeddings & prototypes ----
-        emb_flat = common.normalize_embedding(emb.float()).reshape(B, N, D)
+        emb_flat = common.normalize_embedding(wide(emb)).reshape(B, N, D)
         # DensePose squeezes the embedding's weight against the local
         # features (resnet_pspnet_densepose.py:141-154)
         emb_part = emb_flat * 0.1 if densepose else emb_flat
         emb_loc = common.normalize_embedding(
-            torch.cat([emb_part, loc.reshape(B, N, -1).float()], dim=-1))
+            torch.cat([emb_part, wide(loc.reshape(B, N, -1))], dim=-1))
         weights = segs.pixel_valid.float()
-        protos = kmeans.calculate_prototypes_from_labels(
-            emb_flat, segs.pixel_segment_ids, P, weights)
-        protos_loc = kmeans.calculate_prototypes_from_labels(
-            emb_loc, segs.pixel_segment_ids, P, weights)
+
+        def prototypes(x):
+            """Each segment's normalized sum of x over its pixels (of
+            every space rank: the rank's sums added over the group)."""
+            sums = common.segment_sum(x, segs.pixel_segment_ids, P, weights)
+            if mesh.space > 1:
+                with mesh_lib.collective("segments"):
+                    sums = mesh_lib.group_sum(sums, mesh.space_group())
+            return common.normalize_embedding(sums)
+
+        protos, protos_loc = prototypes(emb_flat), prototypes(emb_loc)
 
         # global image indices: this (data) rank's images of the global
         # batch
         img_idx = torch.arange(B, device=dev) + mesh.data_rank * B
-        # every rank's prototypes, in rank order (the prototypes with
-        # gradient); the names below hold the gathered lists
-        cur = {k: mesh_lib.all_gather(v) for k, v in dict(
+        # every data rank's prototypes, in rank order (the prototypes
+        # with gradient); the names below hold the gathered lists
+        cur = {k: mesh_lib.all_gather(v, mesh.data_group()) for k, v in dict(
             prototype=protos.reshape(B * P, D),
             prototype_with_loc=protos_loc.detach().reshape(B * P, -1),
             semantic_label=segs.segment_semantic.reshape(-1),
@@ -378,9 +404,10 @@ def make_train_step(config):
         metrics = {}
 
         # ---- semantic annotation: CE on the detached embeddings ----
-        cls_in = common.normalize_embedding(emb.float()).detach()
-        logits = state.cls_model(cls_in, state.generator)
-        logits_up = resize_bilinear(logits, images.shape[1:3])
+        cls_in = common.normalize_embedding(wide(emb)).detach()
+        with halo.sharded(mesh):
+            logits = state.cls_model(cls_in, state.generator)
+            logits_up = halo.resize_bilinear(logits, images.shape[1:3])
         ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
 
         # ---- semantic co-occurrence tags ----
@@ -455,14 +482,24 @@ def make_train_step(config):
         # ---- low-level image similarity (per image) ----
         # emb ++ location for VOC (segsort_softmax.py:222), the plain
         # embeddings for DensePose (segsort_softmax_densepose.py:236)
+        # Height-sharded, an image's mean is its rank's sum over the
+        # image's count over the space group, and the image counts once.
         if use_img_sim:
-            per_img = losses.segsort_loss(
+            sim_ll = losses.segsort_loss(
                 emb_flat if densepose else emb_loc, inst.reshape(B, N),
                 segs.pixel_segment_ids, protos if densepose else protos_loc,
                 segs.segment_instance,
                 tcfg.img_sim_concentration, segs.pixel_valid,
-                segs.segment_valid)
-            img_sim = mean(per_img, segs.pixel_valid.any(dim=-1), B)
+                segs.segment_valid, reduction="none")
+            m = segs.pixel_valid.to(sim_ll.dtype)
+            count = torch.sum(m, dim=-1)
+            if mesh.space > 1:
+                with mesh_lib.collective("other"):
+                    count = mesh_lib.all_reduce(count, mesh.space_group())
+            per_img = torch.sum(sim_ll * m, dim=-1) / torch.clamp(count,
+                                                                   min=1.0)
+            img_sim = _grouped_masked_mean(per_img, count > 0, _n_groups(B),
+                                           mesh, per_image=True)
             img_sim = img_sim * tcfg.img_sim_loss_weight
             metrics["img_sim_loss"] = img_sim
             total = total + img_sim
@@ -514,7 +551,7 @@ def make_train_step(config):
             names = [k for k in metrics if k.endswith("loss")]
             with mesh_lib.collective("other"):
                 summed = mesh_lib.all_reduce(torch.stack(
-                    [metrics[k].float() for k in names]))
+                    [common.at_least_float32(metrics[k]) for k in names]))
             metrics.update(zip(names, summed))
         metrics["learning_rate"] = lr
         return dataclasses.replace(state, step=state.step + 1,

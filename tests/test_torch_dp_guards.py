@@ -5,10 +5,11 @@ mesh.py), on the CPU and without JAX:
   and passes its rules;
 * what tpu.spatial_partition > 1 still refuses (parametrised cases):
   make_mesh(spatial) in a group whose size spatial does not divide
-  (ValueError, as the JAX package's make_mesh), the SegSort branch of
-  the train step and PSPP (NotImplementedError naming ROADMAP Queue 1
-  item 1(b)), and a crop height that is not a multiple of 8 x spatial
-  (ValueError naming the rule); the drivers set tpu.num_devices to the
+  (ValueError, as the JAX package's make_mesh), the SegSort branch on
+  DensePose's PSPP backbone and PSPP itself (NotImplementedError naming
+  ROADMAP Queue 1 item 1(c); the DeepLab SegSort step builds), and a
+  crop height that is not a multiple of 8 x spatial (ValueError naming
+  the rule); the drivers set tpu.num_devices to the
   world size, and one given as neither 1 nor that size raises;
 * --device values and backends: 'cuda' raises on a host without a card,
   'cpu:N' is N CPU ranks; NCCL for one card a rank, gloo on the CPU, a
@@ -85,17 +86,20 @@ def test_spatial_partition_raises(case, monkeypatch):
         return
     monkeypatch.setattr(mesh_lib, "make_mesh",
                         lambda spatial=1: mesh_lib.Mesh(0, 2, spatial))
-    if case == "segsort branch":
-        cfg = _spatial_config()
-        with pytest.raises(NotImplementedError, match=r"item 1\(b\)"):
+    if case == "segsort branch":  # DensePose's SegSort step
+        tstep.make_train_step(_spatial_config())  # DeepLab's builds
+        cfg = _spatial_config(backbone_types="panoptic_pspnet_10_densepose")
+        assert cfg.network.prediction_types == "segsort"
+        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(c\)"):
             tstep.make_train_step(cfg)
-        cstep.make_classifier_train_step(cfg, torch.nn.Identity())
+        cstep.make_classifier_train_step(_spatial_config(),
+                                         torch.nn.Identity())
     elif case == "pspp":
         cfg = _spatial_config(prediction_types="softmax_classifier",
                               backbone_types="panoptic_pspnet_10_densepose")
-        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(b\)"):
+        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(c\)"):
             tstep.make_train_step(cfg)
-        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(b\)"):
+        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(c\)"):
             cstep.make_classifier_train_step(cfg, torch.nn.Identity())
         from spml_tpu_torch.models.spp import PSPP
         from spml_tpu_torch.parallel import halo

@@ -19,7 +19,12 @@ global batch, on tests/test_torch_driver.py's synthetic world:
   logged iteration is the saved step 2, checkpoints 2 and 3;
 * train_classifier over that snapshot, 2 iterations: losses rtol 1e-4,
   each of the head's updates within 1e-2 x max|update| plus one float32
-  spacing, the ranks' heads torch.equal.
+  spacing, the ranks' heads torch.equal;
+* train_spml on a SegSort recipe (the fused joint loss, memory bank 1,
+  2x2 k-means), 2 iterations and resumed to 3, in the same spawn: every
+  logged loss, the accuracy and num_segments within rtol 1e-4, the
+  panels drawn by rank 0, the checkpoints from rank 0, the update L2
+  within 1e-2 and the ranks torch.equal, as the softmax run.
 """
 
 import copy
@@ -49,6 +54,15 @@ SP = {
 }
 ONE = copy.deepcopy(SP)
 ONE["tpu"]["spatial_partition"] = 1
+SEGSORT = copy.deepcopy(SP)
+SEGSORT["network"].update(prediction_types="segsort",
+                          kmeans_num_clusters=[2, 2], kmeans_iterations=2)
+SEGSORT["train"]["memory_bank_size"] = 1
+SEGSORT["tpu"].update(segment_capacity=32, use_fused_loss=True)
+SEGSORT_ONE = copy.deepcopy(SEGSORT)
+SEGSORT_ONE["tpu"]["spatial_partition"] = 1
+SEGSORT_LOGGED = ("loss", "sem_ann_loss", "sem_occ_loss", "img_sim_loss",
+                  "accuracy", "num_segments")
 
 
 @pytest.fixture(scope="module")
@@ -63,10 +77,11 @@ def runs(world, tmp_path_factory):  # noqa: F811
                                       .manual_seed(1))
             if v.is_floating_point() else v for k, v in head.items()}
     ranks = mesh_lib.spawn(torch_sp_ranks.drivers,
-                           (SP, init, head, data, lst, str(root / "sp")),
-                           ["cpu", "cpu"])
+                           (SP, init, head, data, lst, str(root / "sp"),
+                            SEGSORT), ["cpu", "cpu"])
     one = torch_sp_ranks.drivers(ONE, init, head, data, lst,
-                                 str(root / "one"), device="cpu")
+                                 str(root / "one"), SEGSORT_ONE,
+                                 device="cpu")
     return ranks, one, init, head, root
 
 
@@ -148,3 +163,24 @@ def test_train_classifier_on_a_space_axis_matches_one_process(runs):
     names = [k for k, v in head.items() if v.is_floating_point()
              and not k.endswith("num_batches_tracked")]
     _assert_updates(a["tensors"], one["stage2"]["tensors"], head, names)
+
+
+def test_segsort_train_spml_on_a_space_axis_matches_one_process(runs):
+    ranks, one, init, _, root = runs
+    a, b = (r["segsort"] for r in ranks)
+    _assert_ranks_equal(a, b)
+    assert [it for it, _ in a["logged"]] == [0, 1]
+    _assert_logged(a["logged"], one["segsort"]["logged"], SEGSORT_LOGGED)
+    _assert_update_l2(a["tensors"], one["segsort"]["tensors"], init)
+    assert len(a["drawn"]) == 2 and b["drawn"] == []
+    for got, want in zip(a["drawn"], one["segsort"]["drawn"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    a, b = (r["segsort_resumed"] for r in ranks)
+    _assert_ranks_equal(a, b)
+    assert [it for it, _ in a["logged"]] == [2]
+    _assert_logged(a["logged"], one["segsort_resumed"]["logged"],
+                   SEGSORT_LOGGED)
+    d = str(root / "sp" / "segsort" / "checkpoints")
+    assert ckpt.steps(d) == [2, 3]
+    assert len(ckpt.read(d, 3)["rank_generators"]) == 2

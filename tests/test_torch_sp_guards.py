@@ -12,8 +12,11 @@ the CPU unless marked:
   stride 2), the max pool and the x4 resize in float64, forward and
   backward, equal the whole operation's rows within 1e-12;
 * with a card (marked gpu, skipped here): the same on the card, two
-  ranks (NCCL on two cards, gloo sharing one). On a CUDA host without
-  JAX: `python -m pytest --noconftest -m gpu tests/test_torch_sp_guards.py`.
+  ranks (NCCL on two cards, gloo sharing one); and k-means segment
+  formation (ops/kmeans.py::segment_batch) over two space ranks on the
+  card, in float64, against one process on the CPU: every field of the
+  Segments equal. On a CUDA host without JAX:
+  `python -m pytest --noconftest -m gpu tests/test_torch_sp_guards.py`.
 """
 
 import argparse
@@ -90,11 +93,44 @@ def test_inference_ignores_spatial_partition(infer_world, infer_batch):
 def test_halo_exchange_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    if torch.cuda.device_count() >= 2:
-        devices, backend = ["cuda:0", "cuda:1"], None
-    else:
-        devices, backend = ["cuda:0", "cuda:0"], "gloo"
+    devices, backend = _card_devices()
     for ranks in zip(*mesh_lib.spawn(torch_sp_ranks.halo_ops, (2,),
                                      devices, backend)):
         for y_err, dx_err in ranks:
             assert y_err <= 1e-12 and dx_err <= 1e-12, ranks
+
+
+def _card_devices():
+    if torch.cuda.device_count() >= 2:
+        return ["cuda:0", "cuda:1"], None
+    return ["cuda:0", "cuda:0"], "gloo"
+
+
+@pytest.mark.gpu
+def test_sharded_segments_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from spml_tpu_torch.ops import common, kmeans
+
+    rng = np.random.RandomState(0)
+    b, h, w = 2, 32, 24
+    emb = rng.randn(b, h, w, 16)
+    loc = np.broadcast_to(common.generate_location_features(h, w).double()
+                          .numpy(), (b, h, w, 2)).copy()
+    sem = rng.choice([0, 1, 2, 255], (b, h, w))
+    inst = rng.randint(0, 3, (b, h, w))
+    sem[:, :h // 2] = np.where(rng.rand(b, h // 2, w) < 0.9, 255,
+                               sem[:, :h // 2])
+    args = ((3, 3), 24, 4, 255)  # capacity 24: some segments overflow
+    want = kmeans.segment_batch(*(torch.from_numpy(a) for a in (
+        emb, loc, sem, inst)), *args)[0]
+    devices, backend = _card_devices()
+    ranks = mesh_lib.spawn(torch_sp_ranks.sharded_segments,
+                           (emb, loc, sem, inst, args), devices, backend)
+    for f, name in enumerate(kmeans.Segments._fields):
+        if name.startswith("pixel"):
+            got = torch.cat([r[f].reshape(b, h // 2, w) for r in ranks], 1)
+            assert torch.equal(got.reshape(b, -1), want[f]), name
+        else:
+            assert all(torch.equal(r[f], want[f]) for r in ranks), name
+    assert not want.pixel_valid.all() and want.segment_valid.all()

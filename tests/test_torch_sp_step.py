@@ -35,9 +35,41 @@ away and beyond the image) and a global batch of 4:
   res3.0.conv2.weight and 2.7 on res4.0.bn1.weight (JAX's eager steps
   and the port's one process lie as far from the jitted steps), and
   1e-3 of a tolerance or less elsewhere.
+* two SegSort steps (network.prediction_types segsort, train.batch_size
+  2) in each of four arms against the JAX package's one-device
+  make_train_step (its Pallas kernels in interpret mode): the dense
+  losses (tpu.use_fused_loss off, tests/test_train_step.py's
+  _tiny_config) and, with tests/test_torch_train_step.py's
+  configuration (memory_bank_size 1), the fused joint loss (K1-K3), the
+  hard-label loss (sem_occ off: K4-K6) and the tag-set loss (sem_ann
+  off: K7-K9), the port through their plain versions.
+  tests/test_torch_dp_step.py's tolerances for the same comparison:
+  metrics (the losses, num_segments) rtol 1e-4, the updates of the
+  tensors it checks within 1e-2 x max|update| plus one float32 unit of
+  the tensor's largest value, the bank's labels, batch indices, tags and
+  validity equal and its prototypes atol 2e-3; the ranks' tensors and
+  banks torch.equal. As for the softmax steps, each update's tolerance
+  adds JAX's own float32 spread over FLOOR_ORDERS: res3.0.conv2.weight
+  moves 1.77 tolerances there in the dense arm, as far as the port's
+  one process lies from JAX's step. In the tag-set arm, step 2's
+  sem_occ and img_sim losses, which XLA's fusions under jit move by
+  2.3e-4 and 1.2e-4 relative from JAX's eager step
+  (tests/test_torch_tag_step.py), are held at rtol 1e-4 of the port's
+  one process, which that file holds to JAX's eager step at rtol 1e-4;
+* one dense SegSort step in float64 (the models, the bank and the
+  images) against the port's one process: each rank's k-means Segments,
+  its rows of the pixel fields joined over the space ranks and the
+  segment fields the same on each, equal the one process's exactly;
+  the bank (the gathered prototypes) and every parameter gradient
+  within 1e-9 x max|ref|.
+
+The spawns run in a thread while this process computes the JAX
+references.
 """
 
 import copy
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import jax
@@ -48,13 +80,17 @@ import torch
 from spml_tpu.config import load_config as jload_config
 from spml_tpu.models.embeddings import ClassifierHead
 from spml_tpu.models.embeddings import build_embedding_model as jbuild
+from spml_tpu.ops.pallas import segsort_loss as jfused
 from spml_tpu.parallel import mesh as jmesh
 from spml_tpu.train import classifier_step as jcstep
 from spml_tpu.train import step as jstep
 from spml_tpu_torch.config import load_config
+from spml_tpu_torch.ops.kmeans import Segments
 from spml_tpu_torch.parallel import mesh as mesh_lib
 from spml_tpu_torch.utils import from_jax
 import torch_sp_ranks
+from test_torch_train_step import CHECKED_PARAMS, CHECKED_STATS
+from test_torch_train_step import OVERRIDES as TRAIN_OVERRIDES
 from test_torch_train_step import _state_dicts
 
 B_GLOBAL = 4
@@ -81,6 +117,22 @@ CHECKED = [  # tests/test_torch_classifier_step.py's softmax-branch checks
 FROZEN = ["embedding.resnet_backbone.conv1.conv1.0.weight",
           "embedding.resnet_backbone.res2.0.conv2.weight"]
 MESHES = {"1x2": 2, "2x2": 4}  # data x space -> ranks
+DENSE = {  # tests/test_train_step.py::_tiny_config(batch=2, crop=32)
+    "network": {"backbone_types": "panoptic_deeplab_10", "embedding_dim": 8,
+                "kmeans_num_clusters": [2, 2], "kmeans_iterations": 3},
+    "dataset": {"num_classes": 4},
+    "train": {"batch_size": 2, "crop_size": [32, 32], "memory_bank_size": 1,
+              "max_iteration": 100, "warmup_iteration": 10, "base_lr": 3e-3},
+    "tpu": {"segment_capacity": 32, "compute_dtype": "float32"},
+}
+JOINT = copy.deepcopy(TRAIN_OVERRIDES)  # use_fused_loss, memory_bank_size 1
+HARD = copy.deepcopy(JOINT)
+HARD["train"]["sem_occ_loss_types"] = "none"
+TAG_SET = copy.deepcopy(JOINT)
+TAG_SET["train"].update(sem_ann_loss_types="none", sem_occ_concentration=8.0)
+ARMS = {"dense": DENSE, "joint": JOINT, "hard": HARD, "tag_set": TAG_SET}
+SEG_CHECKED = CHECKED_PARAMS + CHECKED_STATS
+N_JOBS = 4  # the jobs before the SegSort ones (_jobs)
 
 
 def _batch(seed):
@@ -96,6 +148,12 @@ def _batch(seed):
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def _spatial(overrides):
+    over = copy.deepcopy(overrides)
+    over["tpu"]["spatial_partition"] = 2
+    return over
 
 
 @pytest.fixture(scope="module")
@@ -125,10 +183,23 @@ def inputs():
     jcst = jcstep.init_classifier_state(jcfg, jax.random.PRNGKey(2), 8)
     head = from_jax.classifier_state_dict(
         _np(jcst.params["prediction"]), _np(jcst.batch_stats["prediction"]))
+    # the SegSort arms: one JAX initial state serves all four (the same
+    # network, bank and optimizer; init_state reads nothing else)
+    acfgs = {name: jload_config(overrides=over)
+             for name, over in ARMS.items()}
+    assert len({(c.network.embedding_dim, c.train.memory_bank_size,
+                 c.tpu.segment_capacity, c.train.optimizer)
+                for c in acfgs.values()}) == 1
+    ast = jstep.init_state(acfgs["dense"], jax.random.PRNGKey(0),
+                           jnp.zeros((B_GLOBAL, 32, 32, 3)))
+    ainit = _state_dicts(ast.params, ast.batch_stats)
+    arms = {name: (c, ast, ainit) for name, c in acfgs.items()}
+    init64 = {k: v.double() if v.is_floating_point() else v
+              for k, v in arms["dense"][2].items()}
     return dict(images=images, cot=cot, jmodel=jmodel, jvars=jvars,
                 emb_init=emb_init, emb64=emb64, jcfg=jcfg, jst=jst,
                 init=init, emb_def=emb_def, evars=evars, jcst=jcst,
-                frozen=frozen, head=head,
+                frozen=frozen, head=head, arms=arms, init64=init64,
                 batches=[_batch(3), _batch(4)])
 
 
@@ -144,19 +215,40 @@ def _jobs(inp, remat):
         ("softmax_steps", (cfg, inp["init"], inp["batches"])),
         ("classifier_steps", (cfg, inp["frozen"], inp["head"],
                               inp["batches"]))]
+    jobs += [("segsort_steps", (load_config(overrides=_spatial(over)),
+                                inp["arms"][name][2], inp["batches"]))
+             for name, over in ARMS.items()]
+    jobs.append(("segsort_steps", (load_config(overrides=_spatial(DENSE)),
+                                   inp["init64"], inp["batches"][:1], True)))
     if remat:
         jobs.append(("softmax_steps", (rcfg, inp["init"], inp["batches"])))
     return jobs
 
 
+SEG_JOBS = {name: N_JOBS + i for i, name in enumerate(ARMS)}
+F64_JOB = N_JOBS + len(ARMS)
+REMAT_JOB = F64_JOB + 1
+
+
 @pytest.fixture(scope="module")
-def runs(inputs):
-    """{mesh: every rank's results of every job}, each mesh spawned once;
-    the remat case on the 2-rank mesh alone."""
-    return {name: mesh_lib.spawn(torch_sp_ranks.many,
-                                 (_jobs(inputs, name == "1x2"),),
-                                 ["cpu"] * n)
-            for name, n in MESHES.items()}
+def spawned(inputs):
+    """The meshes' spawns (each mesh once, the remat case on the 2-rank
+    mesh alone), started in a thread so that the JAX references are
+    computed while the ranks run: a future of {mesh: every rank's
+    results of every job}."""
+    pool = ThreadPoolExecutor(1)
+    yield pool.submit(lambda: {
+        name: mesh_lib.spawn(torch_sp_ranks.many,
+                             (_jobs(inputs, name == "1x2"),), ["cpu"] * n)
+        for name, n in MESHES.items()})
+    pool.shutdown()
+
+
+@pytest.fixture(scope="module")
+def runs(spawned, jax_forward, jax_softmax, jax_classifier, jax_segsort,
+         one_process_segsort):
+    """The spawns' results, taken after every JAX reference."""
+    return spawned.result()
 
 
 def _assert_ranks_equal(ranks, job, key):
@@ -167,7 +259,7 @@ def _assert_ranks_equal(ranks, job, key):
 
 
 @pytest.fixture(scope="module")
-def jax_forward(inputs):
+def jax_forward(inputs, spawned):
     """JAX's train-mode forward on a (data 2, space 2) CPU mesh."""
     jm = jmesh.make_mesh(num_devices=4, spatial=2)
     assert jm.shape == {"data": 2, "space": 2}
@@ -256,7 +348,7 @@ def _jax_softmax_steps(inputs, fn, order=(0, 1, 2, 3)):
 
 
 @pytest.fixture(scope="module")
-def jax_softmax(inputs):
+def jax_softmax(inputs, spawned):
     """JAX's two jitted steps, and each checked tensor's float32 floor:
     how far the same steps are from them with the batch's images in
     another order (FLOOR_ORDERS: the two loss groups swapped, the images
@@ -292,7 +384,7 @@ def test_softmax_steps_match_jax(inputs, runs, jax_softmax, mesh):
 
 
 @pytest.fixture(scope="module")
-def jax_classifier(inputs):
+def jax_classifier(inputs, spawned):
     """JAX's two jitted stage-2 steps: metrics and the head after."""
     jfn = jax.jit(jcstep.make_classifier_train_step(
         inputs["jcfg"], inputs["emb_def"], inputs["evars"],
@@ -321,8 +413,138 @@ def test_remat_stages_match_one_process(inputs, runs):
     cfg = load_config(overrides=REMAT)
     one = torch_sp_ranks.softmax_steps(cfg, inputs["init"],
                                        inputs["batches"], device="cpu")
-    got = runs["1x2"][0][4]
-    _assert_ranks_equal(runs["1x2"], 4, "tensors")
+    got = runs["1x2"][0][REMAT_JOB]
+    _assert_ranks_equal(runs["1x2"], REMAT_JOB, "tensors")
     _assert_steps(got["tensors"] | {"metrics": got["metrics"]},
                   one["metrics"],
                   {k: one["tensors"][k] for k in CHECKED}, inputs["init"])
+
+
+def _interpret(name):
+    orig = getattr(jfused, name)
+    return mock.patch.object(
+        jfused, name, lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+
+
+JIT_MOVED = {"tag_set": ("sem_occ_loss", "img_sim_loss")}  # at step 2
+
+
+@pytest.fixture(scope="module")
+def jax_segsort(inputs, spawned):
+    """{arm: (metrics of each step, the tensors after, the bank after,
+    each checked tensor's float32 floor)} of JAX's two jitted one-device
+    SegSort steps; the floor as jax_softmax's."""
+    out = {}
+    for name, (acfg, ast0, _) in inputs["arms"].items():
+        head = ClassifierHead(num_classes=4, hidden_dim=16,
+                              dropout_rate=0.0, dtype=jnp.float32)
+        with _interpret("fused_joint_losses"), \
+                _interpret("fused_segsort_loss"), \
+                _interpret("fused_set_segsort_loss"):
+            fn = jax.jit(jstep.make_train_step(
+                acfg, jstep.build_models(acfg)[0], head))
+            runs = []
+            for order in ((0, 1, 2, 3),) + FLOOR_ORDERS:
+                ast, metrics = ast0, []
+                for nb in inputs["batches"]:
+                    ast, m = fn(ast, {k: jnp.asarray(v[list(order)])
+                                      for k, v in nb.items()})
+                    metrics.append({k: float(v) for k, v in m.items()})
+                runs.append((metrics, ast))
+        (metrics, ast), others = runs[0], runs[1:]
+        want = _state_dicts(ast.params, ast.batch_stats)
+        floor = dict.fromkeys(SEG_CHECKED, 0.0)
+        for _, other in others:
+            sd = _state_dicts(other.params, other.batch_stats)
+            for k in SEG_CHECKED:
+                floor[k] = max(floor[k], float(np.abs(
+                    np.asarray(want[k], np.float64)
+                    - np.asarray(sd[k], np.float64)).max()))
+        out[name] = (metrics, want,
+                     {k: np.asarray(v) for k, v in vars(ast.memory).items()},
+                     floor)
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_process_segsort(inputs, spawned):
+    """The port's one-process steps of the arms of JIT_MOVED."""
+    return {name: torch_sp_ranks.segsort_steps(
+        load_config(overrides=ARMS[name]), inputs["arms"][name][2],
+        inputs["batches"], device="cpu") for name in JIT_MOVED}
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_segsort_steps_match_jax(inputs, runs, jax_segsort,
+                                 one_process_segsort, mesh, arm):
+    metrics, want, bank, floor = jax_segsort[arm]
+    job = SEG_JOBS[arm]
+    got = runs[mesh][0][job]
+    _assert_ranks_equal(runs[mesh], job, "tensors")
+    _assert_ranks_equal(runs[mesh], job, "memory")
+    init = inputs["arms"][arm][2]
+    assert len(got["metrics"]) == len(metrics) == 2
+    for i, (g, w) in enumerate(zip(got["metrics"], metrics)):
+        assert set(g) == set(w)
+        for k in w:
+            ref = w[k]
+            if i == 1 and k in JIT_MOVED.get(arm, ()):
+                ref = one_process_segsort[arm]["metrics"][i][k]
+            np.testing.assert_allclose(g[k], ref, rtol=1e-4, atol=1e-7,
+                                       err_msg=f"{arm} step {i} {k}")
+    for k in SEG_CHECKED:
+        want_k = np.asarray(want[k], np.float64)
+        upd = np.abs(want_k - init[k].numpy()).max()
+        diff = np.abs(got["tensors"][k].numpy() - want_k).max()
+        tol = (1e-2 * upd + np.spacing(np.float32(np.abs(want_k).max()))
+               + floor[k])
+        assert diff <= tol, (arm, k, diff, tol)
+    # the bank holds the global batch once: 4 images of 32 prototypes
+    assert got["memory"]["prototype"].shape == (1, B_GLOBAL * 32, 8)
+    for name in ("prototype", "prototype_with_loc"):
+        np.testing.assert_allclose(got["memory"][name].numpy(), bank[name],
+                                   rtol=0, atol=2e-3, err_msg=name)
+    for name in ("semantic_label", "instance_label", "batch_index", "tag",
+                 "valid"):
+        np.testing.assert_array_equal(got["memory"][name].numpy(),
+                                      bank[name], err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def one_process_segsort64(inputs):
+    return torch_sp_ranks.segsort_steps(
+        load_config(overrides=DENSE), inputs["init64"], inputs["batches"][:1],
+        True, device="cpu")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_float64_segsort_step_matches_one_process(one_process_segsort64,
+                                                  runs, mesh):
+    want, ranks, space = one_process_segsort64, runs[mesh], 2
+    segs = [r[F64_JOB]["segments"][0] for r in ranks]
+    for f, name in enumerate(Segments._fields):
+        ref = want["segments"][0][f]
+        if name.startswith("pixel"):  # each data rank's images, by rows
+            b = ref.shape[0] // (len(ranks) // space)
+            joined = torch.cat([
+                torch.cat([s[f].reshape(b, -1, 8)
+                           for s in segs[d:d + space]], dim=1)
+                for d in range(0, len(ranks), space)]).reshape(ref.shape)
+        else:
+            for d in range(0, len(ranks), space):
+                assert torch.equal(segs[d][f], segs[d + 1][f]), name
+            joined = torch.cat([s[f] for s in segs[::space]])
+        assert torch.equal(joined, ref), name
+    got = ranks[0][F64_JOB]
+    for k in ("prototype", "prototype_with_loc"):
+        ref = want["memory"][k]
+        assert ref.dtype == torch.float64
+        np.testing.assert_allclose(got["memory"][k].numpy(), ref.numpy(),
+                                   rtol=0, atol=1e-9, err_msg=k)
+    assert got["grads"].keys() == want["grads"].keys()
+    for k, v in want["grads"].items():
+        assert v.dtype == torch.float64 and float(v.abs().max()) > 0, k
+        np.testing.assert_allclose(got["grads"][k].numpy(), v.numpy(),
+                                   rtol=0, atol=1e-9 * float(v.abs().max()),
+                                   err_msg=k)

@@ -66,12 +66,14 @@ def _train_steps(cfg, init, batches, device):
             "memory": {k: v.cpu() for k, v in vars(state.memory).items()}}
 
 
-def plain_gather(x):
-    """A gather without the gradient of the other ranks' use: this rank's
-    rows carry their own rank's gradient alone (what a bare
-    dist.all_gather with the local tensor put back in gives)."""
+def plain_gather(x, group=None):
+    """A gather (over every rank: the data-parallel tests' group) without
+    the gradient of the other ranks' use: this rank's rows carry their
+    own rank's gradient alone (what a bare dist.all_gather with the local
+    tensor put back in gives)."""
     if mesh_lib.world_size() == 1:
         return x
+    assert group is None
     full = mesh_lib._gather(x)
     rank, n = mesh_lib.make_mesh().rank, x.shape[0]
     return torch.cat([full[:rank * n], x, full[(rank + 1) * n:]])

@@ -94,6 +94,61 @@ def softmax_steps(cfg, init, batches, *, device):
             "tensors": torch_dp_ranks.model_tensors(state)}
 
 
+def segsort_steps(cfg, init, batches, float64=False, *, device):
+    """len(batches) SegSort steps (make_train_step) from the model state
+    dict `init`, dropout 0, on this rank's rows of its images: each
+    step's metrics, the model tensors and the memory bank after, and
+    each step's k-means Segments of this rank (its rows of its images'
+    pixel fields, the segment fields whole). float64: the models, the
+    bank and the images in float64 (the dense losses), and every
+    parameter's gradient of the last step, summed over the ranks."""
+    import dataclasses
+
+    from spml_tpu_torch.ops import kmeans
+
+    mesh = _mesh(cfg.tpu.spatial_partition)
+    if mesh.world == 1:
+        cfg.tpu.spatial_partition = 1
+    b_global = batches[0]["image"].shape[0]
+    state = tstep.init_state(cfg, 0, torch.zeros(b_global, 1, 1, 3),
+                             device=device)
+    load_init(state, init)
+    if float64:
+        for model in (state.emb_model, state.cls_model):
+            model.double()
+            model.compute_dtype = torch.float64
+        state.memory = dataclasses.replace(state.memory, **{
+            k: v.double() for k, v in vars(state.memory).items()
+            if v.is_floating_point()})
+    step = tstep.make_train_step(cfg)
+    orig, segments = kmeans.segment_batch, []
+
+    def recording(*a, **k):
+        out = orig(*a, **k)
+        segments.append([t.cpu() for t in out[0]])
+        return out
+
+    metrics = []
+    kmeans.segment_batch = recording
+    try:
+        for nb in batches:
+            batch = _local(mesh, nb, device)
+            if float64:
+                batch["image"] = batch["image"].double()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        kmeans.segment_batch = orig
+    out = {"metrics": metrics, "tensors": torch_dp_ranks.model_tensors(state),
+           "memory": {k: v.cpu() for k, v in vars(state.memory).items()},
+           "segments": segments}
+    if float64:
+        out["grads"] = {n: p.grad.detach().cpu().clone()
+                        for n, p in tstep._named_params(state)
+                        if p.grad is not None}
+    return out
+
+
 def load_init(state, init):
     state.emb_model.load_state_dict(
         {k[len("embedding."):]: v for k, v in init.items()
@@ -185,12 +240,13 @@ def driver_run(fn, init, args, config, *, device):
             "generator": state.generator.get_state()}
 
 
-def drivers(overrides, init, head_init, data_dir, data_list, root, *,
-            device):
+def drivers(overrides, init, head_init, data_dir, data_list, root,
+            segsort=None, *, device):
     """train_spml (the softmax baseline) for train.max_iteration
     iterations, the same resumed for one more, then train_classifier
-    over its snapshot from the head head_init: driver_run's results of
-    each."""
+    over its snapshot from the head head_init; with `segsort` (a SegSort
+    recipe's overrides) train_spml on it from `init` and resumed for one
+    more: driver_run's results of each."""
     import argparse
 
     from spml_tpu_torch.config import load_config
@@ -212,7 +268,17 @@ def drivers(overrides, init, head_init, data_dir, data_list, root, *,
     cfg.network.pretrained = f"{root}/stage1"
     stage2 = driver_run(driver.train_classifier, head_init, args("stage2"),
                         cfg, device=device)
-    return {"first": first, "resumed": resumed, "stage2": stage2}
+    out = {"first": first, "resumed": resumed, "stage2": stage2}
+    if segsort is not None:
+        cfg = load_config(overrides=segsort)
+        out["segsort"] = driver_run(driver.train_spml, init,
+                                    args("segsort"), cfg, device=device)
+        cfg = load_config(overrides=segsort)
+        cfg.train.max_iteration += 1
+        cfg.train.resume = True
+        out["segsort_resumed"] = driver_run(
+            driver.train_spml, init, args("segsort"), cfg, device=device)
+    return out
 
 
 def halo_ops(spatial, *, device):
@@ -256,3 +322,17 @@ def halo_ops(spatial, *, device):
                     float((xl.grad - xf.grad[imgs, :, mesh.rows(height)])
                           .abs().max())))
     return out
+
+
+def sharded_segments(emb, loc, sem, inst, args, *, device):
+    """ops/kmeans.py::segment_batch(*args) on this rank's rows of the
+    global batch's numpy inputs (its images and rows), on `device`: its
+    Segments as CPU tensors."""
+    from spml_tpu_torch.ops import kmeans
+
+    mesh = mesh_lib.make_mesh(2)
+    t = _local(mesh, {"emb": emb, "loc": loc, "semantic_label": sem,
+                      "instance_label": inst}, device, ("emb", "loc"))
+    segs = kmeans.segment_batch(t["emb"], t["loc"], t["semantic_label"],
+                                t["instance_label"], *args, mesh=mesh)[0]
+    return [x.cpu() for x in segs]
