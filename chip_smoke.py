@@ -24,8 +24,10 @@ Phases, each printing one line or more:
     parallel, with the seconds it took, ptxas's registers and spilled
     bytes for each kernel, and any ptxas line on wgmma or a performance
     loss (a serialized wgmma shows there); a spill in a tiled kernel
-    (stats_tile_kernel, grad_tile_kernel) fails the run, and so does a
-    per-row stats_kernel in this checkout's sources;
+    (stats_tile_kernel, grad_tile_kernel, each in its float32 and its
+    bf16-operand form, the last template argument 0 or 1) fails the run,
+    and so does a missing form or a per-row stats_kernel in this
+    checkout's sources;
  3. kernels: each SegSort kernel family through its autograd.Function
     against the plain version, computed in float64 on the same float32
     values (plain version over row chunks). Every SegSort kernel is
@@ -56,6 +58,18 @@ Phases, each printing one line or more:
       the tag step's N = 65536 / P = 3072, D = 64, ~20% fill; one to three
       tags of 20 per row, a tenth of the rows below the valid count
       invalid (their own mask still counts);
+    - the bf16-operand forms of K1-K9 (tpu.loss_operand_dtype
+      "bfloat16": E and P read as bf16, one TF32 product of bf16 values,
+      c rounded to the nearest bf16 before product 2) on each family's
+      BF16_CASES (full and ~20% fill, ragged N, zero cotangents) and its
+      main-path sized case, against the plain version in float64 on the
+      same bf16 values with c rounded (segsort_loss._PlainBf16), dE and
+      dP within their tolerance plus the spread of c's rounding
+      (segsort_loss.bf16_rounding_spread: pairs whose float32 and float64
+      c may round to different bf16 neighbours); then at the main-path
+      sized case against the float32 forms, at the JAX package's
+      quantified delta (BF16_LOSS_RTOL on each masked-mean loss,
+      BF16_GRAD_COS on dE and dP of their sum), both printed;
     - the dilated conv K10 against its plain version in float64 on the
       same bf16 values: ragged shapes at d = 1, 2, 4 (B = 1, H and W not
       multiples of the 8 x 16 tile, C = 16 and 48 under a 64-channel box,
@@ -71,7 +85,12 @@ Phases, each printing one line or more:
     with the float32 bound beside it as bound_f32_ms); dE and dP on randn
     cotangents, and again on the cotangents the path's last backward
     handed them (path_cotangent_ms, beside a bound that counts only the
-    pixels carrying a nonzero one):
+    pixels carrying a nonzero one). Each SegSort recipe runs twice: as
+    shipped (float32 operands) and with tpu.loss_operand_dtype
+    "bfloat16", where its bf16 forms launch once a step and no float32
+    form; the bf16 forms timed at that arm's inputs beside the bf16 plain
+    version and a bound at the bf16 tensor-core peak; a line gives both
+    arms' ms/step and peak memory:
     - flagship (panoptic_deeplab_101, crop 512, batch 8, 6x6 k-means x10,
       capacity 256, memory bank 2, sem_ann + sem_occ + img_sim with the
       fused joint loss, bf16 convolutions) on blobby synthetic labels:
@@ -278,14 +297,18 @@ Phases, each printing one line or more:
     pyramid, float16 download, host CRF), of the softmax pyramid and of
     the pseudo-label step (forward, affinity, walk, CRF), peak memory,
     the nvidia-smi line;
-11. the kernel list as one JSON line;
+11. the kernel list as one JSON line: the nine SegSort kernels in
+    float32 and in bf16 operands (the _bf16 names) and K10;
 12. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 Tolerances: the SegSort statistics rtol 1e-5 (float32 sums in another
 order, amplified by exp(kappa * logit)); dE and dP rtol 1e-4 with atol
-1e-5 * max|reference|; the dilated conv rtol 2^-8 (one bf16 rounding of
+1e-5 * max|reference|, for the bf16 forms plus the spread of c's bf16
+rounding (segsort_loss.C_REL_ERR: the float32 c's error, 2^-14 of its
+terms); the bf16 forms against float32 JAX's delta (loss rtol 1.5e-2,
+gradient cosine > 0.999); the dilated conv rtol 2^-8 (one bf16 rounding of
 the output) with atol 1e-3 * max|reference| (float32 sums of 9 C terms
 that cancel near zero); inference TIE_GAP 1e-5 (float32 rounding of a
 64-term dot of unit vectors stays below 3.8e-6), the stitched map rtol
@@ -333,7 +356,7 @@ PEAK_BYTES = 3.35e12
 PALLAS = "spml_tpu/ops/pallas/segsort_loss.py"
 PROBE = "pyscripts/misc/pallas_dilated_conv_probe.py"
 SEGSORT_SOURCE = "spml_tpu_torch/csrc/segsort_joint.cu"
-KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
+F32_KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
     "joint_stats": ("segsort_joint_stats", f"{PALLAS}:664"),
     "joint_grad_emb": ("segsort_joint_grad_emb", f"{PALLAS}:716"),
     "joint_grad_proto": ("segsort_joint_grad_proto", f"{PALLAS}:716"),
@@ -344,10 +367,15 @@ KERNELS = {  # launch counter -> (name, line of the TPU kernel replaced)
     "set_grad_emb": ("segsort_set_grad_emb", f"{PALLAS}:444"),
     "set_grad_proto": ("segsort_set_grad_proto", f"{PALLAS}:444"),
 }
-# kernels whose D-long products run on the tensor cores in split TF32
-TENSOR_CORE = ("joint_stats", "joint_grad_emb", "joint_grad_proto",
-               "hard_stats", "hard_grad_emb", "hard_grad_proto",
-               "set_stats", "set_grad_emb", "set_grad_proto")
+# the bf16-operand forms (tpu.loss_operand_dtype "bfloat16"): the same TPU
+# kernels, run with bf16 operands
+BF16 = "_bf16"
+KERNELS = {**F32_KERNELS,
+           **{key + BF16: (name + BF16, replaces)
+              for key, (name, replaces) in F32_KERNELS.items()}}
+# kernels whose D-long products run on the tensor cores in split TF32 (the
+# bf16 forms: one TF32 product of bf16 values)
+TENSOR_CORE = tuple(F32_KERNELS)
 # the tiled SegSort kernels: a spill in any of them fails the build phase
 TILED_KERNELS = ("stats_tile_kernel", "grad_tile_kernel")
 PER_ROW_KERNEL = "stats_kernel<"  # retired: fails the build phase
@@ -359,6 +387,9 @@ N_KAPPAS = {"joint": 2, "hard": 1, "set": 1}
 # recipe (spml_tpu_torch/train/recipes.py) -> family of its loss kernels
 RECIPE_FAMILY = {"flagship": "joint", "densepose_point": "hard",
                  "voc_tag": "set"}
+# JAX's quantified delta of the bf16 operands against float32
+# (tests/test_pallas_loss.py:295-325): the loss rtol, the gradients' cosine
+BF16_LOSS_RTOL, BF16_GRAD_COS = 1.5e-2, 0.999
 
 
 def log(phase, msg):
@@ -485,32 +516,49 @@ def stats_fns(fused, family):
     return getattr(fused, name), getattr(fused, name + "_reference")
 
 
-def reference64(torch, fused, family, case, grads, kappas, rows=16384):
-    """Plain version in float64 over row chunks: stats, dE, dP."""
-    stats, d_emb = [], []
+def reference64(torch, fused, family, case, grads, kappas, rows=16384,
+                operand_dtype="float32"):
+    """Plain version in float64 over row chunks: stats, dE, dP, and the
+    spread that c's bf16 rounding allows dE and dP (zeros for float32
+    operands; segsort_loss.bf16_rounding_spread)."""
+    stats, d_emb, spread_e = [], [], []
     d_protos = torch.zeros_like(case["protos"], dtype=torch.float64)
+    spread_p = torch.zeros_like(d_protos)
     n = case["emb"].shape[0]
     plain = stats_fns(fused, family)[1]
     for r0 in range(0, n, rows):
         sl = slice(r0, min(r0 + rows, n))
         e = case["emb"][sl].double().requires_grad_(True)
         p = case["protos"].double().requires_grad_(True)
-        s = plain(*stats_args(family, case, e, p, sl), *kappas)
-        ge, gp = torch.autograd.grad((s * grads[:, sl].double()).sum(),
-                                     (e, p))
+        args = stats_args(family, case, e, p, sl)
+        s = plain(*args, *kappas, operand_dtype=operand_dtype)
+        g = grads[:, sl].double()
+        ge, gp = torch.autograd.grad((s * g).sum(), (e, p))
         stats.append(s.detach())
         d_emb.append(ge)
         d_protos += gp
-    return torch.cat(stats, 1), torch.cat(d_emb), d_protos
+        if operand_dtype == "bfloat16":
+            se, sp = fused.bf16_rounding_spread(
+                family, [a.detach() for a in args] + list(kappas), g)
+            spread_e.append(se)
+            spread_p += sp
+    spread_e = torch.cat(spread_e) if spread_e else torch.zeros_like(
+        case["emb"], dtype=torch.float64)
+    return (torch.cat(stats, 1), torch.cat(d_emb), d_protos, spread_e,
+            spread_p)
 
 
-def kernel_outputs(torch, fused, family, case, grads, kappas):
+def kernel_outputs(torch, fused, family, case, grads, kappas,
+                   operand_dtype="float32"):
     e = case["emb"].clone().requires_grad_(True)
     p = case["protos"].clone().requires_grad_(True)
     s = stats_fns(fused, family)[0](*stats_args(family, case, e, p),
-                                    *kappas)
+                                    *kappas, operand_dtype=operand_dtype)
     s.backward(grads)
     torch.cuda.synchronize()
+    if e.grad.dtype != torch.float32 or p.grad.dtype != torch.float32:
+        raise AssertionError(f"{operand_dtype} operands: gradients "
+                             f"{e.grad.dtype}, {p.grad.dtype}, not float32")
     return s.detach(), e.grad, p.grad
 
 
@@ -537,12 +585,14 @@ def carrying_rows(n, kind, seed):
 
 
 def check_case(torch, fused, family, label, case, kappas, seed,
-               cotangents="randn"):
+               cotangents="randn", operand_dtype="float32"):
     """The family's three kernels on one case, against the plain version;
     the cotangents are randn on the rows of carrying_rows(cotangents), 0
     on the others, or the [stats, N] tensor `cotangents` itself; dE must
     be exactly 0 on the rows without one (dE and dP both when no row
-    carries one)."""
+    carries one). operand_dtype "bfloat16": the bf16 forms against the
+    plain version's, dE and dP within the tolerance plus the spread of
+    c's rounding (reference64)."""
     n = case["emb"].shape[0]
     if torch.is_tensor(cotangents):
         g = cotangents
@@ -553,31 +603,39 @@ def check_case(torch, fused, family, label, case, kappas, seed,
         carries = torch.as_tensor(carrying_rows(n, cotangents, seed),
                                   device=DEVICE)
         g = torch.where(carries, g, 0.0)
-    s, de, dp = kernel_outputs(torch, fused, family, case, g, kappas)
-    rs, rde, rdp = reference64(torch, fused, family, case, g, kappas)
+    s, de, dp = kernel_outputs(torch, fused, family, case, g, kappas,
+                               operand_dtype)
+    rs, rde, rdp, spread_e, spread_p = reference64(
+        torch, fused, family, case, g, kappas, operand_dtype=operand_dtype)
     errs, margins = {}, {}
-    for name, got, ref, rtol, atol in (
-            ("stats", s, rs, STATS_RTOL, 0.0),
-            ("dE", de, rde, GRAD_RTOL, GRAD_ATOL_REL),
-            ("dP", dp, rdp, GRAD_RTOL, GRAD_ATOL_REL)):
+    for name, got, ref, rtol, atol, spread in (
+            ("stats", s, rs, STATS_RTOL, 0.0, 0.0),
+            ("dE", de, rde, GRAD_RTOL, GRAD_ATOL_REL, spread_e),
+            ("dP", dp, rdp, GRAD_RTOL, GRAD_ATOL_REL, spread_p)):
         if not torch.isfinite(got).all():
             raise AssertionError(f"{label}: {name} not finite")
-        ref = ref.float()
         abs_tol = atol * float(ref.abs().max())
-        torch.testing.assert_close(got, ref, rtol=rtol, atol=abs_tol,
-                                   msg=lambda m: f"{label} {name}: {m}")
-        err = (got - ref).abs()
+        err = (got.double() - ref).abs()
+        tol = abs_tol + rtol * ref.abs() + spread
+        if not (err <= tol).all():
+            worst = int((err - tol).argmax())
+            raise AssertionError(
+                f"{label} {name}: {int((err > tol).sum())} of "
+                f"{err.numel()} elements past the tolerance; worst at "
+                f"{worst}: got {float(got.flatten()[worst])}, want "
+                f"{float(ref.flatten()[worst])}, tolerance "
+                f"{float(tol.flatten()[worst])}")
         errs[name] = float(err.max())
         # share of the tolerance used by the worst element (<= 1 passes)
-        margins[name] = float((err / (abs_tol + rtol * ref.abs())
-                               .clamp(min=1e-38)).max())
+        margins[name] = float((err / tol.clamp(min=1e-38)).max())
     if not (de[~carries] == 0).all():
         raise AssertionError(f"{label}: dE not exactly 0 on a row without a "
                              "cotangent")
     if not carries.any() and not (dp == 0).all():
         raise AssertionError(f"{label}: dP not exactly 0 under zero "
                              "cotangents")
-    log("kernels", f"{family} {label}: N={n} P={case['protos'].shape[0]} "
+    log("kernels", f"{family}{fused.OPERAND_DTYPES[operand_dtype][1]} "
+        f"{label}: N={n} P={case['protos'].shape[0]} "
         f"D={case['emb'].shape[1]} valid={int(case['num_valid'])} "
         f"kappa={kappas} rows with a cotangent {int(carries.sum())} "
         "max_abs_err "
@@ -587,10 +645,19 @@ def check_case(torch, fused, family, label, case, kappas, seed,
     return errs
 
 
+# the cases the bf16-operand forms take (each family's of these labels,
+# then its main-path sized case)
+BF16_CASES = ("mid full fill", "mid 20% fill", "mid ragged N",
+              "mid ragged N, two exps", "mid 20% fill, zero cotangents")
+
+
 def check_kernels(torch, fused):
-    """Every family's cases; returns {family: errors of its main-path
-    sized case on randn cotangents (the last)}. A fourth element names the
-    cotangents' rows (carrying_rows; randn on all by default)."""
+    """Every family's cases; then the bf16 forms on BF16_CASES and the
+    main-path sized case, and at that case against the float32 forms
+    (check_bf16_delta). Returns {family or family + BF16: errors of its
+    main-path sized case on randn cotangents (the last)}. A fourth
+    element names the cotangents' rows (carrying_rows; randn on all by
+    default)."""
     mid = 16384
     cases = {
         "joint": [
@@ -655,7 +722,53 @@ def check_kernels(torch, fused):
                              sparse_tags=family == "set")
             errs[family] = check_case(torch, fused, family, label, case,
                                       kappas, seed, *cotangents)
+    for family, family_cases in cases.items():
+        picked = [c for c in family_cases[:-1] if c[0] in BF16_CASES]
+        for label, (n, p, fill, seed, d), kappas, *cotangents in \
+                picked + family_cases[-1:]:
+            case = make_case(torch, n, p, fill, seed, d=d,
+                             sparse_tags=family == "set")
+            errs[family + BF16] = check_case(
+                torch, fused, family, label, case, kappas, seed, *cotangents,
+                operand_dtype="bfloat16")
+        check_bf16_delta(torch, fused, family, label, case, kappas)
     return errs
+
+
+def check_bf16_delta(torch, fused, family, label, case, kappas):
+    """The bf16 forms against the float32 forms at JAX's quantified delta
+    (BF16_LOSS_RTOL, BF16_GRAD_COS): the masked-mean log likelihood of each
+    loss the family computes (pixels whose own prototype is valid), and
+    dE and dP of their sum, the cotangents from the float32 statistics."""
+    own = case["own_idx"] < case["num_valid"]
+
+    def losses(stats):
+        return [fused._ll_from_stats(*stats[i:i + 3], own)
+                for i in range(0, stats.shape[0], 3)]
+
+    s = stats_fns(fused, family)[0](
+        *stats_args(family, case, case["emb"], case["protos"]),
+        *kappas).requires_grad_(True)
+    (g,) = torch.autograd.grad(sum(losses(s)), s)
+    out = {dt: kernel_outputs(torch, fused, family, case, g, kappas, dt)
+           for dt in ("float32", "bfloat16")}
+    ll = {dt: [float(x) for x in losses(o[0])] for dt, o in out.items()}
+    cos = {name: float(torch.nn.functional.cosine_similarity(
+        out["bfloat16"][i].double().flatten(),
+        out["float32"][i].double().flatten(), dim=0))
+        for i, name in ((1, "dE"), (2, "dP"))}
+    log("kernels", f"{family}{BF16} {label} against float32: loss "
+        + ", ".join(f"{a:.6f} (float32 {b:.6f})"
+                    for a, b in zip(ll["bfloat16"], ll["float32"]))
+        + " | cosine " + " ".join(f"{k}={v:.6f}" for k, v in cos.items()))
+    for a, b in zip(ll["bfloat16"], ll["float32"]):
+        if not abs(a - b) <= BF16_LOSS_RTOL * abs(b):
+            raise AssertionError(f"{family}{BF16} {label}: loss {a} against "
+                                 f"float32 {b}, past rtol {BF16_LOSS_RTOL}")
+    if min(cos.values()) <= BF16_GRAD_COS:
+        raise AssertionError(f"{family}{BF16} {label}: gradient cosine "
+                             f"{cos} against float32, not above "
+                             f"{BF16_GRAD_COS}")
 
 
 def check_recorded(torch, fused, family, label, recorded, seed):
@@ -683,10 +796,10 @@ def recording_stats(torch, fused, family):
     def keep_cotangent(g):
         last["grads"] = g.detach().clone()
 
-    def recording(*args):
+    def recording(*args, **kwargs):
         last["args"] = [a.detach() if torch.is_tensor(a) else a
                         for a in args]
-        stats = orig(*args)
+        stats = orig(*args, **kwargs)
         stats.register_hook(keep_cotangent)
         return stats
 
@@ -701,19 +814,26 @@ def recording_stats(torch, fused, family):
 # Main paths
 # ---------------------------------------------------------------------------
 
-def run_main_path(torch, fused, recipe):
-    """3 warm-up and 10 timed steps of one recipe; returns (launch counts,
-    the last call's stats inputs, the cotangent of its stats that the last
-    backward handed to the kernels)."""
+def run_main_path(torch, fused, recipe, operand_dtype="float32"):
+    """3 warm-up and 10 timed steps of one recipe with
+    tpu.loss_operand_dtype = operand_dtype; its family's kernels of that
+    operand type launched once a step and no other SegSort kernel. Returns
+    (launch counts, the last call's stats inputs, the cotangent of its
+    stats that the last backward handed to the kernels, (ms/step, peak
+    GiB))."""
     from spml_tpu_torch.train import recipes
     from spml_tpu_torch.train import step as step_lib
 
     cfg, batch = recipes.setup(recipe, device=DEVICE)
+    suffix = fused.OPERAND_DTYPES[operand_dtype][1]
+    if suffix:  # the shipped recipes run float32 operands ("")
+        cfg.tpu.loss_operand_dtype = operand_dtype
     family = RECIPE_FAMILY[recipe]
     b = cfg.train.batch_size
     t0 = time.perf_counter()
     state = step_lib.init_state(cfg, 0, batch["image"], device=DEVICE)
     train_step = step_lib.make_train_step(cfg)
+    recipe += suffix  # the log's name of this arm
     log(recipe, f"state built in {time.perf_counter() - t0:.1f} s")
 
     masked = []
@@ -759,7 +879,7 @@ def run_main_path(torch, fused, recipe):
     if min(int(x) for x in masked) <= 0:
         raise AssertionError(f"{recipe}: a step had no pixel in the loss")
     for key in KERNELS:
-        want = steps if key.startswith(family) else 0
+        want = steps if key in family_keys(family, suffix) else 0
         if launches[key] != want:
             raise AssertionError(f"{recipe}: {key} launched {launches[key]}"
                                  f" times in {steps} steps, want {want}")
@@ -775,11 +895,19 @@ def run_main_path(torch, fused, recipe):
         f"stats cotangent {carrying} of {last['grads'].shape[1]}, kernel "
         f"valid count {int(last['args'][-1 - N_KAPPAS[family]])}, accuracy "
         f"step 0 {float(metrics_log[0]['accuracy']):.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(recipe, f"train step {ms:.2f} ms (CUDA events; host clock "
         f"{host_s * 100:.2f} ms), {b * 1000 / ms:.2f} imgs/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-        f"{launches}, card {nvidia_smi_line()}")
-    return launches, last["args"], last["grads"]
+        f"{peak:.2f} GiB, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, card "
+        f"{nvidia_smi_line()}")
+    return launches, last["args"], last["grads"], (ms, peak)
+
+
+def family_keys(family, suffix=""):
+    """The launch counters of a family's three kernels of one operand
+    type."""
+    return [f"{family}_{kind}{suffix}" for kind in KINDS]
 
 
 # ---------------------------------------------------------------------------
@@ -2699,27 +2827,30 @@ def log_sp_segsort(spec, ranks, one):
 # Timings at the main paths' inputs
 # ---------------------------------------------------------------------------
 
-def bounds(family, n, p, nv, d, rows=None):
+def bounds(family, n, p, nv, d, rows=None, bf16=False):
     """{kind: (bound_ms, bound_by, float32 bound ms)} of a family from this
     run's shapes: bytes each input read once and each output written once
     (prototype rows up to the valid count), operations per live (pixel,
     prototype) pair at the float32 peak; for the kernels whose products
     run on the tensor cores in split TF32 (TENSOR_CORE), the product flops
     a pair (2 D for the stats, 4 D for dE and dP) three times at the TF32
-    peak plus the rest at the float32 peak. rows: the pixels whose pairs
-    the gradients need, those with a nonzero cotangent (all N by
+    peak plus the rest at the float32 peak. bf16: the bf16-operand forms,
+    E and P 2 bytes an element and the product flops once at the bf16
+    tensor-core peak (the outputs float32 as ever). rows: the pixels whose
+    pairs the gradients need, those with a nonzero cotangent (all N by
     default); the gradients' pairs and pixel operands count only these,
     their cotangents and outputs in full."""
     rows = n if rows is None else rows
     ns = N_STATS[family]
+    eb = 2 if bf16 else 4  # bytes of an element of E and P
     if family == "joint":  # rows carry label, own / tag, valid
-        pix_row, proto_row = d * 4 + 3 * 4, d * 4 + 3 * 4
+        pix_row, proto_row = d * eb + 3 * 4, d * eb + 3 * 4
         ops_stats, ops_grad = 2 * d + 10, 4 * d + 14  # 2 exps, 6 sums
     elif family == "set":  # rows carry tag bitword, own / bitword, valid
-        pix_row, proto_row = d * 4 + 8, d * 4 + 8
+        pix_row, proto_row = d * eb + 8, d * eb + 8
         ops_stats, ops_grad = 2 * d + 7, 4 * d + 9  # 1 exp, 3 sums, 1 AND
     else:  # rows carry label, own / label
-        pix_row, proto_row = d * 4 + 8, d * 4 + 4
+        pix_row, proto_row = d * eb + 8, d * eb + 4
         ops_stats, ops_grad = 2 * d + 6, 4 * d + 8
     protos_in, grads_in = nv * proto_row, ns * n * 4
     work = {  # bytes, operations a pair, product flops a pair, pairs
@@ -2735,7 +2866,10 @@ def bounds(family, n, p, nv, d, rows=None):
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_f32 = pairs * ops / PEAK_F32_FLOPS * 1e3
         t_ops = t_f32
-        if f"{family}_{kind}" in TENSOR_CORE:
+        if bf16:
+            t_ops = pairs * (prod / PEAK_BF16_FLOPS
+                             + (ops - prod) / PEAK_F32_FLOPS) * 1e3
+        elif f"{family}_{kind}" in TENSOR_CORE:
             t_ops = pairs * (3 * prod / PEAK_TF32_FLOPS
                              + (ops - prod) / PEAK_F32_FLOPS) * 1e3
         out[kind] = ((t_ops, "operations") if t_ops >= t_bytes
@@ -2743,12 +2877,14 @@ def bounds(family, n, p, nv, d, rows=None):
     return out
 
 
-def time_kernels(torch, fused, family, args, path_grads):
+def time_kernels(torch, fused, family, args, path_grads,
+                 operand_dtype="float32"):
     """Each kernel of a family at a main path's last inputs (CUDA events,
     20 launches) beside the plain version (3 runs over row chunks) and
     its bound, dE and dP on randn cotangents and again on path_grads, the
     cotangents the path's last backward handed them (its bound counting
-    only the rows that carry one); returns {counter: (ms, plain ms,
+    only the rows that carry one); operand_dtype "bfloat16": the bf16
+    forms and the bf16 plain version. Returns {counter: (ms, plain ms,
     (bound ms, by, float32 bound ms), (path ms, path bound, rows) or
     None)}."""
     from spml_tpu_torch.tools.dilated_conv_probe import cuda_ms
@@ -2759,8 +2895,9 @@ def time_kernels(torch, fused, family, args, path_grads):
     if family == "joint":
         scalars = (*kappas, int(kappas[1] == 2.0 * kappas[0]))
     f32, i32 = torch.float32, torch.int32
+    operand, suffix = fused.OPERAND_DTYPES[operand_dtype]
     at = fused._FAMILIES[family][1]  # the prototypes among the inputs
-    inputs = tuple(fused._kernel_operand(t, f32 if i in (0, at) else i32)
+    inputs = tuple(fused._kernel_operand(t, operand if i in (0, at) else i32)
                    for i, t in enumerate(tensors))
     emb, protos = inputs[0], inputs[at]
     n, d = emb.shape
@@ -2772,11 +2909,13 @@ def time_kernels(torch, fused, family, args, path_grads):
 
     def grad_ms(kind, g):
         launch = getattr(fused, f"_launch_{kind}")
-        return cuda_ms(lambda: launch(family, inputs, scalars, g), 20)
+        return cuda_ms(lambda: launch(family, inputs, scalars, g, suffix),
+                       20)
 
     kernel_ms = {
         "stats": cuda_ms(
-            lambda: fused._launch_stats(family, inputs, scalars), 20),
+            lambda: fused._launch_stats(family, inputs, scalars, suffix),
+            20),
         "grad_emb": grad_ms("grad_emb", grads),
         "grad_proto": grad_ms("grad_proto", grads),
     }
@@ -2789,21 +2928,22 @@ def time_kernels(torch, fused, family, args, path_grads):
     def plain(kind):
         for r0 in range(0, n, rows):
             sl = slice(r0, min(r0 + rows, n))
-            e = emb[sl].detach().requires_grad_(kind == "grad_emb")
-            pr = protos.detach().requires_grad_(kind == "grad_proto")
+            e = emb[sl].detach().float().requires_grad_(kind == "grad_emb")
+            pr = protos.detach().float().requires_grad_(kind == "grad_proto")
             pix = [t[sl] for t in inputs[1:at]]
-            s = plain_fn(e, *pix, pr, *inputs[at + 1:], *kappas)
+            s = plain_fn(e, *pix, pr, *inputs[at + 1:], *kappas,
+                         operand_dtype=operand_dtype)
             if kind != "stats":
                 torch.autograd.grad((s * grads[:, sl]).sum(),
                                     e if kind == "grad_emb" else pr)
 
     plain_ms = {kind: cuda_ms(lambda: plain(kind), 3)
                 for kind in KINDS}
-    bnd = bounds(family, n, p, nv, d)
-    path_bnd = bounds(family, n, p, nv, d, carrying)
+    bnd = bounds(family, n, p, nv, d, bf16=bool(suffix))
+    path_bnd = bounds(family, n, p, nv, d, carrying, bf16=bool(suffix))
     out = {}
     for kind in KINDS:
-        key = f"{family}_{kind}"
+        key = f"{family}_{kind}{suffix}"
         path = None
         if kind in path_ms:
             path = (path_ms[kind], path_bnd[kind], carrying)
@@ -4241,9 +4381,11 @@ def log_native_item():
 
 TRACE_START, TRACE_STEPS = 1, 2  # tpu.profile_start, tpu.profile_steps
 # the kernels of csrc/segsort_joint.cu a trace names: (template, family
-# argument, DP argument) -> launch counter; the family is 0 for JOINT
+# argument, DP argument (SQUARE for the stats), BF argument) -> launch
+# counter; the family is 0 for JOINT
 TRACE_KERNEL = re.compile(r"(stats_tile_kernel|grad_tile_kernel)<"
-                          r"\s*\d+\s*,\s*(\d+)\s*,\s*(true|false|1|0)\s*>")
+                          r"\s*\d+\s*,\s*(\d+)\s*,\s*(true|false|1|0)\s*,"
+                          r"\s*(true|false|1|0)\s*>")
 TRACE_FAMILY = {0: "joint", 1: "hard", 2: "set"}
 
 
@@ -4254,10 +4396,11 @@ def traced_kernel(name):
     if not m:
         return None
     family = TRACE_FAMILY.get(int(m.group(2)), m.group(2))
+    suffix = BF16 if m.group(4) in ("true", "1") else ""  # the operands
     if m.group(1) == "stats_tile_kernel":
-        return f"{family}_stats"
+        return f"{family}_stats{suffix}"
     dp = m.group(3) in ("true", "1")
-    return f"{family}_grad_proto" if dp else f"{family}_grad_emb"
+    return f"{family}_grad_{'proto' if dp else 'emb'}{suffix}"
 
 
 def trace_stage1(torch, fused, stage1, args, profile_dir):
@@ -4375,9 +4518,11 @@ def main() -> int:
     tiled = [(k, spill) for k, _, spill in segsort
              if k.startswith(TILED_KERNELS)]
     spilled = [k for k, spill in tiled if spill]
-    if spilled or {k.split("<")[0] for k, _ in tiled} != set(TILED_KERNELS):
-        raise AssertionError(f"ptxas: tiled kernels spill or are missing: "
-                             f"{spilled or tiled}")
+    bf16_forms = {k.split("<")[0] for k, _ in tiled if k.endswith(",1>")}
+    if spilled or {k.split("<")[0] for k, _ in tiled} != set(TILED_KERNELS) \
+            or bf16_forms != set(TILED_KERNELS):
+        raise AssertionError(f"ptxas: tiled kernels (both operand types) "
+                             f"spill or are missing: {spilled or tiled}")
     per_row = [k for k, _, _ in segsort if k.startswith(PER_ROW_KERNEL)]
     if per_row and not opts.csrc:  # another checkout's may still hold one
         raise AssertionError(f"ptxas: per-row kernels left: {per_row}")
@@ -4386,11 +4531,18 @@ def main() -> int:
     conv_err = check_dilated_conv(torch, dc)
     launches, times = {}, {}
     for recipe, family in RECIPE_FAMILY.items():
-        path_launches, args, path_grads = run_main_path(torch, fused,
-                                                        recipe)
-        launches.update({k: v for k, v in path_launches.items()
-                         if k.startswith(family)})
-        times.update(time_kernels(torch, fused, family, args, path_grads))
+        arms = {}  # operand type -> (ms/step, peak GiB)
+        for dtype, (_, suffix) in fused.OPERAND_DTYPES.items():
+            path_launches, args, path_grads, arms[dtype] = run_main_path(
+                torch, fused, recipe, dtype)
+            launches.update({k: path_launches[k]
+                             for k in family_keys(family, suffix)})
+            times.update(time_kernels(torch, fused, family, args,
+                                      path_grads, dtype))
+        (ms16, peak16), (ms32, peak32) = arms["bfloat16"], arms["float32"]
+        log(recipe, f"tpu.loss_operand_dtype bfloat16: {ms16:.2f} ms/step, "
+            f"peak {peak16:.2f} GiB; float32: {ms32:.2f} ms/step, peak "
+            f"{peak32:.2f} GiB; card {nvidia_smi_line()}")
     conv_launches = run_probe_path(torch, dc)
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
@@ -4403,12 +4555,13 @@ def main() -> int:
     err_name = {"stats": "stats", "grad_emb": "dE", "grad_proto": "dP"}
     table = []
     for key, (name, replaces) in KERNELS.items():
-        family, kind = key.split("_", 1)
+        suffix = BF16 if key.endswith(BF16) else ""
+        family, kind = key.removesuffix(suffix).split("_", 1)
         ms, plain_ms, (bound_ms, bound_by, f32_ms), path = times[key]
         table.append({
             "name": name, "route": "cuda", "source": SEGSORT_SOURCE,
             "replaces": replaces, "launches": launches[key],
-            "max_abs_err": errs[family][err_name[kind]], "ms": ms,
+            "max_abs_err": errs[family + suffix][err_name[kind]], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
         if key in TENSOR_CORE:  # the bound of the same work in float32

@@ -118,8 +118,9 @@ class TpuConfig:
     # sem_ann + sem_occ through the fused joint SegSort kernels
     # (O(N + P) memory) instead of the dense [N, P] losses
     use_fused_loss: bool = False
-    # operand dtype of the fused loss kernels ('' = float32, the only one
-    # ported: make_train_step raises for any other)
+    # operand dtype of the fused loss kernels ('' = 'float32', or
+    # 'bfloat16': E and P read as bf16, float32 sums; make_train_step
+    # raises for any other name)
     loss_operand_dtype: str = ""
     # 'per_device_mean': mean over each train.batch_size image group,
     # then over groups (the reference's per-GPU mean); 'global_mean'

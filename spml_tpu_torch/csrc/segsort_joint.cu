@@ -97,9 +97,28 @@
 //     ops/segsort_loss.py mirrors this schedule (stats_tiles,
 //     grad_emb_tiles, grad_proto_tiles) for the CPU tests.
 //   No dP uses float atomics: the result does not depend on the run.
+//
+// bf16 operands (tpu.loss_operand_dtype = "bfloat16"). The TPU kernels
+// take E and P cast to bf16 inside the custom VJP (segsort_loss.py
+// :169-171, :311-313, :500-503, :563-565, :814-815, :877-878) and round
+// c to bf16 before the second product (:234, :272, :481, :767); sums stay
+// float32. Every kernel above has a bf16 form, a template argument BF,
+// exported with the suffix _bf16 (segsort_joint_stats_bf16, ...): it
+// reads E and P as bf16 from device memory (half the bytes), keeps them
+// bf16 in shared memory, and widens each value to a TF32 operand by a
+// shift (a bf16 value is a TF32 value). The product of two 8-bit
+// significands is exact in float32, so each product is ONE mma.sync where
+// split TF32 runs three, and nothing is split. c is rounded to the
+// nearest bf16, ties to even (__float2bfloat16_rn, as JAX's astype), not
+// by split_tf32's TF32 rounding. The rest is the float32 form's: float32
+// middle, fixed-order sums, no float atomics, the zero-cotangent skips,
+// product 2 flushed once a tile.
+//
 // Left for later: the dP kernel skipping pixel tiles whose cotangents are
-// all zero; wgmma products for K2 and K3.
+// all zero; wgmma products for K2 and K3; native bf16 mma.sync (m16n8k16,
+// twice the TF32 rate) for the bf16 forms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -203,6 +222,18 @@ constexpr int OWN = 128;           // own rows of a block
 constexpr int STR = 64;            // streamed rows of a tile
 constexpr int TILE_THREADS = 128;  // 4 warps, 32 own rows each
 
+// E and P as the kernels read them: float32, or bf16 (BF); a row in
+// shared memory is padded by 16 bytes, PAD elements.
+template <bool BF>
+using Operand = std::conditional_t<BF, __nv_bfloat16, float>;
+template <bool BF>
+constexpr int PAD = BF ? 8 : 4;
+// The streamed tile's low TF32 halves: bf16 operands have none (one
+// unused row keeps the pointer type).
+template <int D, bool BF>
+using LowHalves =
+    std::conditional_t<BF, unsigned[1][D + 4], unsigned[STR][D + 4]>;
+
 template <int NS, int ROWS>
 struct PixelRows {  // per-pixel operands (zero past the count)
   int lab[ROWS], own[ROWS], tag[ROWS];
@@ -214,33 +245,36 @@ struct ProtoRows {
   int lab[ROWS], tag[ROWS], valid[ROWS];
 };
 
-// Both sides row-major, padded by 4 floats: the 8 rows x 4 columns of an
+// Both sides row-major, padded by 16 bytes: the 8 rows x 4 columns of an
 // mma fragment, and the 4 row pairs x 8 columns of product 2's B, fall
-// in 32 distinct banks. other_hi / other_lo: the streamed tile's TF32
-// halves, split once a tile for all four warps.
+// in 32 distinct banks (bf16 rows: two lanes share a word). other_hi /
+// other_lo: the streamed tile's TF32 halves, split (float32) or widened
+// (bf16, hi alone) once a tile for all four warps.
 // Pixels own, prototype tiles streamed (stats, dE): a thread keeps its own
 // pixels' operands in registers, read from device memory up front.
-template <int D>
+template <int D, bool BF>
 struct PixelTileSmem {
-  float own[OWN][D + 4];
-  float other[2][STR][D + 4];
-  unsigned other_hi[STR][D + 4], other_lo[STR][D + 4];
+  Operand<BF> own[OWN][D + PAD<BF>];
+  Operand<BF> other[2][STR][D + PAD<BF>];
+  unsigned other_hi[STR][D + 4];
+  LowHalves<D, BF> other_lo;
   ProtoRows<STR> proto[2];
 };
 
 // Prototypes own, pixel tiles streamed (dP).
-template <int D, int F>
+template <int D, int F, bool BF>
 struct ProtoTileSmem {
-  float own[OWN][D + 4];
-  float other[2][STR][D + 4];
-  unsigned other_hi[STR][D + 4], other_lo[STR][D + 4];
+  Operand<BF> own[OWN][D + PAD<BF>];
+  Operand<BF> other[2][STR][D + PAD<BF>];
+  unsigned other_hi[STR][D + 4];
+  LowHalves<D, BF> other_lo;
   PixelRows<n_stats(F), STR> pix[2];
   ProtoRows<OWN> proto;
 };
 
-template <int D, int F, bool DP>
-using TileSmem =
-    std::conditional_t<DP, ProtoTileSmem<D, F>, PixelTileSmem<D>>;
+template <int D, int F, bool DP, bool BF>
+using TileSmem = std::conditional_t<DP, ProtoTileSmem<D, F, BF>,
+                                    PixelTileSmem<D, BF>>;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool live) {
@@ -314,15 +348,17 @@ __device__ __forceinline__ void stage_proto_rows(
   }
 }
 
-// Rows [r0, r0 + ROWS) of src, zero-filled from `count` on, by cp.async.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(float (*dst)[D + 4],
-                                           const float* src, int r0,
+// Rows [r0, r0 + ROWS) of src, zero-filled from `count` on, by cp.async
+// (16 bytes a copy: V elements).
+template <int D, int ROWS, bool BF>
+__device__ __forceinline__ void stage_rows(Operand<BF> (*dst)[D + PAD<BF>],
+                                           const Operand<BF>* src, int r0,
                                            int count) {
-  for (int i = threadIdx.x; i < ROWS * D / 4; i += TILE_THREADS) {
-    const int r = i / (D / 4), q = i % (D / 4);
+  constexpr int V = PAD<BF>;
+  for (int i = threadIdx.x; i < ROWS * D / V; i += TILE_THREADS) {
+    const int r = i / (D / V), q = i % (D / V);
     const bool live = r0 + r < count;
-    cp_async16(&dst[r][4 * q], src + (size_t)(live ? r0 + r : 0) * D + 4 * q,
+    cp_async16(&dst[r][V * q], src + (size_t)(live ? r0 + r : 0) * D + V * q,
                live);
   }
 }
@@ -414,45 +450,86 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
   mma_tf32(d, ahi, bhi);
 }
 
-// A staged tile's TF32 halves, once for the four warps.
-template <int D>
-__device__ __forceinline__ void split_tile(const float (*raw)[D + 4],
-                                           unsigned (*hi)[D + 4],
-                                           unsigned (*lo)[D + 4]) {
-  for (int i = threadIdx.x; i < STR * D / 4; i += TILE_THREADS) {
-    const int r = i / (D / 4), q = 4 * (i % (D / 4));
-    const float4 v = *reinterpret_cast<const float4*>(&raw[r][q]);
-    uint4 h, l;
-    split_tf32(v.x, h.x, l.x);
-    split_tf32(v.y, h.y, l.y);
-    split_tf32(v.z, h.z, l.z);
-    split_tf32(v.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(&hi[r][q]) = h;
-    *reinterpret_cast<uint4*>(&lo[r][q]) = l;
+// A bf16 value as a TF32 operand: its bits in the high half of a float32
+// (exact).
+__device__ __forceinline__ unsigned widen(__nv_bfloat16 x) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(x)) << 16;
+}
+
+// d += a b, float32 sums: one product of bf16 operands (exact products,
+// the lo halves unused), else the split product.
+template <bool BF>
+__device__ __forceinline__ void mma_product(float (&d)[4],
+                                            const unsigned (&ahi)[4],
+                                            const unsigned (&alo)[4],
+                                            const unsigned (&bhi)[2],
+                                            const unsigned (&blo)[2]) {
+  if constexpr (BF) {
+    mma_tf32(d, ahi, bhi);
+  } else {
+    mma_split(d, ahi, alo, bhi, blo);
+  }
+}
+
+// A staged tile's TF32 operands, once for the four warps: float32 values
+// split to halves, bf16 values widened (hi alone).
+template <int D, bool BF>
+__device__ __forceinline__ void prepare_tile(
+    const Operand<BF> (*raw)[D + PAD<BF>], unsigned (*hi)[D + 4],
+    unsigned (*lo)[D + 4]) {
+  if constexpr (BF) {
+    for (int i = threadIdx.x; i < STR * D / 8; i += TILE_THREADS) {
+      const int r = i / (D / 8), q = 8 * (i % (D / 8));
+      // 8 values, two a word, the lower column in the low half
+      const uint4 v = *reinterpret_cast<const uint4*>(&raw[r][q]);
+      *reinterpret_cast<uint4*>(&hi[r][q]) =
+          make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16,
+                     v.y & 0xffff0000u);
+      *reinterpret_cast<uint4*>(&hi[r][q + 4]) =
+          make_uint4(v.z << 16, v.z & 0xffff0000u, v.w << 16,
+                     v.w & 0xffff0000u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < STR * D / 4; i += TILE_THREADS) {
+      const int r = i / (D / 4), q = 4 * (i % (D / 4));
+      const float4 v = *reinterpret_cast<const float4*>(&raw[r][q]);
+      uint4 h, l;
+      split_tf32(v.x, h.x, l.x);
+      split_tf32(v.y, h.y, l.y);
+      split_tf32(v.z, h.z, l.z);
+      split_tf32(v.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(&hi[r][q]) = h;
+      *reinterpret_cast<uint4*>(&lo[r][q]) = l;
+    }
   }
 }
 
 // Product 1's A fragment at k step d0 / 8: own rows m0 + 16 mt (+ g, + 8),
-// columns d0 + (t, t + 4), split from float32.
-template <int D>
-__device__ __forceinline__ void own_fragments(unsigned (&ahi)[2][4],
-                                              unsigned (&alo)[2][4],
-                                              const float (*own)[D + 4],
-                                              int m0, int g, int t,
-                                              int d0) {
+// columns d0 + (t, t + 4), split from float32 or widened from bf16.
+template <int D, bool BF>
+__device__ __forceinline__ void own_fragments(
+    unsigned (&ahi)[2][4], unsigned (&alo)[2][4],
+    const Operand<BF> (*own)[D + PAD<BF>], int m0, int g, int t, int d0) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     const int r = m0 + 16 * mt + g;
-    split_tf32(own[r][d0 + t], ahi[mt][0], alo[mt][0]);
-    split_tf32(own[r + 8][d0 + t], ahi[mt][1], alo[mt][1]);
-    split_tf32(own[r][d0 + t + 4], ahi[mt][2], alo[mt][2]);
-    split_tf32(own[r + 8][d0 + t + 4], ahi[mt][3], alo[mt][3]);
+    if constexpr (BF) {
+      ahi[mt][0] = widen(own[r][d0 + t]);
+      ahi[mt][1] = widen(own[r + 8][d0 + t]);
+      ahi[mt][2] = widen(own[r][d0 + t + 4]);
+      ahi[mt][3] = widen(own[r + 8][d0 + t + 4]);
+    } else {
+      split_tf32(own[r][d0 + t], ahi[mt][0], alo[mt][0]);
+      split_tf32(own[r + 8][d0 + t], ahi[mt][1], alo[mt][1]);
+      split_tf32(own[r][d0 + t + 4], ahi[mt][2], alo[mt][2]);
+      split_tf32(own[r + 8][d0 + t + 4], ahi[mt][3], alo[mt][3]);
+    }
   }
 }
 
 // Product 1's B fragment of n tile nt at k step d0 / 8: streamed row 8 nt
 // + g, columns d0 + (t, t + 4), from the tile's halves.
-template <int D>
+template <int D, bool BF>
 __device__ __forceinline__ void streamed_fragment(unsigned (&bhi)[2],
                                                   unsigned (&blo)[2],
                                                   const unsigned (*hi)[D + 4],
@@ -460,21 +537,22 @@ __device__ __forceinline__ void streamed_fragment(unsigned (&bhi)[2],
                                                   int nt, int g, int t,
                                                   int d0) {
   bhi[0] = hi[8 * nt + g][d0 + t];
-  blo[0] = lo[8 * nt + g][d0 + t];
   bhi[1] = hi[8 * nt + g][d0 + t + 4];
-  blo[1] = lo[8 * nt + g][d0 + t + 4];
+  if constexpr (!BF) {
+    blo[0] = lo[8 * nt + g][d0 + t];
+    blo[1] = lo[8 * nt + g][d0 + t + 4];
+  }
 }
 
 // Product 1 of a tile, the logits: s[mt][nt][2 h + e] = own row m0 + 16 mt
 // + g + 8 h . streamed row 8 nt + 2 t + e, in split TF32 (the own rows
-// split here, the streamed tile from its halves), summed over all D in one
-// accumulator (dE, dP).
-template <int D>
-__device__ __forceinline__ void tile_logits(float (&s)[2][STR / 8][4],
-                                            const float (*own)[D + 4],
-                                            const unsigned (*hi)[D + 4],
-                                            const unsigned (*lo)[D + 4],
-                                            int m0, int g, int t) {
+// split here, the streamed tile from its halves) or in one TF32 product
+// of bf16 values, summed over all D in one accumulator (dE, dP).
+template <int D, bool BF>
+__device__ __forceinline__ void tile_logits(
+    float (&s)[2][STR / 8][4], const Operand<BF> (*own)[D + PAD<BF>],
+    const unsigned (*hi)[D + 4], const unsigned (*lo)[D + 4], int m0, int g,
+    int t) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -483,14 +561,14 @@ __device__ __forceinline__ void tile_logits(float (&s)[2][STR / 8][4],
 #pragma unroll
   for (int ks = 0; ks < D / 8; ++ks) {
     unsigned ahi[2][4], alo[2][4];
-    own_fragments<D>(ahi, alo, own, m0, g, t, 8 * ks);
+    own_fragments<D, BF>(ahi, alo, own, m0, g, t, 8 * ks);
 #pragma unroll
     for (int nt = 0; nt < STR / 8; ++nt) {
       unsigned bhi[2], blo[2];
-      streamed_fragment<D>(bhi, blo, hi, lo, nt, g, t, 8 * ks);
+      streamed_fragment<D, BF>(bhi, blo, hi, lo, nt, g, t, 8 * ks);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
-        mma_split(s[mt][nt], ahi[mt], alo[mt], bhi, blo);
+        mma_product<BF>(s[mt][nt], ahi[mt], alo[mt], bhi, blo);
     }
   }
 }
@@ -503,24 +581,23 @@ __device__ __forceinline__ void tile_logits(float (&s)[2][STR / 8][4],
 // accumulator, and the steps are added in float32 (round to nearest); the
 // steps run n tile by n tile, so only one accumulator stays live beside
 // the logits.
-template <int D>
-__device__ __forceinline__ void stats_logits(float (&s)[2][STR / 8][4],
-                                             const float (*own)[D + 4],
-                                             const unsigned (*hi)[D + 4],
-                                             const unsigned (*lo)[D + 4],
-                                             int m0, int g, int t) {
+template <int D, bool BF>
+__device__ __forceinline__ void stats_logits(
+    float (&s)[2][STR / 8][4], const Operand<BF> (*own)[D + PAD<BF>],
+    const unsigned (*hi)[D + 4], const unsigned (*lo)[D + 4], int m0, int g,
+    int t) {
 #pragma unroll
   for (int ks = 0; ks < D / 8; ++ks) {
     unsigned ahi[2][4], alo[2][4];
-    own_fragments<D>(ahi, alo, own, m0, g, t, 8 * ks);
+    own_fragments<D, BF>(ahi, alo, own, m0, g, t, 8 * ks);
 #pragma unroll
     for (int nt = 0; nt < STR / 8; ++nt) {
       unsigned bhi[2], blo[2];
-      streamed_fragment<D>(bhi, blo, hi, lo, nt, g, t, 8 * ks);
+      streamed_fragment<D, BF>(bhi, blo, hi, lo, nt, g, t, 8 * ks);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_split(part, ahi[mt], alo[mt], bhi, blo);
+        mma_product<BF>(part, ahi[mt], alo[mt], bhi, blo);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           s[mt][nt][i] = ks == 0 ? part[i] : s[mt][nt][i] + part[i];
@@ -545,12 +622,13 @@ __device__ __forceinline__ void stats_logits(float (&s)[2][STR / 8][4],
 // own rows m0 + 16 mt + g + 8 h and streamed rows 8 nt + 2 t + e, the
 // accumulator layout of product 1, which is product 2's A operand once the
 // streamed rows of a k step are taken in the order 2 t, 2 t + 1 (k = t,
-// t + 4): c never leaves the registers.
-template <int D, int F, bool DP>
+// t + 4): c never leaves the registers. BF: E and P bf16, c rounded to
+// the nearest bf16 (ties to even) before product 2.
+template <int D, int F, bool DP, bool BF>
 __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
-    const float* __restrict__ emb, const int* __restrict__ pix_lab,
+    const Operand<BF>* __restrict__ emb, const int* __restrict__ pix_lab,
     const int* __restrict__ own, const int* __restrict__ pix_tag,
-    const float* __restrict__ protos, const int* __restrict__ proto_lab,
+    const Operand<BF>* __restrict__ protos, const int* __restrict__ proto_lab,
     const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
     const int* __restrict__ num_valid, int n, int p, float kappa_a,
     float kappa_o, int square, const float* __restrict__ grads,
@@ -559,7 +637,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
   constexpr int NT = STR / 8;  // product 1's n tiles, product 2's k steps
   constexpr int KD = D / 8;    // product 2's n tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<TileSmem<D, F, DP>*>(smem_raw);
+  auto& sm = *reinterpret_cast<TileSmem<D, F, DP, BF>*>(smem_raw);
   const int nv = min(*num_valid, p);
 
   int own0, o_begin, o_end;  // own rows from own0; streamed [o_begin, o_end)
@@ -651,18 +729,18 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
 
   auto stage = [&](int buf, int r0) {
     if constexpr (DP) {
-      stage_rows<D, STR>(sm.other[buf], emb, r0, n);
+      stage_rows<D, STR, BF>(sm.other[buf], emb, r0, n);
       stage_pixel_rows<F>(sm.pix[buf], pix_lab, own, pix_tag, grads,
                                 n, r0);
     } else {
-      stage_rows<D, STR>(sm.other[buf], protos, r0, nv);
+      stage_rows<D, STR, BF>(sm.other[buf], protos, r0, nv);
       stage_proto_rows<F>(sm.proto[buf], proto_lab, proto_tag,
                                 proto_valid, nv, r0);
     }
     cp_async_commit();
   };
   if (o_begin < o_end) {
-    stage_rows<D, OWN>(sm.own, DP ? protos : emb, own0, DP ? nv : n);
+    stage_rows<D, OWN, BF>(sm.own, DP ? protos : emb, own0, DP ? nv : n);
     if constexpr (DP) {
       stage_proto_rows<F>(sm.proto, proto_lab, proto_tag, proto_valid, nv,
                           own0);
@@ -674,7 +752,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
   for (int t0 = o_begin; t0 < o_end; t0 += STR, buf ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // this tile landed; every thread left the last one
-    split_tile<D>(sm.other[buf], sm.other_hi, sm.other_lo);
+    prepare_tile<D, BF>(sm.other[buf], sm.other_hi, sm.other_lo);
     __syncthreads();
     if (t0 + STR < o_end) stage(buf ^ 1, t0 + STR);
     if (!warp_live) continue;
@@ -690,7 +768,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
     }
 
     float s[2][NT][4];
-    tile_logits<D>(s, sm.own, sm.other_hi, sm.other_lo, m0, g, t);
+    tile_logits<D, BF>(s, sm.own, sm.other_hi, sm.other_lo, m0, g, t);
 
     // c in place of the logits: s[mt][nt][2 h + e] is the pair (own row
     // m0 + 16 mt + g + 8 h, streamed row 8 nt + 2 t + e)
@@ -741,21 +819,30 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) grad_tile_kernel(
       unsigned ahi[2][4], alo[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        split_tf32(s[mt][ks][0], ahi[mt][0], alo[mt][0]);
-        split_tf32(s[mt][ks][2], ahi[mt][1], alo[mt][1]);
-        split_tf32(s[mt][ks][1], ahi[mt][2], alo[mt][2]);
-        split_tf32(s[mt][ks][3], ahi[mt][3], alo[mt][3]);
+        if constexpr (BF) {  // the TPU kernel's c.astype(bf16)
+          ahi[mt][0] = widen(__float2bfloat16_rn(s[mt][ks][0]));
+          ahi[mt][1] = widen(__float2bfloat16_rn(s[mt][ks][2]));
+          ahi[mt][2] = widen(__float2bfloat16_rn(s[mt][ks][1]));
+          ahi[mt][3] = widen(__float2bfloat16_rn(s[mt][ks][3]));
+        } else {
+          split_tf32(s[mt][ks][0], ahi[mt][0], alo[mt][0]);
+          split_tf32(s[mt][ks][2], ahi[mt][1], alo[mt][1]);
+          split_tf32(s[mt][ks][1], ahi[mt][2], alo[mt][2]);
+          split_tf32(s[mt][ks][3], ahi[mt][3], alo[mt][3]);
+        }
       }
 #pragma unroll
       for (int dn = 0; dn < KD; ++dn) {
         unsigned bhi[2], blo[2];
         bhi[0] = sm.other_hi[8 * ks + 2 * t][8 * dn + g];
-        blo[0] = sm.other_lo[8 * ks + 2 * t][8 * dn + g];
         bhi[1] = sm.other_hi[8 * ks + 2 * t + 1][8 * dn + g];
-        blo[1] = sm.other_lo[8 * ks + 2 * t + 1][8 * dn + g];
+        if constexpr (!BF) {
+          blo[0] = sm.other_lo[8 * ks + 2 * t][8 * dn + g];
+          blo[1] = sm.other_lo[8 * ks + 2 * t + 1][8 * dn + g];
+        }
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
-          mma_split(acc[mt][dn], ahi[mt], alo[mt], bhi, blo);
+          mma_product<BF>(acc[mt][dn], ahi[mt], alo[mt], bhi, blo);
       }
     }
     // the tile's sums, out of the accumulator: see product 2's note
@@ -798,13 +885,13 @@ __host__ __device__ constexpr int stats_min_blocks(int d, int family) {
 // s_o = s_a^2 costs one multiply a pair. (Skipping the last tile's 8-row
 // n tiles wholly past the count, by a test uniform over the block, cost
 // K1 and K7 ~17% on an H100: ptxas no longer interleaved the n tiles'
-// products.)
-template <int D, int F, bool SQUARE>
+// products.) BF: E and P bf16, one TF32 product a k step.
+template <int D, int F, bool SQUARE, bool BF>
 __global__ void __launch_bounds__(TILE_THREADS, stats_min_blocks(D, F))
     stats_tile_kernel(
-    const float* __restrict__ emb, const int* __restrict__ pix_lab,
+    const Operand<BF>* __restrict__ emb, const int* __restrict__ pix_lab,
     const int* __restrict__ own, const int* __restrict__ pix_tag,
-    const float* __restrict__ protos, const int* __restrict__ proto_lab,
+    const Operand<BF>* __restrict__ protos, const int* __restrict__ proto_lab,
     const int* __restrict__ proto_tag, const int* __restrict__ proto_valid,
     const int* __restrict__ num_valid, int n, int p, float kappa_a,
     float kappa_o, float* __restrict__ out) {
@@ -813,7 +900,7 @@ __global__ void __launch_bounds__(TILE_THREADS, stats_min_blocks(D, F))
   const float ka2 = kappa_a * LOG2E, ko2 = kappa_o * LOG2E;
   constexpr int NT = STR / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<PixelTileSmem<D>*>(smem_raw);
+  auto& sm = *reinterpret_cast<PixelTileSmem<D, BF>*>(smem_raw);
   const int nv = min(*num_valid, p);
   const int own0 = blockIdx.x * OWN;
   const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
@@ -848,13 +935,13 @@ __global__ void __launch_bounds__(TILE_THREADS, stats_min_blocks(D, F))
       for (int k = 0; k < NS; ++k) acc[mt][h][k] = 0.f;
 
   auto stage = [&](int buf, int r0) {
-    stage_rows<D, STR>(sm.other[buf], protos, r0, nv);
+    stage_rows<D, STR, BF>(sm.other[buf], protos, r0, nv);
     stage_proto_rows<F>(sm.proto[buf], proto_lab, proto_tag, proto_valid,
                         nv, r0);
     cp_async_commit();
   };
   if (nv > 0) {
-    stage_rows<D, OWN>(sm.own, emb, own0, n);
+    stage_rows<D, OWN, BF>(sm.own, emb, own0, n);
     stage(0, 0);
   }
 
@@ -862,13 +949,13 @@ __global__ void __launch_bounds__(TILE_THREADS, stats_min_blocks(D, F))
   for (int t0 = 0; t0 < nv; t0 += STR, buf ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // this tile landed; every thread left the last one
-    split_tile<D>(sm.other[buf], sm.other_hi, sm.other_lo);
+    prepare_tile<D, BF>(sm.other[buf], sm.other_hi, sm.other_lo);
     __syncthreads();
     if (t0 + STR < nv) stage(buf ^ 1, t0 + STR);
     if (!warp_live) continue;
 
     float s[2][NT][4];
-    stats_logits<D>(s, sm.own, sm.other_hi, sm.other_lo, m0, g, t);
+    stats_logits<D, BF>(s, sm.own, sm.other_hi, sm.other_lo, m0, g, t);
     float part[2][2][NS];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -948,98 +1035,100 @@ __global__ void reduce_tiles_kernel(const float* __restrict__ partial,
   d_protos[idx] = s;
 }
 
-template <int F, template <int, int> class Launch, typename... Args>
+
+template <int F, bool BF, template <int, int, bool> class Launch,
+          typename... Args>
 int dispatch_d(int d, Args... args) {
   switch (d) {
-    case 16: Launch<16, F>::run(args...); break;
-    case 32: Launch<32, F>::run(args...); break;
-    case 64: Launch<64, F>::run(args...); break;
+    case 16: Launch<16, F, BF>::run(args...); break;
+    case 32: Launch<32, F, BF>::run(args...); break;
+    case 64: Launch<64, F, BF>::run(args...); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <int D, int F, bool SQUARE>
-void launch_stats_tile(const float* emb, const int* pix_lab, const int* own,
-                       const int* pix_tag, const float* protos,
-                       const int* proto_lab, const int* proto_tag,
-                       const int* proto_valid, const int* num_valid, int n,
-                       int p, float kappa_a, float kappa_o, float* out,
-                       cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(PixelTileSmem<D>);  // above 48 KB
-  cudaFuncSetAttribute(stats_tile_kernel<D, F, SQUARE>,
+template <int D, int F, bool SQUARE, bool BF>
+void launch_stats_tile(const Operand<BF>* emb, const int* pix_lab,
+                       const int* own, const int* pix_tag,
+                       const Operand<BF>* protos, const int* proto_lab,
+                       const int* proto_tag, const int* proto_valid,
+                       const int* num_valid, int n, int p, float kappa_a,
+                       float kappa_o, float* out, cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(PixelTileSmem<D, BF>);  // above 48 KB
+  cudaFuncSetAttribute(stats_tile_kernel<D, F, SQUARE, BF>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  stats_tile_kernel<D, F, SQUARE><<<(n + OWN - 1) / OWN, TILE_THREADS, smem,
-                                    stream>>>(
+  stats_tile_kernel<D, F, SQUARE, BF><<<(n + OWN - 1) / OWN, TILE_THREADS,
+                                        smem, stream>>>(
       emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag, proto_valid,
       num_valid, n, p, kappa_a, kappa_o, out);
 }
 
-template <int D, int F>
+template <int D, int F, bool BF>
 struct LaunchStatsTiled {
-  static void run(const float* emb, const int* pix_lab, const int* own,
-                  const int* pix_tag, const float* protos,
+  static void run(const Operand<BF>* emb, const int* pix_lab, const int* own,
+                  const int* pix_tag, const Operand<BF>* protos,
                   const int* proto_lab, const int* proto_tag,
                   const int* proto_valid, const int* num_valid, int n, int p,
                   float kappa_a, float kappa_o, int square, float* out,
                   cudaStream_t stream) {
     if constexpr (F == JOINT) {  // SQUARE needs two concentrations
       if (square) {
-        launch_stats_tile<D, F, true>(emb, pix_lab, own, pix_tag, protos,
-                                      proto_lab, proto_tag, proto_valid,
-                                      num_valid, n, p, kappa_a, kappa_o,
-                                      out, stream);
+        launch_stats_tile<D, F, true, BF>(emb, pix_lab, own, pix_tag, protos,
+                                          proto_lab, proto_tag, proto_valid,
+                                          num_valid, n, p, kappa_a, kappa_o,
+                                          out, stream);
         return;
       }
     }
-    launch_stats_tile<D, F, false>(emb, pix_lab, own, pix_tag, protos,
-                                   proto_lab, proto_tag, proto_valid,
-                                   num_valid, n, p, kappa_a, kappa_o, out,
-                                   stream);
+    launch_stats_tile<D, F, false, BF>(emb, pix_lab, own, pix_tag, protos,
+                                       proto_lab, proto_tag, proto_valid,
+                                       num_valid, n, p, kappa_a, kappa_o,
+                                       out, stream);
   }
 };
 
-template <int D, int F, bool DP>
-void launch_grad_tile(int blocks, const float* emb, const int* pix_lab,
+template <int D, int F, bool DP, bool BF>
+void launch_grad_tile(int blocks, const Operand<BF>* emb, const int* pix_lab,
                       const int* own, const int* pix_tag,
-                      const float* protos, const int* proto_lab,
+                      const Operand<BF>* protos, const int* proto_lab,
                       const int* proto_tag, const int* proto_valid,
                       const int* num_valid, int n, int p, float kappa_a,
                       float kappa_o, int square, const float* grads,
                       float* out, cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(TileSmem<D, F, DP>);  // above 48 KB
-  cudaFuncSetAttribute(grad_tile_kernel<D, F, DP>,
+  constexpr int smem = (int)sizeof(TileSmem<D, F, DP, BF>);  // above 48 KB
+  cudaFuncSetAttribute(grad_tile_kernel<D, F, DP, BF>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  grad_tile_kernel<D, F, DP><<<blocks, TILE_THREADS, smem, stream>>>(
+  grad_tile_kernel<D, F, DP, BF><<<blocks, TILE_THREADS, smem, stream>>>(
       emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag, proto_valid,
       num_valid, n, p, kappa_a, kappa_o, square, grads, out);
 }
 
-template <int D, int F>
+template <int D, int F, bool BF>
 struct LaunchGradEmbTiled {
-  static void run(const float* emb, const int* pix_lab, const int* own,
-                  const int* pix_tag, const float* protos,
+  static void run(const Operand<BF>* emb, const int* pix_lab, const int* own,
+                  const int* pix_tag, const Operand<BF>* protos,
                   const int* proto_lab, const int* proto_tag,
                   const int* proto_valid, const int* num_valid, int n, int p,
                   float kappa_a, float kappa_o, int square,
                   const float* grads, float* d_emb, cudaStream_t stream) {
-    launch_grad_tile<D, F, false>(
+    launch_grad_tile<D, F, false, BF>(
         (n + OWN - 1) / OWN, emb, pix_lab, own, pix_tag, protos, proto_lab,
         proto_tag, proto_valid, num_valid, n, p, kappa_a, kappa_o, square,
         grads, d_emb, stream);
   }
 };
 
-template <int D, int F>
+template <int D, int F, bool BF>
 struct LaunchGradProtoTiled {
-  static void run(const float* emb, const int* pix_lab, const int* own,
-                  const int* pix_tag, const float* protos,
+  static void run(const Operand<BF>* emb, const int* pix_lab, const int* own,
+                  const int* pix_tag, const Operand<BF>* protos,
                   const int* proto_lab, const int* proto_tag,
                   const int* proto_valid, const int* num_valid, int n, int p,
                   float kappa_a, float kappa_o, int square,
                   const float* grads, float* partial, int blocks,
                   float* d_protos, cudaStream_t stream) {
-    launch_grad_tile<D, F, true>(
+    launch_grad_tile<D, F, true, BF>(
         blocks, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
         proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
         partial, stream);
@@ -1051,34 +1140,35 @@ struct LaunchGradProtoTiled {
   }
 };
 
-}  // namespace
-
-extern "C" {
+// The families' entry points, for either operand type; the C functions
+// below name them. The d_emb and d_protos they write are float32 either way.
 
 // out: [6, n] rows own_a, same_a, diff_a, own_o, same_o, diff_o.
-int segsort_joint_stats(const float* emb, const int* pix_lab, const int* own,
-                        const int* pix_tag, const float* protos,
-                        const int* proto_lab, const int* proto_tag,
-                        const int* proto_valid, const int* num_valid, int n,
-                        int p, int d, float kappa_a, float kappa_o,
-                        int square, float* out, void* stream) {
+template <bool BF>
+int joint_stats(const Operand<BF>* emb, const int* pix_lab, const int* own,
+                const int* pix_tag, const Operand<BF>* protos,
+                const int* proto_lab, const int* proto_tag,
+                const int* proto_valid, const int* num_valid, int n, int p,
+                int d, float kappa_a, float kappa_o, int square, float* out,
+                void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<JOINT, LaunchStatsTiled>(
+  return dispatch_d<JOINT, BF, LaunchStatsTiled>(
       d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
       proto_valid, num_valid, n, p, kappa_a, kappa_o, square, out,
       (cudaStream_t)stream);
 }
 
-// grads: [6, n] cotangents of the six rows of segsort_joint_stats.
-int segsort_joint_grad_emb(const float* emb, const int* pix_lab,
-                           const int* own, const int* pix_tag,
-                           const float* protos, const int* proto_lab,
-                           const int* proto_tag, const int* proto_valid,
-                           const int* num_valid, int n, int p, int d,
-                           float kappa_a, float kappa_o, int square,
-                           const float* grads, float* d_emb, void* stream) {
+// grads: [6, n] cotangents of the six rows of joint_stats.
+template <bool BF>
+int joint_grad_emb(const Operand<BF>* emb, const int* pix_lab,
+                   const int* own, const int* pix_tag,
+                   const Operand<BF>* protos, const int* proto_lab,
+                   const int* proto_tag, const int* proto_valid,
+                   const int* num_valid, int n, int p, int d, float kappa_a,
+                   float kappa_o, int square, const float* grads,
+                   float* d_emb, void* stream) {
   if (n == 0) return 0;
-  return dispatch_d<JOINT, LaunchGradEmbTiled>(
+  return dispatch_d<JOINT, BF, LaunchGradEmbTiled>(
       d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
       proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads, d_emb,
       (cudaStream_t)stream);
@@ -1087,6 +1177,167 @@ int segsort_joint_grad_emb(const float* emb, const int* pix_lab,
 // partial: scratch [blocks, 128, d], blocks >= ceil(p / 128): the grid of
 // the dP kernel, split on the device into valid prototype tiles x pixel
 // chunks.
+template <bool BF>
+int joint_grad_proto(const Operand<BF>* emb, const int* pix_lab,
+                     const int* own, const int* pix_tag,
+                     const Operand<BF>* protos, const int* proto_lab,
+                     const int* proto_tag, const int* proto_valid,
+                     const int* num_valid, int n, int p, int d,
+                     float kappa_a, float kappa_o, int square,
+                     const float* grads, float* partial, int blocks,
+                     float* d_protos, void* stream) {
+  if (p == 0) return 0;
+  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
+  return dispatch_d<JOINT, BF, LaunchGradProtoTiled>(
+      d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
+      proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
+      partial, blocks, d_protos, (cudaStream_t)stream);
+}
+
+// out: [3, n] rows own, same, diff at concentration kappa.
+template <bool BF>
+int hard_stats(const Operand<BF>* emb, const int* pix_lab, const int* own,
+               const Operand<BF>* protos, const int* proto_lab,
+               const int* num_valid, int n, int p, int d, float kappa,
+               float* out, void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<HARD, BF, LaunchStatsTiled>(
+      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
+      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
+      0, out, (cudaStream_t)stream);
+}
+
+// grads: [3, n] cotangents of the three rows of hard_stats.
+template <bool BF>
+int hard_grad_emb(const Operand<BF>* emb, const int* pix_lab, const int* own,
+                  const Operand<BF>* protos, const int* proto_lab,
+                  const int* num_valid, int n, int p, int d, float kappa,
+                  const float* grads, float* d_emb, void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<HARD, BF, LaunchGradEmbTiled>(
+      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
+      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
+      0, grads, d_emb, (cudaStream_t)stream);
+}
+
+// partial: scratch [blocks, 128, d], blocks >= ceil(p / 128), as for
+// joint_grad_proto.
+template <bool BF>
+int hard_grad_proto(const Operand<BF>* emb, const int* pix_lab,
+                    const int* own, const Operand<BF>* protos,
+                    const int* proto_lab, const int* num_valid, int n, int p,
+                    int d, float kappa, const float* grads, float* partial,
+                    int blocks, float* d_protos, void* stream) {
+  if (p == 0) return 0;
+  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
+  return dispatch_d<HARD, BF, LaunchGradProtoTiled>(
+      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
+      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
+      0, grads, partial, blocks, d_protos, (cudaStream_t)stream);
+}
+
+// out: [3, n] rows own, same, diff (tag sets intersect / are disjoint) at
+// concentration kappa. pix_tag / proto_tag are class bitwords.
+template <bool BF>
+int set_stats(const Operand<BF>* emb, const int* pix_tag, const int* own,
+              const Operand<BF>* protos, const int* proto_tag,
+              const int* proto_valid, const int* num_valid, int n, int p,
+              int d, float kappa, float* out, void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<SET, BF, LaunchStatsTiled>(
+      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
+      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, out,
+      (cudaStream_t)stream);
+}
+
+// grads: [3, n] cotangents of the three rows of set_stats.
+template <bool BF>
+int set_grad_emb(const Operand<BF>* emb, const int* pix_tag, const int* own,
+                 const Operand<BF>* protos, const int* proto_tag,
+                 const int* proto_valid, const int* num_valid, int n, int p,
+                 int d, float kappa, const float* grads, float* d_emb,
+                 void* stream) {
+  if (n == 0) return 0;
+  return dispatch_d<SET, BF, LaunchGradEmbTiled>(
+      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
+      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads, d_emb,
+      (cudaStream_t)stream);
+}
+
+// partial: scratch [blocks, 128, d], blocks >= ceil(p / 128), as for
+// joint_grad_proto.
+template <bool BF>
+int set_grad_proto(const Operand<BF>* emb, const int* pix_tag,
+                   const int* own, const Operand<BF>* protos,
+                   const int* proto_tag, const int* proto_valid,
+                   const int* num_valid, int n, int p, int d, float kappa,
+                   const float* grads, float* partial, int blocks,
+                   float* d_protos, void* stream) {
+  if (p == 0) return 0;
+  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
+  return dispatch_d<SET, BF, LaunchGradProtoTiled>(
+      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
+      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads,
+      partial, blocks, d_protos, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// The C functions: segsort_{family}_{kind} takes float32 E and P,
+// segsort_{family}_{kind}_bf16 bf16 ones; the other arguments are the
+// same (ops/_cuda.py::SIGNATURES).
+extern "C" {
+
+int segsort_joint_stats(const float* emb, const int* pix_lab, const int* own,
+                        const int* pix_tag, const float* protos,
+                        const int* proto_lab, const int* proto_tag,
+                        const int* proto_valid, const int* num_valid, int n,
+                        int p, int d, float kappa_a, float kappa_o,
+                        int square, float* out, void* stream) {
+  return joint_stats<false>(emb, pix_lab, own, pix_tag, protos, proto_lab,
+                            proto_tag, proto_valid, num_valid, n, p, d,
+                            kappa_a, kappa_o, square, out, stream);
+}
+
+int segsort_joint_stats_bf16(const __nv_bfloat16* emb, const int* pix_lab,
+                             const int* own, const int* pix_tag,
+                             const __nv_bfloat16* protos,
+                             const int* proto_lab, const int* proto_tag,
+                             const int* proto_valid, const int* num_valid,
+                             int n, int p, int d, float kappa_a,
+                             float kappa_o, int square, float* out,
+                             void* stream) {
+  return joint_stats<true>(emb, pix_lab, own, pix_tag, protos, proto_lab,
+                           proto_tag, proto_valid, num_valid, n, p, d,
+                           kappa_a, kappa_o, square, out, stream);
+}
+
+int segsort_joint_grad_emb(const float* emb, const int* pix_lab,
+                           const int* own, const int* pix_tag,
+                           const float* protos, const int* proto_lab,
+                           const int* proto_tag, const int* proto_valid,
+                           const int* num_valid, int n, int p, int d,
+                           float kappa_a, float kappa_o, int square,
+                           const float* grads, float* d_emb, void* stream) {
+  return joint_grad_emb<false>(emb, pix_lab, own, pix_tag, protos, proto_lab,
+                               proto_tag, proto_valid, num_valid, n, p, d,
+                               kappa_a, kappa_o, square, grads, d_emb,
+                               stream);
+}
+
+int segsort_joint_grad_emb_bf16(const __nv_bfloat16* emb, const int* pix_lab,
+                                const int* own, const int* pix_tag,
+                                const __nv_bfloat16* protos,
+                                const int* proto_lab, const int* proto_tag,
+                                const int* proto_valid, const int* num_valid,
+                                int n, int p, int d, float kappa_a,
+                                float kappa_o, int square, const float* grads,
+                                float* d_emb, void* stream) {
+  return joint_grad_emb<true>(emb, pix_lab, own, pix_tag, protos, proto_lab,
+                              proto_tag, proto_valid, num_valid, n, p, d,
+                              kappa_a, kappa_o, square, grads, d_emb, stream);
+}
+
 int segsort_joint_grad_proto(const float* emb, const int* pix_lab,
                              const int* own, const int* pix_tag,
                              const float* protos, const int* proto_lab,
@@ -1095,96 +1346,145 @@ int segsort_joint_grad_proto(const float* emb, const int* pix_lab,
                              float kappa_a, float kappa_o, int square,
                              const float* grads, float* partial, int blocks,
                              float* d_protos, void* stream) {
-  if (p == 0) return 0;
-  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
-  return dispatch_d<JOINT, LaunchGradProtoTiled>(
-      d, emb, pix_lab, own, pix_tag, protos, proto_lab, proto_tag,
-      proto_valid, num_valid, n, p, kappa_a, kappa_o, square, grads,
-      partial, blocks, d_protos, (cudaStream_t)stream);
+  return joint_grad_proto<false>(emb, pix_lab, own, pix_tag, protos,
+                                 proto_lab, proto_tag, proto_valid, num_valid,
+                                 n, p, d, kappa_a, kappa_o, square, grads,
+                                 partial, blocks, d_protos, stream);
 }
 
-// out: [3, n] rows own, same, diff at concentration kappa.
+int segsort_joint_grad_proto_bf16(
+    const __nv_bfloat16* emb, const int* pix_lab, const int* own,
+    const int* pix_tag, const __nv_bfloat16* protos, const int* proto_lab,
+    const int* proto_tag, const int* proto_valid, const int* num_valid,
+    int n, int p, int d, float kappa_a, float kappa_o, int square,
+    const float* grads, float* partial, int blocks, float* d_protos,
+    void* stream) {
+  return joint_grad_proto<true>(emb, pix_lab, own, pix_tag, protos,
+                                proto_lab, proto_tag, proto_valid, num_valid,
+                                n, p, d, kappa_a, kappa_o, square, grads,
+                                partial, blocks, d_protos, stream);
+}
+
 int segsort_hard_stats(const float* emb, const int* pix_lab, const int* own,
                        const float* protos, const int* proto_lab,
                        const int* num_valid, int n, int p, int d,
                        float kappa, float* out, void* stream) {
-  if (n == 0) return 0;
-  return dispatch_d<HARD, LaunchStatsTiled>(
-      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
-      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
-      0, out, (cudaStream_t)stream);
+  return hard_stats<false>(emb, pix_lab, own, protos, proto_lab, num_valid,
+                           n, p, d, kappa, out, stream);
 }
 
-// grads: [3, n] cotangents of the three rows of segsort_hard_stats.
+int segsort_hard_stats_bf16(const __nv_bfloat16* emb, const int* pix_lab,
+                            const int* own, const __nv_bfloat16* protos,
+                            const int* proto_lab, const int* num_valid, int n,
+                            int p, int d, float kappa, float* out,
+                            void* stream) {
+  return hard_stats<true>(emb, pix_lab, own, protos, proto_lab, num_valid, n,
+                          p, d, kappa, out, stream);
+}
+
 int segsort_hard_grad_emb(const float* emb, const int* pix_lab,
                           const int* own, const float* protos,
                           const int* proto_lab, const int* num_valid, int n,
                           int p, int d, float kappa, const float* grads,
                           float* d_emb, void* stream) {
-  if (n == 0) return 0;
-  return dispatch_d<HARD, LaunchGradEmbTiled>(
-      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
-      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
-      0, grads, d_emb, (cudaStream_t)stream);
+  return hard_grad_emb<false>(emb, pix_lab, own, protos, proto_lab,
+                              num_valid, n, p, d, kappa, grads, d_emb,
+                              stream);
 }
 
-// partial: scratch [blocks, 128, d], blocks >= ceil(p / 128), as for
-// segsort_joint_grad_proto.
+int segsort_hard_grad_emb_bf16(const __nv_bfloat16* emb, const int* pix_lab,
+                               const int* own, const __nv_bfloat16* protos,
+                               const int* proto_lab, const int* num_valid,
+                               int n, int p, int d, float kappa,
+                               const float* grads, float* d_emb,
+                               void* stream) {
+  return hard_grad_emb<true>(emb, pix_lab, own, protos, proto_lab, num_valid,
+                             n, p, d, kappa, grads, d_emb, stream);
+}
+
 int segsort_hard_grad_proto(const float* emb, const int* pix_lab,
                             const int* own, const float* protos,
                             const int* proto_lab, const int* num_valid,
                             int n, int p, int d, float kappa,
                             const float* grads, float* partial, int blocks,
                             float* d_protos, void* stream) {
-  if (p == 0) return 0;
-  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
-  return dispatch_d<HARD, LaunchGradProtoTiled>(
-      d, emb, pix_lab, own, (const int*)nullptr, protos, proto_lab,
-      (const int*)nullptr, (const int*)nullptr, num_valid, n, p, kappa, 0.f,
-      0, grads, partial, blocks, d_protos, (cudaStream_t)stream);
+  return hard_grad_proto<false>(emb, pix_lab, own, protos, proto_lab,
+                                num_valid, n, p, d, kappa, grads, partial,
+                                blocks, d_protos, stream);
 }
 
-// out: [3, n] rows own, same, diff (tag sets intersect / are disjoint) at
-// concentration kappa. pix_tag / proto_tag are class bitwords.
+int segsort_hard_grad_proto_bf16(const __nv_bfloat16* emb,
+                                 const int* pix_lab, const int* own,
+                                 const __nv_bfloat16* protos,
+                                 const int* proto_lab, const int* num_valid,
+                                 int n, int p, int d, float kappa,
+                                 const float* grads, float* partial,
+                                 int blocks, float* d_protos, void* stream) {
+  return hard_grad_proto<true>(emb, pix_lab, own, protos, proto_lab,
+                               num_valid, n, p, d, kappa, grads, partial,
+                               blocks, d_protos, stream);
+}
+
 int segsort_set_stats(const float* emb, const int* pix_tag, const int* own,
                       const float* protos, const int* proto_tag,
                       const int* proto_valid, const int* num_valid, int n,
                       int p, int d, float kappa, float* out, void* stream) {
-  if (n == 0) return 0;
-  return dispatch_d<SET, LaunchStatsTiled>(
-      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
-      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, out,
-      (cudaStream_t)stream);
+  return set_stats<false>(emb, pix_tag, own, protos, proto_tag, proto_valid,
+                          num_valid, n, p, d, kappa, out, stream);
 }
 
-// grads: [3, n] cotangents of the three rows of segsort_set_stats.
+int segsort_set_stats_bf16(const __nv_bfloat16* emb, const int* pix_tag,
+                           const int* own, const __nv_bfloat16* protos,
+                           const int* proto_tag, const int* proto_valid,
+                           const int* num_valid, int n, int p, int d,
+                           float kappa, float* out, void* stream) {
+  return set_stats<true>(emb, pix_tag, own, protos, proto_tag, proto_valid,
+                         num_valid, n, p, d, kappa, out, stream);
+}
+
 int segsort_set_grad_emb(const float* emb, const int* pix_tag,
                          const int* own, const float* protos,
                          const int* proto_tag, const int* proto_valid,
                          const int* num_valid, int n, int p, int d,
                          float kappa, const float* grads, float* d_emb,
                          void* stream) {
-  if (n == 0) return 0;
-  return dispatch_d<SET, LaunchGradEmbTiled>(
-      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
-      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads, d_emb,
-      (cudaStream_t)stream);
+  return set_grad_emb<false>(emb, pix_tag, own, protos, proto_tag,
+                             proto_valid, num_valid, n, p, d, kappa, grads,
+                             d_emb, stream);
 }
 
-// partial: scratch [blocks, 128, d], blocks >= ceil(p / 128), as for
-// segsort_joint_grad_proto.
+int segsort_set_grad_emb_bf16(const __nv_bfloat16* emb, const int* pix_tag,
+                              const int* own, const __nv_bfloat16* protos,
+                              const int* proto_tag, const int* proto_valid,
+                              const int* num_valid, int n, int p, int d,
+                              float kappa, const float* grads, float* d_emb,
+                              void* stream) {
+  return set_grad_emb<true>(emb, pix_tag, own, protos, proto_tag,
+                            proto_valid, num_valid, n, p, d, kappa, grads,
+                            d_emb, stream);
+}
+
 int segsort_set_grad_proto(const float* emb, const int* pix_tag,
                            const int* own, const float* protos,
                            const int* proto_tag, const int* proto_valid,
                            const int* num_valid, int n, int p, int d,
                            float kappa, const float* grads, float* partial,
                            int blocks, float* d_protos, void* stream) {
-  if (p == 0) return 0;
-  if (blocks < (p + OWN - 1) / OWN) return (int)cudaErrorInvalidValue;
-  return dispatch_d<SET, LaunchGradProtoTiled>(
-      d, emb, (const int*)nullptr, own, pix_tag, protos, (const int*)nullptr,
-      proto_tag, proto_valid, num_valid, n, p, kappa, 0.f, 0, grads,
-      partial, blocks, d_protos, (cudaStream_t)stream);
+  return set_grad_proto<false>(emb, pix_tag, own, protos, proto_tag,
+                               proto_valid, num_valid, n, p, d, kappa, grads,
+                               partial, blocks, d_protos, stream);
+}
+
+int segsort_set_grad_proto_bf16(const __nv_bfloat16* emb, const int* pix_tag,
+                                const int* own, const __nv_bfloat16* protos,
+                                const int* proto_tag, const int* proto_valid,
+                                const int* num_valid, int n, int p, int d,
+                                float kappa, const float* grads,
+                                float* partial, int blocks, float* d_protos,
+                                void* stream) {
+  return set_grad_proto<true>(emb, pix_tag, own, protos, proto_tag,
+                              proto_valid, num_valid, n, p, d, kappa, grads,
+                              partial, blocks, d_protos, stream);
 }
 
 }  // extern "C"

@@ -64,6 +64,10 @@ SIGNATURES = {
         "dilated_conv3x3_bf16": [P] * 3 + [I] * 6 + [P],
     },
 }
+# the SegSort kernels' bf16-operand forms (emb and protos bf16, the rest
+# as the float32 forms')
+SIGNATURES["segsort_joint"].update(
+    {f"{fn}_bf16": sig for fn, sig in SIGNATURES["segsort_joint"].items()})
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

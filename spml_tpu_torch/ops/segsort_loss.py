@@ -30,6 +30,15 @@ Dispatch: a CUDA tensor goes to the kernels (a failed build or launch
 raises); a CPU tensor goes to the plain version
 (``*_stats_reference``),
 differentiated by autograd.
+
+Operand type (``operand_dtype``, the config's tpu.loss_operand_dtype, as
+the JAX package's): "float32", or "bfloat16", where the embeddings and
+prototypes are rounded to bf16 inside the autograd.Function (the JAX
+custom VJP's cast), the kernels read them as bf16 (the ``_bf16`` C
+functions, counted under their own LAUNCHES keys) and round the
+gradients' coefficient c to bf16 before the second product; every sum
+and every cotangent stays float32. The plain version of that form is an
+autograd.Function too (``_PlainBf16``), with the same two roundings.
 """
 
 from __future__ import annotations
@@ -52,9 +61,14 @@ DP_BLOCKS = 264
 # family -> (statistics per pixel, position of the prototypes among the
 # kernel inputs, which are in the C functions' argument order)
 _FAMILIES = {"joint": (6, 4), "hard": (3, 3), "set": (3, 3)}
+# tpu.loss_operand_dtype -> (type the kernels read E and P in, suffix of
+# the C functions and of their LAUNCHES keys)
+OPERAND_DTYPES = {"float32": (torch.float32, ""),
+                  "bfloat16": (torch.bfloat16, "_bf16")}
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {f"{family}_{kind}": 0 for family in _FAMILIES
+LAUNCHES = {f"{family}_{kind}{suffix}": 0
+            for _, suffix in OPERAND_DTYPES.values() for family in _FAMILIES
             for kind in ("stats", "grad_emb", "grad_proto")}
 
 
@@ -150,38 +164,31 @@ def _tag_masks(pix_tags, proto_tags, proto_valid, live):
     return inter & tag_ok, ~inter & tag_ok
 
 
-def segsort_stats_reference(emb, pix_lab, own_idx, protos, proto_lab,
-                            num_valid, kappa):
-    """Dense [N, P] form of the hard-label statistics, with the kernels'
-    masks; prototype rows at or past num_valid contribute nothing.
-    Returns a [3, N] tensor (own, same, diff)."""
+def _hard_terms(emb, pix_lab, own_idx, protos, proto_lab, num_valid,
+                kappa):
+    """[(mask [N, P], s [N, P], kappa)] of the hard-label statistics (own,
+    same, diff), with the kernels' masks."""
     own, same, diff, _ = _label_masks(pix_lab, own_idx, proto_lab,
                                       num_valid)
     s = torch.exp((emb @ protos.T) * kappa)
-    return torch.stack([_rowsum(own, s), _rowsum(same, s),
-                        _rowsum(diff, s)])
+    return [(own, s, kappa), (same, s, kappa), (diff, s, kappa)]
 
 
-def set_segsort_stats_reference(emb, pix_tags, own_idx, protos, proto_tags,
-                                proto_valid, num_valid, kappa):
-    """Dense [N, P] form of the tag-set statistics, with the kernels'
-    masks: own (not gated by validity), same = the tag bitwords
-    intersect, diff = they do not, both on valid prototypes; rows at or
-    past num_valid contribute nothing. Returns a [3, N] tensor (own,
-    same, diff)."""
+def _set_terms(emb, pix_tags, own_idx, protos, proto_tags, proto_valid,
+               num_valid, kappa):
+    """[(mask, s, kappa)] of the tag-set statistics (own, same, diff):
+    own not gated by validity, same = the tag bitwords intersect, diff =
+    they do not, both on valid prototypes."""
     own, live = _own_mask(own_idx, protos.shape[0], num_valid)
     same, diff = _tag_masks(pix_tags, proto_tags, proto_valid, live)
     s = torch.exp((emb @ protos.T) * kappa)
-    return torch.stack([_rowsum(own, s), _rowsum(same, s),
-                        _rowsum(diff, s)])
+    return [(own, s, kappa), (same, s, kappa), (diff, s, kappa)]
 
 
-def joint_segsort_stats_reference(emb, pix_lab, own_idx, pix_tags, protos,
-                                  proto_lab, proto_tags, proto_valid,
-                                  num_valid, kappa_a, kappa_o):
-    """Dense [N, P] form of the six statistics, with the kernels' masks;
-    prototype rows at or past num_valid contribute nothing. Returns a
-    [6, N] tensor (own_a, same_a, diff_a, own_o, same_o, diff_o)."""
+def _joint_terms(emb, pix_lab, own_idx, pix_tags, protos, proto_lab,
+                 proto_tags, proto_valid, num_valid, kappa_a, kappa_o):
+    """[(mask, s, kappa)] of the six joint statistics (own_a, same_a,
+    diff_a at kappa_a, own_o, same_o, diff_o at kappa_o)."""
     own, same_a, diff_a, live = _label_masks(pix_lab, own_idx,
                                              proto_lab, num_valid)
     logits = emb @ protos.T
@@ -189,9 +196,153 @@ def joint_segsort_stats_reference(emb, pix_lab, own_idx, pix_tags, protos,
     s_o = s_a * s_a if kappa_o == 2.0 * kappa_a else torch.exp(
         logits * kappa_o)
     same_o, diff_o = _tag_masks(pix_tags, proto_tags, proto_valid, live)
-    return torch.stack([_rowsum(own, s_a), _rowsum(same_a, s_a),
-                        _rowsum(diff_a, s_a), _rowsum(own, s_o),
-                        _rowsum(same_o, s_o), _rowsum(diff_o, s_o)])
+    return [(own, s_a, kappa_a), (same_a, s_a, kappa_a),
+            (diff_a, s_a, kappa_a), (own, s_o, kappa_o),
+            (same_o, s_o, kappa_o), (diff_o, s_o, kappa_o)]
+
+
+# family -> its terms
+_TERMS = {"joint": _joint_terms, "hard": _hard_terms, "set": _set_terms}
+
+
+def _stats_of(terms):
+    """[NS, N]: the row sums of each statistic's s under its mask."""
+    return torch.stack([_rowsum(mask, s) for mask, s, _ in terms])
+
+
+def _coefficient_terms(terms, grads):
+    """[kappa s g] of each concentration ([N, P] each, one for the hard
+    and set families, two for the joint one), g the row cotangents grads
+    [NS, N] picked by the statistics' masks and added in their order;
+    their sum is the gradients' coefficient c, dE = c P and dP = c^T E
+    (the TPU kernels' order: kappa_a s_a g_a + kappa_o s_o g_o)."""
+    out = []
+    for i in range(0, len(terms), 3):
+        g = None
+        for j, (mask, _, _) in enumerate(terms[i:i + 3]):
+            picked = torch.where(mask, grads[i + j][:, None], 0.0)
+            g = picked if g is None else g + picked
+        _, s, kappa = terms[i]
+        out.append(kappa * s * g)
+    return out
+
+
+def round_bf16(x):
+    """x rounded to the nearest bf16 (ties to even), in x's type."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _operand(operand_dtype):
+    """(torch dtype, C suffix) of a tpu.loss_operand_dtype name."""
+    if operand_dtype not in OPERAND_DTYPES:
+        raise ValueError(f"operand_dtype {operand_dtype!r}: not one of "
+                         f"{sorted(OPERAND_DTYPES)}")
+    return OPERAND_DTYPES[operand_dtype]
+
+
+# How far a bf16 form's float32 c may lie from the exact c of the same
+# bf16 values, as a share of its terms' magnitude: the dE / dP kernels'
+# logits (one mma.sync accumulator over D) are off by up to ~1e-6 near
+# |l| = 1, ~1.2e-5 of s after exp(12 l), plus a few float32 units of exp
+# and the products; 2^-14 (6.1e-5) leaves a factor ~5.
+C_REL_ERR = 2.0 ** -14
+
+
+def bf16_rounding_spread(family, args, grads, rel=C_REL_ERR):
+    """(dE [N, D], dP [P, D]): how far the bf16 forms' gradients may lie
+    from _PlainBf16's through c's rounding alone. A pair whose c lies
+    within r = rel * (the magnitude of its terms) of a bf16 rounding
+    boundary may round to either side: it adds |bf16(c + r) - bf16(c -
+    r)| |P[k]| to dE[n] (|E[n]| to dP[k]); every other pair adds 0.
+    args: the family's stats arguments as _PlainBf16 takes them, in the
+    working type; grads [NS, N]."""
+    args = list(args)
+    at = _FAMILIES[family][1]
+    args[0], args[at] = round_bf16(args[0]), round_bf16(args[at])
+    terms = _coefficient_terms(_TERMS[family](*args),
+                               grads.to(args[0].dtype))
+    c, mag = terms[0], terms[0].abs()
+    for t in terms[1:]:
+        c, mag = c + t, mag + t.abs()
+    spread = (round_bf16(c + rel * mag) - round_bf16(c - rel * mag)).abs()
+    return spread @ args[at].abs(), spread.T @ args[0].abs()
+
+
+class _PlainBf16(torch.autograd.Function):
+    """The plain version of the bf16-operand form, in the inputs' type:
+    the statistics of E and P rounded to bf16, and a backward that rounds
+    c to bf16 before c P and c^T E (the TPU kernels' .astype of c), as
+    autograd through a cast would not. `args` are the family's stats
+    arguments (E first, P at `at`, the concentrations last)."""
+
+    @staticmethod
+    def forward(ctx, family, at, *args):
+        args = list(args)
+        args[0], args[at] = round_bf16(args[0]), round_bf16(args[at])
+        tensors = [a for a in args if torch.is_tensor(a)]
+        ctx.save_for_backward(*tensors)
+        ctx.family, ctx.at = family, at
+        ctx.scalars = [None if torch.is_tensor(a) else a for a in args]
+        return _stats_of(_TERMS[family](*args))
+
+    @staticmethod
+    def backward(ctx, grads):
+        tensors = iter(ctx.saved_tensors)
+        args = [next(tensors) if a is None else a for a in ctx.scalars]
+        emb, protos = args[0], args[ctx.at]
+        terms = _TERMS[ctx.family](*args)
+        c = None
+        for term in _coefficient_terms(terms, grads.to(emb.dtype)):
+            c = term if c is None else c + term
+        c = round_bf16(c)
+        out = [None] * (2 + len(args))
+        if ctx.needs_input_grad[2]:
+            out[2] = c @ protos
+        if ctx.needs_input_grad[2 + ctx.at]:
+            out[2 + ctx.at] = c.T @ emb
+        return tuple(out)
+
+
+def _plain(family, at, args, operand_dtype):
+    _operand(operand_dtype)
+    if operand_dtype == "bfloat16":
+        return _PlainBf16.apply(family, at, *args)
+    return _stats_of(_TERMS[family](*args))
+
+
+def segsort_stats_reference(emb, pix_lab, own_idx, protos, proto_lab,
+                            num_valid, kappa, operand_dtype="float32"):
+    """Dense [N, P] form of the hard-label statistics, with the kernels'
+    masks; prototype rows at or past num_valid contribute nothing.
+    Returns a [3, N] tensor (own, same, diff). operand_dtype "bfloat16":
+    _PlainBf16."""
+    return _plain("hard", 3, (emb, pix_lab, own_idx, protos, proto_lab,
+                              num_valid, kappa), operand_dtype)
+
+
+def set_segsort_stats_reference(emb, pix_tags, own_idx, protos, proto_tags,
+                                proto_valid, num_valid, kappa,
+                                operand_dtype="float32"):
+    """Dense [N, P] form of the tag-set statistics, with the kernels'
+    masks: own (not gated by validity), same = the tag bitwords
+    intersect, diff = they do not, both on valid prototypes; rows at or
+    past num_valid contribute nothing. Returns a [3, N] tensor (own,
+    same, diff). operand_dtype "bfloat16": _PlainBf16."""
+    return _plain("set", 3, (emb, pix_tags, own_idx, protos, proto_tags,
+                             proto_valid, num_valid, kappa), operand_dtype)
+
+
+def joint_segsort_stats_reference(emb, pix_lab, own_idx, pix_tags, protos,
+                                  proto_lab, proto_tags, proto_valid,
+                                  num_valid, kappa_a, kappa_o,
+                                  operand_dtype="float32"):
+    """Dense [N, P] form of the six statistics, with the kernels' masks;
+    prototype rows at or past num_valid contribute nothing. Returns a
+    [6, N] tensor (own_a, same_a, diff_a, own_o, same_o, diff_o).
+    operand_dtype "bfloat16": _PlainBf16."""
+    return _plain("joint", 4, (emb, pix_lab, own_idx, pix_tags, protos,
+                               proto_lab, proto_tags, proto_valid,
+                               num_valid, kappa_a, kappa_o), operand_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -205,39 +356,43 @@ def _c_args(family, inputs):
     return ptrs + [emb.shape[0], protos.shape[0], emb.shape[1]]
 
 
-def _launch(family, kind, inputs, scalars, *tail):
-    """Calls segsort_{family}_{kind} on PyTorch's current stream; raises on
-    a launch error and counts the launch."""
-    name = f"segsort_{family}_{kind}"
+def _launch(family, kind, suffix, inputs, scalars, *tail):
+    """Calls segsort_{family}_{kind}{suffix} on PyTorch's current stream
+    (suffix "_bf16": the bf16-operand form); raises on a launch error and
+    counts the launch."""
+    name = f"segsort_{family}_{kind}{suffix}"
     fn = getattr(_cuda.load(KERNEL_SOURCE), name)
     err = fn(*_c_args(family, inputs), *scalars, *tail,
              _cuda.stream_handle(inputs[0].device))
     _cuda.check(err, name)
-    LAUNCHES[f"{family}_{kind}"] += 1
+    LAUNCHES[f"{family}_{kind}{suffix}"] += 1
 
 
-def _launch_stats(family, inputs, scalars):
+def _launch_stats(family, inputs, scalars, suffix=""):
     emb = inputs[0]
     out = torch.empty((_FAMILIES[family][0], emb.shape[0]),
                       dtype=torch.float32, device=emb.device)
-    _launch(family, "stats", inputs, scalars, out.data_ptr())
+    _launch(family, "stats", suffix, inputs, scalars, out.data_ptr())
     return out
 
 
-def _launch_grad_emb(family, inputs, scalars, grads):
-    d_emb = torch.empty_like(inputs[0])
-    _launch(family, "grad_emb", inputs, scalars, grads.data_ptr(),
+def _launch_grad_emb(family, inputs, scalars, grads, suffix=""):
+    # float32 whatever the operands' type
+    d_emb = torch.empty(inputs[0].shape, dtype=torch.float32,
+                        device=inputs[0].device)
+    _launch(family, "grad_emb", suffix, inputs, scalars, grads.data_ptr(),
             d_emb.data_ptr())
     return d_emb
 
 
-def _launch_grad_proto(family, inputs, scalars, grads):
+def _launch_grad_proto(family, inputs, scalars, grads, suffix=""):
     protos = inputs[_FAMILIES[family][1]]
-    d_protos = torch.empty_like(protos)
+    d_protos = torch.empty(protos.shape, dtype=torch.float32,
+                           device=protos.device)
     blocks = dp_blocks(protos.shape[0])
     partial = torch.empty((blocks, OWN_ROWS, protos.shape[1]),
                           dtype=torch.float32, device=protos.device)
-    _launch(family, "grad_proto", inputs, scalars, grads.data_ptr(),
+    _launch(family, "grad_proto", suffix, inputs, scalars, grads.data_ptr(),
             partial.data_ptr(), blocks, d_protos.data_ptr())
     return d_protos
 
@@ -338,26 +493,36 @@ class _SegsortStats(torch.autograd.Function):
     """Forward: the family's stats kernel (K1 joint, K4 hard, K7 set);
     backward: its dE (K2, K5, K8) and dP (K3, K6, K9) kernels, all tiled,
     the dE skipping the pixels whose cotangents are all zero. `inputs`
-    are in the C functions' argument order; gradients flow to the
-    embeddings (first) and the prototypes only."""
+    are in the C functions' argument order, the embeddings (first) and
+    prototypes float32; gradients flow to those two only, in float32.
+    operand_dtype "bfloat16" casts them to bf16 here, inside the
+    Function (the JAX custom VJP's cast), and launches the _bf16 forms:
+    the cotangents that leave are exact float32."""
 
     @staticmethod
-    def forward(ctx, family, scalars, *inputs):
+    def forward(ctx, family, scalars, operand_dtype, *inputs):
+        dtype, suffix = _operand(operand_dtype)
+        at = _FAMILIES[family][1]
+        inputs = list(inputs)
+        for i in (0, at):
+            inputs[i] = _kernel_operand(inputs[i], dtype)
         ctx.save_for_backward(*inputs)
-        ctx.family, ctx.scalars = family, scalars
-        return _launch_stats(family, inputs, scalars)
+        ctx.family, ctx.scalars, ctx.suffix = family, scalars, suffix
+        return _launch_stats(family, inputs, scalars, suffix)
 
     @staticmethod
     def backward(ctx, grads):
         inputs = ctx.saved_tensors
-        family, scalars = ctx.family, ctx.scalars
+        family, scalars, suffix = ctx.family, ctx.scalars, ctx.suffix
         at = _FAMILIES[family][1]
         grads = _kernel_operand(grads, torch.float32)
-        out = [None] * (2 + len(inputs))
-        if ctx.needs_input_grad[2]:
-            out[2] = _launch_grad_emb(family, inputs, scalars, grads)
-        if ctx.needs_input_grad[2 + at]:
-            out[2 + at] = _launch_grad_proto(family, inputs, scalars, grads)
+        out = [None] * (3 + len(inputs))
+        if ctx.needs_input_grad[3]:
+            out[3] = _launch_grad_emb(family, inputs, scalars, grads,
+                                      suffix)
+        if ctx.needs_input_grad[3 + at]:
+            out[3 + at] = _launch_grad_proto(family, inputs, scalars, grads,
+                                             suffix)
         return tuple(out)
 
 
@@ -373,66 +538,69 @@ def _kernel_inputs(emb, protos, ints):
 
 
 def segsort_stats(emb, pix_lab, own_idx, protos, proto_lab, num_valid,
-                  kappa):
+                  kappa, operand_dtype="float32"):
     """(own, same, diff) of the hard-label loss as a [3, N] float32
     tensor.
 
     emb [N, D], protos [P, D]; pix_lab / own_idx [N] and proto_lab [P]
     integers, a negative prototype label excluding the prototype from
     the same / diff sums; num_valid [1]: rows at or past it contribute
-    nothing.
+    nothing. operand_dtype: "float32" or "bfloat16" (module docstring).
     """
     if not emb.is_cuda:
         return segsort_stats_reference(emb.float(), pix_lab, own_idx,
                                        protos.float(), proto_lab, num_valid,
-                                       kappa)
+                                       kappa, operand_dtype)
     e, p, (lab, own, plab, nv) = _kernel_inputs(
         emb, protos, (pix_lab, own_idx, proto_lab, num_valid))
-    return _SegsortStats.apply("hard", (float(kappa),), e, lab, own, p,
-                               plab, nv)
+    return _SegsortStats.apply("hard", (float(kappa),), operand_dtype, e,
+                               lab, own, p, plab, nv)
 
 
 def set_segsort_stats(emb, pix_tags, own_idx, protos, proto_tags,
-                      proto_valid, num_valid, kappa):
+                      proto_valid, num_valid, kappa,
+                      operand_dtype="float32"):
     """(own, same, diff) of the tag-set loss as a [3, N] float32 tensor.
 
     emb [N, D], protos [P, D]; pix_tags / own_idx [N] and proto_tags /
     proto_valid [P] integers, tags as bitwords; num_valid [1]: rows at or
-    past it contribute nothing.
+    past it contribute nothing. operand_dtype: "float32" or "bfloat16".
     """
     if not emb.is_cuda:
         return set_segsort_stats_reference(
             emb.float(), pix_tags, own_idx, protos.float(), proto_tags,
-            proto_valid, num_valid, kappa)
+            proto_valid, num_valid, kappa, operand_dtype)
     e, p, (tag, own, ptag, pval, nv) = _kernel_inputs(
         emb, protos, (pix_tags, own_idx, proto_tags, proto_valid,
                       num_valid))
-    return _SegsortStats.apply("set", (float(kappa),), e, tag, own, p, ptag,
-                               pval, nv)
+    return _SegsortStats.apply("set", (float(kappa),), operand_dtype, e,
+                               tag, own, p, ptag, pval, nv)
 
 
 def joint_segsort_stats(emb, pix_lab, own_idx, pix_tags, protos, proto_lab,
                         proto_tags, proto_valid, num_valid, kappa_a,
-                        kappa_o):
+                        kappa_o, operand_dtype="float32"):
     """Six statistics in one sweep: (own_a, same_a, diff_a) for the
     hard-label loss at kappa_a and (own_o, same_o, diff_o) for the tag
     loss at kappa_o, as a [6, N] float32 tensor.
 
     emb [N, D], protos [P, D]; pix_lab / own_idx / pix_tags [N] and
     proto_lab / proto_tags / proto_valid [P] integers, tags as bitwords;
-    num_valid [1]: rows at or past it contribute nothing.
+    num_valid [1]: rows at or past it contribute nothing. operand_dtype:
+    "float32" or "bfloat16".
     """
     if not emb.is_cuda:
         return joint_segsort_stats_reference(
             emb.float(), pix_lab, own_idx, pix_tags, protos.float(),
-            proto_lab, proto_tags, proto_valid, num_valid, kappa_a, kappa_o)
+            proto_lab, proto_tags, proto_valid, num_valid, kappa_a, kappa_o,
+            operand_dtype)
     e, p, (lab, own, tag, plab, ptag, pval, nv) = _kernel_inputs(
         emb, protos, (pix_lab, own_idx, pix_tags, proto_lab, proto_tags,
                       proto_valid, num_valid))
     square = int(kappa_o == 2.0 * kappa_a)
     return _SegsortStats.apply(
-        "joint", (float(kappa_a), float(kappa_o), square), e, lab, own, tag,
-        p, plab, ptag, pval, nv)
+        "joint", (float(kappa_a), float(kappa_o), square), operand_dtype, e,
+        lab, own, tag, p, plab, ptag, pval, nv)
 
 
 def _num_valid_all(p, device):
@@ -442,11 +610,12 @@ def _num_valid_all(p, device):
 def fused_segsort_loss(embeddings, semantic_labels, own_segment_ids,
                        prototypes, prototype_semantic_labels, concentration,
                        pixel_mask, prototype_mask, reduction="mean",
-                       compact=True):
+                       compact=True, operand_dtype="float32"):
     """The hard-label SegSort loss (losses.segsort_loss) in one fused
     sweep: the masked mean, or the per-pixel [N] log likelihood with
     reduction="none". Prototypes outside prototype_mask take label -1
-    and drop out of the same / diff sums."""
+    and drop out of the same / diff sums. operand_dtype: the kernels'
+    operand type, "float32" or "bfloat16" (module docstring)."""
     p0 = prototypes.shape[0]
     protos = prototypes.float()
     plab = torch.where(prototype_mask, prototype_semantic_labels.long(), -1)
@@ -459,19 +628,22 @@ def fused_segsort_loss(embeddings, semantic_labels, own_segment_ids,
         num_valid = _num_valid_all(p0, protos.device)
     own_s, same_s, diff_s = segsort_stats(
         embeddings.float(), semantic_labels.long(), own, protos, plab,
-        num_valid, float(concentration)).unbind(0)
+        num_valid, float(concentration),
+        operand_dtype=operand_dtype).unbind(0)
     return _ll_from_stats(own_s, same_s, diff_s, pixel_mask, reduction)
 
 
 def fused_set_segsort_loss(embeddings, semantic_tags, own_segment_ids,
                            prototypes, prototype_semantic_tags,
                            concentration, pixel_mask, prototype_mask,
-                           reduction="mean", compact=True):
+                           reduction="mean", compact=True,
+                           operand_dtype="float32"):
     """The tag-set SegSort loss (losses.set_segsort_loss) in one fused
     sweep: the masked mean, or the per-pixel [N] log likelihood with
     reduction="none". Tag sets [N, T] / [P, T] (T <= 32; 0/1 or counts,
     nonzero meaning present) are packed to bitwords inside; prototypes
-    outside prototype_mask drop out of the same / diff sums."""
+    outside prototype_mask drop out of the same / diff sums.
+    operand_dtype: "float32" or "bfloat16"."""
     p0 = prototypes.shape[0]
     protos = prototypes.float()
     qtags = _pack_tag_bits(prototype_semantic_tags)
@@ -485,7 +657,8 @@ def fused_set_segsort_loss(embeddings, semantic_tags, own_segment_ids,
         num_valid = _num_valid_all(p0, protos.device)
     own_s, same_s, diff_s = set_segsort_stats(
         embeddings.float(), _pack_tag_bits(semantic_tags), own, protos,
-        qtags, pvalid, num_valid, float(concentration)).unbind(0)
+        qtags, pvalid, num_valid, float(concentration),
+        operand_dtype=operand_dtype).unbind(0)
     return _ll_from_stats(own_s, same_s, diff_s, pixel_mask, reduction)
 
 
@@ -493,13 +666,14 @@ def fused_joint_losses(embeddings, semantic_labels, own_segment_ids,
                        semantic_tags, prototypes, prototype_labels,
                        prototype_tags, kappa_ann, kappa_occ, ann_pixel_mask,
                        occ_pixel_mask, prototype_mask, reduction="mean",
-                       compact=True):
+                       compact=True, operand_dtype="float32"):
     """(sem_ann, sem_occ) masked-mean losses in one fused sweep, or the
     per-pixel [N] log-likelihood pair with reduction="none".
 
     prototype_labels must already be -1 for prototypes excluded from the
     hard-label loss; prototype_mask gates the tag loss. Tag sets [N, T] /
-    [P, T] (T <= 32) are packed to bitwords inside.
+    [P, T] (T <= 32) are packed to bitwords inside. operand_dtype:
+    "float32" or "bfloat16".
     """
     p0 = prototypes.shape[0]
     protos = prototypes.float()
@@ -517,7 +691,8 @@ def fused_joint_losses(embeddings, semantic_labels, own_segment_ids,
     stats = joint_segsort_stats(
         embeddings.float(), semantic_labels.long(), own,
         _pack_tag_bits(semantic_tags), protos, plab, qtags, pvalid,
-        num_valid, float(kappa_ann), float(kappa_occ))
+        num_valid, float(kappa_ann), float(kappa_occ),
+        operand_dtype=operand_dtype)
     own_a, same_a, diff_a, own_o, same_o, diff_o = stats.unbind(0)
     ann = _ll_from_stats(own_a, same_a, diff_a, ann_pixel_mask, reduction)
     occ = _ll_from_stats(own_o, same_o, diff_o, occ_pixel_mask, reduction)

@@ -82,6 +82,7 @@ float64 with the dense losses.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -89,7 +90,8 @@ import torch.nn.functional as F
 from spml_tpu_torch.models.embeddings import (build_classifier_head,
                                               build_embedding_model)
 from spml_tpu_torch.ops import common, kmeans, knn, losses
-from spml_tpu_torch.ops.segsort_loss import (fused_joint_losses,
+from spml_tpu_torch.ops.segsort_loss import (OPERAND_DTYPES,
+                                             fused_joint_losses,
                                              fused_segsort_loss,
                                              fused_set_segsort_loss)
 from spml_tpu_torch.parallel import halo, mesh as mesh_lib
@@ -273,10 +275,14 @@ def make_train_step(config):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if config.tpu.loss_operand_dtype not in ("", "float32"):
-        raise NotImplementedError(
+    # the fused losses' operand type (spml_tpu/train/step.py:154); a name
+    # the kernels have no form for raises here, where JAX would read it as
+    # float32, so that a typo is not a silent float32 run
+    operand_dtype = config.tpu.loss_operand_dtype or "float32"
+    if operand_dtype not in OPERAND_DTYPES:
+        raise ValueError(
             f"tpu.loss_operand_dtype {config.tpu.loss_operand_dtype!r}: the "
-            "fused loss kernels take float32 operands only")
+            f"fused loss kernels take {sorted(OPERAND_DTYPES)}")
     C = config.dataset.num_classes
     P = config.tpu.segment_capacity
     ignore = config.dataset.semantic_ignore_index
@@ -447,14 +453,16 @@ def make_train_step(config):
                 emb_rows, pix_sem, pix_own, occ_pix_tags, all_protos,
                 torch.where(ann_proto_mask, all_sem, -1), occ_proto_tags,
                 tcfg.sem_ann_concentration, tcfg.sem_occ_concentration,
-                ann_pix_mask, pix_valid, all_valid, reduction="none")
+                ann_pix_mask, pix_valid, all_valid, reduction="none",
+                operand_dtype=operand_dtype)
             ann = mean(ann_ll, ann_pix_mask, B)
             occ = mean(occ_ll, pix_valid, B)
         else:
             if use_sem_ann:
                 # the hard-label kernels or the dense loss: one signature
-                ann_loss = fused_segsort_loss if fused else \
-                    losses.segsort_loss
+                ann_loss = functools.partial(
+                    fused_segsort_loss, operand_dtype=operand_dtype) \
+                    if fused else losses.segsort_loss
                 ann_ll = ann_loss(
                     emb_rows, pix_sem, pix_own, all_protos, all_sem,
                     tcfg.sem_ann_concentration, ann_pix_mask,
@@ -462,8 +470,9 @@ def make_train_step(config):
                 ann = mean(ann_ll, ann_pix_mask, B)
             if use_sem_occ:
                 # the tag-set kernels or the dense loss: one signature
-                occ_loss = fused_set_segsort_loss if fused else \
-                    losses.set_segsort_loss
+                occ_loss = functools.partial(
+                    fused_set_segsort_loss, operand_dtype=operand_dtype) \
+                    if fused else losses.set_segsort_loss
                 occ_ll = occ_loss(
                     emb_rows, occ_pix_tags, pix_own, all_protos,
                     occ_proto_tags, tcfg.sem_occ_concentration, pix_valid,

@@ -9,10 +9,11 @@
   dilated conv) take the plain version only for a CPU tensor; a CUDA
   tensor goes to the kernel binding, and a launch error raises (no
   fallback). A CUDA tensor is stood in for by a subclass that reports
-  is_cuda, with the binding monkeypatched;
-* make_train_step raises NotImplementedError, naming what is missing,
-  for what is not ported yet, and routes the tag-only fused loss to the
-  tag-set kernels.
+  is_cuda, with the binding monkeypatched; operand_dtype "bfloat16"
+  reaches the SegSort kernels' _bf16 C functions;
+* make_train_step builds a step with tpu.loss_operand_dtype "bfloat16"
+  and raises on a name the kernels have no form for, and routes the
+  tag-only fused loss to the tag-set kernels.
 """
 
 import ast
@@ -137,6 +138,16 @@ class _FakeLib:
         return fn
 
 
+def _launches(**counts):
+    """Every SegSort launch counter (float32 and bf16 forms) at 0 but
+    those given."""
+    keys = [f"{family}_{kind}{suffix}" for suffix in ("", "_bf16")
+            for family in ("joint", "hard", "set")
+            for kind in ("stats", "grad_emb", "grad_proto")]
+    assert set(counts) <= set(keys)
+    return {k: counts.get(k, 0) for k in keys}
+
+
 def _joint_inputs(rng, n=40, p=12, d=16):
     emb = torch.from_numpy(rng.randn(n, d).astype(np.float32))
     protos = torch.from_numpy(rng.randn(p, d).astype(np.float32))
@@ -180,11 +191,8 @@ def test_cuda_tensor_calls_the_binding(monkeypatch):
     stats.sum().backward()
     assert lib.calls == ["segsort_joint_stats", "segsort_joint_grad_emb",
                          "segsort_joint_grad_proto"]
-    assert fused.LAUNCHES == {"joint_stats": 1, "joint_grad_emb": 1,
-                              "joint_grad_proto": 1, "hard_stats": 0,
-                              "hard_grad_emb": 0, "hard_grad_proto": 0,
-                              "set_stats": 0, "set_grad_emb": 0,
-                              "set_grad_proto": 0}
+    assert fused.LAUNCHES == _launches(joint_stats=1, joint_grad_emb=1,
+                                       joint_grad_proto=1)
 
 
 def test_hard_family_dispatch(monkeypatch):
@@ -229,11 +237,8 @@ def test_hard_family_dispatch(monkeypatch):
     assert (p, d) == tuple(protos.shape)
     assert blocks == fused.dp_blocks(p) and blocks >= -(-p // 128)
     assert allocated[partial] == (blocks, 128, d)
-    assert fused.LAUNCHES == {"joint_stats": 0, "joint_grad_emb": 0,
-                              "joint_grad_proto": 0, "hard_stats": 1,
-                              "hard_grad_emb": 1, "hard_grad_proto": 1,
-                              "set_stats": 0, "set_grad_emb": 0,
-                              "set_grad_proto": 0}
+    assert fused.LAUNCHES == _launches(hard_stats=1, hard_grad_emb=1,
+                                       hard_grad_proto=1)
 
 
 def _set_inputs(rng, n=40, p=12, d=16):
@@ -283,11 +288,8 @@ def test_set_family_dispatch(monkeypatch):
     assert (p, d) == tuple(protos.shape)
     assert blocks == fused.dp_blocks(p) and blocks >= -(-p // 128)
     assert allocated[partial] == (blocks, 128, d)
-    assert fused.LAUNCHES == {"joint_stats": 0, "joint_grad_emb": 0,
-                              "joint_grad_proto": 0, "hard_stats": 0,
-                              "hard_grad_emb": 0, "hard_grad_proto": 0,
-                              "set_stats": 1, "set_grad_emb": 1,
-                              "set_grad_proto": 1}
+    assert fused.LAUNCHES == _launches(set_stats=1, set_grad_emb=1,
+                                       set_grad_proto=1)
 
 
 def test_dilated_conv_dispatch(monkeypatch):
@@ -333,16 +335,77 @@ def test_dilated_conv_dispatch(monkeypatch):
             torch.Tensor._make_subclass(_FakeCuda, x, False), w, 2)
 
 
-@pytest.mark.parametrize("what", ["loss_operand_dtype"])
-def test_unported_paths_raise(what):
-    # the JAX package would run its fused losses on bf16 operands
+@pytest.mark.parametrize("name", ["bfloat16", "float16"],
+                         ids=["bfloat16_builds", "unknown_name_raises"])
+def test_loss_operand_dtype(name):
+    """tpu.loss_operand_dtype "bfloat16" builds a step (the fused losses'
+    bf16-operand forms); a name with no form raises, where the JAX package
+    would read it as float32."""
     cfg = load_config(overrides={
         "network": {"backbone_types": "panoptic_deeplab_10",
                     "embedding_dim": 8},
-        "tpu": {"loss_operand_dtype": "bfloat16"}})
-    assert cfg.tpu.loss_operand_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match=what):
-        tstep.make_train_step(cfg)
+        "tpu": {"loss_operand_dtype": name, "use_fused_loss": True}})
+    assert cfg.tpu.loss_operand_dtype == name
+    if name == "bfloat16":
+        assert callable(tstep.make_train_step(cfg))
+    else:
+        with pytest.raises(ValueError, match="loss_operand_dtype 'float16'"):
+            tstep.make_train_step(cfg)
+
+
+@pytest.mark.parametrize("family", ["joint", "hard", "set"])
+def test_bf16_dispatch(family, monkeypatch):
+    """operand_dtype "bfloat16" on a CUDA tensor: the stats wrapper calls
+    the family's _bf16 C function with bf16 embeddings and prototypes,
+    the backward its _bf16 dE and dP functions, each counted under its
+    own key; the gradients come back float32; the plain version is never
+    called; an unknown operand type raises before any launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "load", lambda name: lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda device: 0)
+
+    def no_reference(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    for name in ("joint_segsort_stats_reference", "segsort_stats_reference",
+                 "set_segsort_stats_reference"):
+        monkeypatch.setattr(fused, name, no_reference)
+    made = {}  # data pointer -> dtype of each operand the wrapper made
+
+    def to(t, *a, **k):
+        out = torch.Tensor.to(t, *a, **k)
+        made[out.data_ptr()] = out.dtype
+        return out
+    fused.reset_launch_counts()
+    emb, protos, (lab, own, tag), (plab, ptag, pval) = _joint_inputs(
+        np.random.RandomState(11))
+    emb = torch.Tensor._make_subclass(_FakeCuda, emb, True)
+    protos = torch.Tensor._make_subclass(_FakeCuda, protos, True)
+    nv = torch.tensor([12])
+    call, at = {
+        "joint": (lambda dt: fused.joint_segsort_stats(
+            emb, lab, own, tag, protos, plab, ptag, pval, nv, 6.0, 12.0,
+            operand_dtype=dt), 4),
+        "hard": (lambda dt: fused.segsort_stats(
+            emb, lab, own, protos, plab, nv, 6.0, operand_dtype=dt), 3),
+        "set": (lambda dt: fused.set_segsort_stats(
+            emb, tag, own, protos, ptag, pval, nv, 8.0,
+            operand_dtype=dt), 3)}[family]
+    with pytest.raises(ValueError, match="operand_dtype 'float16'"):
+        call("float16")
+    assert lib.calls == []
+    monkeypatch.setattr(fused, "_kernel_operand",
+                        lambda t, dtype: to(t, dtype).contiguous())
+    stats = call("bfloat16")
+    stats.sum().backward()
+    names = [f"segsort_{family}_{kind}_bf16"
+             for kind in ("stats", "grad_emb", "grad_proto")]
+    assert lib.calls == names
+    for args in lib.args:
+        assert made.get(args[0]) == made.get(args[at]) == torch.bfloat16
+    assert emb.grad.dtype == protos.grad.dtype == torch.float32
+    assert fused.LAUNCHES == _launches(
+        **{f"{family}_{kind}_bf16": 1
+           for kind in ("stats", "grad_emb", "grad_proto")})
 
 
 def test_tag_only_fused_step_reaches_set_kernels(monkeypatch):
@@ -527,6 +590,61 @@ def test_set_kernels_match_plain_version_on_card():
     for a, b in ((e1.grad, e2.grad.float()), (p1.grad, p2.grad.float())):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["joint", "hard", "set"])
+def test_bf16_kernels_match_plain_version_on_card(family):
+    """The bf16-operand forms of each family's stats, dE and dP kernels
+    (K1-K9 with tpu.loss_operand_dtype "bfloat16") against the plain
+    version in float64 on the same bf16 values, c rounded to bf16, at a
+    small size: stats rtol 1e-5; dE / dP rtol 1e-4 with atol 1e-5 *
+    max|ref|, plus the spread of c's rounding where the kernel's float32 c
+    and the float64 one may round to different bf16 neighbours
+    (segsort_loss.bf16_rounding_spread); the gradients float32, dP exactly
+    0 past num_valid (chip_smoke.py checks the same at the paths'
+    shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.RandomState(12)
+    n, p, d, nv = 3001, 700, (32 if family == "hard" else 64), 449
+    emb = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(n, d).astype(np.float32)), dim=1).cuda()
+    protos = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(p, d).astype(np.float32)), dim=1).cuda()
+    lab, own, tag = (torch.from_numpy(rng.randint(0, k, n)).cuda()
+                     for k in (4, p, 2 ** 20))
+    plab, ptag, pval = (torch.from_numpy(rng.randint(lo, k, p)).cuda()
+                        for lo, k in ((-1, 4), (0, 2 ** 20), (0, 2)))
+    nv = torch.tensor([nv], device="cuda")
+    fn, ref, args, kappas = {
+        "joint": (fused.joint_segsort_stats,
+                  fused.joint_segsort_stats_reference,
+                  lambda e, p_: [e, lab, own, tag, p_, plab, ptag, pval, nv],
+                  (6.0, 12.0)),
+        "hard": (fused.segsort_stats, fused.segsort_stats_reference,
+                 lambda e, p_: [e, lab, own, p_, plab, nv], (6.0,)),
+        "set": (fused.set_segsort_stats, fused.set_segsort_stats_reference,
+                lambda e, p_: [e, tag, own, p_, ptag, pval, nv], (8.0,)),
+    }[family]
+    g = torch.randn(6 if family == "joint" else 3, n, device="cuda")
+    e1 = emb.clone().requires_grad_(True)
+    p1 = protos.clone().requires_grad_(True)
+    s1 = fn(*args(e1, p1), *kappas, operand_dtype="bfloat16")
+    (s1 * g).sum().backward()
+    e2 = emb.double().requires_grad_(True)
+    p2 = protos.double().requires_grad_(True)
+    s2 = ref(*args(e2, p2), *kappas, operand_dtype="bfloat16")
+    (s2 * g.double()).sum().backward()
+    spread = fused.bf16_rounding_spread(
+        family, args(emb.double(), protos.double()) + list(kappas), g)
+    torch.testing.assert_close(s1, s2.detach().float(), rtol=1e-5, atol=0.0)
+    assert e1.grad.dtype == p1.grad.dtype == torch.float32
+    for got, want, extra in ((e1.grad, e2.grad, spread[0]),
+                             (p1.grad, p2.grad, spread[1])):
+        tol = 1e-4 * want.abs() + 1e-5 * want.abs().max() + extra
+        assert ((got.double() - want).abs() <= tol).all()
+    assert not p1.grad[int(nv):].any()  # rows past num_valid: exactly 0
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ prototypes (unit rows) atol 3e-4: jitted and eager JAX differ there by
 exactly equal.
 """
 
+import functools
 import math
 from unittest import mock
 
@@ -36,6 +37,7 @@ from spml_tpu.train import optim as joptim
 from spml_tpu.train import state as jstate_lib
 from spml_tpu.train import step as jstep
 from spml_tpu_torch.config import load_config
+from spml_tpu_torch.ops import segsort_loss as fused
 from spml_tpu_torch.train import optim, state as state_lib, step as tstep
 from spml_tpu_torch.utils import from_jax
 
@@ -108,18 +110,30 @@ def _close(got, want, rel_atol):
         atol=rel_atol * max(np.abs(want).max(), 1e-6))
 
 
-def test_two_train_steps_match_jax():
+@functools.lru_cache(maxsize=None)
+def _jax_initial():
+    """The JAX initial state of OVERRIDES and its state dict in the port's
+    names, made once for the file's steps (tpu.loss_operand_dtype does not
+    enter it; JAX states are immutable)."""
+    jst = jstep.init_state(jload_config(overrides=OVERRIDES),
+                           jax.random.PRNGKey(0), jnp.zeros((2, 32, 32, 3)))
+    return jst, _state_dicts(jst.params, jst.batch_stats)
+
+
+def _two_steps_match_jax(overrides):
+    """Two steps of the port and of the JAX step (its joint kernel in
+    interpret mode) from the same weights and batch, held at the module's
+    tolerances; returns the operand_dtype of each trace of the JAX fused
+    joint loss."""
     nb = _batch()
-    jcfg = jload_config(overrides=OVERRIDES)
-    jst = jstep.init_state(jcfg, jax.random.PRNGKey(0),
-                           jnp.zeros((2, 32, 32, 3)))
+    jcfg = jload_config(overrides=overrides)
+    jst, sd = _jax_initial()
     emb_def, _ = jstep.build_models(jcfg)
     head = JHead(num_classes=4, hidden_dim=16, dropout_rate=0.0,
                  dtype=jnp.float32)
 
-    cfg = load_config(overrides=OVERRIDES)
+    cfg = load_config(overrides=overrides)
     st = tstep.init_state(cfg, 0, torch.zeros(2, 32, 32, 3), device="cpu")
-    sd = _state_dicts(jst.params, jst.batch_stats)
     st.emb_model.load_state_dict(
         {k[len("embedding."):]: v for k, v in sd.items()
          if k.startswith("embedding.")}, strict=True)
@@ -132,9 +146,13 @@ def test_two_train_steps_match_jax():
     jbatch = {k: jnp.asarray(v) for k, v in nb.items()}
     tbatch = {k: torch.from_numpy(v) for k, v in nb.items()}
     orig = jfused.fused_joint_losses
-    with mock.patch.object(
-            jfused, "fused_joint_losses",
-            lambda *a, **k: orig(*a, **{**k, "interpret": True})):
+    traced = []
+
+    def interpret(*a, **k):
+        traced.append(k.get("operand_dtype"))
+        return orig(*a, **{**k, "interpret": True})
+
+    with mock.patch.object(jfused, "fused_joint_losses", interpret):
         jfn = jax.jit(jstep.make_train_step(jcfg, emb_def, head))
         for i in range(2):
             jst, jm = jfn(jst, jbatch)
@@ -166,6 +184,30 @@ def test_two_train_steps_match_jax():
         np.testing.assert_array_equal(getattr(tmem, name).numpy(),
                                       np.asarray(getattr(jmem, name)),
                                       err_msg=name)
+    return traced
+
+
+def test_two_train_steps_match_jax():
+    assert _two_steps_match_jax(OVERRIDES) == ["float32"]  # traced once
+
+
+def test_two_bf16_train_steps_match_jax():
+    """tpu.loss_operand_dtype = "bfloat16" on both sides: the JAX step's
+    joint kernel takes bf16 operands, the port's plain version of the
+    bf16-operand form (segsort_loss._PlainBf16, c rounded to bf16) runs
+    once a step; the same tolerances (tests/test_torch_segsort_bf16.py
+    holds each loss family)."""
+    overrides = {**OVERRIDES, "tpu": {**OVERRIDES["tpu"],
+                                      "loss_operand_dtype": "bfloat16"}}
+    seen = []
+    plain = fused._PlainBf16.apply
+
+    def spy(*a):
+        seen.append(a[0])
+        return plain(*a)
+    with mock.patch.object(fused._PlainBf16, "apply", spy):
+        assert _two_steps_match_jax(overrides) == ["bfloat16"]
+    assert seen == ["joint", "joint"]
 
 
 @pytest.mark.parametrize("policy", ["poly", "step"])
