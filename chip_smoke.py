@@ -7,7 +7,8 @@ drivers from an image list on disk (with a profiler window) and the
 self-training chain after them (MSC, CRF, softmax inference,
 pseudo-labels), two data-parallel ranks of the flagship step, the
 drivers and batched inference, two height-sharded ranks of the flagship
-network, the softmax baseline, the SegSort step and the drivers, report.
+network, the softmax baseline, the SegSort step, the DensePose point
+step and the drivers, report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -153,8 +154,11 @@ Phases, each printing one line or more:
     kernel, the heads equal; (f) run_knn_inference in float32 with
     infer_batch DP_INFER_BATCH 4 over DP_INFER_IMAGES 8 images sharded
     over the ranks (the bank from run_prototype on rank 0), run_benchmark
-    on rank 0: its PNGs equal a one-process run's. Lines (a)-(f) and a
-    summary: the case, ms/step, global images/s, peak a rank, the
+    on rank 0: its PNGs equal a one-process run's; (g) (a)'s step on the
+    one process's segments with tpu.loss_operand_dtype "bfloat16":
+    K1-K3's bf16 forms once a rank at (a)'s N and P, each loss within
+    BF16_LOSS_RTOL of the one process's float32 step. Lines (a)-(g) and
+    a summary: the case, ms/step, global images/s, peak a rank, the
     nvidia-smi line;
  7. sp, height-sharded training (tpu.spatial_partition, parallel/
     halo.py): SP_SPACE = 2 space ranks of one data rank spawned once (as
@@ -198,8 +202,30 @@ Phases, each printing one line or more:
     prototypes' sums over the space group), beside one process x 8;
     (g) train_spml on the driver phase's stage 1 (SegSort, batch 4) for
     4 iterations resumed to 6: K1-K3 once an iteration, checkpoints 2,
-    4, 6 from rank 0, the ranks equal. Lines (a)-(g) and a summary:
-    ms/step and peak a rank against one process, the nvidia-smi line;
+    4, 6 from rank 0, the ranks equal. DensePose, PSPP's pools summed
+    over the space group and the colour features made from the gathered
+    images (the DensePose point recipe, panoptic_pspnet_101_densepose,
+    32-d, crop 512, 12x12 k-means x10, capacity 512, no bank, the fused
+    hard-label loss, at its global batch SP_DP_BATCH 4): (h) float32
+    (TF32 off, dropout 0) on the one process's segments, [dp] (a)'s
+    checks over the tensors of SP_DP_CHECKED, each tolerance plus the
+    floor of SP_SEG_FLOOR_RUNS, K4-K6 once a rank at N 32,768 and P
+    2,048; then the recipe as it ships (bf16 convolutions), 3 warm-up
+    and 10 timed steps a rank and 3 with every collective timed by its
+    label (SP_DP_KINDS: "pool" and "colour" among them), beside one
+    process; (i) float64 at SP_SEG_F64_BATCH with the dense losses and
+    sem_occ + tpu.apply_feat_aff (NN-propagated tags, feat_aff), held as
+    (d)'s float64 run; (j) (h)'s step with tpu.loss_operand_dtype
+    "bfloat16": K4-K6's bf16 forms once a rank, each loss within
+    BF16_LOSS_RTOL of the one process's float32 step; (k) the DensePose
+    CLIs' drivers (dropout 0) on SP_DP_WORLD_IMAGES point-labelled
+    images: train_spml with DenseposeTagDataset for SP_DP_DRIVER_ITERS
+    iterations in float64 (the dense losses; the ranks on the one
+    process's k-means segments), its logged losses within SP_F64_RTOL of
+    one process's, then train_classifier with DenseposeClassifierDataset
+    over its snapshot in float32, within DP_LOSS_RTOL (no kernel in
+    either), the ranks equal. Lines (a)-(k) and a summary: ms/step and peak a
+    rank against one process, the nvidia-smi line;
  8. inference, the single-scale KNN path at VOC's test geometry
     (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
     kernel on it): panoptic_deeplab_101 from random weights of seed 0
@@ -1074,16 +1100,17 @@ DP_INFER_IMAGES = 8
 DP_INFER_BATCH = 4
 
 
-def dp_flagship(dtype):
+def dp_flagship(dtype, **tpu):
     """The flagship recipe (train/flagship.py) at DP_BATCH a rank in
-    `dtype`: DP_WORLD ranks step the recipe's global batch of 8."""
+    `dtype`, with `tpu`'s overrides: DP_WORLD ranks step the recipe's
+    global batch of 8."""
     import copy
 
     from spml_tpu_torch.train import flagship
 
     over = copy.deepcopy(flagship.OVERRIDES)
     over["train"]["batch_size"] = DP_BATCH
-    over["tpu"]["compute_dtype"] = dtype
+    over["tpu"].update(compute_dtype=dtype, **tpu)
     return over
 
 
@@ -1178,36 +1205,51 @@ def dp_model_tensors(state):
     return {k: v.cpu() for k, v in model_tensors(state).items()}
 
 
+def recipe_batch(cfg, device, batch=None):
+    """The seed-0 synthetic batch of cfg's recipe, `batch` images (cfg's
+    train.batch_size when None): DensePose's point labels
+    (train/densepose_point.py) on a DensePose backbone, else the
+    flagship's blobby labels (train/flagship.py)."""
+    from spml_tpu_torch.train import densepose_point, flagship
+
+    b, crop = batch or cfg.train.batch_size, cfg.train.crop_size[0]
+    if "densepose" in cfg.network.backbone_types:
+        return densepose_point.point_batch(b, crop, seed=0, device=device)
+    return flagship.blobby_batch(b, crop, cfg.dataset.num_classes,
+                                 device=device)
+
+
 def dp_setup(spec, dtype, device):
     """(config, the global batch of the recipe from seed 0, the seed-0
-    state) of the flagship at DP_BATCH a rank in `dtype`. In float32 the
-    classifier's dropout is 0, as in the parity tests: rank r draws its
-    masks from seed + r over its own images, one process from seed over
-    all of them."""
+    state) of spec[dtype] (the flagship at DP_BATCH a rank, or the
+    recipe spec names). In float32 ("f32", "f32_lbf16": float32
+    convolutions) the classifier's dropout is 0, as in the parity tests:
+    rank r draws its masks from seed + r over its own images, one process
+    from seed over all of them."""
     from spml_tpu_torch.config import load_config
-    from spml_tpu_torch.train import flagship
     from spml_tpu_torch.train import step as step_lib
 
     cfg = load_config(overrides=spec[dtype])
-    batch = flagship.blobby_batch(spec["global"], cfg.train.crop_size[0],
-                                  cfg.dataset.num_classes, device=device)
+    batch = recipe_batch(cfg, device, spec["global"])
     state = step_lib.init_state(cfg, 0, batch["image"], device=device)
-    if dtype == "f32":
+    if dtype.startswith("f32"):
         state.cls_model.semantic_classifier[3].p = 0.0
     return cfg, batch, state
 
 
 @contextlib.contextmanager
-def segments_of(torch, given=None, rows=slice(None), shard=(0, 1)):
+def segments_of(torch, given=None, rows=slice(None), shard=(0, 1),
+                each=None):
     """Records the k-means segments of the train step (kmeans.
-    segment_batch) into the yielded dict; with `given` (a recorded
-    Segments, every image of the global batch), the step takes images
-    `rows` of those in place of its own; height-sharded (shard = (space
-    rank, space)), the rank's rows of their pixel fields (the segment
-    fields whole)."""
+    segment_batch) into the yielded dict ("segments": the last call's,
+    "every": each call's); with `given` (a recorded Segments, every image
+    of the global batch), the step takes images `rows` of those in place
+    of its own; height-sharded (shard = (space rank, space)), the rank's
+    rows of their pixel fields (the segment fields whole). each: a list
+    of recorded Segments, the n-th call taking each[n] as `given`."""
     from spml_tpu_torch.ops import kmeans
 
-    orig, rec = kmeans.segment_batch, {}
+    orig, rec = kmeans.segment_batch, {"every": []}
     s, space = shard
 
     def cut(t, pixel):
@@ -1216,12 +1258,14 @@ def segments_of(torch, given=None, rows=slice(None), shard=(0, 1)):
 
     def recording(emb, *a, **k):
         out = orig(emb, *a, **k)
-        if given is not None:
+        take = given if each is None else each[len(rec["every"])]
+        if take is not None:
             out = (kmeans.Segments(*[
                 cut(t, name.startswith("pixel")).to(emb.device)
-                for name, t in zip(kmeans.Segments._fields, given)]),
+                for name, t in zip(kmeans.Segments._fields, take)]),
                 *out[1:])
         rec["segments"] = [t.cpu() for t in out[0]]
+        rec["every"].append(rec["segments"])
         return out
 
     kmeans.segment_batch = recording
@@ -1315,15 +1359,17 @@ def dp_floor(measures):
     pixels' largest difference."""
     measures = list(measures)
     return {"tensors": {k: max(m["diffs"][k] for m in measures)
-                        for k in DP_CHECKED},
+                        for k in measures[0]["checked"]},
             "bank": max(m["bank_err"] for m in measures),
             "matched": max(m["matched"][0] for m in measures)}
 
 
-def dp_reference(torch, spec, device, floor_runs=DP_FLOOR_RUNS):
+def dp_reference(torch, spec, device, floor_runs=DP_FLOOR_RUNS,
+                 modes=("free", "equal")):
     """The one-process step the ranks hold theirs against, and its
-    float32 floor: the step in each of floor_runs, once free and once
-    on the reference's segments, against the reference (compare_step);
+    float32 floor: the step in each of floor_runs, free and on the
+    reference's segments (`modes`), against the reference (compare_step
+    over spec's "checked" tensors, DP_CHECKED when it names none);
     dp_floor of a mode's runs is that mode's floor. Each floor run is
     also held to the floor of the others ("alone"). Saves the
     reference with its floors to spec["ref"]; returns {mode: {floor run:
@@ -1331,12 +1377,14 @@ def dp_reference(torch, spec, device, floor_runs=DP_FLOOR_RUNS):
     ref = dp_one_process(torch, spec, device)
     every = slice(0, spec["global"])
     ref["floor"], runs = {}, {}
-    for mode, given in (("free", None), ("equal", ref["segments"])):
+    for mode in modes:
+        given = ref["segments"] if mode == "equal" else None
         runs[mode] = {}
         for name, kw in floor_runs.items():
             run = dp_one_process(torch, spec, device, given, **kw)
-            runs[mode][name], _ = compare_step(torch, ref, run, every,
-                                               spec["capacity"])
+            runs[mode][name], _ = compare_step(
+                torch, ref, run, every, spec["capacity"],
+                checked=spec.get("checked", DP_CHECKED))
         ref["floor"][mode] = dp_floor(runs[mode].values())
         for name, m in runs[mode].items():
             m["alone"] = dp_shares(m, dp_floor(
@@ -1407,20 +1455,22 @@ def dp_shares(m, floor=None):
     """A step's shares of tolerance + floor (compare_step's measures,
     dp_floor's floor): the checked updates' largest, the bank
     prototypes', and theirs over segments with the same pixels."""
-    f = floor or {"tensors": dict.fromkeys(DP_CHECKED, 0.0), "bank": 0.0,
+    f = floor or {"tensors": dict.fromkeys(m["checked"], 0.0), "bank": 0.0,
                   "matched": 0.0}
     return {"updates": max(m["diffs"][k] / (m["tol"][k] + f["tensors"][k])
-                           for k in DP_CHECKED),
+                           for k in m["checked"]),
             "bank prototypes": m["bank_err"] / (DP_BANK_ATOL + f["bank"]),
             "matched bank prototypes": (m["matched"][0]
                                         / (DP_BANK_ATOL + f["matched"]))}
 
 
-def compare_step(torch, ref, got, rows, p, floor=None, checks=DP_CHECKS):
+def compare_step(torch, ref, got, rows, p, floor=None, checks=DP_CHECKS,
+                 checked=DP_CHECKED):
     """One step's losses, tensors, bank and segments (got: dp_step_result
     of images `rows` of the global batch) against the reference's at the
-    DP_* tolerances, each plus its float32 floor (dp_floor's, when given):
-    (measures, {check: failure} of `checks` that failed)."""
+    DP_* tolerances, each plus its float32 floor (dp_floor's, when given),
+    the updates of the tensors `checked` each held: (measures, {check:
+    failure} of `checks` that failed)."""
     failed = {}
     failed["losses"] = [
         f"{k} {got['losses'][k]} against {v}"
@@ -1453,10 +1503,10 @@ def compare_step(torch, ref, got, rows, p, floor=None, checks=DP_CHECKS):
     l2 = math.sqrt(diff2 / upd2)
     if l2 > DP_UPDATE_RTOL:
         failed["update L2"] = f"{l2:.3e}"
-    checked = {k: ratios[k] for k in DP_CHECKED}
+    names, checked = checked, {k: ratios[k] for k in checked}
     top = sorted(ratios, key=ratios.get, reverse=True)[:3]
     own = slice(rows.start * p, rows.stop * p)  # the bank's newest slot
-    m = {"worst": max(checked.values()),
+    m = {"worst": max(checked.values()), "checked": names,
          "worst_name": max(checked, key=checked.get), "l2": l2,
          "any": [(k, ratios[k]) for k in top], "diffs": diffs, "tol": tol,
          "bank_err": bank_err,
@@ -1508,6 +1558,34 @@ def dp_equality(torch, fused, spec, device, mesh):
                         "bank." + k: v for k, v in got["memory"].items()}})}
         state = m = None
     return out
+
+
+def dp_loss_operands(torch, fused, spec, device, mesh):
+    """(g): (a)'s step on the one process's segments with
+    tpu.loss_operand_dtype "bfloat16" (K1-K3's bf16 forms): each loss
+    within BF16_LOSS_RTOL of the one process's float32 step."""
+    from spml_tpu_torch.train import step as step_lib
+
+    ref = torch.load(spec["ref"], weights_only=True)
+    rows = mesh.shard(spec["global"])
+    cfg, batch, state = dp_setup(spec, "f32_lbf16", device)
+    local = {k: v[rows] for k, v in batch.items()}
+    step = step_lib.make_train_step(cfg)
+    fused.reset_launch_counts()
+    with recording_stats(torch, fused, "joint") as last, \
+            segments_of(torch, ref["segments"], rows):
+        state, m = step(state, local)
+    losses = {k: float(v) for k, v in m.items() if k.endswith("loss")}
+    rel = {k: abs(losses[k] - v) / abs(v) for k, v in ref["losses"].items()}
+    if losses.keys() != ref["losses"].keys() or \
+            max(rel.values()) > BF16_LOSS_RTOL:
+        raise AssertionError(f"dp rank {mesh.rank}, bf16 loss operands: "
+                             f"losses {losses} against float32 "
+                             f"{ref['losses']}, rtol {BF16_LOSS_RTOL}")
+    return {"losses": losses, "rel": max(rel.values()),
+            "launches": {k: v for k, v in fused.LAUNCHES.items() if v},
+            "n": int(last["args"][0].shape[0]),
+            "p": int(last["args"][4].shape[0])}
 
 
 def dp_timing(torch, fused, spec, device, mesh, mesh_lib):
@@ -1638,7 +1716,7 @@ def dp_infer_args(spec, out):
 
 def dp_rank(spec, *, device):
     """One rank of the [dp] phase, in a process of its own
-    (parallel/mesh.py::spawn): (a) and (b), (c), (d) and (e), (f)."""
+    (parallel/mesh.py::spawn): (a) and (b), (g), (c), (d) and (e), (f)."""
     import torch
 
     from spml_tpu_torch.ops import _cuda
@@ -1654,6 +1732,8 @@ def dp_rank(spec, *, device):
     for name, run in (
             ("equality", lambda: dp_equality(torch, fused, spec, device,
                                              mesh)),
+            ("loss operands", lambda: dp_loss_operands(torch, fused, spec,
+                                                       device, mesh)),
             ("timing", lambda: dp_timing(torch, fused, spec, device, mesh,
                                          mesh_lib)),
             ("driver", lambda: dp_driver(torch, fused, spec, device, mesh)),
@@ -1703,6 +1783,8 @@ def run_dp(torch, fused, devices=None, backend=None, device=None):
         spec = {"csrc": str(_cuda.CSRC), "root": root, "data": data,
                 "list": lst, "infer_list": infer_list,
                 "f32": dp_flagship("float32"), "bf16": dp_flagship("bfloat16"),
+                "f32_lbf16": dp_flagship("float32",
+                                         loss_operand_dtype="bfloat16"),
                 "global": DP_BATCH * DP_WORLD, "stage1": stage1,
                 "infer": infer, "ref": os.path.join(root, "ref.pt")}
         f32 = load_config(overrides=spec["f32"])
@@ -1727,7 +1809,7 @@ def run_dp(torch, fused, devices=None, backend=None, device=None):
                              DP_INFER_IMAGES, 21, f"dp inference ({w})")
                 for w in ("dp", "one")}
         check_dp(spec, ranks, pngs)
-        check_dp_launches(ranks)
+        check_dp_launches(spec, ranks)
     eq = [r["equality"] for r in ranks]
     tm = [r["timing"] for r in ranks]
     dr = ranks[0]["driver"]
@@ -1754,6 +1836,14 @@ def run_dp(torch, fused, devices=None, backend=None, device=None):
     log("dp", "(b) launches a rank in each f32 step "
         + " / ".join(str(e["launches"]) for e in free + equal)
         + f": K1-K3 once each at N {free[0]['n']}, P {free[0]['p']}")
+    lo = [r["loss operands"] for r in ranks]
+    log("dp", f"(g) (a) on the one process's segments with "
+        f"tpu.loss_operand_dtype bfloat16: losses {lo[0]['losses']}, "
+        f"relative to the one process's float32 at most "
+        + " / ".join(f"{g['rel']:.3e}" for g in lo)
+        + f" (rtol {BF16_LOSS_RTOL}); launches a rank "
+        + " / ".join(str(g["launches"]) for g in lo)
+        + f" at N {lo[0]['n']}, P {lo[0]['p']}")
     log("dp", f"(c) bf16, 3 + 10 steps: {ms:.2f} ms/step (ranks "
         + " / ".join(f"{t['ms']:.2f}" for t in tm)
         + f"), {g * 1000 / ms:.2f} images/s global, peak "
@@ -1845,10 +1935,18 @@ def check_dp(spec, ranks, pngs):
                              f"process's: {bad}")
 
 
-def check_dp_launches(ranks):
-    """K1-K3 once a step a rank, and no kernel in stage 2."""
+def check_dp_launches(spec, ranks):
+    """K1-K3 once a step a rank, no kernel in stage 2, and in (g) K1-K3's
+    bf16 forms once a rank at (a)'s N and P."""
     k13 = ("joint_stats", "joint_grad_emb", "joint_grad_proto")
     for r in ranks:
+        g = r["loss operands"]
+        if (g["launches"], g["n"], g["p"]) != (
+                {k + BF16: 1 for k in k13}, spec["n"], spec["p"]):
+            raise AssertionError(f"dp rank {r['rank']} (g): launches "
+                                 f"{g['launches']} at N {g['n']}, P "
+                                 f"{g['p']}, want K1-K3's bf16 forms once "
+                                 f"at N {spec['n']}, P {spec['p']}")
         runs = r["driver"]["runs"]
         got = [*(e["launches"] for e in r["equality"].values()),
                r["timing"]["launches"], *(la for *_, la in runs),
@@ -1923,6 +2021,74 @@ SP_ARMS = {"tags only": ({"sem_ann_loss_types": "none"}, "set"),
 # collective
 SP_SEG_KINDS = ("gradient", "batch norm", "halo", "segments", "other")
 K13 = ("joint_stats", "joint_grad_emb", "joint_grad_proto")
+# (h)-(k): the DensePose point recipe (train/densepose_point.py:
+# panoptic_pspnet_101_densepose, 32-d, crop 512, 12x12 k-means x10,
+# capacity 512, no bank, the fused hard-label loss K4-K6) at its global
+# batch SP_DP_BATCH over the SP_SPACE ranks (256 image rows a rank).
+# (h) float32 (TF32 off, dropout 0) on the one process's k-means
+# segments (free, k-means near-ties move pixels in every float32
+# arithmetic: (d)), [dp] (a)'s checks and DP_* tolerances over
+# SP_DP_CHECKED (tests/test_torch_densepose_step.py's tensors), each plus
+# the floor of SP_SEG_FLOOR_RUNS; K4-K6 once a rank at N 32,768 (its rows
+# of the 4 images) and P 2,048; then the recipe as it ships (bf16
+# convolutions) timed as (f), with PSPP's pools ("pool") and the colour
+# features' gather ("colour") among the collectives. (i) float64 at
+# SP_SEG_F64_BATCH with the dense losses and sem_occ + tpu.apply_feat_aff
+# on (the NN-propagated tags and the feat_aff loss, which the shipped
+# recipe leaves off), held as (d)'s float64 run. (j) (h)'s step with
+# tpu.loss_operand_dtype "bfloat16" (K4-K6's bf16 forms once a rank):
+# each loss within BF16_LOSS_RTOL of the one process's float32 step (and
+# [dp] (g): [dp] (a)'s forced flagship step with the knob, K1-K3's bf16
+# forms). (k) the DensePose CLIs' drivers: train_spml with
+# DenseposeTagDataset for SP_DP_DRIVER_ITERS iterations on
+# SP_DP_WORLD_IMAGES point-labelled images, then train_classifier with
+# DenseposeClassifierDataset over its snapshot for as many, the ranks'
+# train steps on the one process's k-means segments, every logged loss
+# within SP_DP_DRIVER_RTOL of one process's: stage 1 with the models,
+# bank and images in float64 (the dense losses) and held at SP_F64_RTOL,
+# as (i); stage 2 in float32 at DP_LOSS_RTOL; and stage 1 as it ships
+# (float32, the fused loss: K4-K6 once a rank) for its first iteration,
+# each loss within DP_LOSS_RTOL + the floor of SP_DP_F32_FLOOR_RUNS (the
+# one process on its own segments in other exact arithmetics: batch
+# norm by plain autograd; the NCHW layout, other convolution kernels;
+# the dense loss's prototypes in reverse order), img_sim's taken image by
+# image (sp_dp_driver_floor): img_sim is a mean over the images of the
+# few point-labelled pixels of each (13, 11, 14 and 10 here), and a
+# card run found the ranks' and the floor runs' differences of each
+# image of one size, 1e-4 to 5e-4, that cancelled in the floor runs'
+# mean of the four images and not in the ranks'.
+# The first card runs held both stages in float32 at DP_LOSS_RTOL for
+# two iterations and missed it by 3.2e-4 of img_sim at the first
+# iteration and 3% at the second, on equal batches (a third run's
+# digests), with or without the image panels; the one process itself
+# with batch norm by plain autograd lay 0.17% (sem_ann) and 4% (img_sim)
+# from it at the second iteration (a fourth): the float32 step of this
+# randomly initialized PSPNet on these images magnifies rounding from one
+# step to the next (a weight's difference grew 58x), so, as (a) and (d)
+# do, the drivers' two iterations are held in float64.
+SP_DP_BATCH, SP_DP_DRIVER_ITERS, SP_DP_WORLD_IMAGES = 4, 2, 8
+SP_DP_DRIVER_RTOL = {"stage1": SP_F64_RTOL, "stage2": DP_LOSS_RTOL,
+                     "stage1_f32": DP_LOSS_RTOL}
+SP_DP_DRIVER_RUN_ITERS = {"stage1": SP_DP_DRIVER_ITERS,
+                          "stage2": SP_DP_DRIVER_ITERS, "stage1_f32": 1}
+SP_DP_F32_FLOOR_RUNS = {"plain BN": {"bn": "float32"},
+                        "NCHW": {"nchw": True},
+                        "prototypes reversed": {"reverse": True}}
+SP_DP_CHECKED = [  # tests/test_torch_densepose_step.py's CHECKED_*
+    "emb.pspp.0.pspp_1.1.weight", "emb.pspp.0.pspp_4.2.bias",
+    "emb.pspp.0.conv.0.weight", "emb.pspp.0.conv.1.weight",
+    "emb.pspp.1.weight", "emb.pspp.1.bias",
+    "emb.resnet_backbone.res5.0.conv2.weight",
+    "emb.resnet_backbone.res3.0.bn1.weight",
+    "cls.semantic_classifier.0.weight",
+    "emb.pspp.0.pspp_3.2.running_mean", "emb.pspp.0.conv.1.running_var",
+    "emb.resnet_backbone.res4.0.bn2.running_mean",
+    "cls.semantic_classifier.1.running_var"]
+SP_DP_KINDS = ("gradient", "batch norm", "halo", "segments", "pool",
+               "colour", "other")
+SP_TIMED_KINDS = {"bf16": SP_KINDS, "seg_bf16": SP_SEG_KINDS,
+                  "dp_bf16": SP_DP_KINDS}
+K46 = ("hard_stats", "hard_grad_emb", "hard_grad_proto")
 
 
 def sp_spec_model(spec, torch, device, dtype):
@@ -2125,19 +2291,18 @@ def sp_config():
 
 def sp_time(torch, spec, device, mesh=None, mesh_lib=None, key="bf16",
             fused=None):
-    """(b), (f): the bf16 step of spec[key] (the softmax baseline, the
-    SegSort step), 3 warm-up and 10 timed steps: this rank's rows (mesh)
-    or one process; then, for a rank, 3 steps with every collective
-    timed by its label (SP_KINDS, SP_SEG_KINDS), and the kernels
-    launched in all 16 (fused)."""
+    """(b), (f), (h): the bf16 step of spec[key] (the softmax baseline,
+    the SegSort step, DensePose's), 3 warm-up and 10 timed steps: this
+    rank's rows (mesh) or one process; then, for a rank, 3 steps with
+    every collective timed by its label (SP_TIMED_KINDS[key]), and the
+    kernels launched in all 16 (fused)."""
     from spml_tpu_torch.config import load_config
-    from spml_tpu_torch.train import flagship
     from spml_tpu_torch.train import step as step_lib
 
     cfg = load_config(overrides=spec[key])
     if mesh is not None:
         cfg.tpu.spatial_partition = SP_SPACE
-    batch = flagship.make_batch(cfg, device=device)
+    batch = recipe_batch(cfg, device)
     state = step_lib.init_state(cfg, 0, batch["image"], device=device)
     step = step_lib.make_train_step(cfg)
     if mesh is None:
@@ -2151,7 +2316,7 @@ def sp_time(torch, spec, device, mesh=None, mesh_lib=None, key="bf16",
     with timing_collectives(torch, device, mesh_lib) as kinds:
         for _ in range(3):
             state, m = step(state, local)
-    want = SP_KINDS if key == "bf16" else SP_SEG_KINDS
+    want = SP_TIMED_KINDS[key]
     if set(kinds) != set(want):  # a call site lost its label
         raise AssertionError(f"sp: collectives of kinds {sorted(kinds)}, "
                              f"want {want}")
@@ -2300,9 +2465,9 @@ def sp_segsort_equality(torch, fused, spec, device, mesh):
     return out
 
 
-def sp_f64_step(torch, spec, device, mesh=None, swap=False):
-    """One float64 step of the flagship SegSort recipe at
-    SP_SEG_F64_BATCH with the dense losses (spec["seg"]["f64"]) from the
+def sp_f64_step(torch, spec, device, mesh=None, swap=False, key="seg"):
+    """One float64 step of spec[key]["f64"] (the flagship SegSort recipe
+    at SP_SEG_F64_BATCH, or DensePose's) with the dense losses from the
     seed-0 state, dropout 0, the models, bank and images in float64:
     losses, k-means Segments (a rank's rows joined), every parameter's
     gradient and the bank. mesh: this rank's rows; swap: the images in
@@ -2311,15 +2476,13 @@ def sp_f64_step(torch, spec, device, mesh=None, swap=False):
 
     from spml_tpu_torch.config import load_config
     from spml_tpu_torch.parallel import mesh as mesh_lib
-    from spml_tpu_torch.train import flagship
     from spml_tpu_torch.train import step as step_lib
 
-    cfg = load_config(overrides=spec["seg"]["f64"])
+    cfg = load_config(overrides=spec[key]["f64"])
     if mesh is not None:
         cfg.tpu.spatial_partition = SP_SPACE
     g = cfg.train.batch_size
-    batch = flagship.blobby_batch(g, cfg.train.crop_size[0],
-                                  cfg.dataset.num_classes, device=device)
+    batch = recipe_batch(cfg, device)
     state = step_lib.init_state(cfg, 0, batch["image"], device=device)
     state.cls_model.semantic_classifier[3].p = 0.0
     for model in (state.emb_model, state.cls_model):
@@ -2396,12 +2559,12 @@ def sp_seg_reference(torch, spec, device):
     return out
 
 
-def sp_f64_equality(torch, spec, device, mesh):
-    """(d) float64: this rank's rows of the dense step against the one
-    process: the Segments and bank labels equal, every measure within
-    SP_F64_RTOL + its floor."""
-    ref = torch.load(spec["seg"]["ref64"], weights_only=True)
-    got = sp_f64_step(torch, spec, device, mesh)
+def sp_f64_equality(torch, spec, device, mesh, key="seg"):
+    """(d), (i) float64: this rank's rows of the dense step of spec[key]
+    against the one process: the Segments and bank labels equal, every
+    measure within SP_F64_RTOL + its floor."""
+    ref = torch.load(spec[key]["ref64"], weights_only=True)
+    got = sp_f64_step(torch, spec, device, mesh, key=key)
     m, equal, labels = sp_f64_measures(ref, got)
     bad = {k: (v, ref["floor"][k]) for k, v in m.items()
            if v > SP_F64_RTOL + ref["floor"][k]}
@@ -2523,7 +2686,7 @@ def sp_segsort_driver(torch, fused, spec, device, mesh):
 def sp_rank(spec, *, device):
     """One rank of the [sp] phase, in a process of its own
     (parallel/mesh.py::spawn): (a), (b), (c), then the SegSort branch's
-    (d), (e), (f) and (g)."""
+    (d), (e), (f) and (g), then DensePose's (h), (i), (j), (k)."""
     import torch
 
     from spml_tpu_torch.ops import _cuda
@@ -2550,7 +2713,14 @@ def sp_rank(spec, *, device):
             ("seg_timing", lambda: sp_time(torch, spec, device, mesh,
                                            mesh_lib, "seg_bf16", fused)),
             ("seg_driver", lambda: sp_segsort_driver(torch, fused, spec,
-                                                     device, mesh))):
+                                                     device, mesh)),
+            ("dp", lambda: sp_dp_equality(torch, fused, spec, device, mesh)),
+            ("dp64", lambda: sp_f64_equality(torch, spec, device, mesh,
+                                             "dp")),
+            ("dp_timing", lambda: sp_time(torch, spec, device, mesh,
+                                          mesh_lib, "dp_bf16", fused)),
+            ("dp_driver", lambda: sp_dp_driver(torch, fused, spec, device,
+                                               mesh))):
         out[name] = run()
         if device.type == "cuda":  # the ranks may share one card
             torch.cuda.empty_cache()
@@ -2627,15 +2797,17 @@ def check_sp_segsort(spec, r):
 
 def run_sp(torch, devices=None, backend=None, device=None):
     """The [sp] phase: SP_SPACE ranks of one data rank spawned once, each
-    running sp_rank; this process computes the one-process reference,
-    its floor and its timing first. devices, backend, device: the CPU
+    running sp_rank; this process computes the one-process references,
+    their floors and timings first. devices, backend, device: the CPU
     rehearsal's (cpu ranks, gloo, cpu)."""
     import copy
     import tempfile
 
     from spml_tpu_torch.data import synthetic
     from spml_tpu_torch.ops import _cuda
+    from spml_tpu_torch.ops import segsort_loss as fused
     from spml_tpu_torch.parallel import mesh as mesh_lib
+    from spml_tpu_torch.train import densepose_point
 
     if devices is None:
         devices, backend, case = dp_devices(torch)
@@ -2677,20 +2849,24 @@ def run_sp(torch, devices=None, backend=None, device=None):
                 "crop": STAGE1["train"]["crop_size"][0],
                 "bf16": sp_config(), "ref": os.path.join(root, "ref.pt"),
                 "seg_bf16": sp_segsort_config("bfloat16", SP_SEG_BATCH),
-                "seg": seg}
+                "seg": seg, "dp": sp_densepose_spec(root),
+                "dp_bf16": copy.deepcopy(densepose_point.OVERRIDES)}
         log("sp", f"{len(devices)} ranks (data 1 x space {SP_SPACE}) on "
             f"{devices}: {case}")
+        t_ref = time.perf_counter()
         floor_runs = sp_reference(torch, spec, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         one = sp_time(torch, spec, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        t_ref = time.perf_counter()
         seg_one = sp_seg_reference(torch, spec, device)
-        t_ref = time.perf_counter() - t_ref
         if device.type == "cuda":
             torch.cuda.empty_cache()
+        dp_one = sp_dp_reference(torch, fused, spec, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_ref
         t0 = time.perf_counter()
         ranks = mesh_lib.spawn(sp_rank, (spec,), devices, backend)
         spawn_s = time.perf_counter() - t0
@@ -2744,14 +2920,21 @@ def run_sp(torch, devices=None, backend=None, device=None):
         f"{[round(x, 4) for x in dr['stage2_losses']]}, heads torch.equal; "
         "no kernel launched")
     log_sp_segsort(spec, ranks, seg_one)
+    sp_densepose_lines(spec, ranks, dp_one)
+    dt = [r["dp_timing"] for r in ranks]
     log("sp", f"summary, {case}: {ms:.2f} ms/step, peak "
         f"{max(t['peak'] for t in tm):.2f} GiB a rank against "
         f"{one['ms']:.2f} ms/step, {one['peak']:.2f} GiB one process "
         f"(softmax baseline); SegSort {max(t['ms'] for t in st):.2f} "
         f"ms/step, peak {max(t['peak'] for t in st):.2f} GiB a rank against "
         f"{seg_one['time']['ms']:.2f} ms/step, "
-        f"{seg_one['time']['peak']:.2f} GiB one process; one-process "
-        f"SegSort references {t_ref:.1f} s, spawn to join {spawn_s:.1f} s, "
+        f"{seg_one['time']['peak']:.2f} GiB one process; DensePose "
+        f"{max(t['ms'] for t in dt):.2f} ms/step, peak "
+        f"{max(t['peak'] for t in dt):.2f} GiB a rank against "
+        f"{dp_one['time']['ms']:.2f} ms/step, "
+        f"{dp_one['time']['peak']:.2f} GiB one process; "
+        f"one-process references {t_ref:.1f} s, spawn to join "
+        f"{spawn_s:.1f} s, "
         f"phase {time.perf_counter() - t_phase:.1f} s; card "
         f"{nvidia_smi_line()}")
 
@@ -2821,6 +3004,479 @@ def log_sp_segsort(spec, ranks, one):
         + f", tpu.num_devices {dr['num_devices']}, checkpoints "
         f"{dr['checkpoints']} from rank 0 with {dr['rank_generators']} "
         "generator states, resumed at step 4, ranks torch.equal")
+
+
+def sp_densepose_spec(root):
+    """spec["dp"] of (h)-(k): the recipe's configurations, sizes and the
+    paths of the one-process references, and a world of
+    SP_DP_WORLD_IMAGES point-labelled images for the drivers."""
+    import copy
+
+    from spml_tpu_torch.data import synthetic
+    from spml_tpu_torch.train import densepose_point
+
+    def over(dtype, batch, train=(), **tpu):
+        o = copy.deepcopy(densepose_point.OVERRIDES)
+        o["train"].update(batch_size=batch, **dict(train))
+        o["tpu"].update(compute_dtype=dtype, **tpu)
+        return o
+
+    f32 = over("float32", SP_DP_BATCH)
+    crop = f32["train"]["crop_size"][0]
+    capacity = f32["tpu"]["segment_capacity"]
+    data = os.path.join(root, "densepose_world")
+    lst = synthetic.write_world(
+        data, SP_DP_WORLD_IMAGES, shapes=((427, 640), (640, 427)),
+        num_classes=densepose_point.NUM_CLASSES, seed=0,
+        points=DENSEPOSE_POINTS)
+    return {"f32": f32, "global": SP_DP_BATCH, "capacity": capacity,
+            "checked": SP_DP_CHECKED, "recipe": "densepose_point",
+            "f32_lbf16": over("float32", SP_DP_BATCH,
+                              loss_operand_dtype="bfloat16"),
+            "f64": over("float64", SP_SEG_F64_BATCH,
+                        {"sem_occ_loss_types": "segsort"},
+                        use_fused_loss=False, apply_feat_aff=True),
+            "driver": over("float32", SP_DP_BATCH, {
+                "max_iteration": SP_DP_DRIVER_ITERS, "tensorboard_step": 1,
+                "snapshot_step": SP_DP_DRIVER_ITERS},
+                spatial_partition=SP_SPACE, use_fused_loss=False),
+            "data": data, "list": lst,
+            # K4-K6 on a rank: its rows' pixels of every image, against
+            # the global batch's prototypes (no bank)
+            "n": SP_DP_BATCH * (crop // 4) ** 2 // SP_SPACE,
+            "p": SP_DP_BATCH * capacity,
+            "ref": os.path.join(root, "dp_ref.pt"),
+            "ref64": os.path.join(root, "dp_ref64.pt"),
+            "ref_driver": os.path.join(root, "dp_ref_driver.pt")}
+
+
+def sp_dp_reference(torch, fused, spec, device):
+    """The one-process references of (h)-(k): (h) float32 on its own
+    segments with the floor of SP_SEG_FLOOR_RUNS on them (dp_reference),
+    (i) float64 with the floor of its images reversed, (h) the bf16 step
+    timed, (k) the drivers. Returns what the lines print of them."""
+    dp = spec["dp"]
+    out = {"f32": dp_reference(torch, dp, device, SP_SEG_FLOOR_RUNS,
+                               ("equal",))["equal"],
+           "f32_losses": torch.load(dp["ref"], weights_only=True)["losses"]}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ref = sp_f64_step(torch, spec, device, key="dp")
+    floor, equal, _ = sp_f64_measures(
+        ref, sp_f64_step(torch, spec, device, swap=True, key="dp"))
+    if not equal:  # float64 has no k-means near-ties to move a pixel
+        raise AssertionError("sp DensePose float64 floor run: the segments "
+                             "of the reversed batch differ")
+    torch.save({**ref, "floor": floor}, dp["ref64"])
+    out["f64_floor"] = max(floor.values())
+    ref = None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["time"] = sp_time(torch, spec, device, key="dp_bf16")
+    out["driver"] = sp_dp_driver(torch, fused, spec, device)
+    return out
+
+
+def sp_dp_equality(torch, fused, spec, device, mesh):
+    """(h) float32 and (j): this rank's rows of DensePose's step on the
+    one process's segments (each rank its rows of them), first with
+    float32 loss operands, held to [dp] (a)'s checks at tolerance +
+    floor over SP_DP_CHECKED, then with tpu.loss_operand_dtype
+    "bfloat16", its losses within BF16_LOSS_RTOL of the one process's
+    float32 step; the kernels launched with their N and P."""
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+    from spml_tpu_torch.train import step as step_lib
+
+    dp = spec["dp"]
+    ref = torch.load(dp["ref"], weights_only=True)
+    every = slice(0, dp["global"])
+    out = {}
+    for arm in ("f32", "f32_lbf16"):
+        cfg, batch, state = dp_setup(dp, arm, device)
+        cfg.tpu.spatial_partition = SP_SPACE
+        local = mesh_lib.shard_rows(batch, mesh)
+        step = step_lib.make_train_step(cfg)
+        fused.reset_launch_counts()
+        with recording_stats(torch, fused, "hard") as last, \
+                segments_of(torch, ref["segments"], every,
+                            (mesh.space_rank, mesh.space)) as rec:
+            state, m = step(state, local)
+        got = dp_step_result(torch, state, m, rec)
+        entry = {"losses": got["losses"],
+                 "launches": {k: v for k, v in fused.LAUNCHES.items() if v},
+                 "n": int(last["args"][0].shape[0]),
+                 "p": int(last["args"][3].shape[0])}
+        if arm == "f32":
+            got["segments"] = sp_join_segments(torch, got["segments"], mesh)
+            measures, bad = compare_step(
+                torch, ref, got, every, dp["capacity"], ref["floor"]["equal"],
+                DP_CHECKS, dp["checked"])
+            if bad:
+                raise AssertionError(f"sp rank {mesh.rank} DensePose against "
+                                     f"one process: {bad} ({measures})")
+            entry.update(measures)
+            entry["digest"] = digest({**got["after"], **{
+                "bank." + k: v for k, v in got["memory"].items()}})
+        else:
+            want = ref["losses"]
+            entry["rel"] = {k: abs(got["losses"][k] - v) / abs(v)
+                            for k, v in want.items()}
+            if (got["losses"].keys() != want.keys()
+                    or max(entry["rel"].values()) > BF16_LOSS_RTOL):
+                raise AssertionError(
+                    f"sp rank {mesh.rank} DensePose, bf16 loss operands: "
+                    f"losses {got['losses']} against float32 {want}, "
+                    f"rtol {BF16_LOSS_RTOL}")
+        out[arm] = entry
+        state = m = got = None
+    return out
+
+
+@contextlib.contextmanager
+def prototypes_reversed():
+    """The dense SegSort loss (ops/losses.py::segsort_log_likelihood,
+    img_sim's) with the prototype axis in reverse order: the same sums
+    over the prototypes, added in another order."""
+    from spml_tpu_torch.ops import losses
+
+    orig = losses.segsort_log_likelihood
+
+    def flipped(emb, own, same, diff, protos, concentration):
+        return orig(emb, protos.shape[-2] - 1 - own, same.flip(-1),
+                    diff.flip(-1), protos.flip(-2), concentration)
+
+    losses.segsort_log_likelihood = flipped
+    try:
+        yield
+    finally:
+        losses.segsort_log_likelihood = orig
+
+
+@contextlib.contextmanager
+def img_sim_images():
+    """Records the per-image means of the train step's img_sim
+    (train/step.py::_grouped_masked_mean's per_image calls): the yielded
+    list gets each call's values, float."""
+    from spml_tpu_torch.train import step
+
+    orig, got = step._grouped_masked_mean, []
+
+    def recording(values, mask, *a, per_image=False, **k):
+        if per_image:
+            got.append(values.detach().double().cpu().tolist())
+        return orig(values, mask, *a, per_image=per_image, **k)
+
+    step._grouped_masked_mean = recording
+    try:
+        yield got
+    finally:
+        step._grouped_masked_mean = orig
+
+
+def sp_dp_driver(torch, fused, spec, device, mesh=None):
+    """(k): the DensePose CLIs' drivers on every rank (mesh) or in one
+    process: train_spml with DenseposeTagDataset for SP_DP_DRIVER_ITERS
+    iterations with the models, bank and images in float64 (the dense
+    losses), then train_classifier with DenseposeClassifierDataset over
+    its snapshot in float32, then train_spml as the recipe ships
+    (float32, the fused loss) for one iteration ("stage1_f32"), and in
+    one process that again in each of SP_DP_F32_FLOOR_RUNS on its
+    segments: each run's logged losses, launches, digest. The
+    classifiers' dropout is 0 (rank r draws its rows' masks from seed +
+    r, one process from seed), as in (a)-(j). The one process writes its
+    k-means segments of each run's steps to spec["dp"]["ref_driver"];
+    the ranks' steps take their rows of those."""
+    import argparse
+    import dataclasses
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.data import datasets
+    from spml_tpu_torch.train import classifier_step, driver
+    from spml_tpu_torch.train import step as step_lib
+
+    dp = spec["dp"]
+    root = os.path.join(spec["root"], "dp_sp" if mesh else "dp_one")
+    logged = []
+    log_metrics, next_batch = driver._log_metrics, driver._next_batch
+
+    def capture(writer, metrics, it, prefix=""):
+        logged.append((it, {k: float(v) for k, v in metrics.items()
+                            if k.endswith("loss")}))
+        log_metrics(writer, metrics, it, prefix)
+
+    # opts: the running run's (the loop below): f64, nchw, bn, reverse
+    def next_run(*a, **k):  # the run's images: float64, NCHW layout
+        batch = next_batch(*a, **k)
+        image = batch["image"]
+        if opts.get("f64"):
+            image = image.double()
+        if opts.get("nchw"):
+            image = image.permute(0, 3, 1, 2).contiguous().permute(
+                0, 2, 3, 1)
+        return {**batch, "image": image}
+
+    def config(pretrained=None, shipped=False):
+        cfg = load_config(overrides=dp["driver"])
+        if mesh is None:
+            cfg.tpu.spatial_partition = 1
+        if pretrained:
+            cfg.network.pretrained = pretrained
+        if shipped:  # stage1_f32: one iteration, the fused loss
+            cfg.train.max_iteration = SP_DP_DRIVER_RUN_ITERS["stage1_f32"]
+            cfg.tpu.use_fused_loss = True
+        return cfg
+
+    def stage1_state(*a, **k):
+        state = inits[0](*a, **k)
+        state.cls_model.semantic_classifier[3].p = 0.0
+        for model in (state.emb_model, state.cls_model):
+            if opts.get("nchw"):
+                model.to(memory_format=torch.contiguous_format)
+            if opts.get("f64"):
+                model.double()
+                model.compute_dtype = torch.float64
+        if opts.get("f64"):
+            state.memory = dataclasses.replace(state.memory, **{
+                k: v.double() for k, v in vars(state.memory).items()
+                if v.is_floating_point()})
+        return state
+
+    def stage2_state(*a, **k):
+        state = inits[1](*a, **k)
+        state.cls_model.semantic_classifier[3].p = 0.0
+        return state
+
+    inits = step_lib.init_state, classifier_step.init_classifier_state
+    step_lib.init_state = stage1_state
+    classifier_step.init_classifier_state = stage2_state
+    tag = (driver.train_spml, datasets.DenseposeTagDataset)
+    runs = [("stage1", *tag, config(), {"f64": True}),
+            ("stage2", driver.train_classifier,
+             datasets.DenseposeClassifierDataset,
+             config(os.path.join(root, "stage1")), {}),
+            ("stage1_f32", *tag, config(shipped=True), {})]
+    if mesh is None:
+        runs += [(f"stage1_f32 {name}", *tag, config(shipped=True), kw)
+                 for name, kw in SP_DP_F32_FLOOR_RUNS.items()]
+    out, every = {}, {}
+    driver._log_metrics, driver._next_batch = capture, next_run
+    given = (None if mesh is None
+             else torch.load(dp["ref_driver"], weights_only=True))
+    shard = (0, 1) if mesh is None else (mesh.space_rank, mesh.space)
+    try:
+        for run, fn, data_cls, cfg, opts in runs:
+            logged.clear()
+            fused.reset_launch_counts()
+            each = (given[run] if given else every["stage1_f32"]
+                    if run.startswith("stage1_f32 ") else None)
+            with segments_of(torch, shard=shard, each=each) as rec, \
+                    (plain_batch_norm(torch, opts["bn"]) if "bn" in opts
+                     else contextlib.nullcontext()), \
+                    (prototypes_reversed() if opts.get("reverse")
+                     else contextlib.nullcontext()), \
+                    img_sim_images() as images:
+                state = fn(argparse.Namespace(
+                    data_dir=dp["data"], data_list=dp["list"],
+                    snapshot_dir=os.path.join(root, run)), cfg, data_cls,
+                    device=device)
+            every[run] = rec["every"]
+            w = cfg.train.img_sim_loss_weight
+            out[run] = {
+                "logged": list(logged),
+                "launches": {k: v for k, v in fused.LAUNCHES.items() if v},
+                "digest": digest(model_tensors(state)
+                                 if state.emb_model is not None
+                                 else state.cls_model.state_dict()),
+                # each step's img_sim of each image (a rank: its share)
+                # and its valid pixels (a rank: its rows')
+                "img_sim_images": [[w * x for x in v] for v in images],
+                "img_sim_pixels": [seg[1].sum(-1).tolist()  # pixel_valid
+                                   for seg in rec["every"]]}
+            state = None
+    finally:
+        driver._log_metrics, driver._next_batch = log_metrics, next_batch
+        step_lib.init_state, classifier_step.init_classifier_state = inits
+    if mesh is None:
+        torch.save(every, dp["ref_driver"])
+    return out
+
+
+def sp_densepose_lines(spec, ranks, one):
+    """Lines (h)-(k), then their checks (the lines first: a failure
+    shows them)."""
+    log_sp_densepose(spec, ranks, one)
+    check_sp_densepose(spec, ranks, one)
+
+
+def sp_dp_driver_floor(one):
+    """{run: [{loss: floor} an iteration]}: 0 but in stage1_f32, where a
+    loss's floor is the largest |difference| of a run of
+    SP_DP_F32_FLOOR_RUNS from the one process's; img_sim's, the mean over
+    the images of each image's largest (img_sim is a mean over the images
+    of a few point-labelled pixels each, and the runs' differences of
+    the images may cancel in their mean by chance); the total loss's,
+    the sum of its terms' floors."""
+    dr, out = one["driver"], {}
+    for run in SP_DP_DRIVER_RTOL:
+        out[run] = []
+        for i, (it, m) in enumerate(dr[run]["logged"]):
+            fl = dict.fromkeys(m, 0.0)
+            if run == "stage1_f32":
+                runs = [dr[f"{run} {name}"] for name in SP_DP_F32_FLOOR_RUNS]
+                fl = {k: max(abs(dict(f["logged"])[it][k] - v) for f in runs)
+                      for k, v in m.items()}
+                fl["img_sim_loss"] = float(np.mean([
+                    max(abs(f["img_sim_images"][i][j] - x) for f in runs)
+                    for j, x in enumerate(dr[run]["img_sim_images"][i])]))
+                fl["loss"] = fl["sem_ann_loss"] + fl["img_sim_loss"]
+            out[run].append(fl)
+    return out
+
+
+def check_sp_densepose(spec, ranks, one):
+    """(h)-(k) of the ranks: equal to each other, K4-K6 (and in (j) their
+    bf16 forms) once a step a rank at the rank's N and P, the drivers'
+    iterations and launches, and their losses against one process's."""
+    dp = spec["dp"]
+    if len({(r["dp"]["f32"]["digest"], *(r["dp_driver"][run]["digest"]
+                                          for run in SP_DP_DRIVER_RTOL))
+            for r in ranks}) != 1:
+        raise AssertionError("sp DensePose: the ranks' tensors differ")
+    bf16 = tuple(k + BF16 for k in K46)
+    for r in ranks:
+        e = r["dp"]
+        got = [(e[a]["launches"], e[a]["n"], e[a]["p"]) for a in e] + [
+            r["dp_timing"]["launches"],
+            *(r["dp_driver"][run]["launches"] for run in SP_DP_DRIVER_RTOL)]
+        want = [(dict.fromkeys(K46, 1), dp["n"], dp["p"]),
+                (dict.fromkeys(bf16, 1), dp["n"], dp["p"]),
+                dict.fromkeys(K46, 16), {}, {}, dict.fromkeys(K46, 1)]
+        if got != want:
+            raise AssertionError(f"sp rank {r['rank']} DensePose: (launches, "
+                                 f"N, P) {got}, want {want}")
+        check_sp_dp_driver(r, one)
+
+
+def check_sp_dp_driver(r, one):
+    """(k) of rank r: each run's iterations, and each logged loss within
+    its run's SP_DP_DRIVER_RTOL of one process's, plus the floor."""
+    floor = sp_dp_driver_floor(one)
+    for run, rtol in SP_DP_DRIVER_RTOL.items():
+        mine = r["dp_driver"][run]["logged"]
+        ref = one["driver"][run]["logged"]
+        its = [it for it, _ in mine]
+        bad = {(it, k): (v, w[k]) for (it, m), (_, w), fl in zip(
+            mine, ref, floor[run]) for k, v in m.items()
+               if not abs(v - w[k]) <= rtol * abs(w[k]) + fl[k]}
+        if (its != list(range(SP_DP_DRIVER_RUN_ITERS[run]))
+                or its != [it for it, _ in ref] or bad):
+            raise AssertionError(f"sp rank {r['rank']} DensePose {run} "
+                                 f"driver: iterations {its}, losses "
+                                 f"(rank, one process) {bad}")
+
+
+def log_sp_densepose(spec, ranks, one):
+    """Lines (h)-(k) of the [sp] phase."""
+    dp = spec["dp"]
+    eq = [r["dp"]["f32"] for r in ranks]
+    log("sp", f"(h) float32 (TF32 off, dropout 0), the DensePose point step "
+        f"(panoptic_pspnet_101_densepose, fused hard-label loss) at batch "
+        f"{SP_DP_BATCH} over {SP_SPACE} space ranks against one process, "
+        f"[dp] (a)'s tolerances over the {len(SP_DP_CHECKED)} tensors of "
+        "tests/test_torch_densepose_step.py, each plus the floor of "
+        f"{', '.join(SP_SEG_FLOOR_RUNS)}. "
+        + dp_mode_words("equal", eq, one["f32"], dp["n"] * SP_SPACE)
+        + f" Losses {eq[0]['losses']}; launches a rank "
+        + " / ".join(str(e["launches"]) for e in eq)
+        + f": K4-K6 once each at N {eq[0]['n']} (a rank's rows), P "
+        f"{eq[0]['p']}; the ranks' parameters, buffers and banks "
+        "torch.equal (sha256)")
+    f64 = [r["dp64"] for r in ranks]
+    log("sp", f"(i) float64, batch {SP_SEG_F64_BATCH}, dense losses with "
+        f"sem_occ and tpu.apply_feat_aff (NN tags, feat_aff): the "
+        f"{f64[0]['pixels']} pixels' k-means segments and the bank labels "
+        f"equal one process's; losses, {f64[0]['n_grads']} gradients (each "
+        f"element over its max) and the bank prototypes within "
+        f"{SP_F64_RTOL} + the floor (images reversed, largest "
+        f"{one['f64_floor']:.3e}); worst " + " | ".join(
+            f"rank {r}: {w[0]} {w[1]:.3e} (floor {w[2]:.3e})"
+            for r, w in enumerate(f["worst"] for f in f64)))
+    lb = [r["dp"]["f32_lbf16"] for r in ranks]
+    log("sp", f"(j) (h) with tpu.loss_operand_dtype bfloat16: losses "
+        f"{lb[0]['losses']}, relative to the one process's float32 "
+        f"{one['f32_losses']} at most " + " / ".join(
+            f"{max(e['rel'].values()):.3e}" for e in lb)
+        + f" (rtol {BF16_LOSS_RTOL}); launches a rank "
+        + " / ".join(str(e["launches"]) for e in lb)
+        + f" at N {lb[0]['n']}, P {lb[0]['p']}")
+    st = [r["dp_timing"] for r in ranks]
+    ms = max(t["ms"] for t in st)
+    coll = {k: max(t["collectives"][k][0] for t in st) for k in SP_DP_KINDS}
+    counts = {k: st[0]["collectives"][k][1] for k in SP_DP_KINDS}
+    log("sp", f"(h) bf16 DensePose point step as it ships, global batch "
+        f"{SP_DP_BATCH}, 3 + 10 steps: {ms:.2f} ms/step (ranks "
+        + " / ".join(f"{t['ms']:.2f}" for t in st)
+        + f"), {SP_DP_BATCH * 1000 / ms:.2f} images/s, peak "
+        + " / ".join(f"{t['peak']:.2f}" for t in st)
+        + f" GiB a rank against one process's {one['time']['peak']:.2f} "
+        f"GiB ({one['time']['ms']:.2f} ms/step); collectives a step "
+        "(slowest rank, ms, count): "
+        + ", ".join(f"{k} {coll[k]:.2f} ({counts[k]})" for k in SP_DP_KINDS)
+        + "; launches a rank " + " / ".join(str(t["launches"]) for t in st))
+    log_sp_dp_driver(ranks, one)
+
+
+def sum_ranks(ranks, key, run="stage1_f32"):
+    """The ranks' per-image lists of dp_driver[run][key], summed over
+    the ranks, a step each."""
+    return [[float(f"{sum(x):.9g}") for x in zip(*steps)] for steps in zip(
+        *(r["dp_driver"][run][key] for r in ranks))]
+
+
+def log_sp_dp_driver(ranks, one):
+    """Line (k) of the [sp] phase."""
+    dr = ranks[0]["dp_driver"]
+
+    def rel(run):
+        """Each logged loss's difference from one process's, relative."""
+        return [{k: float(f"{abs(v - w[k]) / abs(w[k] or 1.0):.3e}")
+                 for k, v in m.items()}
+                for (_, m), (_, w) in zip(dr[run]["logged"],
+                                          one["driver"][run]["logged"])]
+
+    def share(d, tol):
+        return d / tol if tol else math.inf if d else 0.0
+
+    f32 = zip(dr["stage1_f32"]["logged"], one["driver"]["stage1_f32"][
+        "logged"], sp_dp_driver_floor(one)["stage1_f32"])
+    log("sp", f"(k) the DensePose CLIs' drivers, {SP_SPACE} space ranks "
+        "against one process (its k-means segments), dropout 0: "
+        f"train_spml (DenseposeTagDataset, batch {SP_DP_BATCH}) in float64 "
+        "with the dense losses " + "; ".join(
+            f"iteration {it} {m}" for it, m in dr["stage1"]["logged"])
+        + "; train_classifier (DenseposeClassifierDataset) over its "
+        "snapshot, float32, " + "; ".join(
+            f"iteration {it} {m}" for it, m in dr["stage2"]["logged"])
+        + ", no kernel; train_spml as it ships (float32, K4-K6 "
+        f"{dr['stage1_f32']['launches']}) " + "; ".join(
+            f"iteration {it} {m}: |difference| " + ", ".join(
+                f"{k} {abs(v - w[k]):.3e} (floor {fl[k]:.3e}, "
+                f"{share(abs(v - w[k]), DP_LOSS_RTOL * abs(w[k]) + fl[k]):.3f}"
+                " of tolerance + floor)" for k, v in m.items())
+            for (it, m), (_, w), fl in f32)
+        + f"; floor runs ({', '.join(SP_DP_F32_FLOOR_RUNS)}) " + str(
+            {name: one["driver"][f"stage1_f32 {name}"]["logged"]
+             for name in SP_DP_F32_FLOOR_RUNS})
+        + "; img_sim of each image (weighted), the ranks' shares summed "
+        f"{sum_ranks(ranks, 'img_sim_images')}, one process "
+        f"{one['driver']['stage1_f32']['img_sim_images']}, " + ", ".join(
+            f"{name} {one['driver'][f'stage1_f32 {name}']['img_sim_images']}"
+            for name in SP_DP_F32_FLOOR_RUNS)
+        + ", over valid pixels (ranks summed) "
+        f"{sum_ranks(ranks, 'img_sim_pixels')}"
+        + "; relative to one process's " + str(
+            {run: rel(run) for run in SP_DP_DRIVER_RTOL})
+        + f" (rtol {SP_DP_DRIVER_RTOL}); the ranks torch.equal")
 
 
 # ---------------------------------------------------------------------------

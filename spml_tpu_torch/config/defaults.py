@@ -103,8 +103,9 @@ class TpuConfig:
     # neither 1 nor that size raises there
     num_devices: int = 1
     # image height sharded over this many devices (the JAX package's
-    # ('data', 'space') mesh): only 1 is ported, more raises
-    # (parallel/mesh.py::make_mesh)
+    # ('data', 'space') mesh, parallel/halo.py): every backbone and step
+    # runs sharded; a crop height that is not a multiple of 8 x this
+    # raises (uneven shards are not ported)
     spatial_partition: int = 1
     # max distinct (cluster, semantic, instance) segments per image
     segment_capacity: int = 256

@@ -19,9 +19,12 @@ tests' exact reference).
 
 Height-sharded (tpu.spatial_partition, inside parallel/halo.py's
 sharded()): the images are this rank's rows of its images, and so are
-the outputs. The backbone, ASPP and the classifier head's 3x3 conv
-exchange halo rows; the x2 upsample reads one row above and below
-(halo.interpolate); the location features are the global grid's rows.
+the outputs. The backbone, ASPP, PSPP's fusing conv and the classifier
+head's 3x3 conv exchange halo rows; PSPP's pools are summed over the
+space group (models/spp.py); the x2 upsample reads one row above and
+below (halo.interpolate); the location features are the global grid's
+rows, the colour features the rank's rows of the whole images' (made
+from the gathered images, models/local.py).
 """
 
 from __future__ import annotations

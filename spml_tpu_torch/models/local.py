@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from spml_tpu_torch.models.spp import resize_bilinear
 from spml_tpu_torch.ops import common
+from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 
 
 def location_features(batch: int, size: tuple[int, int], device=None,
@@ -49,6 +50,18 @@ def smooth_colors(images: torch.Tensor, ksize: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
+def _whole_images(images: torch.Tensor, ranks: int) -> torch.Tensor:
+    """The whole images of this rank's rows `images` [B, h, W, C]: every
+    space rank's rows gathered in order over the open halo.sharded()
+    block's space group, labelled "colour" (no gradient)."""
+    mesh = halo.current()
+    if mesh is None or mesh.space != ranks:
+        raise ValueError(f"colour features of an image sharded over {ranks} "
+                         "ranks are made inside halo.sharded() of that mesh")
+    with mesh_lib.collective("colour"):
+        return mesh_lib.gather_rows(images.contiguous(), mesh)
+
+
 @torch.no_grad()
 def location_color_features(images: torch.Tensor, size: tuple[int, int],
                             use_color: bool = False,
@@ -58,9 +71,13 @@ def location_color_features(images: torch.Tensor, size: tuple[int, int],
                             shard: tuple[int, int] = (0, 1)
                             ) -> torch.Tensor:
     """[B, H, W, 3] images -> [B, h, w, L] local features, channels
-    [y, x, r, g, b] (location, colour, each optional). shard: the
-    location grid's rows of a height-sharded image (location_features);
-    colour (per-image statistics) is not sharded.
+    [y, x, r, g, b] (location, colour, each optional). shard (rank,
+    ranks): images and size are that rank's rows of images split over
+    `ranks` ranks (location_features). Colour reads other ranks' rows
+    (the blur's, the resize's) and per-image statistics: the rank's
+    image rows are gathered over the space group (_whole_images), the
+    colour features made from the whole images as one process makes
+    them, and the rank's rows kept: the same bits.
 
     Colour, in float32: optionally blurred, bilinearly resized to `size`
     (antialias=False), and with norm_color centred on each image's
@@ -68,22 +85,23 @@ def location_color_features(images: torch.Tensor, size: tuple[int, int],
     (local_model.py:96-116).
     """
     n = images.shape[0]
+    rank, ranks = shard
     feats = []
     if use_location:
         feats.append(location_features(n, size, device=images.device,
                                        shard=shard))
     if use_color:
-        if shard[1] > 1:
-            raise NotImplementedError("colour features of a height-sharded "
-                                      "image")
         x = images.float()
+        if ranks > 1:
+            x = _whole_images(x, ranks)
         if smooth_ksize:
             x = smooth_colors(x, smooth_ksize)
-        x = resize_bilinear(x, size)
+        h = size[0]
+        x = resize_bilinear(x, (h * ranks, size[1]))
         if norm_color:
             c = x.shape[-1]
             x = x - x.reshape(n, -1, c).mean(dim=1)[:, None, None, :]
             mx = x.reshape(n, -1, c).abs().amax(dim=1)
             x = x / mx[:, None, None, :]
-        feats.append(x)
+        feats.append(x[:, rank * h:(rank + 1) * h])
     return torch.cat(feats, dim=-1)

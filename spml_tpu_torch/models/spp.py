@@ -9,7 +9,12 @@ concatenated with the input and fused by a 3x3 conv -> BN -> ReLU.
 
 Height-sharded (parallel/halo.py): ASPP exchanges its input's halo once,
 at dilation 24, and each branch reads its rows of it. PSPP's adaptive
-pools reduce over the whole height, which is not ported: it raises.
+pools reduce over the whole height: each rank sums its rows of every
+bin, one sum over the space group gives every rank the whole pooled
+maps (halo.adaptive_avg_pools), on which the 1x1 conv, BN and ReLU run
+replicated; each map is resized to the rank's rows from global source
+coordinates (halo.resize_whole), and the fusing 3x3 conv exchanges its
+halo.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from spml_tpu_torch.models.resnet import BN_EPS, BatchNorm2d
-from spml_tpu_torch.parallel import halo, mesh as mesh_lib
+from spml_tpu_torch.parallel import halo
 
 # PSPP's BatchNorms use the reference's momentum whatever
 # network.bn_momentum says (the JAX package hard-codes flax 1 - 3e-4)
@@ -62,37 +67,34 @@ class ASPP(nn.Module):
 
 
 def _conv_bn_relu(cin, cout, kernel):
-    return [nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
+    return [halo.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
             BatchNorm2d(cout, eps=BN_EPS, momentum=PSPP_BN_MOMENTUM),
             nn.ReLU()]
 
 
 class PSPP(nn.Module):
     """Pyramid pooling (NCHW). Module names are the reference's:
-    pspp_{i} = (adaptive pool, 1x1 conv, BN, ReLU), conv = (3x3 conv,
-    BN, ReLU). nn.AdaptiveAvgPool2d's bin i spans
+    pspp_{i} = (pool, 1x1 conv, BN, ReLU), conv = (3x3 conv, BN, ReLU);
+    the pool's slot is an nn.Identity, since the four pools run
+    together before the branches. nn.AdaptiveAvgPool2d's bin i spans
     [floor(i H / s), ceil((i + 1) H / s)), as the JAX package's
-    adaptive_avg_pool, also where s > H (overlapping bins)."""
+    adaptive_avg_pool, also where s > H (overlapping bins). The four
+    pools run together (halo.adaptive_avg_pools: one collective when
+    height-sharded)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        for i, s in enumerate(PSPP_BINS):
+        # slot 0 keeps the reference's state-dict indices (conv 1, BN 2)
+        for i in range(len(PSPP_BINS)):
             setattr(self, f"pspp_{i + 1}", nn.Sequential(
-                nn.AdaptiveAvgPool2d(s),
-                *_conv_bn_relu(in_channels, out_channels, 1)))
+                nn.Identity(), *_conv_bn_relu(in_channels, out_channels, 1)))
         self.conv = nn.Sequential(*_conv_bn_relu(
             in_channels + len(PSPP_BINS) * out_channels, out_channels, 3))
 
     def forward(self, x):
-        if halo.current() is not None:
-            raise NotImplementedError(
-                "PSPP (panoptic_pspnet_*, DensePose) under "
-                "tpu.spatial_partition > 1: its pools span the whole "
-                "height; " + mesh_lib.SPATIAL_NEXT)
         size = x.shape[2:]
         xs = [x]
-        for i in range(len(PSPP_BINS)):
-            v = getattr(self, f"pspp_{i + 1}")(x)
-            xs.append(F.interpolate(v, size=size, mode="bilinear",
-                                    align_corners=False, antialias=False))
+        for i, v in enumerate(halo.adaptive_avg_pools(x, PSPP_BINS)):
+            v = getattr(self, f"pspp_{i + 1}")(v)
+            xs.append(halo.resize_whole(v, size))
         return self.conv(torch.cat(xs, dim=1))

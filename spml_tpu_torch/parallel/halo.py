@@ -30,6 +30,13 @@ extended rows with no padding along the height.
 
 A tensor read by several operations is exchanged once, at the largest
 halo any of them needs (ASPP's four dilations read one res5).
+
+PSPP's adaptive pools read the whole height: adaptive_avg_pools sums
+each rank's rows of every bin and adds the sums over the space group
+(one collective, labelled "pool"), so that every rank holds the whole
+pooled maps; resize_whole resizes such a map to the rank's rows of the
+global height from global source coordinates (a row factor that need
+not be an integer, unlike interpolate's).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import contextlib
 import functools
 import threading
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -75,7 +83,8 @@ def check_height(height: int, space: int) -> None:
             f"image height {height} with tpu.spatial_partition {space}: "
             f"the height must be a multiple of {ROW_MULTIPLE} x "
             f"spatial_partition = {ROW_MULTIPLE * space} (every stride of "
-            "the network splits its rows evenly over the space ranks)")
+            "the network splits its rows evenly over the space ranks); "
+            + mesh_lib.SPATIAL_NEXT)
 
 
 # ---------------------------------------------------------------------------
@@ -349,3 +358,87 @@ class Conv2d(nn.Conv2d):
             return super().forward(x)
         return conv2d(x, self.weight, self.bias, self.stride, self.padding,
                       self.dilation, self.groups)
+
+
+# ---------------------------------------------------------------------------
+# Whole-height operations: PSPP's pyramid pools
+# ---------------------------------------------------------------------------
+
+def adaptive_bins(n: int, s: int) -> list[tuple[int, int]]:
+    """nn.AdaptiveAvgPool2d's bins of an axis of n to s: bin i spans
+    [floor(i n / s), ceil((i + 1) n / s)), overlapping where s > n."""
+    return [((i * n) // s, -(-((i + 1) * n) // s)) for i in range(s)]
+
+
+def adaptive_avg_pools(x: torch.Tensor, sizes) -> list[torch.Tensor]:
+    """F.adaptive_avg_pool2d(x, s) for each s of `sizes` (NCHW), of the
+    image whose rows the ranks of the open sharded() block hold: every
+    rank gets the whole [B, C, s, s] maps. Each rank sums the columns'
+    means of each bin over its own rows of the bin's global rows, in
+    float32 at least; one sum over the space group, labelled "pool" (with
+    gradient: each rank's rows get the gradient of every rank's use of
+    the maps), for every size at once; then each bin's sum over its
+    global row count. Outside sharded(), F.adaptive_avg_pool2d."""
+    mesh = current()
+    if mesh is None:
+        return [F.adaptive_avg_pool2d(x, s) for s in sizes]
+    b, c, h, _ = x.shape
+    height, first = h * mesh.space, mesh.space_rank * h
+    xf = x if x.dtype == torch.float64 else x.float()
+    parts, counts = [], []
+    for s in sizes:
+        cols = F.adaptive_avg_pool2d(xf, (h, s))  # [B, C, h, s]
+        for lo, hi in adaptive_bins(height, s):
+            a, z = max(lo, first) - first, min(hi, first + h) - first
+            parts.append(cols[:, :, a:z].sum(2) if z > a
+                         else cols.new_zeros((b, c, s)))
+            counts += [hi - lo] * s
+    sums = torch.cat(parts, dim=2)  # [B, C, sum of s * s]: every bin
+    with mesh_lib.collective("pool"):
+        sums = mesh_lib.group_sum(sums, mesh.space_group())
+    means = (sums / sums.new_tensor(counts)).to(x.dtype)
+    return [m.reshape(b, c, s, s) for m, s in zip(
+        means.split([s * s for s in sizes], dim=2), sizes)]
+
+
+def _row_blend(n_in: int, n_out: int, rows: range, dtype):
+    """Source rows (i0, i1) and weights (l0, l1) of output rows `rows` of
+    a half-pixel bilinear resize of n_in rows to n_out, as F.interpolate
+    (align_corners=False) computes them: src = max((r + 0.5) n_in / n_out
+    - 0.5, 0), i0 its floor, i1 the next row but at the last, in float32
+    (float64 for float64 maps)."""
+    acc = np.float64 if dtype == torch.float64 else np.float32
+    scale = acc(n_in) / acc(n_out)
+    src = np.maximum(scale * (np.arange(rows.start, rows.stop, dtype=acc)
+                              + acc(0.5)) - acc(0.5), acc(0))
+    i0 = src.astype(np.int64)
+    i1 = np.where(i0 < n_in - 1, i0 + 1, i0)
+    l1 = src - i0.astype(acc)
+    return i0, i1, acc(1) - l1, l1
+
+
+def resize_whole(x: torch.Tensor, size) -> torch.Tensor:
+    """NCHW half-pixel bilinear resize of a map that every rank holds
+    whole (PSPP's pooled maps) to `size` = (this rank's output rows,
+    width): this rank's rows of the resize to the global height, from
+    global source coordinates; the width resized first, in float32 at
+    least, then each row blended from its two source rows with
+    F.interpolate's weights, the rank's rows alone computed.
+    F.interpolate outside sharded()."""
+    mesh = current()
+    if mesh is None:
+        return F.interpolate(x, size=tuple(size), mode="bilinear",
+                             align_corners=False, antialias=False)
+    oh, ow = size
+    n_in, n_out = x.shape[2], oh * mesh.space
+    xf = x if x.dtype == torch.float64 else x.float()
+    xw = F.interpolate(xf, size=(n_in, ow), mode="bilinear",
+                       align_corners=False, antialias=False)
+    rows = range(mesh.space_rank * oh, (mesh.space_rank + 1) * oh)
+    i0, i1, l0, l1 = _row_blend(n_in, n_out, rows, xf.dtype)
+    w0 = torch.from_numpy(l0).to(xw.device, xw.dtype).view(1, 1, -1, 1)
+    w1 = torch.from_numpy(l1).to(xw.device, xw.dtype).view(1, 1, -1, 1)
+    y = (xw.index_select(2, _idx(i0.tolist(), xw)) * w0
+         + xw.index_select(2, _idx(i1.tolist(), xw)) * w1)
+    return y.to(x.dtype)
+

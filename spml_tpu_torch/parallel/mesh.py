@@ -43,7 +43,8 @@ per-segment sums of a height-sharded image) gathers the ranks' partial
 sums and adds them in rank order.
 
 Each collective runs under the label of what it serves (collective():
-"gradient", "batch norm", "gather", "halo", "segments", "other"); a timer set with
+"gradient", "batch norm", "gather", "halo", "segments", "pool" (PSPP's
+pools), "colour" (DensePose's colour features), "other"); a timer set with
 set_collective_timer wraps every collective with its label. None is set
 unless a caller sets one.
 """
@@ -63,12 +64,9 @@ import torch.distributed as dist
 
 from spml_tpu_torch.utils.device import resolve_device
 
-SPATIAL_NEXT = ("tpu.spatial_partition > 1 is ported for the DeepLab "
-                "backbones (the SegSort branch, the softmax baseline and "
-                "the stage-2 classifier); PSPP's whole-height pools and "
-                "DensePose's colour features, NN tags and feat_aff over "
-                "height shards are the next slice, ROADMAP Queue 1 item "
-                "1(c)")
+SPATIAL_NEXT = ("uneven height shards (a crop height that is not a multiple "
+                "of 8 x tpu.spatial_partition, which GSPMD pads) are not "
+                "ported: ROADMAP Queue 1 item 1(d)")
 
 # Batch keys whose axis 1 is the image height: the only leaves that shard
 # over 'space' (spml_tpu/parallel/mesh.py:58-63).

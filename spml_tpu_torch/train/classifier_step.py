@@ -19,9 +19,10 @@ summed over the ranks.
 
 Height-sharded (tpu.spatial_partition > 1, parallel/halo.py): each rank
 holds its rows of its data rank's images. The frozen embedding (eval
-mode: no batch-norm collective) and the head exchange halo rows on every
-rank, the logits are resized to the rank's rows of the full-resolution
-grid, and the cross-entropy is the same global masked mean.
+mode: no batch-norm collective; a PSPNet's pools summed over the space
+group without gradient) and the head exchange halo rows on every rank,
+the logits are resized to the rank's rows of the full-resolution grid,
+and the cross-entropy is the same global masked mean.
 """
 
 from __future__ import annotations
@@ -36,8 +37,7 @@ from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import TrainState
 from spml_tpu_torch.train.step import (_accuracy, _compute_dtype,
-                                       _cross_entropy, _sum_gradients,
-                                       check_spatial)
+                                       _cross_entropy, _sum_gradients)
 from spml_tpu_torch.utils.device import resolve_device
 
 DROPOUT = 0.65
@@ -84,7 +84,7 @@ def make_classifier_train_step(config, emb_model):
     schedule = optim.make_schedule(tcfg)
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
     world = mesh.world
-    check_spatial(config, mesh, stage2=True)
+    halo.check_height(config.train.crop_size[0], mesh.space)
 
     def train_step(state: TrainState, batch):
         images = batch["image"]

@@ -70,10 +70,15 @@ prototypes are gathered over the data group (each data rank's once) and
 the losses (K1-K9 or the dense ones) read the rank's pixel rows against
 them and the bank; img_sim's per-image mean is the sum over the rank's
 pixels over the image's count over the space group, and each image
-counts once in the mean over images. PSPP and DensePose raise
-(ROADMAP Queue 1 item 1(c)). Ranks: the loss groups and the global
-image indices are the data rank's; the dropout generator, the world
-rank's (init_state).
+counts once in the mean over images. The PSPNet backbones (PSPP's
+pools summed over the space group, models/spp.py) and DensePose run so
+too: the colour features are made from the gathered whole images
+(models/local.py), the NN-propagated tags read the gathered, complete
+prototypes, and feat_aff and the hard-label loss read the rank's pixel
+rows with their means counted over the space group. Only a crop height
+that is not a multiple of 8 x S raises (halo.check_height). Ranks:
+the loss groups and the global image indices are the data rank's; the
+dropout generator, the world rank's (init_state).
 
 float64 models and images (the parity checks' runs) keep the step in
 float64 with the dense losses.
@@ -242,24 +247,6 @@ def _named_params(state: TrainState):
                 for n, p in state.cls_model.named_parameters())
 
 
-def check_spatial(config, mesh, stage2: bool = False) -> None:
-    """What a height-sharded step (mesh.space > 1) refuses: DensePose and
-    PSPP (NotImplementedError, ROADMAP Queue 1 item 1(c)), and a crop
-    height that is not a multiple of 8 x space (ValueError)."""
-    if mesh.space == 1:
-        return
-    if "pspnet" in config.network.backbone_types:
-        raise NotImplementedError(
-            f"{config.network.backbone_types} (PSPP) under "
-            "tpu.spatial_partition > 1: " + mesh_lib.SPATIAL_NEXT)
-    if "densepose" in config.network.backbone_types:
-        raise NotImplementedError(
-            f"{config.network.backbone_types} (DensePose: colour features, "
-            "NN tags, feat_aff) under tpu.spatial_partition > 1: "
-            + mesh_lib.SPATIAL_NEXT)
-    halo.check_height(config.train.crop_size[0], mesh.space)
-
-
 def make_train_step(config):
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -306,7 +293,7 @@ def make_train_step(config):
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
     world = mesh.world
     shard = (mesh.space_rank, mesh.space)  # the labels' rows
-    check_spatial(config, mesh)
+    halo.check_height(config.train.crop_size[0], mesh.space)
     wide = common.at_least_float32
 
     def _n_groups(b):

@@ -3,13 +3,15 @@ mesh.py), on the CPU and without JAX:
 
 * the parallel package is under tests/test_torch_guards.py's import scan
   and passes its rules;
-* what tpu.spatial_partition > 1 still refuses (parametrised cases):
-  make_mesh(spatial) in a group whose size spatial does not divide
-  (ValueError, as the JAX package's make_mesh), the SegSort branch on
-  DensePose's PSPP backbone and PSPP itself (NotImplementedError naming
-  ROADMAP Queue 1 item 1(c); the DeepLab SegSort step builds), and a
-  crop height that is not a multiple of 8 x spatial (ValueError naming
-  the rule); the drivers set tpu.num_devices to the
+* what tpu.spatial_partition > 1 refuses and what it builds
+  (parametrised cases): make_mesh(spatial) in a group whose size
+  spatial does not divide (ValueError, as the JAX package's make_mesh);
+  the SegSort and stage-2 steps of the DeepLab, PSPNet and DensePose
+  backbones build, and so do the PSPNet softmax steps, and PSPP runs
+  inside halo.sharded (its pools' sum and its conv's halo over a group
+  of one rank); a crop height that is not a multiple of 8 x spatial
+  (ValueError naming the rule and uneven shards' ROADMAP item 1(d));
+  the drivers set tpu.num_devices to the
   world size, and one given as neither 1 nor that size raises;
 * --device values and backends: 'cuda' raises on a host without a card,
   'cpu:N' is N CPU ranks; NCCL for one card a rank, gloo on the CPU, a
@@ -70,9 +72,11 @@ def _spatial_config(**network):
 @pytest.mark.parametrize("case", ["no dividing group", "segsort branch",
                                   "pspp", "uneven height"])
 def test_spatial_partition_raises(case, monkeypatch):
-    """What tpu.spatial_partition 2 still refuses. Outside a group of two
-    ranks make_mesh itself refuses; for the others a 2-rank mesh stands
-    in for make_mesh's (the guards run before any collective)."""
+    """What tpu.spatial_partition 2 refuses, and the backbones it no
+    longer refuses ("segsort branch", "pspp": the steps build). Outside a
+    group of two ranks make_mesh itself refuses; for the others a 2-rank
+    mesh stands in for make_mesh's (the guards run before any
+    collective)."""
     cfg = _spatial_config(prediction_types="softmax_classifier")
     assert cfg.tpu.spatial_partition == 2 and cfg.tpu.num_devices == 1
     if case == "no dividing group":
@@ -86,29 +90,34 @@ def test_spatial_partition_raises(case, monkeypatch):
         return
     monkeypatch.setattr(mesh_lib, "make_mesh",
                         lambda spatial=1: mesh_lib.Mesh(0, 2, spatial))
-    if case == "segsort branch":  # DensePose's SegSort step
-        tstep.make_train_step(_spatial_config())  # DeepLab's builds
-        cfg = _spatial_config(backbone_types="panoptic_pspnet_10_densepose")
-        assert cfg.network.prediction_types == "segsort"
-        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(c\)"):
+    if case == "segsort branch":  # every backbone's SegSort step builds
+        for backbone in ("panoptic_deeplab_10", "panoptic_pspnet_50",
+                         "panoptic_pspnet_10_densepose"):
+            cfg = _spatial_config(backbone_types=backbone)
+            assert cfg.network.prediction_types == "segsort"
             tstep.make_train_step(cfg)
-        cstep.make_classifier_train_step(_spatial_config(),
-                                         torch.nn.Identity())
-    elif case == "pspp":
-        cfg = _spatial_config(prediction_types="softmax_classifier",
-                              backbone_types="panoptic_pspnet_10_densepose")
-        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(c\)"):
+            cstep.make_classifier_train_step(cfg, torch.nn.Identity())
+    elif case == "pspp":  # the PSPNet steps build and PSPP runs sharded
+        for backbone in ("panoptic_pspnet_101",
+                         "panoptic_pspnet_10_densepose"):
+            cfg = _spatial_config(prediction_types="softmax_classifier",
+                                  backbone_types=backbone)
             tstep.make_train_step(cfg)
-        with pytest.raises(NotImplementedError, match=r"PSPP.*item 1\(c\)"):
             cstep.make_classifier_train_step(cfg, torch.nn.Identity())
         from spml_tpu_torch.models.spp import PSPP
         from spml_tpu_torch.parallel import halo
-        with halo.sharded(mesh_lib.Mesh(0, 2, 2)), \
-                pytest.raises(NotImplementedError, match="whole height"):
-            PSPP(8, 4)(torch.zeros(1, 8, 4, 4))
+        # a group of one rank stands for the space group: the pools' sum
+        # over it is the rank's own, the fusing conv's halo rows zeros
+        monkeypatch.setattr(mesh_lib.Mesh, "space_group", lambda self: None)
+        monkeypatch.setattr(mesh_lib, "group_size", lambda group=None: 1)
+        monkeypatch.setattr(halo, "exchange", lambda x, mesh, plans, fill:
+                            torch.nn.functional.pad(x, (0, 0, 1, 1)))
+        with halo.sharded(mesh_lib.Mesh(0, 2, 2)):
+            y = PSPP(8, 4).eval()(torch.randn(1, 8, 4, 5))
+        assert y.shape == (1, 4, 4, 5) and bool(torch.isfinite(y).all())
     else:
         cfg.train.crop_size = (40, 32)
-        rule = "multiple of 8 x spatial_partition = 16"
+        rule = r"multiple of 8 x spatial_partition = 16.*item 1\(d\)"
         for build in (tstep.make_train_step, driver._mesh,
                       lambda c: cstep.make_classifier_train_step(
                           c, torch.nn.Identity())):

@@ -29,6 +29,7 @@ from spml_tpu_torch.models import local, spp
 from spml_tpu_torch.models.embeddings import (EmbeddingModel,
                                               build_classifier_head,
                                               build_embedding_model)
+from spml_tpu_torch.parallel import halo
 from spml_tpu_torch.utils import from_jax
 
 F32 = dict(rtol=1e-5, atol=1e-6)
@@ -174,13 +175,13 @@ def test_pspp_matches_flax():
 @pytest.mark.parametrize("size", [4, 7, 64])
 @pytest.mark.parametrize("bins", [1, 2, 3, 6])
 def test_adaptive_avg_pool_matches_jax(size, bins):
-    """PSPP's pool (nn.AdaptiveAvgPool2d) against the JAX package's
-    adaptive_avg_pool: the same bins, also when the output is larger than
-    the input (overlapping bins)."""
+    """PSPP's pool (halo.adaptive_avg_pools, unsharded) against the JAX
+    package's adaptive_avg_pool: the same bins, also when the output is
+    larger than the input (overlapping bins)."""
     rng = np.random.RandomState(size * 10 + bins)
     x = rng.randn(2, size, size, 3).astype(np.float32)
-    pool = getattr(spp.PSPP(3, 2), f"pspp_{spp.PSPP_BINS.index(bins) + 1}")
-    got = pool[0](torch.from_numpy(x).permute(0, 3, 1, 2))
+    got, = halo.adaptive_avg_pools(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                   [bins])
     np.testing.assert_allclose(
         got.permute(0, 2, 3, 1).numpy(),
         np.asarray(jspp.adaptive_avg_pool(jnp.asarray(x), bins)), **F32)

@@ -336,3 +336,122 @@ def sharded_segments(emb, loc, sem, inst, args, *, device):
     segs = kmeans.segment_batch(t["emb"], t["loc"], t["semantic_label"],
                                 t["instance_label"], *args, mesh=mesh)[0]
     return [x.cpu() for x in segs]
+
+
+def _seeded_pspp(cin, cout, seed):
+    """A float64 PSPP(cin, cout) in train mode, weights and BN affine
+    drawn from `seed`, BN momentum 0.1 (the running statistics move
+    visibly in one forward)."""
+    from spml_tpu_torch.models.resnet import BatchNorm2d
+    from spml_tpu_torch.models.spp import PSPP
+
+    g = torch.Generator().manual_seed(seed)
+    model = PSPP(cin, cout).double()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g,
+                                           dtype=torch.float64) * 0.3)
+            elif isinstance(m, BatchNorm2d):
+                m.momentum = 0.1
+                m.weight.copy_(1 + 0.2 * torch.randn(
+                    m.weight.shape, generator=g, dtype=torch.float64))
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=g,
+                                               dtype=torch.float64))
+    return model.train()
+
+
+def pspp_case(height, spatial, *, device):
+    """halo.adaptive_avg_pools and PSPP (float64, train mode) over this
+    rank's rows of a seeded [2, 8, height, 6] map, inside halo.sharded:
+    the pooled maps (whole on every rank) and the gradient of
+    sum(pools x this rank's own cotangent) (one process: the sum of the
+    ranks' cotangents), then PSPP's output and the gradient of
+    sum(output x a cotangent), the ranks' rows joined, every parameter
+    gradient summed over the ranks, and the running statistics. One
+    process (no group) computes the whole map."""
+    from spml_tpu_torch.models.spp import PSPP_BINS
+
+    mesh = _mesh(spatial)
+    rng = np.random.RandomState(height)
+    x = torch.from_numpy(rng.randn(2, 8, height, 6))
+    pool_cots = [torch.from_numpy(rng.randn(spatial, 2, 8, s, s))
+                 for s in PSPP_BINS]
+    cot = torch.from_numpy(rng.randn(2, 4, height, 6))
+    rows = mesh.rows(height)
+    xl = x[:, :, rows].to(device).requires_grad_()
+    with halo.sharded(mesh):
+        pools = halo.adaptive_avg_pools(xl, PSPP_BINS)
+    own = [c[mesh.space_rank] if mesh.world > 1 else c.sum(0)
+           for c in pool_cots]
+    sum((p * c.to(device)).sum() for p, c in zip(pools, own)).backward()
+    pool_dx = xl.grad
+    model = _seeded_pspp(8, 4, 0).to(device)
+    xl = x[:, :, rows].to(device).requires_grad_()
+    with halo.sharded(mesh):
+        y = model(xl)
+    (y * cot[:, :, rows].to(device)).sum().backward()
+    params = list(model.named_parameters())
+    grads = mesh_lib.all_reduce(torch.cat([p.grad.reshape(-1)
+                                           for _, p in params]))
+
+    def join(t):
+        return mesh_lib.gather_rows(t.detach().contiguous(), mesh,
+                                    dim=2).cpu()
+
+    return {"pools": [p.detach().cpu() for p in pools],
+            "pool_dx": join(pool_dx), "out": join(y), "dx": join(xl.grad),
+            "grads": {n: g.view_as(p).cpu() for (n, p), g in zip(
+                params, grads.split([p.numel() for _, p in params]))},
+            "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                      if "running" in k}}
+
+
+def colour_case(shape, spatial, *, device):
+    """DensePose's local features (location + colour: a 5x5 blur, the
+    resize to the stride-4 grid, the per-image normalization) of this
+    rank's rows of its images of a seeded [4, H, W, 3] batch, inside
+    halo.sharded, joined over every rank: the global batch's."""
+    from spml_tpu_torch.models import local
+
+    mesh = _mesh(spatial)
+    h, w = shape
+    images = np.random.RandomState(h + w).rand(4, h, w, 3).astype(
+        np.float32)
+    x = _local(mesh, {"image": images}, device)["image"]
+    shard = (mesh.space_rank, mesh.space)
+    with halo.sharded(mesh):
+        feats = local.location_color_features(
+            x, (h // 4 // mesh.space, w // 4), use_color=True,
+            norm_color=True, smooth_ksize=5, shard=shard)
+    return _join(feats, mesh).cpu()
+
+
+def densepose_drivers(overrides, init, head_init, data_dir, data_list,
+                      root, *, device):
+    """train_spml with DenseposeTagDataset (the DensePose CLI's) for
+    train.max_iteration iterations from `init`, then train_classifier
+    with DenseposeClassifierDataset over its snapshot from the head
+    head_init: driver_run's results of each."""
+    import argparse
+    import functools
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.data import datasets
+    from spml_tpu_torch.train import driver
+
+    def args(name):
+        return argparse.Namespace(data_dir=data_dir, data_list=data_list,
+                                  snapshot_dir=f"{root}/{name}")
+
+    cfg = load_config(overrides=overrides)
+    stage1 = driver_run(functools.partial(
+        driver.train_spml, dataset_cls=datasets.DenseposeTagDataset),
+        init, args("densepose"), cfg, device=device)
+    cfg = load_config(overrides=overrides)
+    cfg.network.pretrained = f"{root}/densepose"
+    stage2 = driver_run(functools.partial(
+        driver.train_classifier,
+        dataset_cls=datasets.DenseposeClassifierDataset),
+        head_init, args("densepose_classifier"), cfg, device=device)
+    return {"stage1": stage1, "stage2": stage2}
