@@ -8,7 +8,7 @@ self-training chain after them (MSC, CRF, softmax inference,
 pseudo-labels), two data-parallel ranks of the flagship step, the
 drivers and batched inference, two height-sharded ranks of the flagship
 network, the softmax baseline, the SegSort step, the DensePose point
-step and the drivers, report.
+step and the drivers, three at crop 513 (uneven shards), report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -157,7 +157,12 @@ Phases, each printing one line or more:
     on rank 0: its PNGs equal a one-process run's; (g) (a)'s step on the
     one process's segments with tpu.loss_operand_dtype "bfloat16":
     K1-K3's bf16 forms once a rank at (a)'s N and P, each loss within
-    BF16_LOSS_RTOL of the one process's float32 step. Lines (a)-(g) and
+    BF16_LOSS_RTOL of the one process's float32 step and each checked
+    update within its tolerance + float32 floor + plain-bf16 floor (the
+    one process's step with segsort_loss._PlainBf16 statistics against
+    its float32 step: bf16_reference), with the share of those limits a
+    rank counted twice reaches in the one process's float32 step printed
+    beside it. Lines (a)-(g) and
     a summary: the case, ms/step, global images/s, peak a rank, the
     nvidia-smi line;
  7. sp, height-sharded training (tpu.spatial_partition, parallel/
@@ -217,15 +222,30 @@ Phases, each printing one line or more:
     sem_occ + tpu.apply_feat_aff (NN-propagated tags, feat_aff), held as
     (d)'s float64 run; (j) (h)'s step with tpu.loss_operand_dtype
     "bfloat16": K4-K6's bf16 forms once a rank, each loss within
-    BF16_LOSS_RTOL of the one process's float32 step; (k) the DensePose
+    BF16_LOSS_RTOL of the one process's float32 step and each checked
+    update within its bf16 limit, as [dp] (g); (k) the DensePose
     CLIs' drivers (dropout 0) on SP_DP_WORLD_IMAGES point-labelled
     images: train_spml with DenseposeTagDataset for SP_DP_DRIVER_ITERS
     iterations in float64 (the dense losses; the ranks on the one
     process's k-means segments), its logged losses within SP_F64_RTOL of
     one process's, then train_classifier with DenseposeClassifierDataset
     over its snapshot in float32, within DP_LOSS_RTOL (no kernel in
-    either), the ranks equal. Lines (a)-(k) and a summary: ms/step and peak a
-    rank against one process, the nvidia-smi line;
+    either), the ranks equal. Lines (a)-(k) and a summary: ms/step and
+    peak a rank against one process, the nvidia-smi line. Then uneven
+    shards, a second spawn of SP3_SPACE = 3 space ranks (NCCL with a
+    card each when there are 3, else gloo with all on cuda:0) at crop
+    SP3_CROP = 513, DeepLab-v2's VOC training crop (each map split by
+    halo.partition: 257 and 65 rows at strides 2 and 8, the embedding
+    grid's 130 as 43, 43, 44): (l) the flagship
+    SegSort step (fused joint loss, bank 2) in float32 at SP_SEG_BATCH 8
+    on the one process's segments, [dp] (a)'s checks each plus the floor
+    of SP_SEG_FLOOR_RUNS, K1-K3 once a step a rank at its own N (44,720
+    / 44,720 / 45,760) and P 6,144, the ranks equal; float64 at
+    SP_SEG_F64_BATCH 2, dense losses, as (d)'s float64 run; the bf16
+    step as it ships, 3 warm-up and 10 timed steps a rank, collectives
+    by label, beside one process; (m) the same for the DensePose point
+    step at SP_DP_BATCH 4, K4-K6 (N 22,360 / 22,360 / 22,880, P 2,048).
+    Lines (l), (m) and a summary with the phase's seconds;
  8. inference, the single-scale KNN path at VOC's test geometry
     (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
     kernel on it): panoptic_deeplab_101 from random weights of seed 0
@@ -1237,24 +1257,51 @@ def dp_setup(spec, dtype, device):
     return cfg, batch, state
 
 
+def halo_partition(rows, space):
+    """parallel/halo.py::partition (imported where the port is on the
+    path)."""
+    from spml_tpu_torch.parallel import halo
+
+    return halo.partition(rows, space)
+
+
+def grid_rows(crop):
+    """The embedding grid's global rows over images `crop` rows high:
+    the network's three stride-2 halvings, each rounding up, then x2
+    (EmbeddingModel.embedding_rows)."""
+    return 2 * -(-crop // 8)
+
+
+def sp_shard(mesh, crop):
+    """segments_of's shard of this rank at crop height `crop`."""
+    return (mesh.space_rank, mesh.space, grid_rows(crop))
+
+
 @contextlib.contextmanager
-def segments_of(torch, given=None, rows=slice(None), shard=(0, 1),
+def segments_of(torch, given=None, rows=slice(None), shard=(0, 1, None),
                 each=None):
     """Records the k-means segments of the train step (kmeans.
     segment_batch) into the yielded dict ("segments": the last call's,
     "every": each call's); with `given` (a recorded Segments, every image
     of the global batch), the step takes images `rows` of those in place
-    of its own; height-sharded (shard = (space rank, space)), the rank's
-    rows of their pixel fields (the segment fields whole). each: a list
-    of recorded Segments, the n-th call taking each[n] as `given`."""
+    of its own; height-sharded (shard = (space rank, space, the
+    embedding grid's global rows): sp_shard), the rank's rows of the
+    grid's partition of their pixel fields (the segment fields whole).
+    each: a list of recorded Segments, the n-th call taking each[n] as
+    `given`."""
     from spml_tpu_torch.ops import kmeans
+    from spml_tpu_torch.parallel import halo
 
     orig, rec = kmeans.segment_batch, {"every": []}
-    s, space = shard
+    s, space, grid = shard
 
     def cut(t, pixel):
         t = t[rows]
-        return t.reshape(t.shape[0], space, -1)[:, s] if pixel else t
+        if not pixel or space == 1:
+            return t
+        p = halo.partition(grid, space)[s]
+        return t.reshape(t.shape[0], grid, -1)[:, p.start:p.stop].reshape(
+            t.shape[0], -1)
 
     def recording(emb, *a, **k):
         out = orig(emb, *a, **k)
@@ -1320,17 +1367,18 @@ def plain_batch_norm(torch, stats_dtype):
 
 
 def dp_one_process(torch, spec, device, given=None, swap=False, bn=None,
-                   nchw=False):
+                   nchw=False, arm="f32"):
     """One float32 step of one process at the global batch
     (train.batch_size DP_BATCH, so the same loss groups) from the seed-0
     state: its initial and updated tensors, losses, bank and k-means
     segments. given: the segments to take in place of its own; swap: the
     batch's halves swapped (the bank and segments handed back in the
     batch's order); bn: plain_batch_norm's statistics type; nchw: the
-    models and the images in the contiguous NCHW layout."""
+    models and the images in the contiguous NCHW layout; arm: spec's
+    configuration ("f32_lbf16": bf16 loss operands)."""
     from spml_tpu_torch.train import step as step_lib
 
-    cfg, batch, state = dp_setup(spec, "f32", device)
+    cfg, batch, state = dp_setup(spec, arm, device)
     init = dp_model_tensors(state)
     g = spec["global"]
     order = list(range(g))
@@ -1393,6 +1441,81 @@ def dp_reference(torch, spec, device, floor_runs=DP_FLOOR_RUNS,
             torch.cuda.empty_cache()
     torch.save(ref, spec["ref"])
     return runs
+
+
+@contextlib.contextmanager
+def plain_stats(fused, family):
+    """The family's stats function replaced by its plain version on the
+    card too (segsort_loss.*_reference; with bf16 operands _PlainBf16,
+    the statistics of bf16-rounded E and P and c rounded to bf16)."""
+    name = STATS_FN[family]
+    orig = getattr(fused, name)
+    setattr(fused, name, getattr(fused, name + "_reference"))
+    try:
+        yield
+    finally:
+        setattr(fused, name, orig)
+
+
+@contextlib.contextmanager
+def miscounted_rows(fused, family, rows):
+    """The family's statistics' cotangent doubled on the pixel rows
+    `rows` (a [N] bool tensor): those rows counted twice in dE and in
+    their share of dP, as a rank counted twice would be."""
+    name = STATS_FN[family]
+    orig = getattr(fused, name)
+
+    def doubled(*args, **kwargs):
+        stats = orig(*args, **kwargs)
+        scale = 1.0 + rows.to(stats.device, stats.dtype)
+        stats.register_hook(lambda g: g * scale)
+        return stats
+
+    setattr(fused, name, doubled)
+    try:
+        yield
+    finally:
+        setattr(fused, name, orig)
+
+
+def bf16_reference(torch, fused, spec, device, family, rank_rows):
+    """The limits of a step with bf16 loss operands (spec["f32_lbf16"])
+    held against the one process's float32 step on its own segments
+    (spec["ref"], dp_reference's): each checked tensor's [dp] (a)
+    tolerance plus its equal-mode floor plus its plain-bf16 floor, how far
+    the one process's step with the plain bf16 form of the family's
+    statistics (plain_stats) lies from its float32 step. Then the one
+    process's float32 step with a rank counted twice (miscounted_rows on
+    rank_rows, that rank's pixel rows): its shares of the limits, each
+    over 1 if the limits would catch it. Saves the limits with the
+    reference; returns (plain-bf16 floors, miscounted shares)."""
+    ref = torch.load(spec["ref"], weights_only=True)
+    every = slice(0, spec["global"])
+    checked = spec.get("checked", DP_CHECKED)
+    with plain_stats(fused, family):
+        plain = dp_one_process(torch, spec, device, ref["segments"],
+                               arm="f32_lbf16")
+    pm, _ = compare_step(torch, ref, plain, every, spec["capacity"],
+                         checked=checked)
+    floor = ref["floor"]["equal"]["tensors"]
+    ref["bf16_limit"] = {k: pm["tol"][k] + floor[k] + pm["diffs"][k]
+                         for k in checked}
+    plain = None
+    with miscounted_rows(fused, family, rank_rows):
+        wrong = dp_one_process(torch, spec, device, ref["segments"])
+    wm, _ = compare_step(torch, ref, wrong, every, spec["capacity"],
+                         checked=checked)
+    torch.save(ref, spec["ref"])
+    return ({k: pm["diffs"][k] for k in checked},
+            {k: wm["diffs"][k] / ref["bf16_limit"][k] for k in checked})
+
+
+def bf16_update_shares(ref, got):
+    """A bf16-operand step's checked updates (got["after"]) against the
+    float32 reference's: each one's share of ref["bf16_limit"]."""
+    return {k: float((got["after"][k].double()
+                      - ref["after"][k].double()).abs().max()) / lim
+            for k, lim in ref["bf16_limit"].items()}
 
 
 def time_steps(torch, step, state, batch, device, barrier=None):
@@ -1563,7 +1686,8 @@ def dp_equality(torch, fused, spec, device, mesh):
 def dp_loss_operands(torch, fused, spec, device, mesh):
     """(g): (a)'s step on the one process's segments with
     tpu.loss_operand_dtype "bfloat16" (K1-K3's bf16 forms): each loss
-    within BF16_LOSS_RTOL of the one process's float32 step."""
+    within BF16_LOSS_RTOL of the one process's float32 step, each checked
+    update within its bf16 limit (bf16_reference)."""
     from spml_tpu_torch.train import step as step_lib
 
     ref = torch.load(spec["ref"], weights_only=True)
@@ -1577,12 +1701,14 @@ def dp_loss_operands(torch, fused, spec, device, mesh):
         state, m = step(state, local)
     losses = {k: float(v) for k, v in m.items() if k.endswith("loss")}
     rel = {k: abs(losses[k] - v) / abs(v) for k, v in ref["losses"].items()}
+    shares = bf16_update_shares(ref, {"after": dp_model_tensors(state)})
     if losses.keys() != ref["losses"].keys() or \
-            max(rel.values()) > BF16_LOSS_RTOL:
+            max(rel.values()) > BF16_LOSS_RTOL or max(shares.values()) > 1:
         raise AssertionError(f"dp rank {mesh.rank}, bf16 loss operands: "
                              f"losses {losses} against float32 "
-                             f"{ref['losses']}, rtol {BF16_LOSS_RTOL}")
-    return {"losses": losses, "rel": max(rel.values()),
+                             f"{ref['losses']}, rtol {BF16_LOSS_RTOL}; "
+                             f"updates' shares of their limits {shares}")
+    return {"losses": losses, "rel": max(rel.values()), "shares": shares,
             "launches": {k: v for k, v in fused.LAUNCHES.items() if v},
             "n": int(last["args"][0].shape[0]),
             "p": int(last["args"][4].shape[0])}
@@ -1795,6 +1921,11 @@ def run_dp(torch, fused, devices=None, backend=None, device=None):
         log("dp", f"{len(devices)} ranks on {devices}: {case}; "
             f"torch.cuda.device_count() {torch.cuda.device_count()}")
         floors = dp_reference(torch, spec, device)
+        # (g)'s limits; a rank counted twice: rank 0's images' pixels
+        n_all = spec["n"] * DP_WORLD
+        bf16_floor, miscounted = bf16_reference(
+            torch, fused, spec, device, "joint",
+            torch.arange(n_all) < spec["n"])
         one_ms, one_peak = dp_time_one_process(torch, spec, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -1841,8 +1972,9 @@ def run_dp(torch, fused, devices=None, backend=None, device=None):
         f"tpu.loss_operand_dtype bfloat16: losses {lo[0]['losses']}, "
         f"relative to the one process's float32 at most "
         + " / ".join(f"{g['rel']:.3e}" for g in lo)
-        + f" (rtol {BF16_LOSS_RTOL}); launches a rank "
-        + " / ".join(str(g["launches"]) for g in lo)
+        + f" (rtol {BF16_LOSS_RTOL}); " + bf16_words(
+            [g["shares"] for g in lo], bf16_floor, miscounted)
+        + "; launches a rank " + " / ".join(str(g["launches"]) for g in lo)
         + f" at N {lo[0]['n']}, P {lo[0]['p']}")
     log("dp", f"(c) bf16, 3 + 10 steps: {ms:.2f} ms/step (ranks "
         + " / ".join(f"{t['ms']:.2f}" for t in tm)
@@ -1869,6 +2001,26 @@ def run_dp(torch, fused, devices=None, backend=None, device=None):
         f"(one process x {g}: {one_ms:.2f} ms/step); spawn to join "
         f"{spawn_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s; "
         f"card {nvidia_smi_line()}")
+
+
+def bf16_words(shares, bf16_floor, miscounted):
+    """The words on a bf16-operand step's updates held to their limits
+    (bf16_reference): each rank's largest share, the plain-bf16 floors'
+    range and a miscounted rank's largest share."""
+    worst = [max(sh, key=sh.get) for sh in shares]
+    wrong = max(miscounted, key=miscounted.get)
+    return (f"the {len(shares[0])} checked updates against the one "
+            "process's float32 ones, each limit its tolerance + float32 "
+            "floor + plain-bf16 floor (the one process with "
+            f"segsort_loss._PlainBf16 statistics: "
+            f"{min(bf16_floor.values()):.3e}-{max(bf16_floor.values()):.3e})"
+            ": worst share " + " / ".join(
+                f"{sh[k]:.3f} ({k})" for sh, k in zip(shares, worst))
+            + f"; a rank counted twice in the one process's float32 step "
+            f"(the statistics' cotangent x2 on its rows) reaches "
+            f"{miscounted[wrong]:.2f} ({wrong}), and "
+            f"{sum(v > 1 for v in miscounted.values())} of "
+            f"{len(miscounted)} limits")
 
 
 def dp_mode_words(mode, ranks, floor_runs, pixels):
@@ -2087,7 +2239,8 @@ SP_DP_CHECKED = [  # tests/test_torch_densepose_step.py's CHECKED_*
 SP_DP_KINDS = ("gradient", "batch norm", "halo", "segments", "pool",
                "colour", "other")
 SP_TIMED_KINDS = {"bf16": SP_KINDS, "seg_bf16": SP_SEG_KINDS,
-                  "dp_bf16": SP_DP_KINDS}
+                  "dp_bf16": SP_DP_KINDS, "l_bf16": SP_SEG_KINDS,
+                  "m_bf16": SP_DP_KINDS}
 K46 = ("hard_stats", "hard_grad_emb", "hard_grad_proto")
 
 
@@ -2114,9 +2267,10 @@ def sp_spec_model(spec, torch, device, dtype):
     return model, images.to(dt), cot.to(device, dt)
 
 
-def sp_forward_backward(torch, model, images, cot, mesh=None):
-    """One train-mode forward of `images` (this rank's rows inside
-    halo.sharded(mesh)) and the backward of sum(embeddings * cot): the
+def sp_forward_backward(torch, model, images, cot, mesh=None, height=None):
+    """One train-mode forward of `images` (this rank's rows of images
+    `height` rows high inside halo.sharded(mesh, height)) and the
+    backward of sum(embeddings * cot): the
     embeddings, location features, running statistics and every
     parameter gradient (summed over the ranks)."""
     from spml_tpu_torch.parallel import halo
@@ -2127,7 +2281,7 @@ def sp_forward_backward(torch, model, images, cot, mesh=None):
                 model.state_dict().items() if "running" in k}
 
     before = stats()
-    with halo.sharded(mesh):
+    with halo.sharded(mesh, height):
         emb, loc = model(images)
     (emb * cot).sum().backward()
     params = list(model.named_parameters())
@@ -2237,11 +2391,15 @@ def sp_equality(torch, spec, device, mesh):
     for dtype in SP_FLOOR_RUNS:
         model, images, cot = sp_spec_model(spec, torch, device, dtype)
         rows = mesh.rows(images.shape[1])
+        grid = cot.shape[1]
         got = sp_forward_backward(torch, model, images[:, rows],
-                                  cot[:, mesh.rows(cot.shape[1])], mesh)
+                                  cot[:, mesh.rows(grid)], mesh,
+                                  images.shape[1])
         model = images = cot = None
-        got["emb"] = mesh_lib.gather_rows(got["emb"].contiguous(), mesh)
-        got["loc"] = mesh_lib.gather_rows(got["loc"].contiguous(), mesh)
+        got["emb"] = mesh_lib.gather_rows(got["emb"].contiguous(), mesh,
+                                          grid)
+        got["loc"] = mesh_lib.gather_rows(got["loc"].contiguous(), mesh,
+                                          grid)
         ref = torch.load(spec["ref"] + dtype, weights_only=True)
         ref = {k: ({n: t.to(device) for n, t in v.items()}
                    if k in ("stats", "grads") else v)
@@ -2301,7 +2459,7 @@ def sp_time(torch, spec, device, mesh=None, mesh_lib=None, key="bf16",
 
     cfg = load_config(overrides=spec[key])
     if mesh is not None:
-        cfg.tpu.spatial_partition = SP_SPACE
+        cfg.tpu.spatial_partition = mesh.space
     batch = recipe_batch(cfg, device)
     state = step_lib.init_state(cfg, 0, batch["image"], device=device)
     step = step_lib.make_train_step(cfg)
@@ -2411,13 +2569,19 @@ def sp_segsort_config(dtype, batch, fused=True, **train):
     return over
 
 
-def sp_join_segments(torch, segs, mesh):
-    """A rank's Segments with its pixel fields ([B, rows x W]) joined
-    with the other space ranks' rows, in order: the whole images'."""
+def sp_join_segments(torch, segs, mesh, crop):
+    """A rank's Segments with its pixel fields ([B, rows x W], its rows
+    of the embedding grid at crop height `crop`) joined with the other
+    space ranks' rows, in order: the whole images'."""
     from spml_tpu_torch.ops import kmeans
+    from spml_tpu_torch.parallel import halo
     from spml_tpu_torch.parallel import mesh as mesh_lib
 
-    return [mesh_lib.gather_rows(t.contiguous(), mesh).cpu()
+    grid = grid_rows(crop)
+    mine = len(halo.partition(grid, mesh.space)[mesh.space_rank])
+    return [mesh_lib.gather_rows(t.reshape(t.shape[0], mine, -1)
+                                 .contiguous(), mesh, grid)
+            .reshape(t.shape[0], -1).cpu()
             if name.startswith("pixel") else t
             for name, t in zip(kmeans.Segments._fields, segs)]
 
@@ -2441,13 +2605,15 @@ def sp_segsort_equality(torch, fused, spec, device, mesh):
         local = mesh_lib.shard_rows(batch, mesh)
         step = step_lib.make_train_step(cfg)
         fused.reset_launch_counts()
+        crop = cfg.train.crop_size[0]
         with recording_stats(torch, fused, "joint") as last, \
                 segments_of(torch, given, every,
-                            (mesh.space_rank, mesh.space)) as rec:
+                            sp_shard(mesh, crop)) as rec:
             state, m = step(state, local)
         launches = {k: v for k, v in fused.LAUNCHES.items() if v}
         got = dp_step_result(torch, state, m, rec)
-        got["segments"] = sp_join_segments(torch, got["segments"], mesh)
+        got["segments"] = sp_join_segments(torch, got["segments"], mesh,
+                                           crop)
         measures, bad = compare_step(
             torch, ref, got, every, seg["capacity"], ref["floor"][run],
             DP_FREE_CHECKS if given is None else DP_CHECKS)
@@ -2480,7 +2646,7 @@ def sp_f64_step(torch, spec, device, mesh=None, swap=False, key="seg"):
 
     cfg = load_config(overrides=spec[key]["f64"])
     if mesh is not None:
-        cfg.tpu.spatial_partition = SP_SPACE
+        cfg.tpu.spatial_partition = mesh.space
     g = cfg.train.batch_size
     batch = recipe_batch(cfg, device)
     state = step_lib.init_state(cfg, 0, batch["image"], device=device)
@@ -2500,7 +2666,7 @@ def sp_f64_step(torch, spec, device, mesh=None, swap=False, key="seg"):
         state, m = step_lib.make_train_step(cfg)(state, batch)
     segs = rec["segments"]
     if mesh is not None:
-        segs = sp_join_segments(torch, segs, mesh)
+        segs = sp_join_segments(torch, segs, mesh, cfg.train.crop_size[0])
     p = cfg.tpu.segment_capacity
     return {"losses": {k: float(v) for k, v in m.items()
                        if k.endswith("loss")},
@@ -2589,10 +2755,10 @@ def sp_arm_step(torch, fused, spec, arm, device, mesh=None, given=None):
     from spml_tpu_torch.train import step as step_lib
 
     cfg = load_config(overrides=spec["seg"]["arms"][arm])
-    shard = (0, 1)
+    shard = (0, 1, None)
     if mesh is not None:
         cfg.tpu.spatial_partition = SP_SPACE
-        shard = (mesh.space_rank, mesh.space)
+        shard = sp_shard(mesh, cfg.train.crop_size[0])
     batch = flagship.blobby_batch(SP_ARM_BATCH, cfg.train.crop_size[0],
                                   cfg.dataset.num_classes, device=device)
     state = step_lib.init_state(cfg, 0, batch["image"], device=device)
@@ -3061,6 +3227,12 @@ def sp_dp_reference(torch, fused, spec, device):
            "f32_losses": torch.load(dp["ref"], weights_only=True)["losses"]}
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    # (j)'s limits; a rank counted twice: rank 0's rows of every image
+    grid = grid_rows(dp["f32"]["train"]["crop_size"][0])
+    rank0 = torch.zeros(dp["global"], grid, grid, dtype=torch.bool)
+    rank0[:, :len(halo_partition(grid, SP_SPACE)[0])] = True
+    out["bf16_floor"], out["miscounted"] = bf16_reference(
+        torch, fused, dp, device, "hard", rank0.reshape(-1))
     ref = sp_f64_step(torch, spec, device, key="dp")
     floor, equal, _ = sp_f64_measures(
         ref, sp_f64_step(torch, spec, device, swap=True, key="dp"))
@@ -3077,43 +3249,50 @@ def sp_dp_reference(torch, fused, spec, device):
     return out
 
 
-def sp_dp_equality(torch, fused, spec, device, mesh):
-    """(h) float32 and (j): this rank's rows of DensePose's step on the
+def sp_dp_equality(torch, fused, spec, device, mesh, key="dp",
+                   arms=("f32", "f32_lbf16"), family="hard"):
+    """(h) float32 and (j) (and (l), (m) at crop 513: key "l" or "m",
+    the float32 arm alone): this rank's rows of spec[key]'s step on the
     one process's segments (each rank its rows of them), first with
-    float32 loss operands, held to [dp] (a)'s checks at tolerance +
-    floor over SP_DP_CHECKED, then with tpu.loss_operand_dtype
+    float32 loss operands, held to [dp] (a)'s checks at tolerance + floor
+    over spec[key]'s checked tensors, then with tpu.loss_operand_dtype
     "bfloat16", its losses within BF16_LOSS_RTOL of the one process's
-    float32 step; the kernels launched with their N and P."""
+    float32 step and its checked updates within their bf16 limits
+    (bf16_reference); the family's kernels launched with their N and
+    P."""
     from spml_tpu_torch.parallel import mesh as mesh_lib
     from spml_tpu_torch.train import step as step_lib
 
-    dp = spec["dp"]
+    dp = spec[key]
     ref = torch.load(dp["ref"], weights_only=True)
     every = slice(0, dp["global"])
+    at = STATS_ARGS[family].index("protos")
     out = {}
-    for arm in ("f32", "f32_lbf16"):
+    for arm in arms:
         cfg, batch, state = dp_setup(dp, arm, device)
-        cfg.tpu.spatial_partition = SP_SPACE
+        cfg.tpu.spatial_partition = mesh.space
+        crop = cfg.train.crop_size[0]
         local = mesh_lib.shard_rows(batch, mesh)
         step = step_lib.make_train_step(cfg)
         fused.reset_launch_counts()
-        with recording_stats(torch, fused, "hard") as last, \
+        with recording_stats(torch, fused, family) as last, \
                 segments_of(torch, ref["segments"], every,
-                            (mesh.space_rank, mesh.space)) as rec:
+                            sp_shard(mesh, crop)) as rec:
             state, m = step(state, local)
         got = dp_step_result(torch, state, m, rec)
         entry = {"losses": got["losses"],
                  "launches": {k: v for k, v in fused.LAUNCHES.items() if v},
                  "n": int(last["args"][0].shape[0]),
-                 "p": int(last["args"][3].shape[0])}
+                 "p": int(last["args"][at].shape[0])}
         if arm == "f32":
-            got["segments"] = sp_join_segments(torch, got["segments"], mesh)
+            got["segments"] = sp_join_segments(torch, got["segments"], mesh,
+                                               crop)
             measures, bad = compare_step(
                 torch, ref, got, every, dp["capacity"], ref["floor"]["equal"],
-                DP_CHECKS, dp["checked"])
+                DP_CHECKS, dp.get("checked", DP_CHECKED))
             if bad:
-                raise AssertionError(f"sp rank {mesh.rank} DensePose against "
-                                     f"one process: {bad} ({measures})")
+                raise AssertionError(f"sp rank {mesh.rank} {key} against one "
+                                     f"process: {bad} ({measures})")
             entry.update(measures)
             entry["digest"] = digest({**got["after"], **{
                 "bank." + k: v for k, v in got["memory"].items()}})
@@ -3121,12 +3300,15 @@ def sp_dp_equality(torch, fused, spec, device, mesh):
             want = ref["losses"]
             entry["rel"] = {k: abs(got["losses"][k] - v) / abs(v)
                             for k, v in want.items()}
+            entry["shares"] = bf16_update_shares(ref, got)
             if (got["losses"].keys() != want.keys()
-                    or max(entry["rel"].values()) > BF16_LOSS_RTOL):
+                    or max(entry["rel"].values()) > BF16_LOSS_RTOL
+                    or max(entry["shares"].values()) > 1):
                 raise AssertionError(
-                    f"sp rank {mesh.rank} DensePose, bf16 loss operands: "
+                    f"sp rank {mesh.rank} {key}, bf16 loss operands: "
                     f"losses {got['losses']} against float32 {want}, "
-                    f"rtol {BF16_LOSS_RTOL}")
+                    f"rtol {BF16_LOSS_RTOL}; updates' shares of their "
+                    f"limits {entry['shares']}")
         out[arm] = entry
         state = m = got = None
     return out
@@ -3262,7 +3444,8 @@ def sp_dp_driver(torch, fused, spec, device, mesh=None):
     driver._log_metrics, driver._next_batch = capture, next_run
     given = (None if mesh is None
              else torch.load(dp["ref_driver"], weights_only=True))
-    shard = (0, 1) if mesh is None else (mesh.space_rank, mesh.space)
+    shard = ((0, 1, None) if mesh is None
+             else sp_shard(mesh, config().train.crop_size[0]))
     try:
         for run, fn, data_cls, cfg, opts in runs:
             logged.clear()
@@ -3406,7 +3589,9 @@ def log_sp_densepose(spec, ranks, one):
         f"{lb[0]['losses']}, relative to the one process's float32 "
         f"{one['f32_losses']} at most " + " / ".join(
             f"{max(e['rel'].values()):.3e}" for e in lb)
-        + f" (rtol {BF16_LOSS_RTOL}); launches a rank "
+        + f" (rtol {BF16_LOSS_RTOL}); " + bf16_words(
+            [e["shares"] for e in lb], one["bf16_floor"], one["miscounted"])
+        + "; launches a rank "
         + " / ".join(str(e["launches"]) for e in lb)
         + f" at N {lb[0]['n']}, P {lb[0]['p']}")
     st = [r["dp_timing"] for r in ranks]
@@ -3477,6 +3662,247 @@ def log_sp_dp_driver(ranks, one):
         + "; relative to one process's " + str(
             {run: rel(run) for run in SP_DP_DRIVER_RTOL})
         + f" (rtol {SP_DP_DRIVER_RTOL}); the ranks torch.equal")
+
+
+# ---------------------------------------------------------------------------
+# Uneven height shards: three space ranks at crop 513
+# ---------------------------------------------------------------------------
+
+# (l), (m): DeepLab-v2's VOC training crop, 513 x 513, over SP3_SPACE
+# space ranks of one data rank (171 image rows a rank), so the maps split
+# unevenly at strides 2 (257 rows) and 8 (65: 21, 22, 22) and on the
+# embedding grid (130: 43, 43, 44), at full width. (l) the flagship
+# SegSort step (fused joint loss, bank 2) in float32 at SP_SEG_BATCH on
+# the one process's segments, [dp] (a)'s checks and DP_* tolerances plus
+# the floor of SP_SEG_FLOOR_RUNS, as (d); float64 at SP_SEG_F64_BATCH
+# with the dense losses, as (d)'s float64 run. (m) the DensePose point
+# step at SP_DP_BATCH, held as (h) and (i). K1-K3 (l) and K4-K6 (m) once
+# a step a rank, each at its own N. Each recipe's bf16 step as it ships
+# timed beside one process, as (f) and (h).
+SP3_SPACE, SP3_CROP = 3, 513
+SP3_KEYS = {"l": ("joint", K13), "m": ("hard", K46)}
+
+
+def sp3_devices(torch):
+    """(rank devices, backend, the case in words) of the SP3_SPACE
+    ranks: NCCL with a card each when there are as many, else gloo with
+    every rank on cuda:0."""
+    count = torch.cuda.device_count()
+    if count >= SP3_SPACE:
+        return ([f"cuda:{i}" for i in range(SP3_SPACE)], "nccl",
+                f"NCCL, one card a rank ({count} cards)")
+    return (["cuda:0"] * SP3_SPACE, "gloo",
+            f"gloo, {SP3_SPACE} ranks share one card ({count} card): "
+            "not a scaling figure")
+
+
+def sp3_rank_n(batch, crop):
+    """Each rank's pixels of the embedding grid: its rows of the grid's
+    partition x the grid's columns x the images."""
+    grid = grid_rows(crop)
+    return [batch * len(p) * grid for p in halo_partition(grid, SP3_SPACE)]
+
+
+def sp3_spec(root):
+    """The configurations, sizes and reference paths of (l) and (m)."""
+    import copy
+
+    from spml_tpu_torch.train import densepose_point, flagship
+
+    def at_crop(over, dtype, batch, train=(), **tpu):
+        o = copy.deepcopy(over)
+        o["train"].update(batch_size=batch, crop_size=[SP3_CROP, SP3_CROP],
+                          **dict(train))
+        o["tpu"].update(compute_dtype=dtype, **tpu)
+        return o
+
+    seg = at_crop(flagship.OVERRIDES, "float32", SP_SEG_BATCH)
+    dp = at_crop(densepose_point.OVERRIDES, "float32", SP_DP_BATCH)
+    spec = {"root": root, "space": SP3_SPACE}
+    for key, over, batch, checked in (("l", seg, SP_SEG_BATCH, DP_CHECKED),
+                                      ("m", dp, SP_DP_BATCH, SP_DP_CHECKED)):
+        base = flagship.OVERRIDES if key == "l" else densepose_point.OVERRIDES
+        spec[key] = {
+            "f32": over, "global": batch,
+            "capacity": over["tpu"]["segment_capacity"], "checked": checked,
+            "f64": at_crop(base, "float64", SP_SEG_F64_BATCH,
+                           use_fused_loss=False),
+            "n": sp3_rank_n(batch, SP3_CROP),
+            "p": batch * over["tpu"]["segment_capacity"]
+            * (1 + over["train"].get("memory_bank_size", 0)),
+            "ref": os.path.join(root, f"{key}_ref.pt"),
+            "ref64": os.path.join(root, f"{key}_ref64.pt")}
+        spec[key + "_bf16"] = at_crop(base, "bfloat16",
+                                      base["train"]["batch_size"])
+    return spec
+
+
+def sp3_reference(torch, fused, spec, device):
+    """The one-process references of (l) and (m): float32 on its own
+    segments with the floor of SP_SEG_FLOOR_RUNS on them (dp_reference),
+    float64 with the floor of its images reversed, the bf16 step timed.
+    Returns what the lines print of them."""
+    out = {}
+    for key in SP3_KEYS:
+        s = spec[key]
+        one = {"f32": dp_reference(torch, s, device, SP_SEG_FLOOR_RUNS,
+                                   ("equal",))["equal"]}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        ref = sp_f64_step(torch, spec, device, key=key)
+        floor, equal, _ = sp_f64_measures(
+            ref, sp_f64_step(torch, spec, device, swap=True, key=key))
+        if not equal:  # float64 has no k-means near-ties to move a pixel
+            raise AssertionError(f"sp {key} float64 floor run: the segments "
+                                 "of the reversed batch differ")
+        torch.save({**ref, "floor": floor}, s["ref64"])
+        one["f64_floor"] = max(floor.values())
+        ref = None
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        one["time"] = sp_time(torch, spec, device, key=key + "_bf16")
+        out[key] = one
+    return out
+
+
+def sp3_rank(spec, *, device):
+    """One rank of (l) and (m), in a process of its own: the float32 step
+    on the one process's segments, the float64 step, the bf16 step
+    timed, for each."""
+    import torch
+
+    from spml_tpu_torch.ops import _cuda
+    from spml_tpu_torch.ops import segsort_loss as fused
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    _cuda.CSRC = Path(spec["csrc"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_mesh(SP3_SPACE)
+    t0 = time.perf_counter()
+    out = {"rank": mesh.rank, "world": mesh.world, "space": mesh.space}
+    for key, (family, _) in SP3_KEYS.items():
+        for name, run in (
+                ("f32", lambda: sp_dp_equality(torch, fused, spec, device,
+                                               mesh, key, ("f32",),
+                                               family)["f32"]),
+                ("f64", lambda: sp_f64_equality(torch, spec, device, mesh,
+                                                key)),
+                ("timing", lambda: sp_time(torch, spec, device, mesh,
+                                           mesh_lib, key + "_bf16", fused))):
+            out[key + " " + name] = run()
+            if device.type == "cuda":  # the ranks share one card
+                torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_sp3(spec, ranks):
+    """(l), (m) of the ranks: equal to each other; the family's kernels
+    once a step a rank, each rank at its own N (sp3_rank_n) and the
+    global P."""
+    for key, (_, kernels) in SP3_KEYS.items():
+        if len({r[key + " f32"]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"sp {key}: the ranks' tensors differ")
+        s = spec[key]
+        for r in ranks:
+            e, t = r[key + " f32"], r[key + " timing"]
+            got = (e["launches"], e["n"], e["p"], t["launches"])
+            want = (dict.fromkeys(kernels, 1), s["n"][r["rank"]], s["p"],
+                    dict.fromkeys(kernels, 16))
+            if got != want:
+                raise AssertionError(f"sp rank {r['rank']} {key}: (launches, "
+                                     f"N, P, timed launches) {got}, want "
+                                     f"{want}")
+            if not math.isfinite(t["loss"]):
+                raise AssertionError(f"sp rank {r['rank']} {key}: bf16 loss "
+                                     f"{t['loss']}")
+
+
+def log_sp3(spec, ranks, one, case):
+    """Lines (l) and (m)."""
+    what = {"l": f"the flagship SegSort step (panoptic_deeplab_101 64-d, "
+                 f"fused joint loss, bank 2) at batch {SP_SEG_BATCH}",
+            "m": f"the DensePose point step (panoptic_pspnet_101_densepose "
+                 f"32-d, fused hard-label loss) at batch {SP_DP_BATCH}"}
+    grid = grid_rows(SP3_CROP)
+    rows = "/".join(str(len(p)) for p in halo_partition(grid, SP3_SPACE))
+    for key, (_, kernels) in SP3_KEYS.items():
+        s, o = spec[key], one[key]
+        eq = [r[key + " f32"] for r in ranks]
+        log("sp", f"({key}) crop {SP3_CROP} over {SP3_SPACE} space ranks "
+            f"(embedding rows {rows} of {grid}), float32 (TF32 off, dropout "
+            f"0), {what[key]} on the one process's segments against one "
+            f"process, [dp] (a)'s tolerances over {len(s['checked'])} "
+            f"checked tensors, each plus the floor of "
+            f"{', '.join(SP_SEG_FLOOR_RUNS)}. "
+            + dp_mode_words("equal", eq, o["f32"], sum(s["n"]))
+            + f" Losses {eq[0]['losses']}; launches a rank "
+            + " / ".join(str(e["launches"]) for e in eq)
+            + f" at N " + " / ".join(str(e["n"]) for e in eq)
+            + f", P {eq[0]['p']}; the ranks' parameters, buffers and banks "
+            "torch.equal (sha256)")
+        f64 = [r[key + " f64"] for r in ranks]
+        log("sp", f"({key}) float64, batch {SP_SEG_F64_BATCH}, dense losses: "
+            f"the {f64[0]['pixels']} pixels' k-means segments and the bank "
+            f"labels equal one process's; losses, {f64[0]['n_grads']} "
+            f"gradients (each element over its max) and the bank prototypes "
+            f"within {SP_F64_RTOL} + the floor (images reversed, largest "
+            f"{o['f64_floor']:.3e}); worst " + " | ".join(
+                f"rank {r}: {w[0]} {w[1]:.3e} (floor {w[2]:.3e})"
+                for r, w in enumerate(f["worst"] for f in f64)))
+        st = [r[key + " timing"] for r in ranks]
+        ms = max(t["ms"] for t in st)
+        b = s["global"]
+        kinds = SP_TIMED_KINDS[key + "_bf16"]
+        coll = {k: max(t["collectives"][k][0] for t in st) for k in kinds}
+        counts = {k: st[0]["collectives"][k][1] for k in kinds}
+        log("sp", f"({key}) bf16 as it ships, crop {SP3_CROP}, global batch "
+            f"{b}, 3 + 10 steps: {ms:.2f} ms/step (ranks "
+            + " / ".join(f"{t['ms']:.2f}" for t in st)
+            + f"), {b * 1000 / ms:.2f} images/s, peak "
+            + " / ".join(f"{t['peak']:.2f}" for t in st)
+            + f" GiB a rank against one process's {o['time']['peak']:.2f} "
+            f"GiB ({o['time']['ms']:.2f} ms/step); collectives a step "
+            "(slowest rank, ms, count): "
+            + ", ".join(f"{k} {coll[k]:.2f} ({counts[k]})" for k in kinds)
+            + "; launches a rank " + " / ".join(str(t["launches"])
+                                                 for t in st)
+            + f"; {case}")
+
+
+def run_sp3(torch, devices=None, backend=None, device=None):
+    """(l), (m) of the [sp] phase: SP3_SPACE ranks of one data rank
+    spawned once, each running sp3_rank; this process computes the
+    one-process references, their floors and timings first. devices,
+    backend, device: the CPU rehearsal's (cpu ranks, gloo, cpu)."""
+    import tempfile
+
+    from spml_tpu_torch.ops import _cuda
+    from spml_tpu_torch.ops import segsort_loss as fused
+    from spml_tpu_torch.parallel import mesh as mesh_lib
+
+    if devices is None:
+        devices, backend, case = sp3_devices(torch)
+    else:
+        case = f"{backend} on {devices}"
+    device = torch.device(device or DEVICE)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="spml_sp3_") as root:
+        spec = {**sp3_spec(root), "csrc": str(_cuda.CSRC)}
+        log("sp", f"(l), (m): {len(devices)} ranks (data 1 x space "
+            f"{SP3_SPACE}) at crop {SP3_CROP} on {devices}: {case}")
+        t_ref = time.perf_counter()
+        one = sp3_reference(torch, fused, spec, device)
+        t_ref = time.perf_counter() - t_ref
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(sp3_rank, (spec,), devices, backend)
+        spawn_s = time.perf_counter() - t0
+        log_sp3(spec, ranks, one, case)
+        check_sp3(spec, ranks)
+    log("sp", f"(l), (m) summary, {case}: one-process references "
+        f"{t_ref:.1f} s, spawn to join {spawn_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s; card {nvidia_smi_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -5205,6 +5631,7 @@ def main() -> int:
     run_remat(torch, fused)
     run_dp(torch, fused)
     run_sp(torch)
+    run_sp3(torch)
     run_inference(torch)
     run_driver(torch, fused, dc)
 

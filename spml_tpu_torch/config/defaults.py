@@ -104,8 +104,9 @@ class TpuConfig:
     num_devices: int = 1
     # image height sharded over this many devices (the JAX package's
     # ('data', 'space') mesh, parallel/halo.py): every backbone and step
-    # runs sharded; a crop height that is not a multiple of 8 x this
-    # raises (uneven shards are not ported)
+    # runs sharded; the crop height must be a multiple of this (maps
+    # below it may split unevenly), and its stride-8 map must give every
+    # rank a row
     spatial_partition: int = 1
     # max distinct (cluster, semantic, instance) segments per image
     segment_capacity: int = 256

@@ -18,13 +18,16 @@ embeddings of a float64 model, compute_dtype float64, in float64: the
 tests' exact reference).
 
 Height-sharded (tpu.spatial_partition, inside parallel/halo.py's
-sharded()): the images are this rank's rows of its images, and so are
-the outputs. The backbone, ASPP, PSPP's fusing conv and the classifier
-head's 3x3 conv exchange halo rows; PSPP's pools are summed over the
-space group (models/spp.py); the x2 upsample reads one row above and
-below (halo.interpolate); the location features are the global grid's
-rows, the colour features the rank's rows of the whole images' (made
-from the gathered images, models/local.py).
+sharded(), opened with the images' global height): the images are this
+rank's rows of its images, and the outputs its rows of the partition of
+the embeddings' global height (embedding_rows), which need not be the
+images' rows scaled. The backbone, ASPP, PSPP's fusing conv and the
+classifier head's 3x3 conv exchange halo rows, each told its input's
+global rows; PSPP's pools are summed over the space group
+(models/spp.py); the x2 upsample blends the rank's output rows from the
+source rows it fetched (halo.interpolate); the location features are the
+global grid's rows, the colour features the rank's rows of the whole
+images' (made from the gathered images, models/local.py).
 """
 
 from __future__ import annotations
@@ -85,29 +88,38 @@ class EmbeddingModel(nn.Module):
             raise ValueError(f"unknown head {head!r}")
 
     def forward(self, images: torch.Tensor, resize_as_input: bool = False):
-        mesh = halo.current()
-        shard = (0, 1)
-        if mesh is not None:
+        rows = images.shape[1]
+        if halo.current() is not None:
             if resize_as_input:
                 raise NotImplementedError("resize_as_input (inference) "
                                           "runs unsharded")
-            halo.check_height(images.shape[1] * mesh.space, mesh.space)
-            shard = (mesh.space_rank, mesh.space)
+            rows = halo.height()
+            halo.share(halo.current(), rows, images.shape[1])
         x = images.permute(0, 3, 1, 2)
+        r5 = self.resnet_backbone.output_rows(rows)
         with _autocast(x, self.compute_dtype):
-            res5 = self.resnet_backbone(x.to(self.compute_dtype))[3]
-            emb = getattr(self, self.head)(res5)
+            res5 = self.resnet_backbone(x.to(self.compute_dtype), rows)[3]
+            if self.head == "aspp":
+                emb = self.aspp(res5, r5)
+            else:
+                pspp, conv = self.pspp
+                emb = conv(pspp(res5, r5))
         emb = at_least_float32(emb)
-        h, w = emb.shape[2], emb.shape[3]
-        emb = halo.interpolate(emb, (2 * h, 2 * w))
+        size = (2 * r5, 2 * emb.shape[3])
+        emb = halo.interpolate(emb, size, r5)
         emb = emb.permute(0, 2, 3, 1)
         if resize_as_input:  # a second resize, not folded into the first
             emb = resize_bilinear(emb, tuple(images.shape[1:3]))
+            size = tuple(emb.shape[1:3])
         loc = local.location_color_features(
-            images.float(), tuple(emb.shape[1:3]), use_color=self.use_color,
-            norm_color=self.norm_color, smooth_ksize=self.smooth_ksize,
-            shard=shard)
+            images.float(), size, use_color=self.use_color,
+            norm_color=self.norm_color, smooth_ksize=self.smooth_ksize)
         return emb, loc
+
+    def embedding_rows(self, height: int) -> int:
+        """The embeddings' global rows over images `height` rows high
+        (without resize_as_input)."""
+        return 2 * self.resnet_backbone.output_rows(height)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -123,7 +135,8 @@ def dropout(x: torch.Tensor, rate: float,
 class ClassifierHead(nn.Module):
     """conv3x3 (no bias) -> BN -> ReLU -> Dropout -> conv1x1 logits on
     L2-normalized NHWC embeddings; returns float32 NHWC logits. The 3x3
-    conv exchanges halo rows inside halo.sharded()."""
+    conv exchanges halo rows inside halo.sharded() (forward's rows: the
+    embeddings' global rows)."""
 
     def __init__(self, num_classes: int, hidden_dim: int,
                  embedding_dim: int, dropout_rate: float = 0.75,
@@ -140,11 +153,13 @@ class ClassifierHead(nn.Module):
             nn.Conv2d(hidden_dim, num_classes, 1, bias=True))
 
     def forward(self, embeddings: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: int | None = None) -> torch.Tensor:
+        """rows: the embeddings' global rows (inside halo.sharded())."""
         conv1, bn, relu, drop, conv2 = self.semantic_classifier
         x = embeddings.permute(0, 3, 1, 2)
         with _autocast(x, self.compute_dtype):
-            x = relu(bn(conv1(x.to(self.compute_dtype))))
+            x = relu(bn(conv1(x.to(self.compute_dtype), rows)))
             if self.training:
                 x = dropout(x, drop.p, generator)
         # the logits conv runs in float32, as in the JAX package (float64

@@ -19,16 +19,15 @@ from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 
 
 def location_features(batch: int, size: tuple[int, int], device=None,
-                      shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
-    """[B, h, w, 2] location features. shard (rank, ranks): rows [rank h,
-    (rank + 1) h) of the grid of an image ranks x h rows high (its
-    height-sharded rows)."""
-    h, w = size
-    rank, ranks = shard
-    loc = common.generate_location_features(h * ranks, w,
+                      rows: range | None = None) -> torch.Tensor:
+    """[B, h, w, 2] location features of a grid `size` = (H, W): its
+    rows `rows` (all of them when None; a height-sharded rank's rows)."""
+    height, w = size
+    rows = range(height) if rows is None else rows
+    loc = common.generate_location_features(height, w,
                                             device=device) - 0.5
-    loc = loc[rank * h:(rank + 1) * h]
-    return loc[None].expand(batch, h, w, 2)
+    loc = loc[rows.start:rows.stop]
+    return loc[None].expand(batch, len(rows), w, 2)
 
 
 def gaussian_kernel(ksize: int) -> torch.Tensor:
@@ -50,16 +49,13 @@ def smooth_colors(images: torch.Tensor, ksize: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def _whole_images(images: torch.Tensor, ranks: int) -> torch.Tensor:
-    """The whole images of this rank's rows `images` [B, h, W, C]: every
-    space rank's rows gathered in order over the open halo.sharded()
-    block's space group, labelled "colour" (no gradient)."""
-    mesh = halo.current()
-    if mesh is None or mesh.space != ranks:
-        raise ValueError(f"colour features of an image sharded over {ranks} "
-                         "ranks are made inside halo.sharded() of that mesh")
+def _whole_images(images: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole images of this rank's rows `images` [B, h, W, C] in the
+    open halo.sharded() block (its images' global rows): every space
+    rank's rows gathered in order over the space group, labelled
+    "colour" (no gradient)."""
     with mesh_lib.collective("colour"):
-        return mesh_lib.gather_rows(images.contiguous(), mesh)
+        return mesh_lib.gather_rows(images.contiguous(), mesh, halo.height())
 
 
 @torch.no_grad()
@@ -67,17 +63,17 @@ def location_color_features(images: torch.Tensor, size: tuple[int, int],
                             use_color: bool = False,
                             use_location: bool = True,
                             norm_color: bool = False,
-                            smooth_ksize: int | None = None,
-                            shard: tuple[int, int] = (0, 1)
+                            smooth_ksize: int | None = None
                             ) -> torch.Tensor:
-    """[B, H, W, 3] images -> [B, h, w, L] local features, channels
-    [y, x, r, g, b] (location, colour, each optional). shard (rank,
-    ranks): images and size are that rank's rows of images split over
-    `ranks` ranks (location_features). Colour reads other ranks' rows
-    (the blur's, the resize's) and per-image statistics: the rank's
-    image rows are gathered over the space group (_whole_images), the
-    colour features made from the whole images as one process makes
-    them, and the rank's rows kept: the same bits.
+    """[B, H, W, 3] images -> [B, h, w, L] local features of a grid
+    `size` = (h, w), channels [y, x, r, g, b] (location, colour, each
+    optional). Inside a halo.sharded() block the images are this rank's
+    rows of its images and `size` the grid's global size: the rank gets
+    its rows of the grid's partition (location_features). Colour reads
+    other ranks' rows (the blur's, the resize's) and per-image
+    statistics: the rank's image rows are gathered over the space group
+    (_whole_images), the colour features made from the whole images as
+    one process makes them, and the rank's rows kept: the same bits.
 
     Colour, in float32: optionally blurred, bilinearly resized to `size`
     (antialias=False), and with norm_color centred on each image's
@@ -85,23 +81,23 @@ def location_color_features(images: torch.Tensor, size: tuple[int, int],
     (local_model.py:96-116).
     """
     n = images.shape[0]
-    rank, ranks = shard
+    mesh = halo.current()
+    rows = halo.own(size[0])
     feats = []
     if use_location:
         feats.append(location_features(n, size, device=images.device,
-                                       shard=shard))
+                                       rows=rows))
     if use_color:
         x = images.float()
-        if ranks > 1:
-            x = _whole_images(x, ranks)
+        if mesh is not None:
+            x = _whole_images(x, mesh)
         if smooth_ksize:
             x = smooth_colors(x, smooth_ksize)
-        h = size[0]
-        x = resize_bilinear(x, (h * ranks, size[1]))
+        x = resize_bilinear(x, tuple(size))
         if norm_color:
             c = x.shape[-1]
             x = x - x.reshape(n, -1, c).mean(dim=1)[:, None, None, :]
             mx = x.reshape(n, -1, c).abs().amax(dim=1)
             x = x / mx[:, None, None, :]
-        feats.append(x[:, rank * h:(rank + 1) * h])
+        feats.append(x[:, rows.start:rows.stop])
     return torch.cat(feats, dim=-1)

@@ -21,10 +21,14 @@ the forward left them (flax's remat updates them once, too).
 Height-sharded (tpu.spatial_partition, parallel/halo.py): inside a
 sharded() block every 3x3 convolution (the stem's three, the first at
 stride 2, and each block's conv2, at stride 2 in res3.0 and dilations 2
-and 4 in res4 / res5) and the stem's max pool exchange their halo rows;
-the 1x1 convolutions and the batch norms run on the rank's rows (the
-batch norm's statistics over every rank's pixels, each counted once). A
-remat block issues its exchanges again in the recomputation, under the
+and 4 in res4 / res5), res3.0's 1x1 stride-2 downsample and the stem's
+max pool exchange their halo rows, each told its input's global rows
+(the backbone's forward carries them from the images' down, and each
+stride-2 operation's output rows are those of the partition of its
+output's height, so the downsample's rows meet conv2's); the other 1x1
+convolutions and the batch norms run on the rank's rows (the batch
+norm's statistics over every rank's pixels, each counted once). A remat
+block issues its exchanges again in the recomputation, under the
 sharding its forward ran with.
 """
 
@@ -206,27 +210,36 @@ class Bottleneck(nn.Module):
         else:
             self.downsample = None
 
-    def _block(self, x):
+    def _block(self, x, rows):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = F.relu(self.bn2(self.conv2(out, rows)))
         out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        if self.downsample is None:
+            residual = x
+        else:
+            conv, bn = self.downsample
+            residual = bn(conv(x, rows))
         return F.relu(out + residual)
 
-    def _block_sharded(self, mesh, x):
-        with halo.sharded(mesh):
-            return self._block(x)
+    def _block_sharded(self, block, x, rows):
+        with halo.sharded(*block):
+            return self._block(x, rows)
 
-    def forward(self, x):
+    def forward(self, x, rows: int | None = None):
+        """rows: x's global rows (inside halo.sharded())."""
         if self.remat and torch.is_grad_enabled() and (
                 x.requires_grad
                 or any(p.requires_grad for p in self.parameters())):
             # no randomness in a block: its RNG state need not be kept;
             # the recomputation runs under the forward's sharding
             return torch.utils.checkpoint.checkpoint(
-                self._block_sharded, halo.current(), x, use_reentrant=False,
-                context_fn=_remat_contexts, preserve_rng_state=False)
-        return self._block(x)
+                self._block_sharded, halo.block(), x, rows,
+                use_reentrant=False, context_fn=_remat_contexts,
+                preserve_rng_state=False)
+        return self._block(x, rows)
+
+    def rows_out(self, rows: int) -> int:
+        return self.conv2.rows_out(rows)
 
 
 class Stem(nn.Module):
@@ -239,9 +252,19 @@ class Stem(nn.Module):
         c3, self.bn1 = conv_bn(64, 128, 3, momentum=momentum)
         self.conv1 = nn.Sequential(c1, b1, nn.ReLU(), c2, b2, nn.ReLU(), c3)
 
-    def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
-        return halo.max_pool2d(x, 3, 2, 1)
+    def forward(self, x, rows: int | None = None):
+        """rows: x's global rows (inside halo.sharded(); its own rows
+        outside one)."""
+        rows = x.shape[2] if rows is None else rows
+        c1, b1, r1, c2, b2, r2, c3 = self.conv1
+        x = r1(b1(c1(x, rows)))
+        rows = c1.rows_out(rows)
+        x = r2(b2(c2(x, rows)))
+        x = F.relu(self.bn1(c3(x, rows)))
+        return halo.max_pool2d(x, 3, 2, 1, rows=rows)
+
+    def rows_out(self, rows: int) -> int:
+        return halo.output_rows(self.conv1[0].rows_out(rows), 3, 2, 1, 1)
 
 
 def make_stage(cin, planes, blocks, stride, dilation, momentum,
@@ -283,13 +306,27 @@ class ResnetBackbone(nn.Module):
                                dilations[i], momentum, rm))
             cin = planes * 4
 
-    def forward(self, x):
-        x = self.conv1(x)
-        res2 = self.res2(x)
-        res3 = self.res3(res2)
-        res4 = self.res4(res3)
-        res5 = self.res5(res4)
-        return res2, res3, res4, res5
+    def forward(self, x, rows: int | None = None):
+        """rows: the images' global rows (inside halo.sharded(); their
+        own rows outside one)."""
+        rows = x.shape[2] if rows is None else rows
+        x = self.conv1(x, rows)
+        rows = self.conv1.rows_out(rows)
+        feats = []
+        for stage in (self.res2, self.res3, self.res4, self.res5):
+            for blk in stage:
+                x = blk(x, rows)
+                rows = blk.rows_out(rows)
+            feats.append(x)
+        return tuple(feats)
+
+    def output_rows(self, rows: int) -> int:
+        """res5's global rows over images `rows` rows high."""
+        rows = self.conv1.rows_out(rows)
+        for stage in (self.res2, self.res3, self.res4, self.res5):
+            for blk in stage:
+                rows = blk.rows_out(rows)
+        return rows
 
 
 def init_backbone_(module: nn.Module, generator: torch.Generator) -> None:

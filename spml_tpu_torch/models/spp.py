@@ -7,12 +7,13 @@ twke18/SPML). As an SPML embedding head, ASPP runs without BN or ReLU
 pools to 1/2/3/6 bins, each a 1x1 conv -> BN -> ReLU resized back,
 concatenated with the input and fused by a 3x3 conv -> BN -> ReLU.
 
-Height-sharded (parallel/halo.py): ASPP exchanges its input's halo once,
-at dilation 24, and each branch reads its rows of it. PSPP's adaptive
-pools reduce over the whole height: each rank sums its rows of every
-bin, one sum over the space group gives every rank the whole pooled
-maps (halo.adaptive_avg_pools), on which the 1x1 conv, BN and ReLU run
-replicated; each map is resized to the rank's rows from global source
+Height-sharded (parallel/halo.py; each forward takes its input's global
+rows): ASPP exchanges its input's halo once, at dilation 24, and each
+branch reads its rows of it. PSPP's adaptive pools reduce over the whole
+height: each rank sums its rows of every bin, one sum over the space
+group gives every rank the whole pooled maps (halo.adaptive_avg_pools),
+on which the 1x1 conv, BN and ReLU run replicated; each map is resized
+to the rank's rows of the input's partition from global source
 coordinates (halo.resize_whole), and the fusing 3x3 conv exchanges its
 halo.
 """
@@ -61,9 +62,10 @@ class ASPP(nn.Module):
                 in_channels, out_channels, 3, padding=d, dilation=d,
                 bias=True)))
 
-    def forward(self, x):
+    def forward(self, x, rows: int | None = None):
+        """rows: x's global rows (inside halo.sharded())."""
         return halo.aspp_sum(x, [getattr(self, f"aspp_{i + 1}")[0]
-                                 for i in range(4)])
+                                 for i in range(4)], rows)
 
 
 def _conv_bn_relu(cin, cout, kernel):
@@ -91,10 +93,14 @@ class PSPP(nn.Module):
         self.conv = nn.Sequential(*_conv_bn_relu(
             in_channels + len(PSPP_BINS) * out_channels, out_channels, 3))
 
-    def forward(self, x):
-        size = x.shape[2:]
+    def forward(self, x, rows: int | None = None):
+        """rows: x's global rows (inside halo.sharded(); its own rows
+        outside one)."""
+        rows = x.shape[2] if rows is None else rows
+        size = (rows, x.shape[3])
         xs = [x]
-        for i, v in enumerate(halo.adaptive_avg_pools(x, PSPP_BINS)):
+        for i, v in enumerate(halo.adaptive_avg_pools(x, PSPP_BINS, rows)):
             v = getattr(self, f"pspp_{i + 1}")(v)
             xs.append(halo.resize_whole(v, size))
-        return self.conv(torch.cat(xs, dim=1))
+        conv, bn, relu = self.conv
+        return relu(bn(conv(torch.cat(xs, dim=1), rows)))

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from spml_tpu_torch.parallel import halo
+
 EPS_NORM = 1e-12
 
 
@@ -63,28 +65,28 @@ def segment_mean(values: torch.Tensor, seg_ids: torch.Tensor,
 
 
 def resize_labels(labels: torch.Tensor, size: tuple[int, int],
-                  shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
-    """Nearest-neighbour label resize, torch 'nearest' index rule:
-    src = floor(dst * in/out), computed in float32.
+                  rows: int | None = None) -> torch.Tensor:
+    """Nearest-neighbour label resize to `size` = (global rows, width),
+    torch 'nearest' index rule: src = floor(dst * in/out), computed in
+    float32.
 
-    shard (s, S): labels and size are rank s's rows of an image split
-    over S ranks in equal row blocks; the source rows come from the
-    global coordinates (the global resize's rows s * nh .. (s + 1) * nh
-    - 1), which must lie in the rank's own rows (ValueError)."""
+    Inside a parallel/halo.py::sharded() block, labels are this rank's
+    rows of labels `rows` rows high, and the result is this rank's rows
+    of the resize (halo.partition): the source rows come from the global
+    coordinates and are fetched from the ranks that own them
+    (halo.take_rows), exactly."""
     h, w = labels.shape[-2:]
     nh, nw = size
-    s, space = shard
-    dev = labels.device
-    ys = torch.floor(torch.arange(nh * space, dtype=torch.float32,
-                                  device=dev)
-                     * (h * space / (nh * space))).long()
-    ys = ys[s * nh:(s + 1) * nh] - s * h
-    if space > 1 and not bool(((ys >= 0) & (ys < h)).all()):
-        raise ValueError(f"a label resize of {h} rows to {nh} a rank reads "
-                         "rows of another rank")
-    xs = torch.floor(torch.arange(nw, dtype=torch.float32, device=dev)
+    if halo.current() is None:
+        rows = h
+    ys = torch.floor(torch.arange(nh, dtype=torch.float32)
+                     * (rows / nh)).long().tolist()
+    xs = torch.floor(torch.arange(nw, dtype=torch.float32,
+                                  device=labels.device)
                      * (w / nw)).long()
-    return labels.index_select(-2, ys).index_select(-1, xs)
+    lead = labels.shape[:-2]
+    out = halo.take_rows(labels.reshape(-1, 1, h, w), rows, ys)
+    return out.reshape(*lead, -1, w).index_select(-1, xs)
 
 
 def generate_location_features(height: int, width: int,

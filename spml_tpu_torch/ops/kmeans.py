@@ -13,12 +13,14 @@ here:
   pixels go to bin capacity-1 with keep=False.
 
 Height-sharded (segment_batch's mesh with space S > 1: each of an
-image's S space ranks holds its rows of the image, parallel/halo.py),
-the result is that of the whole image, the rank's rows of its pixel
-fields and every segment field whole: the grid initialisation takes the
-global grid's rows; each M-step's per-cluster sums are added over the
-space group in rank order (parallel/mesh.py::group_sum, the same bits on
-every rank) and the E-step reads the rank's pixels; a segment's id is
+image's S space ranks holds its rows of the image, those
+parallel/halo.py::partition gives it of the map's global rows, which
+need not split evenly), the result is that of the whole image, the
+rank's rows of its pixel fields and every segment field whole: the grid
+initialisation takes the global grid's rows; each M-step's per-cluster
+sums are added over the space group in rank order
+(parallel/mesh.py::group_sum, the same bits on every rank) and the
+E-step reads the rank's pixels; a segment's id is
 its key's rank among the image's unique keys over every rank
 (merge_unique_keys of each rank's first `capacity` unique keys); a
 segment's presence and attributes are combined over the space group.
@@ -31,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from spml_tpu_torch.ops import common
-from spml_tpu_torch.parallel import mesh as mesh_lib
+from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 
 INVALID_KEY = 2**31 - 1
 
@@ -207,7 +209,7 @@ def segment_batch(embeddings: torch.Tensor, local_features: torch.Tensor,
                   instance_labels: torch.Tensor,
                   num_clusters: tuple[int, int], capacity: int,
                   iterations: int = 10, ignore_index: int = 255,
-                  label_cap: int = 256, mesh=None):
+                  label_cap: int = 256, mesh=None, rows=None):
     """Batched segment formation (reference segment_by_kmeans:270).
 
     1. vMF k-means on (embedding ++ location) over valid pixels from a
@@ -219,8 +221,9 @@ def segment_batch(embeddings: torch.Tensor, local_features: torch.Tensor,
     clustered in float64, others in float32.
 
     mesh (parallel/mesh.py::Mesh) with space > 1: the inputs are this
-    rank's rows of its images (H its rows); every rank of the space
-    group calls this together (the module docstring).
+    rank's rows of its images (H its rows), `rows` rows high in all;
+    every rank of the space group calls this together (the module
+    docstring).
 
     Returns (Segments, emb_flat [B, N, D], emb_loc [B, N, D+L]), the last
     two L2-normalized.
@@ -234,12 +237,12 @@ def segment_batch(embeddings: torch.Tensor, local_features: torch.Tensor,
 
     sharded = mesh is not None and mesh.space > 1
     group = mesh.space_group() if sharded else None
-    space = mesh.space if sharded else 1
     k = num_clusters[0] * num_clusters[1]
-    grid = initialize_cluster_labels(num_clusters, (h * space, w),
+    mine = halo.share(mesh, rows, h) if sharded else range(h)
+    grid = initialize_cluster_labels(num_clusters, (rows if sharded else h,
+                                                    w),
                                      device=embeddings.device)
-    if sharded:  # this rank's rows of the global grid
-        grid = grid[mesh.rows(h * space)]
+    grid = grid[mine.start:mine.stop]  # this rank's rows of the global grid
     grid = grid.reshape(-1)
     sem = semantic_labels.reshape(b, h * w).long()
     inst = instance_labels.reshape(b, h * w).long()

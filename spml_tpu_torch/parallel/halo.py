@@ -3,28 +3,35 @@
 On the JAX package's ('data', 'space') mesh (spml_tpu/parallel/mesh.py:
 28-79) GSPMD shards the image height of every activation over 'space'
 and exchanges, around each operation that reads neighbouring rows, the
-rows a shard needs from the shards above and below it. Here the S space
-ranks of a data rank each hold H / S consecutive rows of every
-activation of their images (rank s: rows [s h, (s + 1) h)), and the
-row-coupled operations of the embedding network and the classifier head
-go through this module while a sharded() block is open: a convolution or
-a max pool over rows beyond its own (conv2d, max_pool2d) and the
-half-pixel bilinear resize (interpolate). Row-local operations (1x1
-convolutions, batch norm, ReLU, the loss) run on the rank's rows as
-they are; a 1x1 convolution at stride 2 needs the shard boundary on an
-even row.
+rows a shard needs from the shards above and below it; where a height
+does not split evenly it pads, and the padded rows enter no result (the
+sharded step equals the one-device step). Here the S space ranks of a
+data rank each hold, of every map R rows high, the rows partition(R, S)
+gives them: rank s rows [floor(s R / S), floor((s + 1) R / S)), equal
+blocks whenever S divides R, and no padding anywhere. The images and
+labels are cut so (H / S rows each; a height that S does not divide
+raises, as JAX's device_put does); every map below them has its own
+partition, and no rank's rows of one map are those of another scaled.
 
-For an operation (kernel, stride, dilation, padding) whose output rows
-split evenly over the ranks, halo_plan gives the rows a rank's output
-rows read above and below its own (the same for every rank when its
-input rows are stride times its output rows). exchange() fetches them
-from whichever ranks own them, also several ranks away (a dilation
-larger than a shard), and fills the rows outside the image with the
-operation's own padding: zeros for a convolution, -inf for the max pool,
-the image's edge row for a half-pixel resize. Its backward returns each
-halo row's gradient to its owner, which adds it to its own. The transport
-is one all-reduce over the space group of zero-filled buffers in which
-each rank fills the rows it owns (mesh.sum_disjoint: exact bits), so
+The row-coupled operations of the embedding network and the classifier
+head go through this module while a sharded() block is open: a
+convolution or a max pool over rows beyond its own (conv2d, max_pool2d,
+also a 1x1 convolution at stride 2, whose output rows need not start on
+the rank's own rows) and the half-pixel bilinear resize (interpolate).
+Each takes its input's global height (`rows`), which no operation infers
+from its own rows, computes this rank's output rows from the partition
+of its output's height, and the input rows they read. Row-local
+operations (1x1 convolutions at stride 1, batch norm, ReLU, the loss)
+run on the rank's rows as they are.
+
+halo_plan gives the rows a rank's output rows read above and below its
+own input rows. exchange() fetches them from whichever ranks own them,
+also several ranks away (a dilation larger than a shard), and fills the
+rows outside the image with the operation's own padding: zeros for a
+convolution, -inf for the max pool. Its backward returns each halo row's
+gradient to its owner, which adds it to its own. The transport is one
+all-reduce over the space group of zero-filled buffers in which each rank
+fills the rows it owns (mesh.sum_disjoint: exact bits, any dtype), so
 gloo with every rank on one card works; the operation then runs on the
 extended rows with no padding along the height.
 
@@ -34,13 +41,19 @@ halo any of them needs (ASPP's four dilations read one res5).
 PSPP's adaptive pools read the whole height: adaptive_avg_pools sums
 each rank's rows of every bin and adds the sums over the space group
 (one collective, labelled "pool"), so that every rank holds the whole
-pooled maps; resize_whole resizes such a map to the rank's rows of the
-global height from global source coordinates (a row factor that need
-not be an integer, unlike interpolate's).
+pooled maps. The bilinear resizes blend each of the rank's output rows
+from its two source rows at global coordinates, with F.interpolate's
+weights (_blend): resize_whole from a map every rank holds whole,
+interpolate from the source rows the rank fetched.
+
+Every map of the network at the crop height must give every rank a row:
+a height whose output-stride map has fewer rows than there are space
+ranks raises (check_height).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import functools
 import threading
@@ -53,43 +66,106 @@ import torch.nn.functional as F
 from spml_tpu_torch.parallel import mesh as mesh_lib
 
 FILLS = ("zero", "neg_inf", "edge")
-ROW_MULTIPLE = 8  # the network's output stride: crop heights split evenly
+OUTPUT_STRIDE = 8  # the network's deepest map: ceil(H / 8) rows
 
-_ACTIVE = threading.local()  # .mesh: the layout of the open sharded() block
+_ACTIVE = threading.local()  # .block: (mesh, image rows) of sharded()
 
 
 @contextlib.contextmanager
-def sharded(mesh):
-    """The forward passes inside take this rank's rows of their images
-    (mesh: parallel/mesh.py::Mesh; None or space 1: unsharded)."""
-    outer = getattr(_ACTIVE, "mesh", None)
-    _ACTIVE.mesh = mesh if mesh is not None and mesh.space > 1 else None
+def sharded(mesh, height: int | None = None):
+    """The forward passes inside take this rank's rows of their images,
+    `height` rows high in all (mesh: parallel/mesh.py::Mesh; None or
+    space 1: unsharded, and height unused)."""
+    outer = getattr(_ACTIVE, "block", None)
+    if mesh is not None and mesh.space > 1:
+        if height is not None:
+            check_height(height, mesh.space)
+        _ACTIVE.block = (mesh, height)
+    else:
+        _ACTIVE.block = None
     try:
         yield
     finally:
-        _ACTIVE.mesh = outer
+        _ACTIVE.block = outer
 
 
 def current():
     """The mesh of the open sharded() block, None outside one."""
-    return getattr(_ACTIVE, "mesh", None)
+    block = getattr(_ACTIVE, "block", None)
+    return None if block is None else block[0]
+
+
+def block():
+    """(mesh, image rows) of the open sharded() block, (None, None)
+    outside one: sharded(*block()) opens it again (a remat block's
+    recomputation)."""
+    return getattr(_ACTIVE, "block", None) or (None, None)
+
+
+def height() -> int:
+    """The images' global rows of the open sharded() block."""
+    mesh, rows = block()
+    if mesh is None or rows is None:
+        raise ValueError("the images' height is that of a sharded() block "
+                         "opened with it")
+    return rows
 
 
 def check_height(height: int, space: int) -> None:
-    """Global image heights split over `space` ranks at every stride of
-    the network (2, 4 and 8): a multiple of 8 * space; else ValueError."""
-    if space > 1 and height % (ROW_MULTIPLE * space):
+    """A crop height splits over `space` ranks: a multiple of space (the
+    images' cut, as the JAX package's device_put requires), whose
+    output-stride map, ceil(height / 8) rows, leaves no rank without a
+    row (rows fewer than ranks, which JAX pads, are not ported); else
+    ValueError."""
+    if space <= 1:
+        return
+    if height % space:
         raise ValueError(
             f"image height {height} with tpu.spatial_partition {space}: "
-            f"the height must be a multiple of {ROW_MULTIPLE} x "
-            f"spatial_partition = {ROW_MULTIPLE * space} (every stride of "
-            "the network splits its rows evenly over the space ranks); "
-            + mesh_lib.SPATIAL_NEXT)
+            "the height must be a multiple of spatial_partition (each "
+            "space rank holds height / spatial_partition image rows)")
+    deepest = -(-height // OUTPUT_STRIDE)
+    if deepest < space:
+        raise ValueError(
+            f"image height {height} with tpu.spatial_partition {space}: "
+            f"the network's stride-{OUTPUT_STRIDE} map has {deepest} rows, "
+            f"fewer than the {space} space ranks (a rank without rows is "
+            "not ported: ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
-# The plan: which rows each rank reads
+# The partition and the plan: which rows each rank holds and reads
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4096)
+def partition(rows: int, space: int) -> tuple[range, ...]:
+    """Each space rank's rows of a map `rows` high: rank s holds [floor(s
+    rows / space), floor((s + 1) rows / space)), equal blocks when space
+    divides rows."""
+    return tuple(range(s * rows // space, (s + 1) * rows // space)
+                 for s in range(space))
+
+
+def own(rows: int) -> range:
+    """This rank's rows of a map `rows` high in the open sharded() block;
+    all of them outside one."""
+    mesh = current()
+    if mesh is None:
+        return range(rows)
+    return partition(rows, mesh.space)[mesh.space_rank]
+
+
+def share(mesh, rows, held: int) -> range:
+    """This space rank's rows of a map `rows` high, which it holds `held`
+    of: ValueError when rows is missing or held is not its share."""
+    if rows is None:
+        raise ValueError("a sharded map's global rows are needed (rows=)")
+    mine = partition(rows, mesh.space)[mesh.space_rank]
+    if held != len(mine):
+        raise ValueError(f"{held} rows on space rank {mesh.space_rank}, its "
+                         f"share of {rows} rows is {len(mine)}")
+    return mine
+
 
 def output_rows(height: int, kernel: int, stride: int = 1,
                 dilation: int = 1, padding: int = 0) -> int:
@@ -107,41 +183,48 @@ def halo_plan(kernel: int, stride: int, dilation: int, padding: int,
     return rows_in.start - lo, hi - (rows_in.stop - 1)
 
 
-def shard_range(rows: int, space: int, rank: int) -> range:
-    if rows % space:
-        raise ValueError(f"{rows} rows do not split over {space} ranks")
-    h = rows // space
-    return range(rank * h, (rank + 1) * h)
+def _every_rank_holds(parts, rows):
+    if any(len(p) == 0 for p in parts):
+        raise ValueError(f"{rows} rows over {len(parts)} space ranks leave "
+                         "a rank without rows (not ported)")
 
 
 def needed_rows(height: int, space: int, kernel: int, stride: int = 1,
                 dilation: int = 1, padding: int = 0
                 ) -> list[tuple[int, int]]:
     """Each rank's [lo, hi] global input rows (inclusive, beyond the
-    image where the padding is) for its share of the output rows."""
+    image where the padding is) for its rows of the output's partition,
+    its own input rows those of the input's."""
     out = output_rows(height, kernel, stride, dilation, padding)
+    parts_in, parts_out = partition(height, space), partition(out, space)
+    _every_rank_holds(parts_in, height)
+    _every_rank_holds(parts_out, out)
     plans = []
-    for s in range(space):
-        rin = shard_range(height, space, s)
-        top, bottom = halo_plan(kernel, stride, dilation, padding, rin,
-                                shard_range(out, space, s))
+    for rin, rout in zip(parts_in, parts_out):
+        top, bottom = halo_plan(kernel, stride, dilation, padding, rin, rout)
         plans.append((rin.start - top, rin.stop - 1 + bottom))
     return plans
 
 
 def row_sources(lo: int, hi: int, height: int, space: int, fill: str
                 ) -> list[tuple[int, int]]:
-    """(owner rank, its local row) of each global row lo..hi; (-1, -1)
-    for a row outside the image filled with a constant; with fill 'edge'
-    such a row is the nearest edge row of the image."""
+    """(owner rank, its local row) of each global row lo..hi of a map
+    `height` rows high under partition(height, space); (-1, -1) for a row
+    outside the image filled with a constant; with fill 'edge' such a row
+    is the nearest edge row of the image."""
     if fill not in FILLS:
         raise ValueError(f"fill {fill!r}: one of {FILLS}")
-    h = height // space
+    parts = partition(height, space)
+    starts = [p.start for p in parts]
     out = []
     for g in range(lo, hi + 1):
         if fill == "edge":
             g = min(max(g, 0), height - 1)
-        out.append(divmod(g, h) if 0 <= g < height else (-1, -1))
+        if 0 <= g < height:
+            owner = bisect.bisect_right(starts, g) - 1
+            out.append((owner, g - starts[owner]))
+        else:
+            out.append((-1, -1))
     return out
 
 
@@ -159,15 +242,22 @@ def _remote(sources, rank):
     return sorted({src for src in sources if src[0] not in (rank, -1)})
 
 
-def assemble(shards, rank: int, lo: int, hi: int, fill: str,
+def assemble(shards, rank: int, lo: int, hi: int, fill: str, height: int,
              remote_rows=None) -> torch.Tensor:
-    """Rank `rank`'s extended rows lo..hi (dim 2 of NCHW) from its own
-    shard shards[rank] and the remote rows `remote_rows` [B, C, R, W] in
-    _remote's order; `shards` may hold the other ranks' shards instead
-    (the one-process simulation), which are then read directly."""
+    """Rank `rank`'s extended rows lo..hi (dim 2 of NCHW) of a map
+    `height` rows high from its own shard shards[rank] and the remote
+    rows `remote_rows` [B, C, R, W] in _remote's order; `shards` may hold
+    the other ranks' shards instead (the one-process simulation), which
+    are then read directly."""
     x = shards[rank]
-    space, h = len(shards), x.shape[2]
-    sources = row_sources(lo, hi, h * space, space, fill)
+    h = x.shape[2]
+    sources = row_sources(lo, hi, height, len(shards), fill)
+    if (remote_rows is None and all(o == rank for o, _ in sources)
+            and sources[-1][1] - sources[0][1] == len(sources) - 1):
+        # its own consecutive rows, no exchange: a view (the rows an
+        # exchange returns stay in the graph on every rank, so that every
+        # rank runs its backward's collective)
+        return x[:, :, sources[0][1]:sources[-1][1] + 1]
     remote = _remote(sources, rank)
     if remote_rows is None:
         remote_rows = (torch.cat([shards[o][:, :, r:r + 1]
@@ -236,18 +326,19 @@ class _Exchange(torch.autograd.Function):
         return dx.permute(0, 3, 1, 2), None, None
 
 
-def exchange(x: torch.Tensor, mesh, plans, fill: str) -> torch.Tensor:
+def exchange(x: torch.Tensor, mesh, plans, height: int,
+             fill: str) -> torch.Tensor:
     """This rank's extended rows plans[space rank] = [lo, hi] (global,
-    inclusive) of x, its own rows [B, C, h, W], for the plans of every
-    space rank (needed_rows); differentiable."""
-    space, h, s = mesh.space, x.shape[2], mesh.space_rank
-    needs = [_remote(row_sources(lo, hi, h * space, space, fill), t)
+    inclusive) of x, its own rows [B, C, h, W] of a map `height` rows
+    high, for the plans of every space rank; differentiable."""
+    space, s = mesh.space, mesh.space_rank
+    needs = [_remote(row_sources(lo, hi, height, space, fill), t)
              for t, (lo, hi) in enumerate(plans)]
     # no collective when no rank reads a row of another (every rank
     # computes every rank's needs, so all skip it alike)
     recv = _Exchange.apply(x, mesh, needs) if any(needs) else None
-    own = [x if t == s else None for t in range(space)]
-    return assemble(own, s, *plans[s], fill, recv)
+    shards = [x if t == s else None for t in range(space)]
+    return assemble(shards, s, *plans[s], fill, height, recv)
 
 
 def _channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -259,29 +350,27 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def conv2d(x: torch.Tensor, weight, bias, stride, padding, dilation,
-           groups: int = 1) -> torch.Tensor:
+           groups: int = 1, rows: int | None = None) -> torch.Tensor:
     """F.conv2d over the image whose rows the ranks of the open sharded()
-    block hold: this rank's output rows. F.conv2d itself outside one."""
+    block hold, `rows` rows high: this rank's rows of the output's
+    partition. F.conv2d itself outside one (rows unused), and for a 1x1
+    convolution at stride 1 (row-local)."""
     mesh = current()
-    if mesh is None:
-        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
     k, st, d, p = weight.shape[2], stride[0], dilation[0], padding[0]
-    if k == 1 and p == 0:  # row-local; at stride 2 from an even row
-        if x.shape[2] % st:
-            raise ValueError(f"a shard of {x.shape[2]} rows under a 1x1 "
-                             f"convolution of stride {st}")
+    if mesh is None or (k == 1 and st == 1 and p == 0):
         return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
-    h = x.shape[2]
-    plans = needed_rows(h * mesh.space, mesh.space, k, st, d, p)
-    ext = exchange(x, mesh, plans, "zero")
+    share(mesh, rows, x.shape[2])
+    plans = needed_rows(rows, mesh.space, k, st, d, p)
+    ext = exchange(x, mesh, plans, rows, "zero")
     return F.conv2d(_channels_last(ext), weight, bias, stride,
                     (0, padding[1]), dilation, groups)
 
 
-def aspp_sum(x: torch.Tensor, convs) -> torch.Tensor:
+def aspp_sum(x: torch.Tensor, convs, rows: int | None = None
+             ) -> torch.Tensor:
     """The sum of the stride-1 'same' convs `convs` (ASPP's branches) of
-    x, in order; sharded, one exchange at the largest dilation, of which
-    each branch reads its own rows."""
+    x, in order; sharded (x's global rows `rows`), one exchange at the
+    largest dilation, of which each branch reads its own rows."""
     mesh = current()
     out = None
     if mesh is None:
@@ -289,75 +378,140 @@ def aspp_sum(x: torch.Tensor, convs) -> torch.Tensor:
             y = c(x)
             out = y if out is None else out + y
         return out
+    share(mesh, rows, x.shape[2])
     reach = max(c.padding[0] for c in convs)
     h = x.shape[2]
-    plans = needed_rows(h * mesh.space, mesh.space, 3, 1, reach, reach)
-    ext = exchange(x, mesh, plans, "zero")
+    plans = needed_rows(rows, mesh.space, 3, 1, reach, reach)
+    ext = exchange(x, mesh, plans, rows, "zero")
     for c in convs:
         d = c.dilation[0]
         if c.padding[0] != d or c.kernel_size[0] != 3 or c.stride[0] != 1:
             raise ValueError("aspp_sum takes stride-1 'same' 3x3 convs")
-        rows = _channels_last(ext[:, :, reach - d:reach + h + d])
-        y = F.conv2d(rows, c.weight, c.bias, c.stride, (0, c.padding[1]),
+        part = _channels_last(ext[:, :, reach - d:reach + h + d])
+        y = F.conv2d(part, c.weight, c.bias, c.stride, (0, c.padding[1]),
                      c.dilation, c.groups)
         out = y if out is None else out + y
     return out
 
 
-def max_pool2d(x: torch.Tensor, kernel: int, stride: int,
-               padding: int) -> torch.Tensor:
-    """F.max_pool2d (square kernel), row-sharded inside sharded()."""
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int,
+               rows: int | None = None) -> torch.Tensor:
+    """F.max_pool2d (square kernel), row-sharded inside sharded() (x's
+    global rows `rows`)."""
     mesh = current()
     if mesh is None:
         return F.max_pool2d(x, kernel, stride, padding)
-    h = x.shape[2]
-    plans = needed_rows(h * mesh.space, mesh.space, kernel, stride, 1,
-                        padding)
-    ext = exchange(x, mesh, plans, "neg_inf")
+    share(mesh, rows, x.shape[2])
+    plans = needed_rows(rows, mesh.space, kernel, stride, 1, padding)
+    ext = exchange(x, mesh, plans, rows, "neg_inf")
     return F.max_pool2d(_channels_last(ext), kernel, stride, (0, padding))
 
 
-def interpolate(x: torch.Tensor, size) -> torch.Tensor:
+@functools.lru_cache(maxsize=1024)
+def _row_blend(n_in: int, n_out: int, start: int, stop: int, wide: bool):
+    """Source rows (i0, i1) and weights (l0, l1) of output rows
+    [start, stop) of a half-pixel bilinear resize of n_in rows to n_out,
+    as F.interpolate (align_corners=False) computes them: src = max((r +
+    0.5) n_in / n_out - 0.5, 0), i0 its floor, i1 the next row but at the
+    last, in float32 (float64 when wide)."""
+    acc = np.float64 if wide else np.float32
+    scale = acc(n_in) / acc(n_out)
+    src = np.maximum(scale * (np.arange(start, stop, dtype=acc)
+                              + acc(0.5)) - acc(0.5), acc(0))
+    i0 = src.astype(np.int64)
+    i1 = np.where(i0 < n_in - 1, i0 + 1, i0)
+    l1 = src - i0.astype(acc)
+    out = i0, i1, acc(1) - l1, l1
+    for a in out:  # cached: every caller reads the same arrays
+        a.setflags(write=False)
+    return out
+
+
+def _blend(x: torch.Tensor, first: int, n_in: int, n_out: int,
+           rows: range, width: int) -> torch.Tensor:
+    """Rows `rows` of the half-pixel bilinear resize of a map n_in rows
+    high to (n_out, width), from x [B, C, R, W]: its global rows first ..
+    first + R - 1, which hold every source row of `rows`. The width
+    resized first, in float32 at least, then each row blended from its
+    two source rows with F.interpolate's weights."""
+    xf = x if x.dtype == torch.float64 else x.float()
+    xw = F.interpolate(xf, size=(x.shape[2], width), mode="bilinear",
+                       align_corners=False, antialias=False)
+    i0, i1, l0, l1 = _row_blend(n_in, n_out, rows.start, rows.stop,
+                                xf.dtype == torch.float64)
+    w0 = torch.tensor(l0, dtype=xw.dtype, device=xw.device).view(1, 1, -1, 1)
+    w1 = torch.tensor(l1, dtype=xw.dtype, device=xw.device).view(1, 1, -1, 1)
+    y = (xw.index_select(2, _idx((i0 - first).tolist(), xw)) * w0
+         + xw.index_select(2, _idx((i1 - first).tolist(), xw)) * w1)
+    return y.to(x.dtype)
+
+
+def interpolate(x: torch.Tensor, size, rows: int | None = None
+                ) -> torch.Tensor:
     """NCHW half-pixel bilinear resize (F.interpolate bilinear,
-    align_corners=False, antialias=False) to `size` = (this rank's output
-    rows, width). Sharded, the global row factor must be an integer f >=
-    1: the rank's output rows read its rows and one above and below, the
-    image's edge rows replicated beyond it; the resize of those h + 2
-    rows to f (h + 2) rows, rows [f, f + f h), is the global resize's at
-    the same source coordinates (the top edge's clamped rows aside, a
-    blend of two equal rows, within a rounding of the row)."""
+    align_corners=False, antialias=False) to `size` = (global rows,
+    width). Sharded (x's global rows `rows`): this rank's rows of the
+    output's partition, each blended from its two source rows at global
+    coordinates (_blend), the source rows fetched from the ranks that
+    own them."""
     mesh = current()
     if mesh is None:
         return F.interpolate(x, size=tuple(size), mode="bilinear",
                              align_corners=False, antialias=False)
-    h, (oh, ow) = x.shape[2], size
-    if oh % h:
-        raise ValueError(f"a sharded resize of {h} rows to {oh}: the row "
-                         "factor must be an integer")
-    f = oh // h
-    plans = [(t * h - 1, (t + 1) * h) for t in range(mesh.space)]
-    ext = exchange(x, mesh, plans, "edge")
-    y = F.interpolate(ext, size=(f * (h + 2), ow), mode="bilinear",
-                      align_corners=False, antialias=False)
-    return y[:, :, f:f + oh]
+    share(mesh, rows, x.shape[2])
+    n_out, width = size
+    parts = partition(n_out, mesh.space)
+    _every_rank_holds(parts, n_out)
+    wide = x.dtype == torch.float64
+    plans = []
+    for p in parts:
+        i0, i1, _, _ = _row_blend(rows, n_out, p.start, p.stop, wide)
+        plans.append((int(i0[0]), int(i1[-1])))
+    ext = exchange(x, mesh, plans, rows, "edge")
+    return _blend(ext, plans[mesh.space_rank][0], rows, n_out,
+                  parts[mesh.space_rank], width)
 
 
-def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, size, rows: int | None = None
+                    ) -> torch.Tensor:
     """NHWC form of interpolate (models/spp.py::resize_bilinear outside
     sharded())."""
-    return interpolate(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+    return interpolate(x.permute(0, 3, 1, 2), size, rows).permute(0, 2, 3, 1)
+
+
+def take_rows(x: torch.Tensor, rows: int, index) -> torch.Tensor:
+    """x [B, C, h, W] (this rank's rows of a map `rows` high inside the
+    open sharded() block; the whole map outside one) at the global rows
+    index[r] of this rank's rows r of the partition of len(index) rows
+    (index non-decreasing, every entry in the map), fetched from the
+    ranks that own them: exact, any dtype (the labels' nearest resize)."""
+    mesh = current()
+    if mesh is None:
+        return x.index_select(2, _idx(list(index), x))
+    share(mesh, rows, x.shape[2])
+    parts = partition(len(index), mesh.space)
+    _every_rank_holds(parts, len(index))
+    plans = [(index[p.start], index[p.stop - 1]) for p in parts]
+    ext = exchange(x, mesh, plans, rows, "edge")
+    lo, mine = plans[mesh.space_rank][0], parts[mesh.space_rank]
+    return ext.index_select(2, _idx([index[r] - lo for r in mine], ext))
 
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d whose forward is conv2d(): today's nn.Conv2d call
-    outside sharded(), the halo-exchanged one inside. Same parameters and
-    state-dict names."""
+    outside sharded(), the halo-exchanged one inside (rows: x's global
+    rows). Same parameters and state-dict names."""
 
-    def forward(self, x):
+    def forward(self, x, rows: int | None = None):
         if current() is None:
             return super().forward(x)
         return conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                      self.dilation, self.groups)
+                      self.dilation, self.groups, rows)
+
+    def rows_out(self, rows: int) -> int:
+        """The output's global rows over an input `rows` rows high."""
+        return output_rows(rows, self.kernel_size[0], self.stride[0],
+                           self.dilation[0], self.padding[0])
 
 
 # ---------------------------------------------------------------------------
@@ -370,25 +524,28 @@ def adaptive_bins(n: int, s: int) -> list[tuple[int, int]]:
     return [((i * n) // s, -(-((i + 1) * n) // s)) for i in range(s)]
 
 
-def adaptive_avg_pools(x: torch.Tensor, sizes) -> list[torch.Tensor]:
+def adaptive_avg_pools(x: torch.Tensor, sizes, rows: int | None = None
+                       ) -> list[torch.Tensor]:
     """F.adaptive_avg_pool2d(x, s) for each s of `sizes` (NCHW), of the
-    image whose rows the ranks of the open sharded() block hold: every
-    rank gets the whole [B, C, s, s] maps. Each rank sums the columns'
-    means of each bin over its own rows of the bin's global rows, in
-    float32 at least; one sum over the space group, labelled "pool" (with
-    gradient: each rank's rows get the gradient of every rank's use of
-    the maps), for every size at once; then each bin's sum over its
-    global row count. Outside sharded(), F.adaptive_avg_pool2d."""
+    image whose rows the ranks of the open sharded() block hold, `rows`
+    rows high: every rank gets the whole [B, C, s, s] maps. Each rank
+    sums the columns' means of each bin over its own rows of the bin's
+    global rows, in float32 at least; one sum over the space group,
+    labelled "pool" (with gradient: each rank's rows get the gradient of
+    every rank's use of the maps), for every size at once; then each
+    bin's sum over its global row count. Outside sharded(),
+    F.adaptive_avg_pool2d."""
     mesh = current()
     if mesh is None:
         return [F.adaptive_avg_pool2d(x, s) for s in sizes]
+    share(mesh, rows, x.shape[2])
     b, c, h, _ = x.shape
-    height, first = h * mesh.space, mesh.space_rank * h
+    first = partition(rows, mesh.space)[mesh.space_rank].start
     xf = x if x.dtype == torch.float64 else x.float()
     parts, counts = [], []
     for s in sizes:
         cols = F.adaptive_avg_pool2d(xf, (h, s))  # [B, C, h, s]
-        for lo, hi in adaptive_bins(height, s):
+        for lo, hi in adaptive_bins(rows, s):
             a, z = max(lo, first) - first, min(hi, first + h) - first
             parts.append(cols[:, :, a:z].sum(2) if z > a
                          else cols.new_zeros((b, c, s)))
@@ -401,44 +558,15 @@ def adaptive_avg_pools(x: torch.Tensor, sizes) -> list[torch.Tensor]:
         means.split([s * s for s in sizes], dim=2), sizes)]
 
 
-def _row_blend(n_in: int, n_out: int, rows: range, dtype):
-    """Source rows (i0, i1) and weights (l0, l1) of output rows `rows` of
-    a half-pixel bilinear resize of n_in rows to n_out, as F.interpolate
-    (align_corners=False) computes them: src = max((r + 0.5) n_in / n_out
-    - 0.5, 0), i0 its floor, i1 the next row but at the last, in float32
-    (float64 for float64 maps)."""
-    acc = np.float64 if dtype == torch.float64 else np.float32
-    scale = acc(n_in) / acc(n_out)
-    src = np.maximum(scale * (np.arange(rows.start, rows.stop, dtype=acc)
-                              + acc(0.5)) - acc(0.5), acc(0))
-    i0 = src.astype(np.int64)
-    i1 = np.where(i0 < n_in - 1, i0 + 1, i0)
-    l1 = src - i0.astype(acc)
-    return i0, i1, acc(1) - l1, l1
-
-
 def resize_whole(x: torch.Tensor, size) -> torch.Tensor:
     """NCHW half-pixel bilinear resize of a map that every rank holds
-    whole (PSPP's pooled maps) to `size` = (this rank's output rows,
-    width): this rank's rows of the resize to the global height, from
-    global source coordinates; the width resized first, in float32 at
-    least, then each row blended from its two source rows with
-    F.interpolate's weights, the rank's rows alone computed.
-    F.interpolate outside sharded()."""
+    whole (PSPP's pooled maps) to `size` = (global rows, width): this
+    rank's rows of the output's partition, from global source
+    coordinates (_blend), the rank's rows alone computed. F.interpolate
+    outside sharded()."""
     mesh = current()
     if mesh is None:
         return F.interpolate(x, size=tuple(size), mode="bilinear",
                              align_corners=False, antialias=False)
-    oh, ow = size
-    n_in, n_out = x.shape[2], oh * mesh.space
-    xf = x if x.dtype == torch.float64 else x.float()
-    xw = F.interpolate(xf, size=(n_in, ow), mode="bilinear",
-                       align_corners=False, antialias=False)
-    rows = range(mesh.space_rank * oh, (mesh.space_rank + 1) * oh)
-    i0, i1, l0, l1 = _row_blend(n_in, n_out, rows, xf.dtype)
-    w0 = torch.from_numpy(l0).to(xw.device, xw.dtype).view(1, 1, -1, 1)
-    w1 = torch.from_numpy(l1).to(xw.device, xw.dtype).view(1, 1, -1, 1)
-    y = (xw.index_select(2, _idx(i0.tolist(), xw)) * w0
-         + xw.index_select(2, _idx(i1.tolist(), xw)) * w1)
-    return y.to(x.dtype)
-
+    n_out, width = size
+    return _blend(x, 0, x.shape[2], n_out, own(n_out), width)

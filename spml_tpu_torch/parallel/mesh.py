@@ -24,11 +24,12 @@ With space S > 1 (make_mesh(spatial=S)), rank r is data rank r // S and
 space rank r % S, row-major as the JAX package's
 devices.reshape(-1, spatial): the D = W / S data ranks split the batch
 and the S space ranks of a data rank split each of its images' rows
-(Mesh.rows), the leaves of SPATIAL_KEYS alone. The halo exchanges around
-the row-coupled operations (parallel/halo.py) and the per-segment sums of
-an image (k-means, the prototypes) run within a space group; the
-prototypes are gathered over a data group (each data rank's once), and
-the loss groups are counted over a data group.
+(Mesh.rows: H / S each), the leaves of SPATIAL_KEYS alone; every map
+below the images is split by parallel/halo.py::partition. The halo
+exchanges around the row-coupled operations (parallel/halo.py) and the
+per-segment sums of an image (k-means, the prototypes) run within a
+space group; the prototypes are gathered over a data group (each data
+rank's once), and the loss groups are counted over a data group.
 
 Backends: NCCL when every rank has its own card, gloo on the CPU. gloo on
 CUDA tensors, ranks sharing a card, is the one-card case a caller may ask
@@ -63,10 +64,6 @@ import torch
 import torch.distributed as dist
 
 from spml_tpu_torch.utils.device import resolve_device
-
-SPATIAL_NEXT = ("uneven height shards (a crop height that is not a multiple "
-                "of 8 x tpu.spatial_partition, which GSPMD pads) are not "
-                "ported: ROADMAP Queue 1 item 1(d)")
 
 # Batch keys whose axis 1 is the image height: the only leaves that shard
 # over 'space' (spml_tpu/parallel/mesh.py:58-63).
@@ -344,16 +341,20 @@ def group_sum(x: torch.Tensor, group) -> torch.Tensor:
     return sum_in_order(x, group)
 
 
-def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, mesh: Mesh, rows: int,
+                dim: int = 1) -> torch.Tensor:
     """The rows along `dim` of every space rank of this rank's data rank,
+    each its rows of a map `rows` high (parallel/halo.py::partition),
     joined in order (x itself at space 1); without gradient."""
     if mesh.space == 1:
         return x
-    h = x.shape[dim]
+    from spml_tpu_torch.parallel.halo import share
+
+    mine = share(mesh, rows, x.shape[dim])
     shape = list(x.shape)
-    shape[dim] = h * mesh.space
+    shape[dim] = rows
     buf = x.new_zeros(shape)
-    buf.narrow(dim, mesh.space_rank * h, h).copy_(x.detach())
+    buf.narrow(dim, mine.start, len(mine)).copy_(x.detach())
     with collective("gather"):
         return sum_disjoint(buf, mesh.space_group())
 

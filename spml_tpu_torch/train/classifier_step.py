@@ -84,18 +84,23 @@ def make_classifier_train_step(config, emb_model):
     schedule = optim.make_schedule(tcfg)
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
     world = mesh.world
-    halo.check_height(config.train.crop_size[0], mesh.space)
+    crop = config.train.crop_size[0]
+    halo.check_height(crop, mesh.space)
 
     def train_step(state: TrainState, batch):
         images = batch["image"]
         labels = batch["semantic_label"].long()
-        with halo.sharded(mesh):
+        # the global rows of the images and of the embeddings
+        height = crop if mesh.space > 1 else images.shape[1]
+        with halo.sharded(mesh, height):
             with torch.no_grad():
                 emb, _ = emb_model(images)
                 emb = common.normalize_embedding(emb.float())
+            rows = emb_model.embedding_rows(height)
             state.cls_model.train()
-            logits = state.cls_model(emb, state.generator)
-            logits_up = halo.resize_bilinear(logits, images.shape[1:3])
+            logits = state.cls_model(emb, state.generator, rows)
+            logits_up = halo.resize_bilinear(
+                logits, (height, images.shape[2]), rows)
         ce = _cross_entropy(logits_up, labels, C, mesh=mesh)
         params = [("prediction." + n, p)
                   for n, p in state.cls_model.named_parameters()]

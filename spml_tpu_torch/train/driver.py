@@ -106,12 +106,14 @@ def _log_images(writer, config, emb_model, batch, step,
     rows are joined."""
     if (writer is None if mesh.space == 1 else mesh.data_rank != 0):
         return
+    height = config.train.crop_size[0]
     emb_model.eval()
-    with torch.no_grad(), halo.sharded(mesh):
+    with torch.no_grad(), halo.sharded(mesh, height):
         emb, _ = emb_model(batch["image"][:2])
     emb_model.train()
-    emb, sem, inst = (mesh_lib.gather_rows(t, mesh) for t in (
-        emb, batch["semantic_label"][:2], batch["instance_label"][:2]))
+    emb = mesh_lib.gather_rows(emb, mesh, emb_model.embedding_rows(height))
+    sem, inst = (mesh_lib.gather_rows(t, mesh, height) for t in (
+        batch["semantic_label"][:2], batch["instance_label"][:2]))
     if writer is None:
         return
     emb_rgb = vis.embedding_to_rgb(emb.float().cpu().numpy())
@@ -256,7 +258,7 @@ def _mesh(config):
     The ranks come from the launch (--device, torchrun): a num_devices
     given as neither the default 1 nor that count raises, and so does a
     count that tpu.spatial_partition does not divide or a crop height
-    that is not a multiple of 8 x spatial_partition."""
+    that it does not (halo.check_height)."""
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
     halo.check_height(config.train.crop_size[0], mesh.space)
     if config.tpu.num_devices not in (1, mesh.world):

@@ -58,8 +58,12 @@ ranks), its rows of them (the image and labels cut by
 parallel/mesh.py::shard_rows). The forwards of the embedding network and
 the classifier head run under halo.sharded(): the networks exchange halo
 rows, the logits are resized to the rank's rows of the full-resolution
-grid. The loss groups are those of the global batch of D * b images; a
-group's pixel count is all-reduced over the space ranks that hold its
+grid. Every map has its own partition over the space ranks
+(parallel/halo.py::partition: equal blocks where S divides its height),
+and each operation is told its input's global height, from the crop
+height down (the embeddings' is EmbeddingModel.embedding_rows). The
+loss groups are those of the global batch of D * b images; a group's
+pixel count is all-reduced over the space ranks that hold its
 images' rows, and each rank's share of a group mean is its masked sum
 over that count. The SegSort branch: the labels are resized to the
 rank's rows of the embedding grid from global coordinates; k-means runs
@@ -75,8 +79,9 @@ pools summed over the space group, models/spp.py) and DensePose run so
 too: the colour features are made from the gathered whole images
 (models/local.py), the NN-propagated tags read the gathered, complete
 prototypes, and feat_aff and the hard-label loss read the rank's pixel
-rows with their means counted over the space group. Only a crop height
-that is not a multiple of 8 x S raises (halo.check_height). Ranks:
+rows with their means counted over the space group. A crop height that
+S does not divide raises, as does one whose stride-8 map has fewer rows
+than S (halo.check_height). Ranks:
 the loss groups and the global image indices are the data rank's; the
 dropout generator, the world rank's (init_state).
 
@@ -292,8 +297,8 @@ def make_train_step(config):
     update = optim.build_optimizer(tcfg)
     mesh = mesh_lib.make_mesh(config.tpu.spatial_partition)
     world = mesh.world
-    shard = (mesh.space_rank, mesh.space)  # the labels' rows
-    halo.check_height(config.train.crop_size[0], mesh.space)
+    crop = config.train.crop_size[0]
+    halo.check_height(crop, mesh.space)
     wide = common.at_least_float32
 
     def _n_groups(b):
@@ -316,30 +321,36 @@ def make_train_step(config):
         tags = batch["semantic_tag"].long()
         B = images.shape[0]
         dev = images.device
+        # the global rows of the images and of the embeddings
+        height = crop if mesh.space > 1 else images.shape[1]
+        rows = state.emb_model.embedding_rows(height)
+        full = (height, images.shape[2])
 
         if softmax:
             # the fully supervised baseline: CE through the backbone
-            with halo.sharded(mesh):
+            with halo.sharded(mesh, height):
                 emb, _ = state.emb_model(images)
                 logits = state.cls_model(
-                    common.normalize_embedding(wide(emb)), state.generator)
-                logits_up = halo.resize_bilinear(logits, images.shape[1:3])
+                    common.normalize_embedding(wide(emb)), state.generator,
+                    rows)
+                logits_up = halo.resize_bilinear(logits, full, rows)
             ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
             return ce, ({"sem_ann_loss": ce,
                          "accuracy": _accuracy(logits_up, sem_full, C)},
                         None)
-        with halo.sharded(mesh):
+        with halo.sharded(mesh, height):
             emb, loc = state.emb_model(images)
-        h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
+            h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
+            sem = common.resize_labels(sem_full, (rows, w), height)
+            inst = common.resize_labels(inst_full, (rows, w), height)
         N = h * w
-        sem = common.resize_labels(sem_full, (h, w), shard)
-        inst = common.resize_labels(inst_full, (h, w), shard)
 
         # ---- clustering (no gradient through assignments) ----
         with torch.no_grad():
             segs, _, _ = kmeans.segment_batch(
                 emb.detach(), loc, sem, inst, n_clusters, P, km_iters,
-                ignore, label_cap=config.tpu.label_cap, mesh=mesh)
+                ignore, label_cap=config.tpu.label_cap, mesh=mesh,
+                rows=rows)
 
         # ---- differentiable pixel embeddings & prototypes ----
         emb_flat = common.normalize_embedding(wide(emb)).reshape(B, N, D)
@@ -398,9 +409,9 @@ def make_train_step(config):
 
         # ---- semantic annotation: CE on the detached embeddings ----
         cls_in = common.normalize_embedding(wide(emb)).detach()
-        with halo.sharded(mesh):
-            logits = state.cls_model(cls_in, state.generator)
-            logits_up = halo.resize_bilinear(logits, images.shape[1:3])
+        with halo.sharded(mesh, height):
+            logits = state.cls_model(cls_in, state.generator, rows)
+            logits_up = halo.resize_bilinear(logits, full, rows)
         ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
 
         # ---- semantic co-occurrence tags ----

@@ -9,8 +9,8 @@ mesh.py), on the CPU and without JAX:
   the SegSort and stage-2 steps of the DeepLab, PSPNet and DensePose
   backbones build, and so do the PSPNet softmax steps, and PSPP runs
   inside halo.sharded (its pools' sum and its conv's halo over a group
-  of one rank); a crop height that is not a multiple of 8 x spatial
-  (ValueError naming the rule and uneven shards' ROADMAP item 1(d));
+  of one rank); crop height 40 (5 rows at stride 8 over 2 ranks)
+  builds and 41, which 2 ranks do not divide, raises ValueError;
   the drivers set tpu.num_devices to the
   world size, and one given as neither 1 nor that size raises;
 * --device values and backends: 'cuda' raises on a host without a card,
@@ -110,18 +110,23 @@ def test_spatial_partition_raises(case, monkeypatch):
         # over it is the rank's own, the fusing conv's halo rows zeros
         monkeypatch.setattr(mesh_lib.Mesh, "space_group", lambda self: None)
         monkeypatch.setattr(mesh_lib, "group_size", lambda group=None: 1)
-        monkeypatch.setattr(halo, "exchange", lambda x, mesh, plans, fill:
+        monkeypatch.setattr(halo, "exchange",
+                            lambda x, mesh, plans, height, fill:
                             torch.nn.functional.pad(x, (0, 0, 1, 1)))
         with halo.sharded(mesh_lib.Mesh(0, 2, 2)):
-            y = PSPP(8, 4).eval()(torch.randn(1, 8, 4, 5))
+            y = PSPP(8, 4).eval()(torch.randn(1, 8, 4, 5), 8)
         assert y.shape == (1, 4, 4, 5) and bool(torch.isfinite(y).all())
-    else:
-        cfg.train.crop_size = (40, 32)
-        rule = r"multiple of 8 x spatial_partition = 16.*item 1\(d\)"
-        for build in (tstep.make_train_step, driver._mesh,
-                      lambda c: cstep.make_classifier_train_step(
-                          c, torch.nn.Identity())):
-            with pytest.raises(ValueError, match=rule):
+    else:  # any height the space ranks divide builds, another raises
+        builds = (tstep.make_train_step, driver._mesh,
+                  lambda c: cstep.make_classifier_train_step(
+                      c, torch.nn.Identity()))
+        cfg.train.crop_size = (40, 32)  # 5 rows at stride 8 over 2 ranks
+        for build in builds:
+            build(cfg)
+        cfg.train.crop_size = (41, 32)
+        for build in builds:
+            with pytest.raises(ValueError,
+                               match="multiple of spatial_partition"):
                 build(cfg)
 
 

@@ -6,19 +6,21 @@ process computes the JAX references:
 
 * halo.adaptive_avg_pools and PSPP (models/spp.py) in float64 on a
   seeded [2, 8, H, 6] map, the ranks' rows against the whole map in one
-  process: H 4, 8 and 64 on space 2 (res5 of crop 32, 64 and 512; the
-  6-bin pool's bins straddle the shard boundary, at H 4 they overlap,
-  s > H), H 4 and 8 on space 4 (one or two rows a rank, bins spanning
-  several ranks). The pooled maps (whole on every rank) and the gradient
-  of the sum of them times each rank's own cotangent (one process: the
+  process: H 4, 8, 64 and 5 on space 2 (res5 of crop 32, 64, 512 and
+  40; the 6-bin pool's bins straddle the shard boundary, at H 4 and 5
+  they overlap, s > H; at 5 the ranks hold 2 and 3 rows), H 4, 8 and 7
+  on space 4 (one or two rows a rank, bins spanning several ranks).
+  The pooled maps (whole on every rank) and the gradient of the sum of
+  them times each rank's own cotangent (one process: the
   ranks' cotangents summed); PSPP's output (the ranks' rows joined), its
   input gradient, every parameter gradient summed over the ranks and
   the BN running statistics (momentum 0.1, the pooled maps' BN counting
   each pixel once a rank): all within 1e-12 x max|one process's|;
 * DensePose's local features (location, colour blurred 5x5, resized to
   the stride-4 grid, normalized per image) of the ranks' rows of 4
-  images, 32 x 32 and 64 x 48, joined: torch.equal to one process's
-  (the colour is made from the gathered whole images);
+  images, 32 x 32, 64 x 48 and 40 x 48 (on 4 ranks a grid of 10 rows as
+  2, 3, 2, 3), joined: torch.equal to one process's (the colour is
+  made from the gathered whole images);
 * one step of the DensePose point recipe at the size of
   tests/test_torch_densepose_step.py (panoptic_pspnet_10_densepose,
   8-d, crop 32: 16 image rows and 2 rows of res5 a rank, batch 2, 2x2
@@ -27,8 +29,10 @@ process computes the JAX references:
   mode), in three arms: the recipe as it ships (the hard-label loss,
   K4-K6's plain version), sem_occ with tpu.apply_feat_aff and a
   one-step bank (NN-propagated tags, the joint loss, the dense
-  feat_aff), and tpu.loss_operand_dtype "bfloat16" (the hard-label
-  loss's bf16-operand plain version against JAX's bf16 kernels).
+  feat_aff), tpu.loss_operand_dtype "bfloat16" (the hard-label
+  loss's bf16-operand plain version against JAX's bf16 kernels), and
+  the shipped recipe at crop 40 (uneven shards: res5's 5 rows as 2 and
+  3), against JAX's one-device step at crop 40.
   Tolerances, those of tests/test_torch_sp_step.py: metrics rtol 1e-4,
   but img_sim_loss rtol 2e-3 (tests/test_torch_densepose_step.py: its
   concentration of 16 amplifies the flax PSPNet's float32 error, which
@@ -71,12 +75,17 @@ NN_TAGS["train"].update(sem_occ_loss_types="segsort", memory_bank_size=1)
 NN_TAGS["tpu"]["apply_feat_aff"] = True
 BF16 = copy.deepcopy(OVERRIDES)
 BF16["tpu"]["loss_operand_dtype"] = "bfloat16"
-ARMS = {"shipped": OVERRIDES, "nn_tags": NN_TAGS, "bf16": BF16}
+UNEVEN = copy.deepcopy(OVERRIDES)
+UNEVEN["train"]["crop_size"] = [40, 40]
+ARMS = {"shipped": OVERRIDES, "nn_tags": NN_TAGS, "bf16": BF16,
+        "uneven": UNEVEN}
+ARM_CROP = {name: over["train"]["crop_size"][0]
+            for name, over in ARMS.items()}
 F64 = copy.deepcopy(NN_TAGS)
 F64["tpu"]["use_fused_loss"] = False  # the kernels take float32 alone
 CHECKED = CHECKED_PARAMS + CHECKED_STATS
-POOL_CASES = {"1x2": (4, 8, 64), "1x4": (4, 8)}  # mesh: map heights
-COLOUR_SHAPES = ((32, 32), (64, 48))
+POOL_CASES = {"1x2": (4, 8, 64, 5), "1x4": (4, 8, 7)}  # mesh: heights
+COLOUR_SHAPES = ((32, 32), (64, 48), (40, 48))
 MESHES = {"1x2": 2, "1x4": 4}  # data x space -> ranks (space = ranks)
 
 
@@ -92,7 +101,8 @@ def _jobs(mesh, inp):
     jobs += [("colour_case", (shape, space)) for shape in COLOUR_SHAPES]
     if mesh == "1x2":
         jobs += [("segsort_steps", (load_config(overrides=_spatial(over)),
-                                    inp["init"][name], [inp["batch"]]))
+                                    inp["init"][name],
+                                    [inp["batches"][ARM_CROP[name]]]))
                  for name, over in ARMS.items()]
         jobs.append(("segsort_steps", (load_config(overrides=_spatial(F64)),
                                        inp["init64"], [inp["batch"]], True)))
@@ -115,11 +125,12 @@ def _job(mesh, kind, key):
 def inputs():
     """The point-labelled batch, the JAX initial states and their weights
     converted for the port (the shipped and bf16 arms share one)."""
-    batch = {k: v.numpy() for k, v in densepose_point.point_batch(
-        2, 32, seed=5, device="cpu").items()}
+    batches = {crop: {k: v.numpy() for k, v in densepose_point.point_batch(
+        2, crop, seed=5, device="cpu").items()}
+        for crop in sorted(set(ARM_CROP.values()))}
     jinit, init = {}, {}
     for name, over in ARMS.items():
-        if name == "bf16":
+        if name in ("bf16", "uneven"):  # the shipped arm's initial state
             jinit[name], init[name] = jinit["shipped"], init["shipped"]
             continue
         jst = jstep.init_state(jload_config(overrides=over),
@@ -129,7 +140,8 @@ def inputs():
         init[name] = _state_dicts(jst.params, jst.batch_stats)
     init64 = {k: v.double() if v.is_floating_point() else v
               for k, v in init["nn_tags"].items()}
-    return dict(batch=batch, jinit=jinit, init=init, init64=init64)
+    return dict(batch=batches[32], batches=batches, jinit=jinit, init=init,
+                init64=init64)
 
 
 @pytest.fixture(scope="module")
@@ -160,8 +172,8 @@ def jax_steps(inputs, spawned):
             runs = []
             for order in ([0, 1], [1, 0]):
                 jst, m = fn(inputs["jinit"][name], {
-                    k: jnp.asarray(v[order])
-                    for k, v in inputs["batch"].items()})
+                    k: jnp.asarray(v[order]) for k, v in
+                    inputs["batches"][ARM_CROP[name]].items()})
                 runs.append(({k: float(v) for k, v in m.items()}, jst))
         (metrics, jst), (_, other) = runs
         want = _state_dicts(jst.params, jst.batch_stats)

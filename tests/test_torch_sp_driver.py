@@ -25,6 +25,9 @@ global batch, on tests/test_torch_driver.py's synthetic world:
   logged loss, the accuracy and num_segments within rtol 1e-4, the
   panels drawn by rank 0, the checkpoints from rank 0, the update L2
   within 1e-2 and the ranks torch.equal, as the softmax run;
+* train_spml with the softmax baseline at crop 40 (res5's 5 rows as 2
+  and 3 over the ranks), 1 iteration, against one process at the
+  softmax run's checks;
 * the DensePose CLIs' drivers on 6 point-labelled images of 15 classes
   (the point recipe at panoptic_pspnet_10_densepose, 8-d, crop 32,
   batch 2: PSPP's pools and the colour features over the space ranks):
@@ -88,6 +91,10 @@ DENSEPOSE_ONE = copy.deepcopy(DENSEPOSE)
 DENSEPOSE_ONE["tpu"]["spatial_partition"] = 1
 DENSEPOSE_LOGGED = ("loss", "sem_ann_loss", "img_sim_loss", "accuracy",
                     "num_segments")
+UNEVEN = copy.deepcopy(SP)  # crop 40: 5 rows at stride 8 over 2 ranks
+UNEVEN["train"].update(crop_size=[40, 40], max_iteration=1)
+UNEVEN_ONE = copy.deepcopy(UNEVEN)
+UNEVEN_ONE["tpu"]["spatial_partition"] = 1
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +130,9 @@ def runs(world, densepose_world, tmp_path_factory):  # noqa: F811
     jobs = [("drivers", (SP, init, head, data, lst, str(root / "sp"),
                          SEGSORT)),
             ("densepose_drivers", (DENSEPOSE, dp_init, dp_head,
-                                   *densepose_world, str(root / "sp")))]
+                                   *densepose_world, str(root / "sp"))),
+            ("train_spml_run", (UNEVEN, init, data, lst,
+                                str(root / "sp" / "uneven")))]
     ranks = mesh_lib.spawn(torch_sp_ranks.many, (jobs,), ["cpu", "cpu"])
     one = torch_sp_ranks.drivers(ONE, init, head, data, lst,
                                  str(root / "one"), SEGSORT_ONE,
@@ -131,8 +140,12 @@ def runs(world, densepose_world, tmp_path_factory):  # noqa: F811
     dp_one = torch_sp_ranks.densepose_drivers(
         DENSEPOSE_ONE, dp_init, dp_head, *densepose_world,
         str(root / "one"), device="cpu")
+    uneven_one = torch_sp_ranks.train_spml_run(
+        UNEVEN_ONE, init, data, lst, str(root / "one" / "uneven"),
+        device="cpu")
     return ([r[0] for r in ranks], one, init, head, root,
-            ([r[1] for r in ranks], dp_one, dp_init, dp_head))
+            ([r[1] for r in ranks], dp_one, dp_init, dp_head),
+            ([r[2] for r in ranks], uneven_one))
 
 
 def _assert_logged(got, want, names):
@@ -173,7 +186,7 @@ def _assert_ranks_equal(a, b):
 
 
 def test_train_spml_on_a_space_axis_matches_one_process(runs):
-    ranks, one, init, _, root, _ = runs
+    ranks, one, init, _, root, _, _ = runs
     a, b = (r["first"] for r in ranks)
     _assert_ranks_equal(a, b)
     assert not torch.equal(a["generator"], b["generator"])
@@ -195,7 +208,7 @@ def test_train_spml_on_a_space_axis_matches_one_process(runs):
 
 
 def test_resume_on_a_space_axis(runs):
-    ranks, one, _, _, root, _ = runs
+    ranks, one, _, _, root, _, _ = runs
     a, b = (r["resumed"] for r in ranks)
     _assert_ranks_equal(a, b)
     assert [it for it, _ in a["logged"]] == [2]
@@ -205,7 +218,7 @@ def test_resume_on_a_space_axis(runs):
 
 
 def test_train_classifier_on_a_space_axis_matches_one_process(runs):
-    ranks, one, _, head, _, _ = runs
+    ranks, one, _, head, _, _, _ = runs
     a, b = (r["stage2"] for r in ranks)
     _assert_ranks_equal(a, b)
     _assert_logged(a["logged"], one["stage2"]["logged"],
@@ -216,7 +229,7 @@ def test_train_classifier_on_a_space_axis_matches_one_process(runs):
 
 
 def test_segsort_train_spml_on_a_space_axis_matches_one_process(runs):
-    ranks, one, init, _, root, _ = runs
+    ranks, one, init, _, root, _, _ = runs
     a, b = (r["segsort"] for r in ranks)
     _assert_ranks_equal(a, b)
     assert [it for it, _ in a["logged"]] == [0, 1]
@@ -250,7 +263,7 @@ def test_densepose_drivers_on_a_space_axis_match_one_process(runs):
     update on single tensors (tests/test_torch_sp_densepose.py holds the
     same step within 1e-7 in float64), which the eval forward after the
     first iteration carries to 3.8e-5 of the panel's max."""
-    ranks, one, init, head = runs[-1]
+    ranks, one, init, head = runs[-2]
     a, b = (r["stage1"] for r in ranks)
     _assert_ranks_equal(a, b)
     assert [it for it, _ in a["logged"]] == [0, 1]
@@ -267,3 +280,21 @@ def test_densepose_drivers_on_a_space_axis_match_one_process(runs):
     names = [k for k, v in head.items() if v.is_floating_point()
              and not k.endswith("num_batches_tracked")]
     _assert_updates(a["tensors"], one["stage2"]["tensors"], head, names)
+
+
+def test_uneven_train_spml_on_a_space_axis_matches_one_process(runs):
+    """Crop 40 over 2 space ranks (res5's rows 2 and 3): the softmax
+    run's checks."""
+    ranks, one = runs[-1]
+    init = runs[2]
+    a, b = ranks
+    _assert_ranks_equal(a, b)
+    assert [it for it, _ in a["logged"]] == [0]
+    _assert_logged(a["logged"], one["logged"],
+                   ("loss", "sem_ann_loss", "accuracy"))
+    _assert_update_l2(a["tensors"], one["tensors"], init)
+    assert len(a["drawn"]) == 1 and b["drawn"] == []
+    for got, want in zip(a["drawn"], one["drawn"]):
+        assert got.shape == want.shape == (2, 10, 10, 8)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))

@@ -7,11 +7,14 @@ ops/common.py::resize_labels), in one process, without a process group:
   (local_unique_keys), merged (merge_unique_keys), give each rank's
   pixels (ids_from_unique_keys) the ids and keep of
   compact_unique_segments on the joined keys, exactly;
-* the labels resized on a shard from global coordinates equal the rows
-  of the whole image's resize, and at the network's ratio of 8 the
-  rank's own (local) resize; the k-means grid's global rows differ from
-  a grid over a shard's own height;
-* a float64 simulation of segment_batch over S = 2 and 4 space ranks:
+* the labels resized on a shard from global coordinates (its rows of
+  the output's partition, the source rows fetched from the ranks that
+  own them) equal the rows of the whole image's resize, and at the
+  network's ratio of 8 on even shards the rank's own (local) resize; the
+  k-means grid's global rows differ from a grid over a shard's own
+  height;
+* a float64 simulation of segment_batch over S = 2, 3 and 4 space ranks
+  (3: 16 rows as 5/5/6):
   one thread a rank, parallel/mesh.py's gather_stack and group_sum
   replaced by their one-process counterparts (each rank's partial
   sums added in rank order): the Segments joined from the ranks equal
@@ -28,7 +31,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from spml_tpu_torch.ops import common, kmeans
-from spml_tpu_torch.parallel import mesh as mesh_lib
+from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 
 
 @settings(max_examples=60, deadline=None)
@@ -68,22 +71,30 @@ def test_merge_keeps_the_first_capacity_keys():
         3).tolist() == [[3, 7, kmeans.INVALID_KEY]]
 
 
-@pytest.mark.parametrize("space", [2, 4])
+@pytest.mark.parametrize("space", [2, 4, 3])
 @pytest.mark.parametrize("size,out", [((32, 24), (4, 3)),
                                       ((64, 40), (16, 10)),
                                       ((24, 20), (8, 7))])
 def test_resize_labels_on_shards(space, size, out):
+    from test_torch_sp_halo import _sharded_rows
+
+    if size[0] % space:
+        size = (size[0] // space * space, size[1])
     labels = torch.from_numpy(np.random.RandomState(0).randint(
         0, 200, (2, *size)))
     whole = common.resize_labels(labels, out)
-    h, oh = size[0] // space, out[0] // space
-    for s in range(space):
-        rows = labels[:, s * h:(s + 1) * h]
-        got = common.resize_labels(rows, (oh, out[1]), (s, space))
-        assert torch.equal(got, whole[:, s * oh:(s + 1) * oh])
-        if size[0] == 8 * out[0]:  # the network's ratio: the local resize
-            assert torch.equal(got, common.resize_labels(rows,
-                                                         (oh, out[1])))
+    got = _sharded_rows(labels[:, None], space, lambda rows, height:
+                        common.resize_labels(rows[:, 0], out,
+                                             height)[:, None])[:, 0]
+    assert torch.equal(got, whole)
+    if size[0] == 8 * out[0] and out[0] % space == 0:
+        # the network's ratio: the rank's own rows, resized locally
+        h, oh = size[0] // space, out[0] // space
+        for s in range(space):
+            assert torch.equal(got[:, s * oh:(s + 1) * oh],
+                               common.resize_labels(
+                                   labels[:, s * h:(s + 1) * h],
+                                   (oh, out[1])))
 
 
 def test_grid_rows_are_the_global_grid_s():
@@ -142,7 +153,8 @@ def _inputs(b, h, w, d, seed, ignore_rows=None):
 
 
 @pytest.mark.parametrize("space,capacity,ignore", [
-    (2, 32, None), (4, 32, None), (2, 6, None), (2, 32, slice(0, 8))])
+    (2, 32, None), (4, 32, None), (2, 6, None), (2, 32, slice(0, 8)),
+    (3, 32, None)])
 def test_sharded_segment_batch_equals_whole_images(monkeypatch, space,
                                                    capacity, ignore):
     """float64, where k-means has no near-ties: the ranks' Segments are
@@ -155,15 +167,15 @@ def test_sharded_segment_batch_equals_whole_images(monkeypatch, space,
     monkeypatch.setattr(mesh_lib, "gather_stack", _gather_stack)
     monkeypatch.setattr(mesh_lib, "group_sum", _group_sum)
     group, got, errors = _Group(space), [None] * space, []
-    rows = h // space
+    parts = halo.partition(h, space)
 
     def rank(s):
         try:
             mesh = _ThreadMesh(s, space, space, group)
-            part = slice(s * rows, (s + 1) * rows)
+            part = slice(parts[s].start, parts[s].stop)
             got[s] = kmeans.segment_batch(
                 emb[:, part], loc[:, part], sem[:, part], inst[:, part],
-                *args, mesh=mesh)[0]
+                *args, mesh=mesh, rows=h)[0]
         except BaseException as e:  # noqa: BLE001 - reported below
             errors.append(e)
             group.barrier.abort()
@@ -177,7 +189,8 @@ def test_sharded_segment_batch_equals_whole_images(monkeypatch, space,
     assert not any(t.is_alive() for t in threads) and not errors, errors
     for f, name in enumerate(kmeans.Segments._fields):
         if name.startswith("pixel"):
-            joined = torch.cat([g[f].reshape(b, rows, w) for g in got], 1)
+            joined = torch.cat([g[f].reshape(b, len(p), w)
+                                for g, p in zip(got, parts)], 1)
             assert torch.equal(joined.reshape(b, -1), want[f]), name
         else:
             for g in got:

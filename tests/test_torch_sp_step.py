@@ -62,6 +62,14 @@ away and beyond the image) and a global batch of 4:
   segment fields the same on each, equal the one process's exactly;
   the bank (the gathered prototypes) and every parameter gradient
   within 1e-9 x max|ref|.
+* uneven height shards, on the 1 x 2 mesh alone: crop 40 (res5's 5 rows
+  as 2 and 3, the embeddings' 10 as 5 and 5, whose rows read the other
+  rank's res5 rows): a softmax-baseline step and a step of the fused
+  joint arm against the JAX package's one-device steps at crop 40
+  (which equal its sharded ones: GSPMD's padding enters no result), at
+  the tolerances above with the same kind of floor; and the joint arm
+  with the dense losses in float64 against the port's one process at
+  crop 40, as the float64 step above.
 
 The spawns run in a thread while this process computes the JAX
 references.
@@ -133,16 +141,28 @@ TAG_SET["train"].update(sem_ann_loss_types="none", sem_occ_concentration=8.0)
 ARMS = {"dense": DENSE, "joint": JOINT, "hard": HARD, "tag_set": TAG_SET}
 SEG_CHECKED = CHECKED_PARAMS + CHECKED_STATS
 N_JOBS = 4  # the jobs before the SegSort ones (_jobs)
+UNEVEN_CROP = 40  # res5: 5 rows over the 2 space ranks, 2 and 3
 
 
-def _batch(seed):
+def _at_crop(overrides, crop=UNEVEN_CROP, **tpu):
+    over = copy.deepcopy(overrides)
+    over["train"]["crop_size"] = [crop, crop]
+    over["tpu"].update(tpu)
+    return over
+
+
+UNEVEN = {"softmax": _at_crop(SOFTMAX), "joint": _at_crop(JOINT)}
+UNEVEN64 = _at_crop(JOINT, use_fused_loss=False)  # float64: dense losses
+
+
+def _batch(seed, crop=32):
     rng = np.random.RandomState(seed)
     return {
-        "image": rng.randn(B_GLOBAL, 32, 32, 3).astype(np.float32),
+        "image": rng.randn(B_GLOBAL, crop, crop, 3).astype(np.float32),
         "semantic_label": rng.choice([0, 1, 2, 3, 255],
-                                     (B_GLOBAL, 32, 32)).astype(np.int64),
+                                     (B_GLOBAL, crop, crop)).astype(np.int64),
         "instance_label": rng.randint(0, 3,
-                                      (B_GLOBAL, 32, 32)).astype(np.int64),
+                                      (B_GLOBAL, crop, crop)).astype(np.int64),
         "semantic_tag": (rng.rand(B_GLOBAL, 256) > 0.6).astype(np.int64)}
 
 
@@ -200,7 +220,8 @@ def inputs():
                 emb_init=emb_init, emb64=emb64, jcfg=jcfg, jst=jst,
                 init=init, emb_def=emb_def, evars=evars, jcst=jcst,
                 frozen=frozen, head=head, arms=arms, init64=init64,
-                batches=[_batch(3), _batch(4)])
+                batches=[_batch(3), _batch(4)],
+                uneven=[_batch(5, UNEVEN_CROP)])
 
 
 def _jobs(inp, remat):
@@ -220,14 +241,24 @@ def _jobs(inp, remat):
              for name, over in ARMS.items()]
     jobs.append(("segsort_steps", (load_config(overrides=_spatial(DENSE)),
                                    inp["init64"], inp["batches"][:1], True)))
-    if remat:
+    if remat:  # the 1 x 2 mesh: remat, then the uneven height's jobs
         jobs.append(("softmax_steps", (rcfg, inp["init"], inp["batches"])))
+        jobs += [
+            ("softmax_steps", (load_config(overrides=_spatial(
+                UNEVEN["softmax"])), inp["init"], inp["uneven"])),
+            ("segsort_steps", (load_config(overrides=_spatial(
+                UNEVEN["joint"])), inp["arms"]["joint"][2],
+                inp["uneven"])),
+            ("segsort_steps", (load_config(overrides=_spatial(UNEVEN64)),
+                               inp["init64"], inp["uneven"][:1], True))]
     return jobs
 
 
 SEG_JOBS = {name: N_JOBS + i for i, name in enumerate(ARMS)}
 F64_JOB = N_JOBS + len(ARMS)
 REMAT_JOB = F64_JOB + 1
+UNEVEN_JOBS = {"softmax": REMAT_JOB + 1, "joint": REMAT_JOB + 2,
+               "float64": REMAT_JOB + 3}
 
 
 @pytest.fixture(scope="module")
@@ -246,7 +277,7 @@ def spawned(inputs):
 
 @pytest.fixture(scope="module")
 def runs(spawned, jax_forward, jax_softmax, jax_classifier, jax_segsort,
-         one_process_segsort):
+         one_process_segsort, jax_uneven):
     """The spawns' results, taken after every JAX reference."""
     return spawned.result()
 
@@ -338,9 +369,9 @@ def _assert_steps(got, want_metrics, want, before, floor=None):
 FLOOR_ORDERS = ([2, 3, 0, 1], [1, 0, 3, 2])  # groups swapped; within
 
 
-def _jax_softmax_steps(inputs, fn, order=(0, 1, 2, 3)):
+def _jax_softmax_steps(inputs, fn, order=(0, 1, 2, 3), batches="batches"):
     jst, metrics = inputs["jst"], []
-    for nb in inputs["batches"]:
+    for nb in inputs[batches]:
         jst, m = fn(jst, {k: jnp.asarray(v[list(order)])
                           for k, v in nb.items()})
         metrics.append({k: float(v) for k, v in m.items()})
@@ -434,36 +465,40 @@ def jax_segsort(inputs, spawned):
     """{arm: (metrics of each step, the tensors after, the bank after,
     each checked tensor's float32 floor)} of JAX's two jitted one-device
     SegSort steps; the floor as jax_softmax's."""
-    out = {}
-    for name, (acfg, ast0, _) in inputs["arms"].items():
-        head = ClassifierHead(num_classes=4, hidden_dim=16,
-                              dropout_rate=0.0, dtype=jnp.float32)
-        with _interpret("fused_joint_losses"), \
-                _interpret("fused_segsort_loss"), \
-                _interpret("fused_set_segsort_loss"):
-            fn = jax.jit(jstep.make_train_step(
-                acfg, jstep.build_models(acfg)[0], head))
-            runs = []
-            for order in ((0, 1, 2, 3),) + FLOOR_ORDERS:
-                ast, metrics = ast0, []
-                for nb in inputs["batches"]:
-                    ast, m = fn(ast, {k: jnp.asarray(v[list(order)])
-                                      for k, v in nb.items()})
-                    metrics.append({k: float(v) for k, v in m.items()})
-                runs.append((metrics, ast))
-        (metrics, ast), others = runs[0], runs[1:]
-        want = _state_dicts(ast.params, ast.batch_stats)
-        floor = dict.fromkeys(SEG_CHECKED, 0.0)
-        for _, other in others:
-            sd = _state_dicts(other.params, other.batch_stats)
-            for k in SEG_CHECKED:
-                floor[k] = max(floor[k], float(np.abs(
-                    np.asarray(want[k], np.float64)
-                    - np.asarray(sd[k], np.float64)).max()))
-        out[name] = (metrics, want,
-                     {k: np.asarray(v) for k, v in vars(ast.memory).items()},
-                     floor)
-    return out
+    return {name: _jax_segsort_arm(acfg, ast0, inputs["batches"])
+            for name, (acfg, ast0, _) in inputs["arms"].items()}
+
+
+def _jax_segsort_arm(acfg, ast0, batches):
+    """(metrics of each step, the tensors after, the bank after, each
+    checked tensor's float32 floor) of JAX's jitted one-device SegSort
+    steps of `acfg` from ast0 over `batches`."""
+    head = ClassifierHead(num_classes=4, hidden_dim=16,
+                          dropout_rate=0.0, dtype=jnp.float32)
+    with _interpret("fused_joint_losses"), \
+            _interpret("fused_segsort_loss"), \
+            _interpret("fused_set_segsort_loss"):
+        fn = jax.jit(jstep.make_train_step(
+            acfg, jstep.build_models(acfg)[0], head))
+        runs = []
+        for order in ((0, 1, 2, 3),) + FLOOR_ORDERS:
+            ast, metrics = ast0, []
+            for nb in batches:
+                ast, m = fn(ast, {k: jnp.asarray(v[list(order)])
+                                  for k, v in nb.items()})
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs.append((metrics, ast))
+    (metrics, ast), others = runs[0], runs[1:]
+    want = _state_dicts(ast.params, ast.batch_stats)
+    floor = dict.fromkeys(SEG_CHECKED, 0.0)
+    for _, other in others:
+        sd = _state_dicts(other.params, other.batch_stats)
+        for k in SEG_CHECKED:
+            floor[k] = max(floor[k], float(np.abs(
+                np.asarray(want[k], np.float64)
+                - np.asarray(sd[k], np.float64)).max()))
+    return (metrics, want,
+            {k: np.asarray(v) for k, v in vars(ast.memory).items()}, floor)
 
 
 @pytest.fixture(scope="module")
@@ -478,20 +513,25 @@ def one_process_segsort(inputs, spawned):
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_segsort_steps_match_jax(inputs, runs, jax_segsort,
                                  one_process_segsort, mesh, arm):
-    metrics, want, bank, floor = jax_segsort[arm]
-    job = SEG_JOBS[arm]
-    got = runs[mesh][0][job]
-    _assert_ranks_equal(runs[mesh], job, "tensors")
-    _assert_ranks_equal(runs[mesh], job, "memory")
-    init = inputs["arms"][arm][2]
-    assert len(got["metrics"]) == len(metrics) == 2
+    moved = {k: one_process_segsort[arm]["metrics"][1][k]
+             for k in JIT_MOVED.get(arm, ())}
+    _assert_segsort_steps(runs[mesh], SEG_JOBS[arm], jax_segsort[arm],
+                          inputs["arms"][arm][2], arm, moved)
+
+
+def _assert_segsort_steps(ranks, job, ref, init, arm, moved):
+    """A SegSort job's steps against JAX's (ref: _jax_segsort_arm's),
+    step 2's metrics `moved` against the port's one process instead."""
+    metrics, want, bank, floor = ref
+    got = ranks[0][job]
+    _assert_ranks_equal(ranks, job, "tensors")
+    _assert_ranks_equal(ranks, job, "memory")
+    assert len(got["metrics"]) == len(metrics)
     for i, (g, w) in enumerate(zip(got["metrics"], metrics)):
         assert set(g) == set(w)
         for k in w:
-            ref = w[k]
-            if i == 1 and k in JIT_MOVED.get(arm, ()):
-                ref = one_process_segsort[arm]["metrics"][i][k]
-            np.testing.assert_allclose(g[k], ref, rtol=1e-4, atol=1e-7,
+            expect = moved[k] if i == 1 and k in moved else w[k]
+            np.testing.assert_allclose(g[k], expect, rtol=1e-4, atol=1e-7,
                                        err_msg=f"{arm} step {i} {k}")
     for k in SEG_CHECKED:
         want_k = np.asarray(want[k], np.float64)
@@ -521,14 +561,20 @@ def one_process_segsort64(inputs):
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_float64_segsort_step_matches_one_process(one_process_segsort64,
                                                   runs, mesh):
-    want, ranks, space = one_process_segsort64, runs[mesh], 2
-    segs = [r[F64_JOB]["segments"][0] for r in ranks]
+    _assert_float64_step(one_process_segsort64, runs[mesh], F64_JOB, 8)
+
+
+def _assert_float64_step(want, ranks, job, width, space=2):
+    """A float64 SegSort job (its first step's Segments, bank and
+    gradients) against the port's one process: the Segments equal, the
+    rest within 1e-9; width: the embedding grid's columns."""
+    segs = [r[job]["segments"][0] for r in ranks]
     for f, name in enumerate(Segments._fields):
         ref = want["segments"][0][f]
         if name.startswith("pixel"):  # each data rank's images, by rows
             b = ref.shape[0] // (len(ranks) // space)
             joined = torch.cat([
-                torch.cat([s[f].reshape(b, -1, 8)
+                torch.cat([s[f].reshape(b, -1, width)
                            for s in segs[d:d + space]], dim=1)
                 for d in range(0, len(ranks), space)]).reshape(ref.shape)
         else:
@@ -536,7 +582,7 @@ def test_float64_segsort_step_matches_one_process(one_process_segsort64,
                 assert torch.equal(segs[d][f], segs[d + 1][f]), name
             joined = torch.cat([s[f] for s in segs[::space]])
         assert torch.equal(joined, ref), name
-    got = ranks[0][F64_JOB]
+    got = ranks[0][job]
     for k in ("prototype", "prototype_with_loc"):
         ref = want["memory"][k]
         assert ref.dtype == torch.float64
@@ -548,3 +594,54 @@ def test_float64_segsort_step_matches_one_process(one_process_segsort64,
         np.testing.assert_allclose(got["grads"][k].numpy(), v.numpy(),
                                    rtol=0, atol=1e-9 * float(v.abs().max()),
                                    err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_uneven(inputs, spawned):
+    """JAX's jitted one-device steps at crop 40: {"softmax": (metrics,
+    tensors, floor) as jax_softmax's, "joint": _jax_segsort_arm's}."""
+    jcfg = jload_config(overrides=UNEVEN["softmax"])
+    fn = jax.jit(jstep.make_train_step(
+        jcfg, jstep.build_models(jcfg)[0],
+        ClassifierHead(num_classes=4, hidden_dim=16, dropout_rate=0.0,
+                       dtype=jnp.float32)))
+    metrics, want = _jax_softmax_steps(inputs, fn, batches="uneven")
+    floor = dict.fromkeys(CHECKED, 0.0)
+    for order in FLOOR_ORDERS:
+        other = _jax_softmax_steps(inputs, fn, order, "uneven")[1]
+        for k in CHECKED:
+            floor[k] = max(floor[k], float(np.abs(
+                np.asarray(want[k], np.float64)
+                - np.asarray(other[k], np.float64)).max()))
+    acfg = jload_config(overrides=UNEVEN["joint"])
+    joint = _jax_segsort_arm(acfg, inputs["arms"]["joint"][1],
+                             inputs["uneven"])
+    return {"softmax": (metrics, want, floor), "joint": joint}
+
+
+def test_uneven_softmax_steps_match_jax(inputs, runs, jax_uneven):
+    metrics, sd, floor = jax_uneven["softmax"]
+    job = UNEVEN_JOBS["softmax"]
+    got = runs["1x2"][0][job]
+    _assert_ranks_equal(runs["1x2"], job, "tensors")
+    _assert_steps({"metrics": got["metrics"], **got["tensors"]}, metrics,
+                  {k: sd[k] for k in CHECKED}, inputs["init"], floor)
+
+
+def test_uneven_joint_steps_match_jax(inputs, runs, jax_uneven):
+    _assert_segsort_steps(runs["1x2"], UNEVEN_JOBS["joint"],
+                          jax_uneven["joint"], inputs["arms"]["joint"][2],
+                          "joint at crop 40", {})
+
+
+@pytest.fixture(scope="module")
+def one_process_uneven64(inputs):
+    return torch_sp_ranks.segsort_steps(
+        load_config(overrides=UNEVEN64), inputs["init64"],
+        inputs["uneven"][:1], True, device="cpu")
+
+
+def test_uneven_float64_step_matches_one_process(one_process_uneven64,
+                                                 runs):
+    _assert_float64_step(one_process_uneven64, runs["1x2"],
+                         UNEVEN_JOBS["float64"], 10)

@@ -23,23 +23,31 @@ def _mesh(spatial):
     return mesh_lib.make_mesh(spatial if mesh_lib.world_size() > 1 else 1)
 
 
+def _rows(mesh, height):
+    """This rank's rows of a map `height` rows high (halo.partition)."""
+    p = halo.partition(height, mesh.space)[mesh.space_rank]
+    return slice(p.start, p.stop)
+
+
 def _local(mesh, batch, device, rows=()):
     """This rank's images and rows of a global numpy batch (the leaves
-    of SPATIAL_KEYS and `rows` cut to its rows)."""
+    of SPATIAL_KEYS and `rows` cut to its rows of their partition)."""
     part = {k: np.ascontiguousarray(v[mesh.shard(v.shape[0])])
             for k, v in batch.items()}
-    part = {k: v[:, mesh.rows(v.shape[1])] if k in rows else v
+    part = {k: v[:, _rows(mesh, v.shape[1])] if k in rows else v
             for k, v in mesh_lib.shard_rows(part, mesh).items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in part.items()}
 
 
-def _join(x, mesh):
-    """The rows of every space rank, then the images of every data rank,
-    of an NHWC tensor: the global batch in order (x at world size 1)."""
+def _join(x, mesh, rows):
+    """The rows of every space rank (of a map `rows` high), then the
+    images of every data rank, of an NHWC tensor: the global batch in
+    order (x at world size 1)."""
     if mesh.world == 1:
         return x
-    every = mesh_lib.all_gather(mesh_lib.gather_rows(x.contiguous(), mesh))
+    every = mesh_lib.all_gather(mesh_lib.gather_rows(x.contiguous(), mesh,
+                                                     rows))
     return every.reshape(mesh.data, mesh.space, *x.shape[:1],
                          *every.shape[1:])[:, 0].flatten(0, 1)
 
@@ -60,14 +68,14 @@ def forward_backward(backbone, dim, init, images, cot, spatial, remat=False,
     model = model.to(device, dtype,
                      memory_format=torch.channels_last).train()
     local = _local(mesh, {"image": images, "cot": cot}, device, ("cot",))
-    with halo.sharded(mesh):
+    with halo.sharded(mesh, images.shape[1]):
         emb, loc = model(local["image"])
     (emb * local["cot"]).sum().backward()
     grads = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
     grads = mesh_lib.all_reduce(grads)
     sizes = [p.numel() for p in model.parameters()]
-    return {"emb": _join(emb.detach(), mesh).cpu(),
-            "loc": _join(loc, mesh).cpu(),
+    return {"emb": _join(emb.detach(), mesh, cot.shape[1]).cpu(),
+            "loc": _join(loc, mesh, cot.shape[1]).cpu(),
             "stats": {k: v.cpu() for k, v in model.state_dict().items()
                       if "running" in k},
             "grads": {n: g.view_as(p).cpu() for (n, p), g in zip(
@@ -283,24 +291,34 @@ def drivers(overrides, init, head_init, data_dir, data_list, root,
 
 def halo_ops(spatial, *, device):
     """halo.conv2d (ASPP's dilation 24 over 2-row shards, the stem's
-    stride 2), halo.max_pool2d and halo.interpolate (x4) on this rank's
-    rows, in float64, forward and backward, against the whole operation
-    on the whole tensor on the same device: the largest difference of
-    the outputs and of the input gradients over every case."""
+    stride 2, a 1x1 stride-2 conv over uneven shards), halo.max_pool2d
+    and halo.interpolate (x4; and 5 rows to 10, whose output partition is
+    not the input's scaled) on this rank's rows of their partition, in
+    float64, forward and backward, against the whole operation on the
+    whole tensor on the same device: the largest difference of the
+    outputs and of the input gradients over every case."""
     import torch.nn.functional as F
 
     mesh = _mesh(spatial)
     g = torch.Generator().manual_seed(0)
     cases = [  # (height, op on a tensor, its sharded form)
         (4, lambda x, w: F.conv2d(x, w, None, 1, 24, 24),
-         lambda x, w: halo.conv2d(x, w, None, (1, 1), (24, 24), (24, 24))),
+         lambda x, w, r: halo.conv2d(x, w, None, (1, 1), (24, 24),
+                                     (24, 24), rows=r)),
         (16, lambda x, w: F.conv2d(x, w, None, 2, 1, 1),
-         lambda x, w: halo.conv2d(x, w, None, (2, 2), (1, 1), (1, 1))),
+         lambda x, w, r: halo.conv2d(x, w, None, (2, 2), (1, 1), (1, 1),
+                                     rows=r)),
+        (9, lambda x, w: F.conv2d(x, w[:, :, :1, :1], None, 2),
+         lambda x, w, r: halo.conv2d(x, w[:, :, :1, :1], None, (2, 2),
+                                     (0, 0), (1, 1), rows=r)),
         (8, lambda x, w: F.max_pool2d(x, 3, 2, 1),
-         lambda x, w: halo.max_pool2d(x, 3, 2, 1)),
+         lambda x, w, r: halo.max_pool2d(x, 3, 2, 1, rows=r)),
         (4, lambda x, w: F.interpolate(x, size=(16, 20), mode="bilinear",
                                        align_corners=False),
-         lambda x, w: halo.interpolate(x, (x.shape[2] * 4, 20)))]
+         lambda x, w, r: halo.interpolate(x, (16, 20), r)),
+        (5, lambda x, w: F.interpolate(x, size=(10, 20), mode="bilinear",
+                                       align_corners=False),
+         lambda x, w, r: halo.interpolate(x, (10, 20), r))]
     out = []
     for height, whole, part in cases:
         x = torch.randn(2 * mesh.data, 3, height, 5, generator=g,
@@ -313,13 +331,13 @@ def halo_ops(spatial, *, device):
                           dtype=torch.float64).to(device)
         (yf * cot).sum().backward()
         imgs = mesh.shard(x.shape[0])
-        xl = x[imgs, :, mesh.rows(height)].clone().requires_grad_()
+        xl = x[imgs, :, _rows(mesh, height)].clone().requires_grad_()
         with halo.sharded(mesh):
-            y = part(xl, w)
-        rows = mesh.rows(yf.shape[2])
+            y = part(xl, w, height)
+        rows = _rows(mesh, yf.shape[2])
         (y * cot[imgs, :, rows]).sum().backward()
         out.append((float((y - yf[imgs, :, rows]).detach().abs().max()),
-                    float((xl.grad - xf.grad[imgs, :, mesh.rows(height)])
+                    float((xl.grad - xf.grad[imgs, :, _rows(mesh, height)])
                           .abs().max())))
     return out
 
@@ -334,7 +352,8 @@ def sharded_segments(emb, loc, sem, inst, args, *, device):
     t = _local(mesh, {"emb": emb, "loc": loc, "semantic_label": sem,
                       "instance_label": inst}, device, ("emb", "loc"))
     segs = kmeans.segment_batch(t["emb"], t["loc"], t["semantic_label"],
-                                t["instance_label"], *args, mesh=mesh)[0]
+                                t["instance_label"], *args, mesh=mesh,
+                                rows=emb.shape[1])[0]
     return [x.cpu() for x in segs]
 
 
@@ -378,10 +397,10 @@ def pspp_case(height, spatial, *, device):
     pool_cots = [torch.from_numpy(rng.randn(spatial, 2, 8, s, s))
                  for s in PSPP_BINS]
     cot = torch.from_numpy(rng.randn(2, 4, height, 6))
-    rows = mesh.rows(height)
+    rows = _rows(mesh, height)
     xl = x[:, :, rows].to(device).requires_grad_()
     with halo.sharded(mesh):
-        pools = halo.adaptive_avg_pools(xl, PSPP_BINS)
+        pools = halo.adaptive_avg_pools(xl, PSPP_BINS, height)
     own = [c[mesh.space_rank] if mesh.world > 1 else c.sum(0)
            for c in pool_cots]
     sum((p * c.to(device)).sum() for p, c in zip(pools, own)).backward()
@@ -389,14 +408,14 @@ def pspp_case(height, spatial, *, device):
     model = _seeded_pspp(8, 4, 0).to(device)
     xl = x[:, :, rows].to(device).requires_grad_()
     with halo.sharded(mesh):
-        y = model(xl)
+        y = model(xl, height)
     (y * cot[:, :, rows].to(device)).sum().backward()
     params = list(model.named_parameters())
     grads = mesh_lib.all_reduce(torch.cat([p.grad.reshape(-1)
                                            for _, p in params]))
 
     def join(t):
-        return mesh_lib.gather_rows(t.detach().contiguous(), mesh,
+        return mesh_lib.gather_rows(t.detach().contiguous(), mesh, height,
                                     dim=2).cpu()
 
     return {"pools": [p.detach().cpu() for p in pools],
@@ -419,12 +438,24 @@ def colour_case(shape, spatial, *, device):
     images = np.random.RandomState(h + w).rand(4, h, w, 3).astype(
         np.float32)
     x = _local(mesh, {"image": images}, device)["image"]
-    shard = (mesh.space_rank, mesh.space)
-    with halo.sharded(mesh):
+    size = (h // 4, w // 4)
+    with halo.sharded(mesh, h):
         feats = local.location_color_features(
-            x, (h // 4 // mesh.space, w // 4), use_color=True,
-            norm_color=True, smooth_ksize=5, shard=shard)
-    return _join(feats, mesh).cpu()
+            x, size, use_color=True, norm_color=True, smooth_ksize=5)
+    return _join(feats, mesh, size[0]).cpu()
+
+
+def train_spml_run(overrides, init, data_dir, data_list, snapshot_dir, *,
+                   device):
+    """train_spml on `overrides` from `init`: driver_run's results."""
+    import argparse
+
+    from spml_tpu_torch.config import load_config
+    from spml_tpu_torch.train import driver
+
+    return driver_run(driver.train_spml, init, argparse.Namespace(
+        data_dir=data_dir, data_list=data_list, snapshot_dir=snapshot_dir),
+        load_config(overrides=overrides), device=device)
 
 
 def densepose_drivers(overrides, init, head_init, data_dir, data_list,
