@@ -8,7 +8,8 @@ self-training chain after them (MSC, CRF, softmax inference,
 pseudo-labels), two data-parallel ranks of the flagship step, the
 drivers and batched inference, two height-sharded ranks of the flagship
 network, the softmax baseline, the SegSort step, the DensePose point
-step and the drivers, three at crop 513 (uneven shards), report.
+step and the drivers, three at crop 513 (uneven shards) and at crops 15
+and 6 (ranks that hold no row of the deeper maps), report.
 
 Run from the repository root (needs one CUDA card, nvcc and no network):
 
@@ -71,6 +72,10 @@ Phases, each printing one line or more:
       sized case against the float32 forms, at the JAX package's
       quantified delta (BF16_LOSS_RTOL on each masked-mean loss,
       BF16_GRAD_COS on dE and dP of their sum), both printed;
+    - the dP kernels K3, K6 and K9, float32 and bf16 operands, at N = 0
+      (a height-sharded rank with no row of the embeddings) with ~20% of
+      P = 2048 valid: dP exactly 0, as the plain version gives, and the
+      stats and dE empty (check_no_pixels);
     - the dilated conv K10 against its plain version in float64 on the
       same bf16 values: ragged shapes at d = 1, 2, 4 (B = 1, H and W not
       multiples of the 8 x 16 tile, C = 16 and 48 under a 64-channel box,
@@ -245,7 +250,21 @@ Phases, each printing one line or more:
     step as it ships, 3 warm-up and 10 timed steps a rank, collectives
     by label, beside one process; (m) the same for the DensePose point
     step at SP_DP_BATCH 4, K4-K6 (N 22,360 / 22,360 / 22,880, P 2,048).
-    Lines (l), (m) and a summary with the phase's seconds;
+    In the same spawn, (n): ranks that hold no row of a map, the same
+    two steps at crop heights SP3_EMPTY_CROPS, SP3_CROP wide (15: the
+    stride-8 map's 2 rows as none, 1, 1, the embedding grid's 4 as 1, 1,
+    2; 6: the stride-8 map's 1 row as none, none, 1, the embedding
+    grid's 2 as none, 1, 1, so rank 0 calls K1-K3 and K4-K6 with N = 0,
+    which start no stats or dE grid), float32 on the one process's
+    segments and float64 dense, held as (l) and (m) but for the losses
+    and the update L2, also held at tolerance + their floor there (the
+    floor runs of the DensePose step at 15 rows lie past the bare L2
+    tolerance), and DensePose's img_sim, printed beside its floor, not
+    held (SP3_UNHELD); each rank's N and launches printed (K3 and K6 on
+    every rank, K1, K2, K4, K5 where N > 0), the float32 step's ms and
+    peak a rank (one step, the first at its shapes), no bf16 timing.
+    Lines (l), (m), (n) and a summary with the phase's seconds, (n)'s
+    among them;
  8. inference, the single-scale KNN path at VOC's test geometry
     (bashscripts/voc12/train_spml_scribble.sh:50-52, 82-100; no custom
     kernel on it): panoptic_deeplab_101 from random weights of seed 0
@@ -572,7 +591,7 @@ def reference64(torch, fused, family, case, grads, kappas, rows=16384,
     spread_p = torch.zeros_like(d_protos)
     n = case["emb"].shape[0]
     plain = stats_fns(fused, family)[1]
-    for r0 in range(0, n, rows):
+    for r0 in range(0, max(n, 1), rows):  # N = 0: one empty chunk
         sl = slice(r0, min(r0 + rows, n))
         e = case["emb"][sl].double().requires_grad_(True)
         p = case["protos"].double().requires_grad_(True)
@@ -778,7 +797,48 @@ def check_kernels(torch, fused):
                 torch, fused, family, label, case, kappas, seed, *cotangents,
                 operand_dtype="bfloat16")
         check_bf16_delta(torch, fused, family, label, case, kappas)
+    check_no_pixels(torch, fused)
     return errs
+
+
+# check_no_pixels' cases: family -> (D, kappas), P = 2048, ~20% valid
+NO_PIXEL_CASES = {"joint": (64, (6.0, 12.0)), "hard": (32, (6.0,)),
+                  "set": (64, (8.0,))}
+
+
+def check_no_pixels(torch, fused):
+    """Each family's kernels at N = 0 (a height-sharded rank that holds no
+    row of the embeddings), in both operand types: the statistics [stats,
+    0] and dE [0, D] empty, no stats or dE grid started (the C functions
+    return before one), and the dP kernel (K3, K6, K9) launched once over
+    its tiles with no pixel chunk to walk: dP exactly 0 on every
+    prototype row, equal to the plain version's in float64."""
+    for family, (d, kappas) in NO_PIXEL_CASES.items():
+        case = make_case(torch, 0, 2048, 0.2, 40, d=d,
+                         sparse_tags=family == "set")
+        for dtype, (_, suffix) in fused.OPERAND_DTYPES.items():
+            g = torch.zeros(N_STATS[family], 0, device=DEVICE)
+            fused.reset_launch_counts()
+            s, de, dp = kernel_outputs(torch, fused, family, case, g, kappas,
+                                       dtype)
+            launches = {k: v for k, v in fused.LAUNCHES.items() if v}
+            rdp = reference64(torch, fused, family, case, g, kappas,
+                              operand_dtype=dtype)[2]
+            want = ((N_STATS[family], 0), (0, d),
+                    {f"{family}_grad_proto{suffix}": 1})
+            got = (tuple(s.shape), tuple(de.shape), launches)
+            if (got != want or not torch.equal(dp.double(), rdp)
+                    or bool((dp != 0).any())):
+                raise AssertionError(
+                    f"{family}{suffix} at N = 0: (stats shape, dE shape, "
+                    f"launches) {got}, want {want}; dP's largest |value| "
+                    f"{float(dp.abs().max())} (the plain version's "
+                    f"{float(rdp.abs().max())})")
+            log("kernels", f"{family}{suffix} N=0 P=2048 D={d} "
+                f"valid={int(case['num_valid'])}: stats {tuple(s.shape)} "
+                f"and dE {tuple(de.shape)} empty, no stats or dE grid; dP "
+                f"launched once, {dp.numel()} elements exactly 0 as the "
+                "plain version's ok")
 
 
 def check_bf16_delta(torch, fused, family, label, case, kappas):
@@ -1229,14 +1289,24 @@ def recipe_batch(cfg, device, batch=None):
     """The seed-0 synthetic batch of cfg's recipe, `batch` images (cfg's
     train.batch_size when None): DensePose's point labels
     (train/densepose_point.py) on a DensePose backbone, else the
-    flagship's blobby labels (train/flagship.py)."""
+    flagship's blobby labels (train/flagship.py). A crop of h x w rows
+    and columns that is not square: the centre h x w of the square batch
+    of side max(h, w)."""
     from spml_tpu_torch.train import densepose_point, flagship
 
-    b, crop = batch or cfg.train.batch_size, cfg.train.crop_size[0]
+    b = batch or cfg.train.batch_size
+    h, w = cfg.train.crop_size
+    side = max(h, w)
     if "densepose" in cfg.network.backbone_types:
-        return densepose_point.point_batch(b, crop, seed=0, device=device)
-    return flagship.blobby_batch(b, crop, cfg.dataset.num_classes,
-                                 device=device)
+        out = densepose_point.point_batch(b, side, seed=0, device=device)
+    else:
+        out = flagship.blobby_batch(b, side, cfg.dataset.num_classes,
+                                    device=device)
+    if h == w:
+        return out
+    top, left = (side - h) // 2, (side - w) // 2
+    return {k: v[:, top:top + h, left:left + w].contiguous()
+            if v.ndim >= 3 else v for k, v in out.items()}
 
 
 def dp_setup(spec, dtype, device):
@@ -1300,8 +1370,8 @@ def segments_of(torch, given=None, rows=slice(None), shard=(0, 1, None),
         if not pixel or space == 1:
             return t
         p = halo.partition(grid, space)[s]
-        return t.reshape(t.shape[0], grid, -1)[:, p.start:p.stop].reshape(
-            t.shape[0], -1)
+        t = t.reshape(t.shape[0], grid, -1)
+        return t[:, p.start:p.stop].reshape(t.shape[0], len(p) * t.shape[2])
 
     def recording(emb, *a, **k):
         out = orig(emb, *a, **k)
@@ -1404,12 +1474,16 @@ def dp_one_process(torch, spec, device, given=None, swap=False, bn=None,
 def dp_floor(measures):
     """The float32 floor of a set of compare_step measures: each checked
     tensor's, the bank prototypes' and those of segments with the same
-    pixels' largest difference."""
+    pixels' largest difference; each loss's largest relative difference
+    and the largest update L2 (held by compare_step's floor_all)."""
     measures = list(measures)
     return {"tensors": {k: max(m["diffs"][k] for m in measures)
                         for k in measures[0]["checked"]},
             "bank": max(m["bank_err"] for m in measures),
-            "matched": max(m["matched"][0] for m in measures)}
+            "matched": max(m["matched"][0] for m in measures),
+            "losses": {k: max(m["loss_rel"][k] for m in measures)
+                       for k in measures[0]["loss_rel"]},
+            "l2": max(m["l2"] for m in measures)}
 
 
 def dp_reference(torch, spec, device, floor_runs=DP_FLOOR_RUNS,
@@ -1588,17 +1662,25 @@ def dp_shares(m, floor=None):
 
 
 def compare_step(torch, ref, got, rows, p, floor=None, checks=DP_CHECKS,
-                 checked=DP_CHECKED):
+                 checked=DP_CHECKED, floor_all=False, unheld=()):
     """One step's losses, tensors, bank and segments (got: dp_step_result
     of images `rows` of the global batch) against the reference's at the
     DP_* tolerances, each plus its float32 floor (dp_floor's, when given),
-    the updates of the tensors `checked` each held: (measures, {check:
+    the updates of the tensors `checked` each held; floor_all: the losses
+    and the update L2 also at tolerance + their floor (a step whose own
+    equally exact runs lie past the bare tolerances there), but the
+    losses named in `unheld`, whose share is printed: (measures, {check:
     failure} of `checks` that failed)."""
     failed = {}
+    loss_rel = {k: abs(got["losses"][k] - v) / abs(v) if v else
+                (0.0 if got["losses"][k] == v else math.inf)
+                for k, v in ref["losses"].items()}
+    loss_floor = (floor["losses"] if floor_all
+                  else dict.fromkeys(loss_rel, 0.0))
     failed["losses"] = [
         f"{k} {got['losses'][k]} against {v}"
         for k, v in ref["losses"].items()
-        if abs(got["losses"][k] - v) > DP_LOSS_RTOL * abs(v)]
+        if k not in unheld and loss_rel[k] > DP_LOSS_RTOL + loss_floor[k]]
     bank_err, memory = 0.0, got["memory"]
     failed["bank labels"] = []
     for k, want in ref["memory"].items():
@@ -1624,7 +1706,7 @@ def compare_step(torch, ref, got, rows, p, floor=None, checks=DP_CHECKS,
         tol[name] = DP_UPDATE_RTOL * float(upd.abs().max()) + unit
         ratios[name] = diffs[name] / tol[name]
     l2 = math.sqrt(diff2 / upd2)
-    if l2 > DP_UPDATE_RTOL:
+    if l2 > DP_UPDATE_RTOL + (floor["l2"] if floor_all else 0.0):
         failed["update L2"] = f"{l2:.3e}"
     names, checked = checked, {k: ratios[k] for k in checked}
     top = sorted(ratios, key=ratios.get, reverse=True)[:3]
@@ -1638,8 +1720,16 @@ def compare_step(torch, ref, got, rows, p, floor=None, checks=DP_CHECKS,
              ref["memory"]["prototype"][-1][own],
              memory["prototype"][-1][own], p),
          "flips": int((got["segments"][0]
-                       != ref["segments"][0][rows]).sum())}
+                       != ref["segments"][0][rows]).sum()),
+         "loss_rel": loss_rel}
     m["shares"] = dp_shares(m, floor)
+    if floor_all:
+        share = {k: v / (DP_LOSS_RTOL + loss_floor[k])
+                 for k, v in loss_rel.items()}
+        m["shares"]["losses"] = max(v for k, v in share.items()
+                                    if k not in unheld)
+        m["shares"]["update L2"] = l2 / (DP_UPDATE_RTOL + floor["l2"])
+        m["unheld"] = {k: share[k] for k in unheld}
     for k, share in m["shares"].items():
         if share > 1.0:
             failed[k] = f"{share:.3f} of tolerance + floor"
@@ -2569,17 +2659,18 @@ def sp_segsort_config(dtype, batch, fused=True, **train):
     return over
 
 
-def sp_join_segments(torch, segs, mesh, crop):
+def sp_join_segments(torch, segs, mesh, crop, width=None):
     """A rank's Segments with its pixel fields ([B, rows x W], its rows
-    of the embedding grid at crop height `crop`) joined with the other
-    space ranks' rows, in order: the whole images'."""
+    of the embedding grid at crop height `crop`, width `width`: crop
+    when None) joined with the other space ranks' rows, in order: the
+    whole images'."""
     from spml_tpu_torch.ops import kmeans
     from spml_tpu_torch.parallel import halo
     from spml_tpu_torch.parallel import mesh as mesh_lib
 
-    grid = grid_rows(crop)
+    grid, cols = grid_rows(crop), grid_rows(width or crop)
     mine = len(halo.partition(grid, mesh.space)[mesh.space_rank])
-    return [mesh_lib.gather_rows(t.reshape(t.shape[0], mine, -1)
+    return [mesh_lib.gather_rows(t.reshape(t.shape[0], mine, cols)
                                  .contiguous(), mesh, grid)
             .reshape(t.shape[0], -1).cpu()
             if name.startswith("pixel") else t
@@ -2666,7 +2757,7 @@ def sp_f64_step(torch, spec, device, mesh=None, swap=False, key="seg"):
         state, m = step_lib.make_train_step(cfg)(state, batch)
     segs = rec["segments"]
     if mesh is not None:
-        segs = sp_join_segments(torch, segs, mesh, cfg.train.crop_size[0])
+        segs = sp_join_segments(torch, segs, mesh, *cfg.train.crop_size)
     p = cfg.tpu.segment_capacity
     return {"losses": {k: float(v) for k, v in m.items()
                        if k.endswith("loss")},
@@ -3275,21 +3366,31 @@ def sp_dp_equality(torch, fused, spec, device, mesh, key="dp",
         local = mesh_lib.shard_rows(batch, mesh)
         step = step_lib.make_train_step(cfg)
         fused.reset_launch_counts()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         with recording_stats(torch, fused, family) as last, \
                 segments_of(torch, ref["segments"], every,
                             sp_shard(mesh, crop)) as rec:
             state, m = step(state, local)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3  # one step, the first
         got = dp_step_result(torch, state, m, rec)
         entry = {"losses": got["losses"],
                  "launches": {k: v for k, v in fused.LAUNCHES.items() if v},
                  "n": int(last["args"][0].shape[0]),
-                 "p": int(last["args"][at].shape[0])}
+                 "p": int(last["args"][at].shape[0]), "ms": ms,
+                 "peak": torch.cuda.max_memory_allocated() / 2**30
+                 if device.type == "cuda" else 0.0}
         if arm == "f32":
             got["segments"] = sp_join_segments(torch, got["segments"], mesh,
-                                               crop)
+                                               *cfg.train.crop_size)
             measures, bad = compare_step(
                 torch, ref, got, every, dp["capacity"], ref["floor"]["equal"],
-                DP_CHECKS, dp.get("checked", DP_CHECKED))
+                DP_CHECKS, dp.get("checked", DP_CHECKED),
+                dp.get("floor_all", False), dp.get("unheld", ()))
             if bad:
                 raise AssertionError(f"sp rank {mesh.rank} {key} against one "
                                      f"process: {bad} ({measures})")
@@ -3681,6 +3782,35 @@ def log_sp_dp_driver(ranks, one):
 # timed beside one process, as (f) and (h).
 SP3_SPACE, SP3_CROP = 3, 513
 SP3_KEYS = {"l": ("joint", K13), "m": ("hard", K46)}
+# (n) in the same spawn: ranks that hold no row of a map. (l)'s and (m)'s
+# steps at crops whose deeper maps have fewer rows than SP3_SPACE, float32
+# on the one process's segments and float64 dense, held as (l) and (m),
+# not timed: crop heights 15 (the stride-8 map's 2 rows as none, 1, 1;
+# the embedding grid's 4 as 1, 1, 2) and 6 (the stride-8 map's 1 row as
+# none, none, 1; the embedding grid's 2 as none, 1, 1: rank 0 calls the
+# kernels with N = 0, and K1, K2, K4 and K5 start no grid there), each
+# SP3_CROP wide (the centre rows of the crop-513 batch). Square crops
+# that short leave res5 2 x 2 and 1 x 1 a image, so batch norm there
+# reads 8-32 values a channel: a first chip run found the one process's
+# own float32 floor runs 11 (crop 15) and 50-250 (crop 6) tolerances
+# apart on the updates and 1e-4 to 5e-3 on the losses, which holds
+# nothing. 513 columns give res5 65 columns.
+SP3_EMPTY_CROPS = (15, 6)
+# (n)'s float32 losses printed beside their floor, not held: DensePose's
+# img_sim is a mean over each image's few point-labelled pixels, a dozen
+# in 15 rows, and a chip run found the one process's floor runs 4e-4 to
+# 2e-3 apart on it and the ranks 3e-3 (its float64 step holds it).
+SP3_UNHELD = {"hard": ("img_sim_loss",)}
+SP3_EMPTY_KEYS = {f"n{crop}{key}": (key, crop) for crop in SP3_EMPTY_CROPS
+                  for key in SP3_KEYS}
+
+
+def sp3_cases():
+    """{key: (family, kernels, crop, timed)} of (l), (m) and (n)."""
+    out = {k: (*v, SP3_CROP, True) for k, v in SP3_KEYS.items()}
+    out.update({k: (*SP3_KEYS[base], crop, False)
+                for k, (base, crop) in SP3_EMPTY_KEYS.items()})
+    return out
 
 
 def sp3_devices(torch):
@@ -3696,57 +3826,68 @@ def sp3_devices(torch):
             "not a scaling figure")
 
 
-def sp3_rank_n(batch, crop):
-    """Each rank's pixels of the embedding grid: its rows of the grid's
-    partition x the grid's columns x the images."""
-    grid = grid_rows(crop)
-    return [batch * len(p) * grid for p in halo_partition(grid, SP3_SPACE)]
+def sp3_rank_n(batch, crop, width=None):
+    """Each rank's pixels of the embedding grid at crop `crop` x `width`
+    (crop when None): its rows of the grid's partition x the grid's
+    columns x the images."""
+    grid, cols = grid_rows(crop), grid_rows(width or crop)
+    return [batch * len(p) * cols for p in halo_partition(grid, SP3_SPACE)]
 
 
 def sp3_spec(root):
-    """The configurations, sizes and reference paths of (l) and (m)."""
+    """The configurations, sizes and reference paths of (l), (m) and
+    (n)."""
     import copy
 
     from spml_tpu_torch.train import densepose_point, flagship
 
-    def at_crop(over, dtype, batch, train=(), **tpu):
+    def at_crop(over, dtype, batch, crop, train=(), **tpu):
         o = copy.deepcopy(over)
-        o["train"].update(batch_size=batch, crop_size=[SP3_CROP, SP3_CROP],
+        o["train"].update(batch_size=batch, crop_size=[crop, SP3_CROP],
                           **dict(train))
         o["tpu"].update(compute_dtype=dtype, **tpu)
         return o
 
-    seg = at_crop(flagship.OVERRIDES, "float32", SP_SEG_BATCH)
-    dp = at_crop(densepose_point.OVERRIDES, "float32", SP_DP_BATCH)
     spec = {"root": root, "space": SP3_SPACE}
-    for key, over, batch, checked in (("l", seg, SP_SEG_BATCH, DP_CHECKED),
-                                      ("m", dp, SP_DP_BATCH, SP_DP_CHECKED)):
-        base = flagship.OVERRIDES if key == "l" else densepose_point.OVERRIDES
+    for key, (family, _, crop, timed) in sp3_cases().items():
+        base, batch, checked = {
+            "joint": (flagship.OVERRIDES, SP_SEG_BATCH, DP_CHECKED),
+            "hard": (densepose_point.OVERRIDES, SP_DP_BATCH, SP_DP_CHECKED),
+        }[family]
+        over = at_crop(base, "float32", batch, crop)
         spec[key] = {
             "f32": over, "global": batch,
             "capacity": over["tpu"]["segment_capacity"], "checked": checked,
-            "f64": at_crop(base, "float64", SP_SEG_F64_BATCH,
+            "f64": at_crop(base, "float64", SP_SEG_F64_BATCH, crop,
                            use_fused_loss=False),
-            "n": sp3_rank_n(batch, SP3_CROP),
+            "n": sp3_rank_n(batch, crop, SP3_CROP),
             "p": batch * over["tpu"]["segment_capacity"]
             * (1 + over["train"].get("memory_bank_size", 0)),
             "ref": os.path.join(root, f"{key}_ref.pt"),
-            "ref64": os.path.join(root, f"{key}_ref64.pt")}
-        spec[key + "_bf16"] = at_crop(base, "bfloat16",
-                                      base["train"]["batch_size"])
+            "ref64": os.path.join(root, f"{key}_ref64.pt"),
+            # (n)'s short crops: the losses and L2 at tolerance + floor,
+            # but DensePose's img_sim (SP3_UNHELD)
+            "floor_all": not timed,
+            "unheld": () if timed else SP3_UNHELD.get(family, ())}
+        if timed:
+            spec[key + "_bf16"] = at_crop(base, "bfloat16",
+                                          base["train"]["batch_size"], crop)
     return spec
 
 
 def sp3_reference(torch, fused, spec, device):
-    """The one-process references of (l) and (m): float32 on its own
+    """The one-process references of (l), (m) and (n): float32 on its own
     segments with the floor of SP_SEG_FLOOR_RUNS on them (dp_reference),
-    float64 with the floor of its images reversed, the bf16 step timed.
-    Returns what the lines print of them."""
-    out = {}
-    for key in SP3_KEYS:
+    float64 with the floor of its images reversed, the bf16 step timed
+    ((l) and (m)). Returns what the lines print of them."""
+    out = {"n_seconds": 0.0}
+    for key, (_, _, _, timed) in sp3_cases().items():
+        t0 = time.perf_counter()
         s = spec[key]
         one = {"f32": dp_reference(torch, s, device, SP_SEG_FLOOR_RUNS,
                                    ("equal",))["equal"]}
+        one["floor"] = torch.load(s["ref"], weights_only=True)["floor"][
+            "equal"]
         if device.type == "cuda":
             torch.cuda.empty_cache()
         ref = sp_f64_step(torch, spec, device, key=key)
@@ -3760,15 +3901,19 @@ def sp3_reference(torch, fused, spec, device):
         ref = None
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        one["time"] = sp_time(torch, spec, device, key=key + "_bf16")
+        if timed:
+            one["time"] = sp_time(torch, spec, device, key=key + "_bf16")
+        else:
+            out["n_seconds"] += time.perf_counter() - t0
         out[key] = one
     return out
 
 
 def sp3_rank(spec, *, device):
-    """One rank of (l) and (m), in a process of its own: the float32 step
-    on the one process's segments, the float64 step, the bf16 step
-    timed, for each."""
+    """One rank of (l), (m) and (n), in a process of its own: the float32
+    step on the one process's segments, the float64 step, the bf16 step
+    timed ((l) and (m)), for each; the seconds of the whole and of
+    (n)."""
     import torch
 
     from spml_tpu_torch.ops import _cuda
@@ -3781,7 +3926,9 @@ def sp3_rank(spec, *, device):
     mesh = mesh_lib.make_mesh(SP3_SPACE)
     t0 = time.perf_counter()
     out = {"rank": mesh.rank, "world": mesh.world, "space": mesh.space}
-    for key, (family, _) in SP3_KEYS.items():
+    for key, (family, _, _, timed) in sp3_cases().items():
+        if key in SP3_EMPTY_KEYS and "n_t0" not in out:
+            out["n_t0"] = time.perf_counter()
         for name, run in (
                 ("f32", lambda: sp_dp_equality(torch, fused, spec, device,
                                                mesh, key, ("f32",),
@@ -3789,34 +3936,49 @@ def sp3_rank(spec, *, device):
                 ("f64", lambda: sp_f64_equality(torch, spec, device, mesh,
                                                 key)),
                 ("timing", lambda: sp_time(torch, spec, device, mesh,
-                                           mesh_lib, key + "_bf16", fused))):
+                                           mesh_lib, key + "_bf16", fused)
+                 if timed else None)):
             out[key + " " + name] = run()
             if device.type == "cuda":  # the ranks share one card
                 torch.cuda.empty_cache()
+    out["n_seconds"] = time.perf_counter() - out.pop("n_t0")
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
+def sp3_launches(kernels, n):
+    """The launches of a step's family kernels (stats, dE, dP) on a rank
+    at N pixels: each once, but the stats and dE kernels none at N = 0
+    (their C functions start no grid; the dP kernel still writes P's
+    zeros)."""
+    return {k: 1 for k in kernels if n or k.endswith("grad_proto")}
+
+
 def check_sp3(spec, ranks):
-    """(l), (m) of the ranks: equal to each other; the family's kernels
-    once a step a rank, each rank at its own N (sp3_rank_n) and the
-    global P."""
-    for key, (_, kernels) in SP3_KEYS.items():
+    """(l), (m), (n) of the ranks: equal to each other; the family's
+    kernels once a step a rank (sp3_launches), each rank at its own N
+    (sp3_rank_n) and the global P; (n) at crop 6 with N = 0 on rank 0."""
+    for key, (_, kernels, _, timed) in sp3_cases().items():
         if len({r[key + " f32"]["digest"] for r in ranks}) != 1:
             raise AssertionError(f"sp {key}: the ranks' tensors differ")
         s = spec[key]
         for r in ranks:
             e, t = r[key + " f32"], r[key + " timing"]
-            got = (e["launches"], e["n"], e["p"], t["launches"])
-            want = (dict.fromkeys(kernels, 1), s["n"][r["rank"]], s["p"],
-                    dict.fromkeys(kernels, 16))
+            n = s["n"][r["rank"]]
+            got = (e["launches"], e["n"], e["p"])
+            want = (sp3_launches(kernels, n), n, s["p"])
+            if timed:
+                got += (t["launches"],)
+                want += (dict.fromkeys(kernels, 16),)
             if got != want:
                 raise AssertionError(f"sp rank {r['rank']} {key}: (launches, "
                                      f"N, P, timed launches) {got}, want "
                                      f"{want}")
-            if not math.isfinite(t["loss"]):
+            if timed and not math.isfinite(t["loss"]):
                 raise AssertionError(f"sp rank {r['rank']} {key}: bf16 loss "
                                      f"{t['loss']}")
+    if min(spec[f"n{min(SP3_EMPTY_CROPS)}l"]["n"]) != 0:
+        raise AssertionError("sp (n): no rank at N = 0")
 
 
 def log_sp3(spec, ranks, one, case):
@@ -3871,8 +4033,60 @@ def log_sp3(spec, ranks, one, case):
             + f"; {case}")
 
 
+def log_sp3_empty(spec, ranks, one):
+    """Lines (n): each crop and recipe, and (n)'s seconds."""
+    what = {"joint": f"the flagship SegSort step at batch {SP_SEG_BATCH}",
+            "hard": f"the DensePose point step at batch {SP_DP_BATCH}"}
+    for key, (base, crop) in SP3_EMPTY_KEYS.items():
+        family = SP3_KEYS[base][0]
+        s, o = spec[key], one[key]
+        eq = [r[key + " f32"] for r in ranks]
+        f64 = [r[key + " f64"] for r in ranks]
+        maps = "; ".join(
+            f"stride {st}: {rows} rows as " + "/".join(
+                str(len(p)) for p in halo_partition(rows, SP3_SPACE))
+            for st, rows in ((8, grid_rows(crop) // 2),
+                             (4, grid_rows(crop))))
+        log("sp", f"(n) crop {crop} x {SP3_CROP} over {SP3_SPACE} space "
+            f"ranks ({maps}; {grid_rows(SP3_CROP)} grid columns), "
+            f"{what[family]} as ({base}): float32 on the one process's "
+            f"segments against one process, [dp] (a)'s tolerances over "
+            f"{len(s['checked'])} checked tensors, each plus the floor of "
+            f"{', '.join(SP_SEG_FLOOR_RUNS)}. "
+            + dp_mode_words("equal", eq, o["f32"], sum(s["n"]))
+            + " The losses and the update L2 at tolerance + floor (the "
+            "floor runs' largest, "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sorted(
+                o["floor"]["losses"].items())) + f", L2 {o['floor']['l2']:.3e}"
+            + "): shares a rank " + " / ".join(
+                f"{e['shares']['losses']:.3f}, {e['shares']['update L2']:.3f}"
+                for e in eq)
+            + "".join(f"; {k} printed, not held (SP3_UNHELD): shares "
+                      + " / ".join(f"{e['unheld'][k]:.3f}" for e in eq)
+                      for k in s["unheld"])
+            + f". Losses {eq[0]['losses']}; launches a rank "
+            + " / ".join(str(e["launches"]) for e in eq)
+            + " at N " + " / ".join(str(e["n"]) for e in eq)
+            + f", P {eq[0]['p']}; the ranks' parameters, buffers and banks "
+            f"torch.equal. float64, batch {SP_SEG_F64_BATCH}, dense losses: "
+            f"the {f64[0]['pixels']} pixels' segments and the bank labels "
+            f"equal one process's; losses, {f64[0]['n_grads']} gradients "
+            f"and the bank within {SP_F64_RTOL} + the floor (images "
+            f"reversed, largest {o['f64_floor']:.3e}); worst " + " | ".join(
+                f"rank {r}: {w[0]} {w[1]:.3e} (floor {w[2]:.3e})"
+                for r, w in enumerate(f["worst"] for f in f64)))
+        log("sp", f"(n) crop {crop} x {SP3_CROP} ({base}): the float32 "
+            "step, the first "
+            "at its shapes (host clock, synchronized), "
+            + " / ".join(f"{e['ms']:.2f}" for e in eq)
+            + " ms a rank, peak " + " / ".join(f"{e['peak']:.2f}"
+                                                 for e in eq) + " GiB")
+    log("sp", "(n) seconds a rank (the ranks' own steps, after (l) and "
+        "(m)): " + " / ".join(f"{r['n_seconds']:.1f}" for r in ranks))
+
+
 def run_sp3(torch, devices=None, backend=None, device=None):
-    """(l), (m) of the [sp] phase: SP3_SPACE ranks of one data rank
+    """(l), (m), (n) of the [sp] phase: SP3_SPACE ranks of one data rank
     spawned once, each running sp3_rank; this process computes the
     one-process references, their floors and timings first. devices,
     backend, device: the CPU rehearsal's (cpu ranks, gloo, cpu)."""
@@ -3899,10 +4113,12 @@ def run_sp3(torch, devices=None, backend=None, device=None):
         ranks = mesh_lib.spawn(sp3_rank, (spec,), devices, backend)
         spawn_s = time.perf_counter() - t0
         log_sp3(spec, ranks, one, case)
+        log_sp3_empty(spec, ranks, one)
         check_sp3(spec, ranks)
-    log("sp", f"(l), (m) summary, {case}: one-process references "
-        f"{t_ref:.1f} s, spawn to join {spawn_s:.1f} s, phase "
-        f"{time.perf_counter() - t_phase:.1f} s; card {nvidia_smi_line()}")
+    log("sp", f"(l), (m), (n) summary, {case}: one-process references "
+        f"{t_ref:.1f} s ((n)'s {one['n_seconds']:.1f} s), spawn to join "
+        f"{spawn_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s; "
+        f"card {nvidia_smi_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -5565,6 +5781,7 @@ def main() -> int:
     ap.add_argument("--csrc", help="build the kernels from this directory "
                     "in place of spml_tpu_torch/csrc")
     opts = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5655,6 +5872,8 @@ def main() -> int:
                               "path_cotangent_bound_ms": path_bound,
                               "path_cotangent_bound_by": path_by,
                               "path_cotangent_rows": rows})
+    log("total", f"{time.perf_counter() - t_start:.1f} s from the start "
+        "to the report")
     name, replaces, source = CONV_KERNEL
     table.append({
         "name": name, "route": "cuda", "source": source,

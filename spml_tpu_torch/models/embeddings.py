@@ -83,7 +83,7 @@ class EmbeddingModel(nn.Module):
         elif head == "pspp":
             self.pspp = nn.Sequential(
                 PSPP(2048, PSPP_FEATURE_DIM),
-                nn.Conv2d(PSPP_FEATURE_DIM, embedding_dim, 1, bias=True))
+                halo.Conv2d(PSPP_FEATURE_DIM, embedding_dim, 1, bias=True))
         else:
             raise ValueError(f"unknown head {head!r}")
 
@@ -150,7 +150,7 @@ class ClassifierHead(nn.Module):
             BatchNorm2d(hidden_dim, eps=BN_EPS, momentum=0.1),
             nn.ReLU(),
             nn.Dropout(dropout_rate),
-            nn.Conv2d(hidden_dim, num_classes, 1, bias=True))
+            halo.Conv2d(hidden_dim, num_classes, 1, bias=True))
 
     def forward(self, embeddings: torch.Tensor,
                 generator: torch.Generator | None = None,

@@ -79,8 +79,9 @@ class _SyncBatchNorm(torch.autograd.Function):
     (parallel/mesh.py).
 
     Forward: each rank's count, per-channel mean and biased variance
-    (float32, or float64 for a float64 x, two passes) are gathered in
-    float64 and combined as
+    (float32, or float64 for a float64 x, two passes; a rank with no
+    pixels, whose rows of the map are none, sends count 0 and zero
+    moments, not var_mean's NaN) are gathered in float64 and combined as
     Chan's parallel variance, sum n_r (var_r + (mean_r - mean)^2) / n, the
     same bits on every rank: the global sum, sum of squares and count
     without the cancellation of sum(x^2) / n - mean^2. Then x is
@@ -93,7 +94,10 @@ class _SyncBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         xf = at_least_float32(x)
-        var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        if xf.numel():
+            var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        else:
+            var_r = mean_r = xf.new_zeros(xf.shape[1])
         count = torch.full((1,), xf.numel() // xf.shape[1],
                            dtype=torch.float64, device=x.device)
         with mesh_lib.collective("batch norm"):

@@ -231,7 +231,8 @@ def segment_batch(embeddings: torch.Tensor, local_features: torch.Tensor,
     b, h, w, d = embeddings.shape
     emb = common.normalize_embedding(common.at_least_float32(embeddings))
     emb_flat = emb.reshape(b, h * w, d)
-    loc_flat = common.at_least_float32(local_features).reshape(b, h * w, -1)
+    loc_flat = common.at_least_float32(local_features).reshape(
+        b, h * w, local_features.shape[-1])
     emb_loc = common.normalize_embedding(
         torch.cat([emb_flat, loc_flat], dim=-1))
 

@@ -66,7 +66,10 @@ _FAMILIES = {"joint": (6, 4), "hard": (3, 3), "set": (3, 3)}
 OPERAND_DTYPES = {"float32": (torch.float32, ""),
                   "bfloat16": (torch.bfloat16, "_bf16")}
 
-# launches of each kernel, counted where the wrapper launches it
+# launches of each kernel, counted where the wrapper launches it: the C
+# functions start no grid for a stats or dE call without pixels (N = 0,
+# a height-sharded rank with no row of the embeddings) or a dP call
+# without prototypes, and such a call counts none
 LAUNCHES = {f"{family}_{kind}{suffix}": 0
             for _, suffix in OPERAND_DTYPES.values() for family in _FAMILIES
             for kind in ("stats", "grad_emb", "grad_proto")}
@@ -359,13 +362,15 @@ def _c_args(family, inputs):
 def _launch(family, kind, suffix, inputs, scalars, *tail):
     """Calls segsort_{family}_{kind}{suffix} on PyTorch's current stream
     (suffix "_bf16": the bf16-operand form); raises on a launch error and
-    counts the launch."""
+    counts the launch, where the C function starts a grid (LAUNCHES)."""
     name = f"segsort_{family}_{kind}{suffix}"
     fn = getattr(_cuda.load(KERNEL_SOURCE), name)
-    err = fn(*_c_args(family, inputs), *scalars, *tail,
-             _cuda.stream_handle(inputs[0].device))
+    args = _c_args(family, inputs)
+    err = fn(*args, *scalars, *tail, _cuda.stream_handle(inputs[0].device))
     _cuda.check(err, name)
-    LAUNCHES[f"{family}_{kind}{suffix}"] += 1
+    n, p = args[-3], args[-2]
+    if (p if kind == "grad_proto" else n) > 0:
+        LAUNCHES[f"{family}_{kind}{suffix}"] += 1
 
 
 def _launch_stats(family, inputs, scalars, suffix=""):

@@ -46,9 +46,18 @@ from its two source rows at global coordinates, with F.interpolate's
 weights (_blend): resize_whole from a map every rank holds whole,
 interpolate from the source rows the rank fetched.
 
-Every map of the network at the crop height must give every rank a row:
-a height whose output-stride map has fewer rows than there are space
-ranks raises (check_height).
+A map may have fewer rows than there are space ranks (the deeper maps of
+a short crop: crop 24 over 4 leaves the stride-8 map's 3 rows as none,
+1, 1, 1): a rank's share of it is then empty. Such a rank still enters
+every exchange and every sum over the space group, in the same order as
+the others, and its empty rows stay in the autograd graph, so that its
+backward enters the same collectives; an operation that refuses a map
+with no rows (F.conv2d, F.max_pool2d, F.interpolate,
+F.adaptive_avg_pool2d) runs instead on rows of zeros appended to it,
+and its rows are dropped (_on_rows): the result has no rows and its
+gradient reaches the input's. Only the images themselves must give
+every rank a row: their height is a multiple of the space ranks
+(check_height).
 """
 
 from __future__ import annotations
@@ -66,7 +75,6 @@ import torch.nn.functional as F
 from spml_tpu_torch.parallel import mesh as mesh_lib
 
 FILLS = ("zero", "neg_inf", "edge")
-OUTPUT_STRIDE = 8  # the network's deepest map: ceil(H / 8) rows
 
 _ACTIVE = threading.local()  # .block: (mesh, image rows) of sharded()
 
@@ -113,24 +121,13 @@ def height() -> int:
 
 def check_height(height: int, space: int) -> None:
     """A crop height splits over `space` ranks: a multiple of space (the
-    images' cut, as the JAX package's device_put requires), whose
-    output-stride map, ceil(height / 8) rows, leaves no rank without a
-    row (rows fewer than ranks, which JAX pads, are not ported); else
-    ValueError."""
-    if space <= 1:
-        return
-    if height % space:
+    images' cut, as the JAX package's device_put requires); else
+    ValueError. The maps below the images may leave a rank no row."""
+    if space > 1 and height % space:
         raise ValueError(
             f"image height {height} with tpu.spatial_partition {space}: "
             "the height must be a multiple of spatial_partition (each "
             "space rank holds height / spatial_partition image rows)")
-    deepest = -(-height // OUTPUT_STRIDE)
-    if deepest < space:
-        raise ValueError(
-            f"image height {height} with tpu.spatial_partition {space}: "
-            f"the network's stride-{OUTPUT_STRIDE} map has {deepest} rows, "
-            f"fewer than the {space} space ranks (a rank without rows is "
-            "not ported: ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +138,8 @@ def check_height(height: int, space: int) -> None:
 def partition(rows: int, space: int) -> tuple[range, ...]:
     """Each space rank's rows of a map `rows` high: rank s holds [floor(s
     rows / space), floor((s + 1) rows / space)), equal blocks when space
-    divides rows."""
+    divides rows, and none for some ranks when rows < space (3 over 4:
+    none, [0, 1), [1, 2), [2, 3))."""
     return tuple(range(s * rows // space, (s + 1) * rows // space)
                  for s in range(space))
 
@@ -177,16 +175,14 @@ def halo_plan(kernel: int, stride: int, dilation: int, padding: int,
               rows_in: range, rows_out: range) -> tuple[int, int]:
     """(top, bottom): the rows above rows_in.start and below
     rows_in.stop - 1 that the outputs rows_out of the operation read, in
-    global rows (negative: rows of its own that none of them reads)."""
+    global rows (negative: rows of its own that none of them reads).
+    Empty rows_out read nothing: (0, -len(rows_in)), the empty range
+    rows_in.start .. rows_in.start - 1."""
+    if not rows_out:
+        return 0, -len(rows_in)
     lo = rows_out.start * stride - padding
     hi = (rows_out.stop - 1) * stride - padding + dilation * (kernel - 1)
     return rows_in.start - lo, hi - (rows_in.stop - 1)
-
-
-def _every_rank_holds(parts, rows):
-    if any(len(p) == 0 for p in parts):
-        raise ValueError(f"{rows} rows over {len(parts)} space ranks leave "
-                         "a rank without rows (not ported)")
 
 
 def needed_rows(height: int, space: int, kernel: int, stride: int = 1,
@@ -194,11 +190,10 @@ def needed_rows(height: int, space: int, kernel: int, stride: int = 1,
                 ) -> list[tuple[int, int]]:
     """Each rank's [lo, hi] global input rows (inclusive, beyond the
     image where the padding is) for its rows of the output's partition,
-    its own input rows those of the input's."""
+    its own input rows those of the input's; hi = lo - 1 (no row) for a
+    rank with no output row."""
     out = output_rows(height, kernel, stride, dilation, padding)
     parts_in, parts_out = partition(height, space), partition(out, space)
-    _every_rank_holds(parts_in, height)
-    _every_rank_holds(parts_out, out)
     plans = []
     for rin, rout in zip(parts_in, parts_out):
         top, bottom = halo_plan(kernel, stride, dilation, padding, rin, rout)
@@ -209,9 +204,11 @@ def needed_rows(height: int, space: int, kernel: int, stride: int = 1,
 def row_sources(lo: int, hi: int, height: int, space: int, fill: str
                 ) -> list[tuple[int, int]]:
     """(owner rank, its local row) of each global row lo..hi of a map
-    `height` rows high under partition(height, space); (-1, -1) for a row
-    outside the image filled with a constant; with fill 'edge' such a row
-    is the nearest edge row of the image."""
+    `height` rows high under partition(height, space) (none when hi <
+    lo); (-1, -1) for a row outside the image filled with a constant;
+    with fill 'edge' such a row is the nearest edge row of the image. The
+    owner is the last rank whose rows start at or before the row: a rank
+    with no rows starts where the next one does."""
     if fill not in FILLS:
         raise ValueError(f"fill {fill!r}: one of {FILLS}")
     parts = partition(height, space)
@@ -248,11 +245,13 @@ def assemble(shards, rank: int, lo: int, hi: int, fill: str, height: int,
     `height` rows high from its own shard shards[rank] and the remote
     rows `remote_rows` [B, C, R, W] in _remote's order; `shards` may hold
     the other ranks' shards instead (the one-process simulation), which
-    are then read directly."""
+    are then read directly. No rows (hi < lo): a [B, C, 0, W] result
+    that keeps x and remote_rows in the graph."""
     x = shards[rank]
-    h = x.shape[2]
+    b, c, h, w = x.shape
     sources = row_sources(lo, hi, height, len(shards), fill)
-    if (remote_rows is None and all(o == rank for o, _ in sources)
+    if (remote_rows is None and sources
+            and all(o == rank for o, _ in sources)
             and sources[-1][1] - sources[0][1] == len(sources) - 1):
         # its own consecutive rows, no exchange: a view (the rows an
         # exchange returns stay in the graph on every rank, so that every
@@ -269,7 +268,7 @@ def assemble(shards, rank: int, lo: int, hi: int, fill: str, height: int,
     const = h + len(remote)
     if any(o < 0 for o, _ in sources):
         value = 0.0 if fill == "zero" else float("-inf")
-        parts.append(torch.full_like(x[:, :, :1], value))
+        parts.append(x.new_full((b, c, 1, w), value))
     idx = [r if o == rank else (const if o < 0 else at[(o, r)])
            for o, r in sources]
     nhwc = torch.cat([p.permute(0, 2, 3, 1) for p in parts], dim=1)
@@ -345,6 +344,19 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
+def _on_rows(op, x: torch.Tensor, reach: int) -> torch.Tensor:
+    """op(x), op a row operation one of whose output rows reads `reach`
+    rows of x [B, C, h, W] (no padding along the height). A rank with no
+    output rows holds no rows of x: op then runs on `reach` rows of zeros
+    appended to x, and its one output row is dropped, so the [B, C', 0,
+    W'] result stays in the autograd graph (its backward reaches x's)
+    without op taking a map of no rows, which torch refuses."""
+    if x.shape[2]:
+        return op(x)
+    b, c, _, w = x.shape
+    return op(torch.cat([x, x.new_zeros((b, c, reach, w))], dim=2))[:, :, :0]
+
+
 # ---------------------------------------------------------------------------
 # The sharded operations
 # ---------------------------------------------------------------------------
@@ -357,13 +369,17 @@ def conv2d(x: torch.Tensor, weight, bias, stride, padding, dilation,
     convolution at stride 1 (row-local)."""
     mesh = current()
     k, st, d, p = weight.shape[2], stride[0], dilation[0], padding[0]
-    if mesh is None or (k == 1 and st == 1 and p == 0):
+    if mesh is None:
         return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    if k == 1 and st == 1 and p == 0:
+        return _on_rows(lambda t: F.conv2d(t, weight, bias, stride, padding,
+                                           dilation, groups), x, 1)
     share(mesh, rows, x.shape[2])
     plans = needed_rows(rows, mesh.space, k, st, d, p)
     ext = exchange(x, mesh, plans, rows, "zero")
-    return F.conv2d(_channels_last(ext), weight, bias, stride,
-                    (0, padding[1]), dilation, groups)
+    return _on_rows(lambda t: F.conv2d(
+        _channels_last(t), weight, bias, stride, (0, padding[1]), dilation,
+        groups), ext, d * (k - 1) + 1)
 
 
 def aspp_sum(x: torch.Tensor, convs, rows: int | None = None
@@ -387,9 +403,10 @@ def aspp_sum(x: torch.Tensor, convs, rows: int | None = None
         d = c.dilation[0]
         if c.padding[0] != d or c.kernel_size[0] != 3 or c.stride[0] != 1:
             raise ValueError("aspp_sum takes stride-1 'same' 3x3 convs")
-        part = _channels_last(ext[:, :, reach - d:reach + h + d])
-        y = F.conv2d(part, c.weight, c.bias, c.stride, (0, c.padding[1]),
-                     c.dilation, c.groups)
+        part = ext[:, :, reach - d:reach + h + d]
+        y = _on_rows(lambda t, c=c: F.conv2d(
+            _channels_last(t), c.weight, c.bias, c.stride,
+            (0, c.padding[1]), c.dilation, c.groups), part, 2 * d + 1)
         out = y if out is None else out + y
     return out
 
@@ -404,7 +421,8 @@ def max_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int,
     share(mesh, rows, x.shape[2])
     plans = needed_rows(rows, mesh.space, kernel, stride, 1, padding)
     ext = exchange(x, mesh, plans, rows, "neg_inf")
-    return F.max_pool2d(_channels_last(ext), kernel, stride, (0, padding))
+    return _on_rows(lambda t: F.max_pool2d(_channels_last(t), kernel, stride,
+                                           (0, padding)), ext, kernel)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -431,12 +449,14 @@ def _blend(x: torch.Tensor, first: int, n_in: int, n_out: int,
            rows: range, width: int) -> torch.Tensor:
     """Rows `rows` of the half-pixel bilinear resize of a map n_in rows
     high to (n_out, width), from x [B, C, R, W]: its global rows first ..
-    first + R - 1, which hold every source row of `rows`. The width
-    resized first, in float32 at least, then each row blended from its
-    two source rows with F.interpolate's weights."""
+    first + R - 1, which hold every source row of `rows` (none when
+    `rows` is empty). The width resized first, in float32 at least, then
+    each row blended from its two source rows with F.interpolate's
+    weights."""
     xf = x if x.dtype == torch.float64 else x.float()
-    xw = F.interpolate(xf, size=(x.shape[2], width), mode="bilinear",
-                       align_corners=False, antialias=False)
+    xw = _on_rows(lambda t: F.interpolate(
+        t, size=(t.shape[2], width), mode="bilinear", align_corners=False,
+        antialias=False), xf, 1)
     i0, i1, l0, l1 = _row_blend(n_in, n_out, rows.start, rows.stop,
                                 xf.dtype == torch.float64)
     w0 = torch.tensor(l0, dtype=xw.dtype, device=xw.device).view(1, 1, -1, 1)
@@ -461,12 +481,11 @@ def interpolate(x: torch.Tensor, size, rows: int | None = None
     share(mesh, rows, x.shape[2])
     n_out, width = size
     parts = partition(n_out, mesh.space)
-    _every_rank_holds(parts, n_out)
     wide = x.dtype == torch.float64
     plans = []
-    for p in parts:
+    for p in parts:  # a rank with no output rows reads none
         i0, i1, _, _ = _row_blend(rows, n_out, p.start, p.stop, wide)
-        plans.append((int(i0[0]), int(i1[-1])))
+        plans.append((int(i0[0]), int(i1[-1])) if p else (0, -1))
     ext = exchange(x, mesh, plans, rows, "edge")
     return _blend(ext, plans[mesh.space_rank][0], rows, n_out,
                   parts[mesh.space_rank], width)
@@ -490,8 +509,8 @@ def take_rows(x: torch.Tensor, rows: int, index) -> torch.Tensor:
         return x.index_select(2, _idx(list(index), x))
     share(mesh, rows, x.shape[2])
     parts = partition(len(index), mesh.space)
-    _every_rank_holds(parts, len(index))
-    plans = [(index[p.start], index[p.stop - 1]) for p in parts]
+    plans = [(index[p.start], index[p.stop - 1]) if p else (0, -1)
+             for p in parts]
     ext = exchange(x, mesh, plans, rows, "edge")
     lo, mine = plans[mesh.space_rank][0], parts[mesh.space_rank]
     return ext.index_select(2, _idx([index[r] - lo for r in mine], ext))
@@ -544,11 +563,14 @@ def adaptive_avg_pools(x: torch.Tensor, sizes, rows: int | None = None
     xf = x if x.dtype == torch.float64 else x.float()
     parts, counts = [], []
     for s in sizes:
-        cols = F.adaptive_avg_pool2d(xf, (h, s))  # [B, C, h, s]
+        cols = _on_rows(lambda t, s=s: F.adaptive_avg_pool2d(
+            t, (t.shape[2], s)), xf, 1)  # [B, C, h, s]
         for lo, hi in adaptive_bins(rows, s):
+            # a bin without rows of this rank: the sum of none of them,
+            # zeros in the graph (a rank with no rows still enters the
+            # sum's backward)
             a, z = max(lo, first) - first, min(hi, first + h) - first
-            parts.append(cols[:, :, a:z].sum(2) if z > a
-                         else cols.new_zeros((b, c, s)))
+            parts.append(cols[:, :, a:max(a, z)].sum(2))
             counts += [hi - lo] * s
     sums = torch.cat(parts, dim=2)  # [B, C, sum of s * s]: every bin
     with mesh_lib.collective("pool"):

@@ -59,6 +59,7 @@ import os
 import socket
 import tempfile
 import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -434,19 +435,34 @@ def _rank_main(rank, fn, args, devices, backend, port, out_dir):
         destroy_groups()
 
 
-def spawn(fn, args, devices, backend: str | None = None) -> list:
+def spawn(fn, args, devices, backend: str | None = None,
+          timeout: float | None = None) -> list:
     """fn(*args, device=devices[r]) in one spawned process per rank r,
     joined in a process group of `backend` (default_backend when None);
     returns each rank's result (pickled through a temporary file, so it
     should hold host tensors). fn must be importable by name. A rank that
-    raises or dies ends the others and raises here."""
+    raises or dies ends the others and raises here. timeout: seconds
+    until the ranks must have joined, else they are killed and
+    TimeoutError raised (ranks that wait in a collective one of them
+    never entered wait forever); None waits."""
     devices = [torch.device(d) for d in devices]
     backend = backend or default_backend(devices)
     with tempfile.TemporaryDirectory() as out_dir:
-        torch.multiprocessing.start_processes(
-            _rank_main, nprocs=len(devices), join=True,
+        ctx = torch.multiprocessing.start_processes(
+            _rank_main, nprocs=len(devices), join=False,
             start_method="spawn",
             args=(fn, tuple(args), devices, backend, _free_port(), out_dir))
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(None if deadline is None
+                           else max(deadline - time.monotonic(), 0.0)):
+            if deadline is not None and time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                    p.join()
+                raise TimeoutError(
+                    f"{len(devices)} ranks of {fn.__name__} not joined "
+                    f"after {timeout} s (a collective some rank never "
+                    "entered?); killed")
         return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                            weights_only=False)
                 for r in range(len(devices))]

@@ -80,8 +80,11 @@ too: the colour features are made from the gathered whole images
 (models/local.py), the NN-propagated tags read the gathered, complete
 prototypes, and feat_aff and the hard-label loss read the rank's pixel
 rows with their means counted over the space group. A crop height that
-S does not divide raises, as does one whose stride-8 map has fewer rows
-than S (halo.check_height). Ranks:
+S does not divide raises (halo.check_height); a deeper map may leave a
+rank no row (crop 24 over 4: the stride-8 map's 3 rows as none, 1, 1,
+1; crop 8 over 4: ranks 0 and 2 hold no pixel of the embeddings, N =
+0), and such a rank runs every collective of the step with the others.
+Ranks:
 the loss groups and the global image indices are the data rank's; the
 dropout generator, the world rank's (init_state).
 
@@ -202,8 +205,10 @@ def _grouped_masked_mean(values, mask, n_groups=1, mesh=mesh_lib.Mesh(),
         if n_groups % mesh.data:
             raise ValueError(f"{n_groups} loss groups do not split over "
                              f"{mesh.data} ranks")
-        v = common.at_least_float32(values.reshape(n_groups // mesh.data, -1))
-        m = mask.reshape(n_groups // mesh.data, -1).float()
+        # [groups, entries]: a rank may hold no entries (no rows)
+        shape = (n_groups // mesh.data, values.numel() * mesh.data // n_groups)
+        v = common.at_least_float32(values.reshape(shape))
+        m = mask.reshape(shape).float()
         gsum = torch.sum(v * m, dim=1)
         gcnt = mesh_lib.all_reduce(torch.sum(m, dim=1), mesh.space_group()) \
             if mesh.space > 1 and not per_image else torch.sum(m, dim=1)
@@ -358,7 +363,8 @@ def make_train_step(config):
         # features (resnet_pspnet_densepose.py:141-154)
         emb_part = emb_flat * 0.1 if densepose else emb_flat
         emb_loc = common.normalize_embedding(
-            torch.cat([emb_part, wide(loc.reshape(B, N, -1))], dim=-1))
+            torch.cat([emb_part, wide(loc.reshape(B, N, loc.shape[-1]))],
+                      dim=-1))
         weights = segs.pixel_valid.float()
 
         def prototypes(x):

@@ -195,6 +195,29 @@ def test_cuda_tensor_calls_the_binding(monkeypatch):
                                        joint_grad_proto=1)
 
 
+def test_no_pixels_count_only_the_dp_launch(monkeypatch):
+    """N = 0 (a height-sharded rank with no row of the embeddings): the
+    wrappers call each C function, which starts no stats or dE grid, so
+    only the dP launch counts (its grid writes dP's zeros)."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "load", lambda name: lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda device: 0)
+    fused.reset_launch_counts()
+    emb, protos, (lab, own, tag), (plab, ptag, pval) = _joint_inputs(
+        np.random.RandomState(4), n=0)
+    emb = torch.Tensor._make_subclass(_FakeCuda, emb, True)
+    protos = torch.Tensor._make_subclass(_FakeCuda, protos, True)
+    stats = fused.joint_segsort_stats(emb, lab, own, tag, protos, plab,
+                                      ptag, pval, torch.tensor([12]), 6.0,
+                                      12.0)
+    assert stats.shape == (6, 0)
+    stats.sum().backward()
+    assert lib.calls == ["segsort_joint_stats", "segsort_joint_grad_emb",
+                         "segsort_joint_grad_proto"]
+    assert [a[9] for a in lib.args] == [0, 0, 0]  # n, after 9 pointers
+    assert fused.LAUNCHES == _launches(joint_grad_proto=1)
+
+
 def test_hard_family_dispatch(monkeypatch):
     """segsort_stats: a CPU tensor takes the plain version and launches
     nothing; a CUDA tensor calls K4, then K5 and K6 in backward, K6 with

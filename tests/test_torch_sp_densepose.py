@@ -9,7 +9,9 @@ process computes the JAX references:
   process: H 4, 8, 64 and 5 on space 2 (res5 of crop 32, 64, 512 and
   40; the 6-bin pool's bins straddle the shard boundary, at H 4 and 5
   they overlap, s > H; at 5 the ranks hold 2 and 3 rows), H 4, 8 and 7
-  on space 4 (one or two rows a rank, bins spanning several ranks).
+  on space 4 (one or two rows a rank, bins spanning several ranks), and
+  H 3 and 1 on space 4 (res5 of crop 24 and 8: ranks that hold no row
+  still sum their bins, none, over the space group and get the maps).
   The pooled maps (whole on every rank) and the gradient of the sum of
   them times each rank's own cotangent (one process: the
   ranks' cotangents summed); PSPP's output (the ranks' rows joined), its
@@ -19,8 +21,9 @@ process computes the JAX references:
 * DensePose's local features (location, colour blurred 5x5, resized to
   the stride-4 grid, normalized per image) of the ranks' rows of 4
   images, 32 x 32, 64 x 48 and 40 x 48 (on 4 ranks a grid of 10 rows as
-  2, 3, 2, 3), joined: torch.equal to one process's (the colour is
-  made from the gathered whole images);
+  2, 3, 2, 3), and 8 x 8 (on 4 ranks a grid of 2 rows as none, 1,
+  none, 1), joined: torch.equal to one process's (the colour is made
+  from the gathered whole images);
 * one step of the DensePose point recipe at the size of
   tests/test_torch_densepose_step.py (panoptic_pspnet_10_densepose,
   8-d, crop 32: 16 image rows and 2 rows of res5 a rank, batch 2, 2x2
@@ -32,7 +35,10 @@ process computes the JAX references:
   feat_aff), tpu.loss_operand_dtype "bfloat16" (the hard-label
   loss's bf16-operand plain version against JAX's bf16 kernels), and
   the shipped recipe at crop 40 (uneven shards: res5's 5 rows as 2 and
-  3), against JAX's one-device step at crop 40.
+  3), against JAX's one-device step at crop 40; and the shipped recipe
+  at crop 24 on 1 x 4 ranks (res5's 3 rows as none, 1, 1, 1: rank 0
+  runs PSPP's branches on no row of its own), against JAX's
+  one-device step at crop 24.
   Tolerances, those of tests/test_torch_sp_step.py: metrics rtol 1e-4,
   but img_sim_loss rtol 2e-3 (tests/test_torch_densepose_step.py: its
   concentration of 16 amplifies the flax PSPNet's float32 error, which
@@ -77,33 +83,39 @@ BF16 = copy.deepcopy(OVERRIDES)
 BF16["tpu"]["loss_operand_dtype"] = "bfloat16"
 UNEVEN = copy.deepcopy(OVERRIDES)
 UNEVEN["train"]["crop_size"] = [40, 40]
+ROWS = copy.deepcopy(OVERRIDES)  # over 4 space ranks: rank 0 holds no
+ROWS["train"]["crop_size"] = [24, 24]  # row of res5's 3
 ARMS = {"shipped": OVERRIDES, "nn_tags": NN_TAGS, "bf16": BF16,
-        "uneven": UNEVEN}
+        "uneven": UNEVEN, "rows": ROWS}
+ARM_MESH = {name: "1x4" if name == "rows" else "1x2" for name in ARMS}
 ARM_CROP = {name: over["train"]["crop_size"][0]
             for name, over in ARMS.items()}
 F64 = copy.deepcopy(NN_TAGS)
 F64["tpu"]["use_fused_loss"] = False  # the kernels take float32 alone
 CHECKED = CHECKED_PARAMS + CHECKED_STATS
-POOL_CASES = {"1x2": (4, 8, 64, 5), "1x4": (4, 8, 7)}  # mesh: heights
-COLOUR_SHAPES = ((32, 32), (64, 48), (40, 48))
+POOL_CASES = {"1x2": (4, 8, 64, 5), "1x4": (4, 8, 7, 3, 1)}  # heights
+COLOUR_SHAPES = ((32, 32), (64, 48), (40, 48), (8, 8))
 MESHES = {"1x2": 2, "1x4": 4}  # data x space -> ranks (space = ranks)
 
 
-def _spatial(overrides):
+def _spatial(overrides, space=2):
     over = copy.deepcopy(overrides)
-    over["tpu"]["spatial_partition"] = 2
+    over["tpu"]["spatial_partition"] = space
     return over
+
+
+def _mesh_arms(mesh):
+    return [name for name in ARMS if ARM_MESH[name] == mesh]
 
 
 def _jobs(mesh, inp):
     space = MESHES[mesh]
     jobs = [("pspp_case", (h, space)) for h in POOL_CASES[mesh]]
     jobs += [("colour_case", (shape, space)) for shape in COLOUR_SHAPES]
+    jobs += [("segsort_steps", (load_config(overrides=_spatial(
+        ARMS[name], space)), inp["init"][name],
+        [inp["batches"][ARM_CROP[name]]])) for name in _mesh_arms(mesh)]
     if mesh == "1x2":
-        jobs += [("segsort_steps", (load_config(overrides=_spatial(over)),
-                                    inp["init"][name],
-                                    [inp["batches"][ARM_CROP[name]]]))
-                 for name, over in ARMS.items()]
         jobs.append(("segsort_steps", (load_config(overrides=_spatial(F64)),
                                        inp["init64"], [inp["batch"]], True)))
     return jobs
@@ -117,8 +129,9 @@ def _job(mesh, kind, key):
     if kind == "colour":
         return n_pool + COLOUR_SHAPES.index(key)
     if kind == "step":
-        return n_pool + len(COLOUR_SHAPES) + list(ARMS).index(key)
-    return n_pool + len(COLOUR_SHAPES) + len(ARMS)  # the float64 step
+        return n_pool + len(COLOUR_SHAPES) + _mesh_arms(mesh).index(key)
+    # the float64 step
+    return n_pool + len(COLOUR_SHAPES) + len(_mesh_arms(mesh))
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +143,7 @@ def inputs():
         for crop in sorted(set(ARM_CROP.values()))}
     jinit, init = {}, {}
     for name, over in ARMS.items():
-        if name in ("bf16", "uneven"):  # the shipped arm's initial state
+        if name in ("bf16", "uneven", "rows"):  # the shipped arm's state
             jinit[name], init[name] = jinit["shipped"], init["shipped"]
             continue
         jst = jstep.init_state(jload_config(overrides=over),
@@ -151,7 +164,9 @@ def spawned(inputs):
     pool = ThreadPoolExecutor(1)
     yield pool.submit(lambda: {
         mesh: mesh_lib.spawn(torch_sp_ranks.many, (_jobs(mesh, inputs),),
-                             ["cpu"] * n) for mesh, n in MESHES.items()})
+                             ["cpu"] * n,
+                             timeout=torch_sp_ranks.SPAWN_TIMEOUT)
+        for mesh, n in MESHES.items()})
     pool.shutdown()
 
 
@@ -236,12 +251,13 @@ def test_sharded_colour_features_equal_the_whole_image(runs, mesh, shape):
 def test_densepose_step_on_a_space_axis_matches_jax(inputs, runs,
                                                     jax_steps, arm):
     metrics, want, bank, floor = jax_steps[arm]
-    job = _job("1x2", "step", arm)
-    ranks = runs["1x2"]
+    job = _job(ARM_MESH[arm], "step", arm)
+    ranks = runs[ARM_MESH[arm]]
     got = ranks[0][job]
     for part in ("tensors", "memory"):
         for k, v in got[part].items():
-            assert torch.equal(v, ranks[1][job][part][k]), (part, k)
+            for rank in ranks[1:]:
+                assert torch.equal(v, rank[job][part][k]), (part, k)
     (g,) = got["metrics"]
     assert set(g) == set(metrics)
     if arm == "nn_tags":

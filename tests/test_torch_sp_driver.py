@@ -133,7 +133,8 @@ def runs(world, densepose_world, tmp_path_factory):  # noqa: F811
                                    *densepose_world, str(root / "sp"))),
             ("train_spml_run", (UNEVEN, init, data, lst,
                                 str(root / "sp" / "uneven")))]
-    ranks = mesh_lib.spawn(torch_sp_ranks.many, (jobs,), ["cpu", "cpu"])
+    ranks = mesh_lib.spawn(torch_sp_ranks.many, (jobs,), ["cpu", "cpu"],
+                           timeout=torch_sp_ranks.SPAWN_TIMEOUT)
     one = torch_sp_ranks.drivers(ONE, init, head, data, lst,
                                  str(root / "one"), SEGSORT_ONE,
                                  device="cpu")

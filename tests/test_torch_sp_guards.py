@@ -10,7 +10,10 @@ the CPU unless marked:
 * the halo exchange through a process group of 2 and 4 gloo ranks
   (space 2): conv (ASPP's dilation 24 on 2-row shards, the stem's
   stride 2), the max pool and the x4 resize in float64, forward and
-  backward, equal the whole operation's rows within 1e-12;
+  backward, equal the whole operation's rows within 1e-12; also on maps
+  of one row, which leave space rank 0 none (its empty results stay in
+  the graph: its input gradient comes back, and its backward enters the
+  exchanges' collectives);
 * with a card (marked gpu, skipped here): the same on the card, two
   ranks (NCCL on two cards, gloo sharing one); and k-means segment
   formation (ops/kmeans.py::segment_batch) over two space ranks on the
@@ -39,7 +42,8 @@ def test_halo_module_passes_the_import_scan():
 @pytest.mark.parametrize("world", [2, 4])
 def test_halo_exchange_over_gloo_ranks(world):
     for ranks in zip(*mesh_lib.spawn(torch_sp_ranks.halo_ops, (2,),
-                                     ["cpu"] * world)):
+                                     ["cpu"] * world,
+                                     timeout=torch_sp_ranks.SPAWN_TIMEOUT)):
         for y_err, dx_err in ranks:
             assert y_err <= 1e-12 and dx_err <= 1e-12, ranks
 

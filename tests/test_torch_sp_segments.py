@@ -19,7 +19,11 @@ ops/common.py::resize_labels), in one process, without a process group:
   replaced by their one-process counterparts (each rank's partial
   sums added in rank order): the Segments joined from the ranks equal
   the whole images', every field exactly, with overflow at a small
-  capacity and a shard whose labels are all the ignore index.
+  capacity and a shard whose labels are all the ignore index; and over
+  images of fewer rows than ranks (2 rows over 4 and 3, 3 over 4, 1 over
+  3), where a rank holds no pixel: it still enters every M-step sum, the
+  key merge and the attribute max, and ends with no pixel fields and
+  the images' segment fields.
 """
 
 import dataclasses
@@ -160,7 +164,31 @@ def test_sharded_segment_batch_equals_whole_images(monkeypatch, space,
     """float64, where k-means has no near-ties: the ranks' Segments are
     the whole images' (pixel fields joined by rows, segment fields the
     same on every rank)."""
-    b, h, w = 3, 16, 8
+    got, want = _segments_over_ranks(monkeypatch, space, capacity, ignore,
+                                     16)
+    if ignore is not None:  # rank 0 holds no valid pixel, and still ids
+        assert not got[0].pixel_valid.any() and want.segment_valid.any()
+    if capacity < 32:  # some pixels overflow
+        assert not want.pixel_valid.all() and want.segment_valid.all()
+
+
+@pytest.mark.parametrize("space,h", [(4, 2), (4, 3), (3, 2), (3, 1)])
+def test_sharded_segment_batch_with_ranks_without_rows(monkeypatch, space,
+                                                       h):
+    """float64 images of fewer rows than space ranks: the ranks without
+    a row hold no pixel fields, and every rank the whole images'
+    segments."""
+    got, want = _segments_over_ranks(monkeypatch, space, 32, None, h)
+    sizes = [g.pixel_segment_ids.shape[1] for g in got]
+    assert 0 in sizes and sum(sizes) == want.pixel_segment_ids.shape[1]
+    assert want.segment_valid.any()
+
+
+def _segments_over_ranks(monkeypatch, space, capacity, ignore, h):
+    """segment_batch over `space` thread ranks of 3 images h x 8 against
+    one process: (each rank's Segments, the whole images'), every field
+    asserted equal (pixel fields joined by rows)."""
+    b, w = 3, 8
     emb, loc, sem, inst = _inputs(b, h, w, 8, 1, ignore)
     args = ((2, 2), capacity, 3, 255)
     want = kmeans.segment_batch(emb, loc, sem, inst, *args)[0]
@@ -195,7 +223,4 @@ def test_sharded_segment_batch_equals_whole_images(monkeypatch, space,
         else:
             for g in got:
                 assert torch.equal(g[f], want[f]), name
-    if ignore is not None:  # rank 0 holds no valid pixel, and still ids
-        assert not got[0].pixel_valid.any() and want.segment_valid.any()
-    if capacity < 32:  # some pixels overflow
-        assert not want.pixel_valid.all() and want.segment_valid.all()
+    return got, want

@@ -70,9 +70,31 @@ away and beyond the image) and a global batch of 4:
   the tolerances above with the same kind of floor; and the joint arm
   with the dense losses in float64 against the port's one process at
   crop 40, as the float64 step above.
+* space ranks that hold no row of a map, as 1 x 4 jobs of the 4-rank
+  spawn (each job builds its own mesh): crop 24 (the stride-8 map's 3
+  rows as none, 1, 1, 1; the x2 upsample gives rank 0 an embedding row
+  that it reads from ranks 1 and 2): a softmax-baseline step, a stage-2
+  classifier step, a fused joint step, and the joint step (K1-K3) and
+  the tags-only step (sem_ann off, K7-K9) with tpu.loss_operand_dtype
+  "bfloat16", against the JAX package's one-device steps at crop 24
+  (its bf16 kernels in interpret mode), at the tolerances above with
+  the same kind of floor, but for
+  the SegSort steps' img_sim loss: on this batch it lies 7e-5 (JAX's
+  jitted step), 1.3e-4 (JAX's eager step) and 8.4e-5 (the port's one
+  process) from the port's float64 step, 1.5e-4 between the port and
+  JAX's jitted step, so it is held at rtol 1e-4 against the port's one
+  process in float32 (as JIT_MOVED's are), which the float64 steps tie
+  to the sharded one; crop 16 (stride 8: none, 1, none, 1) and crop 8
+  (the embeddings' 2 rows as none, 1, none, 1: ranks 0 and 2 run
+  k-means, the losses and the kernels' plain versions on no pixel), a
+  dense SegSort step in float64 against the port's one process, as the
+  float64 step above; and the port's batch norm over the rows of a
+  3-row map, rank 0 counting no pixel: finite, and its output,
+  gradients and running statistics within 1e-12 of one process's.
 
 The spawns run in a thread while this process computes the JAX
-references.
+references; each must join within torch_sp_ranks.SPAWN_TIMEOUT
+seconds (a rank that skips a collective the others enter hangs them).
 """
 
 import copy
@@ -153,6 +175,15 @@ def _at_crop(overrides, crop=UNEVEN_CROP, **tpu):
 
 UNEVEN = {"softmax": _at_crop(SOFTMAX), "joint": _at_crop(JOINT)}
 UNEVEN64 = _at_crop(JOINT, use_fused_loss=False)  # float64: dense losses
+ROWS_CROP = 24  # over 4 space ranks: res5's 3 rows as none, 1, 1, 1
+ROWS = {"softmax": _at_crop(SOFTMAX, ROWS_CROP),
+        "joint": _at_crop(JOINT, ROWS_CROP),
+        "joint_bf16": _at_crop(JOINT, ROWS_CROP,
+                               loss_operand_dtype="bfloat16"),
+        "tags_bf16": _at_crop(TAG_SET, ROWS_CROP,
+                              loss_operand_dtype="bfloat16")}
+ROWS_ARMS = ("joint", "joint_bf16", "tags_bf16")  # SegSort steps vs JAX
+ROWS64 = {16: _at_crop(DENSE, 16), 8: _at_crop(DENSE, 8)}  # float64
 
 
 def _batch(seed, crop=32):
@@ -170,9 +201,9 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _spatial(overrides):
+def _spatial(overrides, space=2):
     over = copy.deepcopy(overrides)
-    over["tpu"]["spatial_partition"] = 2
+    over["tpu"]["spatial_partition"] = space
     return over
 
 
@@ -221,7 +252,18 @@ def inputs():
                 init=init, emb_def=emb_def, evars=evars, jcst=jcst,
                 frozen=frozen, head=head, arms=arms, init64=init64,
                 batches=[_batch(3), _batch(4)],
-                uneven=[_batch(5, UNEVEN_CROP)])
+                uneven=[_batch(5, UNEVEN_CROP)],
+                rows=[_batch(6, ROWS_CROP)],
+                rows64={crop: [_batch(crop, crop)] for crop in ROWS64},
+                bn=_bn_inputs())
+
+
+def _bn_inputs():
+    """batch_norm_rows' map [2, 4, 3, 5] (3 rows over 4 ranks), its
+    cotangent, weight and bias, in float64."""
+    rng = np.random.RandomState(11)
+    return (rng.randn(2, 4, 3, 5) * 2 + 1, rng.randn(2, 4, 3, 5),
+            rng.uniform(0.5, 1.5, 4), rng.randn(4))
 
 
 def _jobs(inp, remat):
@@ -251,6 +293,20 @@ def _jobs(inp, remat):
                 inp["uneven"])),
             ("segsort_steps", (load_config(overrides=_spatial(UNEVEN64)),
                                inp["init64"], inp["uneven"][:1], True))]
+        return jobs
+    # the 4-rank spawn: 1 x 4 jobs, ranks that hold no row of a map
+    def rows(over):
+        return load_config(overrides=_spatial(over, 4))
+    jobs += [
+        ("softmax_steps", (rows(ROWS["softmax"]), inp["init"], inp["rows"])),
+        ("classifier_steps", (rows(ROWS["softmax"]), inp["frozen"],
+                              inp["head"], inp["rows"]))]
+    jobs += [("segsort_steps", (rows(ROWS[arm]), inp["arms"]["joint"][2],
+                                inp["rows"])) for arm in ROWS_ARMS]
+    jobs += [("segsort_steps", (rows(ROWS64[crop]), inp["init64"],
+                                inp["rows64"][crop], True))
+             for crop in ROWS64]
+    jobs.append(("batch_norm_rows", (*inp["bn"], 4)))
     return jobs
 
 
@@ -259,6 +315,9 @@ F64_JOB = N_JOBS + len(ARMS)
 REMAT_JOB = F64_JOB + 1
 UNEVEN_JOBS = {"softmax": REMAT_JOB + 1, "joint": REMAT_JOB + 2,
                "float64": REMAT_JOB + 3}
+ROWS_JOBS = {name: REMAT_JOB + i for i, name in enumerate(
+    ("softmax", "classifier", *ROWS_ARMS, *(f"float64_{c}" for c in ROWS64),
+     "batch_norm"))}  # in the 4-rank spawn, after its F64_JOB
 
 
 @pytest.fixture(scope="module")
@@ -270,14 +329,15 @@ def spawned(inputs):
     pool = ThreadPoolExecutor(1)
     yield pool.submit(lambda: {
         name: mesh_lib.spawn(torch_sp_ranks.many,
-                             (_jobs(inputs, name == "1x2"),), ["cpu"] * n)
+                             (_jobs(inputs, name == "1x2"),), ["cpu"] * n,
+                             timeout=torch_sp_ranks.SPAWN_TIMEOUT)
         for name, n in MESHES.items()})
     pool.shutdown()
 
 
 @pytest.fixture(scope="module")
 def runs(spawned, jax_forward, jax_softmax, jax_classifier, jax_segsort,
-         one_process_segsort, jax_uneven):
+         one_process_segsort, jax_uneven, jax_rows):
     """The spawns' results, taken after every JAX reference."""
     return spawned.result()
 
@@ -519,9 +579,10 @@ def test_segsort_steps_match_jax(inputs, runs, jax_segsort,
                           inputs["arms"][arm][2], arm, moved)
 
 
-def _assert_segsort_steps(ranks, job, ref, init, arm, moved):
+def _assert_segsort_steps(ranks, job, ref, init, arm, moved, moved_step=1):
     """A SegSort job's steps against JAX's (ref: _jax_segsort_arm's),
-    step 2's metrics `moved` against the port's one process instead."""
+    the metrics `moved` of step moved_step (0: the first) against the
+    port's one process instead."""
     metrics, want, bank, floor = ref
     got = ranks[0][job]
     _assert_ranks_equal(ranks, job, "tensors")
@@ -530,7 +591,7 @@ def _assert_segsort_steps(ranks, job, ref, init, arm, moved):
     for i, (g, w) in enumerate(zip(got["metrics"], metrics)):
         assert set(g) == set(w)
         for k in w:
-            expect = moved[k] if i == 1 and k in moved else w[k]
+            expect = moved[k] if i == moved_step and k in moved else w[k]
             np.testing.assert_allclose(g[k], expect, rtol=1e-4, atol=1e-7,
                                        err_msg=f"{arm} step {i} {k}")
     for k in SEG_CHECKED:
@@ -567,7 +628,9 @@ def test_float64_segsort_step_matches_one_process(one_process_segsort64,
 def _assert_float64_step(want, ranks, job, width, space=2):
     """A float64 SegSort job (its first step's Segments, bank and
     gradients) against the port's one process: the Segments equal, the
-    rest within 1e-9; width: the embedding grid's columns."""
+    rest within 1e-9; width: the embedding grid's columns; space: the
+    job's space ranks (its ranks' pixel rows joined in order, a rank's
+    rows possibly none)."""
     segs = [r[job]["segments"][0] for r in ranks]
     for f, name in enumerate(Segments._fields):
         ref = want["segments"][0][f]
@@ -579,7 +642,8 @@ def _assert_float64_step(want, ranks, job, width, space=2):
                 for d in range(0, len(ranks), space)]).reshape(ref.shape)
         else:
             for d in range(0, len(ranks), space):
-                assert torch.equal(segs[d][f], segs[d + 1][f]), name
+                for r in range(d + 1, d + space):
+                    assert torch.equal(segs[d][f], segs[r][f]), name
             joined = torch.cat([s[f] for s in segs[::space]])
         assert torch.equal(joined, ref), name
     got = ranks[0][job]
@@ -645,3 +709,117 @@ def test_uneven_float64_step_matches_one_process(one_process_uneven64,
                                                  runs):
     _assert_float64_step(one_process_uneven64, runs["1x2"],
                          UNEVEN_JOBS["float64"], 10)
+
+
+@pytest.fixture(scope="module")
+def jax_rows(inputs, spawned):
+    """JAX's jitted one-device steps at crop 24: {"softmax": (metrics,
+    tensors, floor) as jax_softmax's, "classifier": (metrics, head) as
+    jax_classifier's, each of ROWS_ARMS: _jax_segsort_arm's}."""
+    jcfg = jload_config(overrides=ROWS["softmax"])
+    head = ClassifierHead(num_classes=4, hidden_dim=16, dropout_rate=0.0,
+                          dtype=jnp.float32)
+    fn = jax.jit(jstep.make_train_step(jcfg, jstep.build_models(jcfg)[0],
+                                       head))
+    metrics, want = _jax_softmax_steps(inputs, fn, batches="rows")
+    floor = dict.fromkeys(CHECKED, 0.0)
+    for order in FLOOR_ORDERS:
+        other = _jax_softmax_steps(inputs, fn, order, "rows")[1]
+        for k in CHECKED:
+            floor[k] = max(floor[k], float(np.abs(
+                np.asarray(want[k], np.float64)
+                - np.asarray(other[k], np.float64)).max()))
+    out = {"softmax": (metrics, want, floor)}
+    cfn = jax.jit(jcstep.make_classifier_train_step(
+        jcfg, inputs["emb_def"], inputs["evars"], head))
+    jst, cmetrics = inputs["jcst"], []
+    for nb in inputs["rows"]:
+        jst, m = cfn(jst, {k: jnp.asarray(v) for k, v in nb.items()})
+        cmetrics.append({k: float(v) for k, v in m.items()})
+    chead = from_jax.classifier_state_dict(
+        _np(jst.params["prediction"]), _np(jst.batch_stats["prediction"]))
+    out["classifier"] = (cmetrics, {k: v for k, v in chead.items()
+                                    if not k.endswith("num_batches_tracked")})
+    for arm in ROWS_ARMS:
+        out[arm] = _jax_segsort_arm(jload_config(overrides=ROWS[arm]),
+                                    inputs["arms"]["joint"][1],
+                                    inputs["rows"])
+    return out
+
+
+def test_rows_fewer_than_ranks_softmax_step_matches_jax(inputs, runs,
+                                                        jax_rows):
+    metrics, sd, floor = jax_rows["softmax"]
+    job = ROWS_JOBS["softmax"]
+    got = runs["2x2"][0][job]
+    _assert_ranks_equal(runs["2x2"], job, "tensors")
+    _assert_steps({"metrics": got["metrics"], **got["tensors"]}, metrics,
+                  {k: sd[k] for k in CHECKED}, inputs["init"], floor)
+
+
+def test_rows_fewer_than_ranks_classifier_step_matches_jax(inputs, runs,
+                                                           jax_rows):
+    metrics, want = jax_rows["classifier"]
+    job = ROWS_JOBS["classifier"]
+    got = runs["2x2"][0][job]
+    _assert_ranks_equal(runs["2x2"], job, "head")
+    _assert_steps({"metrics": got["metrics"], **got["head"]}, metrics, want,
+                  inputs["head"])
+
+
+ROWS_MOVED = ("img_sim_loss",)  # held against the port's one process
+
+
+@pytest.fixture(scope="module")
+def one_process_rows(inputs, spawned):
+    """The port's one-process steps of ROWS_ARMS at crop 24."""
+    return {arm: torch_sp_ranks.segsort_steps(
+        load_config(overrides=ROWS[arm]), inputs["arms"]["joint"][2],
+        inputs["rows"], device="cpu") for arm in ROWS_ARMS}
+
+
+@pytest.mark.parametrize("arm", ROWS_ARMS)
+def test_rows_fewer_than_ranks_segsort_step_matches_jax(
+        inputs, runs, jax_rows, one_process_rows, arm):
+    moved = {k: one_process_rows[arm]["metrics"][0][k] for k in ROWS_MOVED}
+    _assert_segsort_steps(runs["2x2"], ROWS_JOBS[arm], jax_rows[arm],
+                          inputs["arms"]["joint"][2], f"{arm} at crop 24",
+                          moved, moved_step=0)
+
+
+@pytest.fixture(scope="module")
+def one_process_rows64(inputs):
+    return {crop: torch_sp_ranks.segsort_steps(
+        load_config(overrides=over), inputs["init64"],
+        inputs["rows64"][crop], True, device="cpu")
+        for crop, over in ROWS64.items()}
+
+
+@pytest.mark.parametrize("crop", list(ROWS64))
+def test_rows_fewer_than_ranks_float64_step_matches_one_process(
+        one_process_rows64, runs, crop):
+    """Crop 16 over 4: no stride-8 row on ranks 0 and 2; crop 8: no
+    embedding row either (k-means and the losses on no pixel there)."""
+    ranks = runs["2x2"]
+    job = ROWS_JOBS[f"float64_{crop}"]
+    grid = 2 * -(-crop // 8)
+    if crop == 8:
+        assert [r[job]["segments"][0][0].shape[1] for r in ranks] == [
+            0, grid, 0, grid]
+    _assert_float64_step(one_process_rows64[crop], ranks, job, grid, space=4)
+
+
+def test_batch_norm_with_a_rank_without_rows_matches_one_process(inputs,
+                                                                  runs):
+    want = torch_sp_ranks.batch_norm_rows(*inputs["bn"], 4, device="cpu")
+    ranks = [r[ROWS_JOBS["batch_norm"]] for r in runs["2x2"]]
+    assert [r["rows"] for r in ranks] == [0, 1, 1, 1]
+    for got in ranks:
+        assert got["finite"]
+        for key in ("y", "dx", "dw", "db"):
+            np.testing.assert_allclose(
+                got[key].numpy(), want[key].numpy(), rtol=0,
+                atol=1e-12 * float(want[key].abs().max()), err_msg=key)
+        for k, v in want["stats"].items():
+            np.testing.assert_allclose(got["stats"][k].numpy(), v.numpy(),
+                                       rtol=1e-12, atol=1e-15, err_msg=k)

@@ -18,6 +18,11 @@ from spml_tpu_torch.train import classifier_step as cstep
 from spml_tpu_torch.train import step as tstep
 import torch_dp_ranks
 
+# seconds a test's spawn may take to join before its ranks are killed
+# (mesh_lib.spawn(timeout=)): a rank that skips a collective the others
+# entered hangs them, and the test then fails instead of waiting
+SPAWN_TIMEOUT = 900
+
 
 def _mesh(spatial):
     return mesh_lib.make_mesh(spatial if mesh_lib.world_size() > 1 else 1)
@@ -295,8 +300,12 @@ def halo_ops(spatial, *, device):
     and halo.interpolate (x4; and 5 rows to 10, whose output partition is
     not the input's scaled) on this rank's rows of their partition, in
     float64, forward and backward, against the whole operation on the
-    whole tensor on the same device: the largest difference of the
-    outputs and of the input gradients over every case."""
+    whole tensor on the same device; then the same on maps of one row,
+    which leave space rank 0 none (convs at dilation 24 and 1x1, a
+    stride-2 conv and the max pool whose one output row is rank 1's, the
+    x2 and x4 resizes, where rank 0's output rows read rank 1's row
+    alone): the largest difference of the outputs and of the input
+    gradients over every case."""
     import torch.nn.functional as F
 
     mesh = _mesh(spatial)
@@ -318,7 +327,25 @@ def halo_ops(spatial, *, device):
          lambda x, w, r: halo.interpolate(x, (16, 20), r)),
         (5, lambda x, w: F.interpolate(x, size=(10, 20), mode="bilinear",
                                        align_corners=False),
-         lambda x, w, r: halo.interpolate(x, (10, 20), r))]
+         lambda x, w, r: halo.interpolate(x, (10, 20), r)),
+        # fewer rows than space ranks: rank 0 holds no input row
+        (1, lambda x, w: F.conv2d(x, w, None, 1, 24, 24),
+         lambda x, w, r: halo.conv2d(x, w, None, (1, 1), (24, 24),
+                                     (24, 24), rows=r)),
+        (1, lambda x, w: F.conv2d(x, w[:, :, :1, :1]),
+         lambda x, w, r: halo.conv2d(x, w[:, :, :1, :1], None, (1, 1),
+                                     (0, 0), (1, 1), rows=r)),
+        (2, lambda x, w: F.conv2d(x, w, None, 2, 1, 1),
+         lambda x, w, r: halo.conv2d(x, w, None, (2, 2), (1, 1), (1, 1),
+                                     rows=r)),
+        (2, lambda x, w: F.max_pool2d(x, 3, 2, 1),
+         lambda x, w, r: halo.max_pool2d(x, 3, 2, 1, rows=r)),
+        (1, lambda x, w: F.interpolate(x, size=(2, 10), mode="bilinear",
+                                       align_corners=False),
+         lambda x, w, r: halo.interpolate(x, (2, 10), r)),
+        (1, lambda x, w: F.interpolate(x, size=(4, 10), mode="bilinear",
+                                       align_corners=False),
+         lambda x, w, r: halo.interpolate(x, (4, 10), r))]
     out = []
     for height, whole, part in cases:
         x = torch.randn(2 * mesh.data, 3, height, 5, generator=g,
@@ -336,10 +363,50 @@ def halo_ops(spatial, *, device):
             y = part(xl, w, height)
         rows = _rows(mesh, yf.shape[2])
         (y * cot[imgs, :, rows]).sum().backward()
-        out.append((float((y - yf[imgs, :, rows]).detach().abs().max()),
-                    float((xl.grad - xf.grad[imgs, :, _rows(mesh, height)])
-                          .abs().max())))
+        out.append((_largest(y - yf[imgs, :, rows]),
+                    _largest(xl.grad - xf.grad[imgs, :, _rows(mesh,
+                                                              height)])))
     return out
+
+
+def _largest(t):
+    """max |t|, 0 for a tensor of no elements (a rank's rows of none)."""
+    return float(t.detach().abs().max()) if t.numel() else 0.0
+
+
+def batch_norm_rows(x, cot, weight, bias, spatial, *, device):
+    """models/resnet.py::BatchNorm2d (float64, train mode, momentum 0.1)
+    on this rank's rows of x [B, C, H, W] (NCHW) inside halo.sharded,
+    H < spatial, so that some space ranks hold no row (count 0), with
+    cotangent `cot`: the output and input gradient, the ranks' rows
+    joined; the weight and bias gradients summed over the ranks; the
+    running statistics; whether this rank's output and gradients are
+    finite."""
+    from spml_tpu_torch.models import resnet
+
+    mesh = _mesh(spatial)
+    bn = resnet.BatchNorm2d(x.shape[1], eps=resnet.BN_EPS, momentum=0.1)
+    bn = bn.double().to(device)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(weight))
+        bn.bias.copy_(torch.from_numpy(bias))
+    rows = _rows(mesh, x.shape[2])
+    xl = torch.from_numpy(x[:, :, rows]).to(device).requires_grad_()
+    with halo.sharded(mesh):
+        y = bn(xl)
+    (y * torch.from_numpy(cot[:, :, rows]).to(device)).sum().backward()
+    grads = mesh_lib.all_reduce(torch.cat([bn.weight.grad, bn.bias.grad]))
+
+    def join(t):
+        return mesh_lib.gather_rows(t.detach().contiguous(), mesh,
+                                    x.shape[2], dim=2).cpu()
+
+    return {"rows": xl.shape[2], "y": join(y), "dx": join(xl.grad),
+            "dw": grads[:x.shape[1]].cpu(), "db": grads[x.shape[1]:].cpu(),
+            "stats": {k: v.cpu() for k, v in bn.named_buffers()},
+            "finite": bool(torch.isfinite(y).all()
+                           and torch.isfinite(xl.grad).all()
+                           and torch.isfinite(grads).all())}
 
 
 def sharded_segments(emb, loc, sem, inst, args, *, device):
