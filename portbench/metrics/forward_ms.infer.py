@@ -1,0 +1,8 @@
+"""Device ms an image of the work launched inside the benchmark's
+portbench.stitch span, around the engine instance's stitch call
+(the host-and-device profile's images)."""
+
+
+def read(traced):
+    ms = traced["host_trace"].ms_under_span("portbench.stitch")
+    return None if ms is None else ms / traced["host_items"]
