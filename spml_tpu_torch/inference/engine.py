@@ -26,6 +26,9 @@ a scale share one window forward (eval BN: each window's result is its
 own), and each member's k-means runs under its own bucket's fake labels.
 WindowEngine holds what the KNN engine and the softmax engine
 (inference/softmax.py) share: buckets, upload, windows and members.
+
+Under a torch profiler predict_semantic is one spml.infer.image span and
+upload_image one spml.infer.upload span (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from spml_tpu_torch.data import transforms
 from spml_tpu_torch.inference import msc
 from spml_tpu_torch.ops import common, kmeans, knn
 from spml_tpu_torch.utils.device import float32_matmuls, resolve_device
+from spml_tpu_torch.utils.spans import span
 
 TOP_K = 20  # retrieved prototypes per segment (segsort.py:68-125)
 LABEL_BINS = 256  # histogram bins of the ground-truth labels (uint8)
@@ -116,10 +120,11 @@ class WindowEngine:
     def upload_image(self, image: np.ndarray) -> torch.Tensor:
         """[H, W, 3] image bucket-padded with zeros (bottom and right), on
         the device in the image dtype."""
-        pad = self.bucket_shape(*image.shape[:2])
-        img = transforms.resize_with_pad(image, pad, 0.0)
-        return torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
-            self.device).to(self.img_dtype)
+        with span("spml.infer.upload"):
+            pad = self.bucket_shape(*image.shape[:2])
+            img = transforms.resize_with_pad(image, pad, 0.0)
+            return torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
+                self.device).to(self.img_dtype)
 
     def windows(self, pad_h: int, pad_w: int) -> list[tuple[int, int]]:
         """Top-left corners of the sliding windows, row-major."""
@@ -295,10 +300,11 @@ class InferenceEngine(WindowEngine):
         """Single-scale KNN prediction of one (resized) image: [H, W]
         int32 classes."""
         h, w = image.shape[:2]
-        topk, seg_ids, pad = self._topk(
-            image, (memory_protos, memory_labels, memory_valid))
-        pred = self.vote(topk, seg_ids, pad)
-        return pred[:h, :w].cpu().numpy().astype(np.int32)
+        with span("spml.infer.image"):
+            topk, seg_ids, pad = self._topk(
+                image, (memory_protos, memory_labels, memory_valid))
+            pred = self.vote(topk, seg_ids, pad)
+            return pred[:h, :w].cpu().numpy().astype(np.int32)
 
     def predict_semantic_batch(self, images, memory_protos, memory_labels,
                                memory_valid) -> list[np.ndarray]:

@@ -17,7 +17,14 @@ prints:
 * device busy ms per step (union of kernel, copy and set intervals) and
   the device's idle share of the traced steps; host operators per step;
 * device ms per step by kernel category (name patterns below) and the
-  15 kernels that take the most time.
+  15 kernels that take the most time;
+* the same steps by span (the program's record_function spans,
+  spml_tpu_torch/utils/spans.py: spml.train.step and its phases), and
+  one row for what ran outside any span (by_span): calls and host ms a
+  step (host ms inflated by the CPU tracing), and the device ms, device
+  operations and device idle ms a step put down to the innermost span
+  in which each operation's launch was made (an idle gap to the span
+  that launched the operation closing it).
 
 The Chrome trace goes to DIR/profile_step_<recipe>_trace.json (default
 profile_out/).
@@ -26,6 +33,7 @@ profile_out/).
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import re
@@ -68,6 +76,82 @@ def _busy_us(intervals) -> float:
         total += e - max(s, end)
         end = e
     return total
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+OUTSIDE = "outside any span"
+
+
+def _gaps(intervals):
+    """[(start, end)] of the gaps between the union's intervals."""
+    gaps, end = [], None
+    for s, e in sorted(intervals):
+        if end is not None and s > end:
+            gaps.append((end, s))
+        end = e if end is None else max(end, e)
+    return gaps
+
+
+def by_span(events, steps: int) -> dict:
+    """{span name or OUTSIDE: {calls, host_ms, device_ms, ops, idle_ms}},
+    each a step, from a Chrome trace's events (torch.profiler's
+    traceEvents with CPU and CUDA activity).
+
+    A device operation (kernel, copy, set) is put down to the innermost
+    span open at the host time of its launch (the runtime call of the
+    same correlation id), on any thread: the backward's launches come
+    from the autograd thread while the main thread waits inside its
+    span. Nested spans therefore never count an operation twice, and
+    the rows' device ms add up to the traced device ms. An idle gap of
+    the device (between the union of its intervals) goes to the span
+    that launched the operation closing it. calls and host_ms are the
+    span's own, nested spans included; the OUTSIDE row has none."""
+    spans, launch_ts, dev = [], {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat == "user_annotation":
+            spans.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launch_ts[corr] = e["ts"]
+        elif cat in DEVICE_CATS:
+            dev.append(e)
+    spans.sort()
+    starts = [s for s, _, _ in spans]
+
+    def owner(e):
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            return OUTSIDE
+        i = bisect.bisect_right(starts, ts) - 1
+        while i >= 0 and spans[i][1] < ts:  # the latest start holding ts
+            i -= 1
+        return spans[i][2] if i >= 0 else OUTSIDE
+
+    rows = {}
+
+    def row(name):
+        return rows.setdefault(name, {"calls": 0.0, "host_ms": 0.0,
+                                      "device_ms": 0.0, "ops": 0.0,
+                                      "idle_ms": 0.0})
+    for s, e, name in spans:
+        r = row(name)
+        r["calls"] += 1 / steps
+        r["host_ms"] += (e - s) / 1e3 / steps
+    dev.sort(key=lambda e: e["ts"])
+    owners = [owner(e) for e in dev]
+    for e, name in zip(dev, owners):
+        r = row(name)
+        r["device_ms"] += e["dur"] / 1e3 / steps
+        r["ops"] += 1 / steps
+    dev_ts = [e["ts"] for e in dev]
+    for s, e in _gaps([(d["ts"], d["ts"] + d["dur"]) for d in dev]):
+        closing = owners[bisect.bisect_left(dev_ts, e)]
+        row(closing)["idle_ms"] += (e - s) / 1e3 / steps
+    return rows
 
 
 def _time_steps(train_step, state, batch, n):
@@ -117,7 +201,7 @@ def main(argv=None) -> int:
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+           and e.get("cat") in DEVICE_CATS]
     if not dev:
         raise SystemExit("profile_step: the trace holds no device events")
     host_ops = sum(e.get("ph") == "X" and e.get("cat") == "cpu_op"
@@ -149,6 +233,15 @@ def main(argv=None) -> int:
     print("top kernels (ms/step):")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:8.3f}  {name[:110]}")
+    print("by span, a step (host ms inflated by CPU tracing; device ms, "
+          "operations and idle ms by the innermost span of the launch):")
+    print(f"  {'span':24s} {'calls':>5s} {'host ms':>9s} {'device ms':>9s} "
+          f"{'ops':>7s} {'idle ms':>8s}")
+    # in the order the spans first open, what ran outside them last
+    for name, r in sorted(by_span(events, n).items(),
+                          key=lambda kv: kv[0] == OUTSIDE):
+        print(f"  {name:24s} {r['calls']:5.1f} {r['host_ms']:9.3f} "
+              f"{r['device_ms']:9.3f} {r['ops']:7.0f} {r['idle_ms']:8.3f}")
     print(f"trace: {path}")
     return 0
 

@@ -193,7 +193,9 @@ class TraceWindow:
     before the window opens (the steps before it stay out) and before it
     closes (its steps' kernels stay in). step(it) at the top of every
     iteration; close() (or leaving the with block) ends a window the run
-    ends inside. In a process group rank 0 alone traces."""
+    ends inside. In a process group rank 0 alone traces. The trace holds
+    the program's spans (utils/spans.py): spml.train.step and its phases
+    for each traced step."""
 
     def __init__(self, config, start_iter, device: torch.device):
         self.dir = (os.path.expanduser(config.tpu.profile_dir)

@@ -111,6 +111,7 @@ from spml_tpu_torch.parallel import halo, mesh as mesh_lib
 from spml_tpu_torch.train import optim
 from spml_tpu_torch.train.state import MemoryBank, TrainState
 from spml_tpu_torch.utils.device import resolve_device
+from spml_tpu_torch.utils.spans import span
 
 
 
@@ -268,6 +269,14 @@ def make_train_step(config):
     Sets torch.backends.{cuda.matmul,cudnn}.allow_tf32 = False: the
     k-means E-step, the top-5 ranking and the dense losses stay full
     float32, because exp(kappa * x) amplifies logit error.
+
+    Under a torch profiler each call is one spml.train.step span
+    (utils/spans.py) tiled by its phases, so that no kernel is launched
+    outside one: spml.train.forward (the embedding network and the label
+    resizes; the softmax_classifier baseline's forward and CE),
+    spml.train.kmeans, spml.train.losses (prototypes to the total loss),
+    spml.train.backward (the gradients, summed over the ranks) and
+    spml.train.update (the optimizer, the bank push, the logged losses).
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -320,254 +329,269 @@ def make_train_step(config):
     def forward_and_losses(state: TrainState, batch, compute_metrics):
         """Total loss and (metrics, current prototypes) for one batch.
         Runs the models in their current mode (train_step sets train)."""
-        images = batch["image"]
-        sem_full = batch["semantic_label"].long()
-        inst_full = batch["instance_label"].long()
-        tags = batch["semantic_tag"].long()
-        B = images.shape[0]
-        dev = images.device
-        # the global rows of the images and of the embeddings
-        height = crop if mesh.space > 1 else images.shape[1]
-        rows = state.emb_model.embedding_rows(height)
-        full = (height, images.shape[2])
+        with span("spml.train.forward"):
+            images = batch["image"]
+            sem_full = batch["semantic_label"].long()
+            inst_full = batch["instance_label"].long()
+            tags = batch["semantic_tag"].long()
+            B = images.shape[0]
+            dev = images.device
+            # the global rows of the images and of the embeddings
+            height = crop if mesh.space > 1 else images.shape[1]
+            rows = state.emb_model.embedding_rows(height)
+            full = (height, images.shape[2])
 
-        if softmax:
-            # the fully supervised baseline: CE through the backbone
+            if softmax:
+                # the fully supervised baseline: CE through the backbone
+                with halo.sharded(mesh, height):
+                    emb, _ = state.emb_model(images)
+                    logits = state.cls_model(
+                        common.normalize_embedding(wide(emb)), state.generator,
+                        rows)
+                    logits_up = halo.resize_bilinear(logits, full, rows)
+                ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
+                return ce, ({"sem_ann_loss": ce,
+                             "accuracy": _accuracy(logits_up, sem_full, C)},
+                            None)
             with halo.sharded(mesh, height):
-                emb, _ = state.emb_model(images)
-                logits = state.cls_model(
-                    common.normalize_embedding(wide(emb)), state.generator,
-                    rows)
-                logits_up = halo.resize_bilinear(logits, full, rows)
-            ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
-            return ce, ({"sem_ann_loss": ce,
-                         "accuracy": _accuracy(logits_up, sem_full, C)},
-                        None)
-        with halo.sharded(mesh, height):
-            emb, loc = state.emb_model(images)
-            h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
-            sem = common.resize_labels(sem_full, (rows, w), height)
-            inst = common.resize_labels(inst_full, (rows, w), height)
+                emb, loc = state.emb_model(images)
+                h, w, D = emb.shape[1], emb.shape[2], emb.shape[3]
+                sem = common.resize_labels(sem_full, (rows, w), height)
+                inst = common.resize_labels(inst_full, (rows, w), height)
         N = h * w
 
         # ---- clustering (no gradient through assignments) ----
-        with torch.no_grad():
+        with span("spml.train.kmeans"), torch.no_grad():
             segs, _, _ = kmeans.segment_batch(
                 emb.detach(), loc, sem, inst, n_clusters, P, km_iters,
                 ignore, label_cap=config.tpu.label_cap, mesh=mesh,
                 rows=rows)
 
-        # ---- differentiable pixel embeddings & prototypes ----
-        emb_flat = common.normalize_embedding(wide(emb)).reshape(B, N, D)
-        # DensePose squeezes the embedding's weight against the local
-        # features (resnet_pspnet_densepose.py:141-154)
-        emb_part = emb_flat * 0.1 if densepose else emb_flat
-        emb_loc = common.normalize_embedding(
-            torch.cat([emb_part, wide(loc.reshape(B, N, loc.shape[-1]))],
-                      dim=-1))
-        weights = segs.pixel_valid.float()
+        with span("spml.train.losses"):
+            # ---- differentiable pixel embeddings & prototypes ----
+            emb_flat = common.normalize_embedding(wide(emb)).reshape(B, N, D)
+            # DensePose squeezes the embedding's weight against the local
+            # features (resnet_pspnet_densepose.py:141-154)
+            emb_part = emb_flat * 0.1 if densepose else emb_flat
+            emb_loc = common.normalize_embedding(
+                torch.cat([emb_part, wide(loc.reshape(B, N, loc.shape[-1]))],
+                          dim=-1))
+            weights = segs.pixel_valid.float()
 
-        def prototypes(x):
-            """Each segment's normalized sum of x over its pixels (of
-            every space rank: the rank's sums added over the group)."""
-            sums = common.segment_sum(x, segs.pixel_segment_ids, P, weights)
-            if mesh.space > 1:
-                with mesh_lib.collective("segments"):
-                    sums = mesh_lib.group_sum(sums, mesh.space_group())
-            return common.normalize_embedding(sums)
+            def prototypes(x):
+                """Each segment's normalized sum of x over its pixels (of
+                every space rank: the rank's sums added over the group)."""
+                sums = common.segment_sum(x, segs.pixel_segment_ids, P,
+                                          weights)
+                if mesh.space > 1:
+                    with mesh_lib.collective("segments"):
+                        sums = mesh_lib.group_sum(sums, mesh.space_group())
+                return common.normalize_embedding(sums)
 
-        protos, protos_loc = prototypes(emb_flat), prototypes(emb_loc)
+            protos, protos_loc = prototypes(emb_flat), prototypes(emb_loc)
 
-        # global image indices: this (data) rank's images of the global
-        # batch
-        img_idx = torch.arange(B, device=dev) + mesh.data_rank * B
-        # every data rank's prototypes, in rank order (the prototypes
-        # with gradient); the names below hold the gathered lists
-        cur = {k: mesh_lib.all_gather(v, mesh.data_group()) for k, v in dict(
-            prototype=protos.reshape(B * P, D),
-            prototype_with_loc=protos_loc.detach().reshape(B * P, -1),
-            semantic_label=segs.segment_semantic.reshape(-1),
-            instance_label=segs.segment_instance.reshape(-1),
-            batch_index=img_idx.repeat_interleave(P),
-            tag=tags.repeat_interleave(P, dim=0),
-            valid=segs.segment_valid.reshape(-1)).items()}
-        proto_sem, proto_valid = cur["semantic_label"], cur["valid"]
-        proto_tag, proto_batch = cur["tag"], cur["batch_index"]
+            # global image indices: this (data) rank's images of the global
+            # batch
+            img_idx = torch.arange(B, device=dev) + mesh.data_rank * B
+            # every data rank's prototypes, in rank order (the prototypes
+            # with gradient); the names below hold the gathered lists
+            this_rank = dict(
+                prototype=protos.reshape(B * P, D),
+                prototype_with_loc=protos_loc.detach().reshape(B * P, -1),
+                semantic_label=segs.segment_semantic.reshape(-1),
+                instance_label=segs.segment_instance.reshape(-1),
+                batch_index=img_idx.repeat_interleave(P),
+                tag=tags.repeat_interleave(P, dim=0),
+                valid=segs.segment_valid.reshape(-1))
+            cur = {k: mesh_lib.all_gather(v, mesh.data_group())
+                   for k, v in this_rank.items()}
+            proto_sem, proto_valid = cur["semantic_label"], cur["valid"]
+            proto_tag, proto_batch = cur["tag"], cur["batch_index"]
 
-        # ---- join the memory bank (snapshots without gradient) ----
-        memory = state.memory
-        if mem_size > 0:
-            all_protos = torch.cat(
-                [cur["prototype"], memory.prototype.reshape(-1, D)])
-            all_sem = torch.cat(
-                [proto_sem, memory.semantic_label.reshape(-1)])
-            all_valid = torch.cat([proto_valid, memory.valid.reshape(-1)])
-            all_tag = torch.cat(
-                [proto_tag, memory.tag.reshape(-1, memory.tag.shape[-1])])
-        else:
-            all_protos, all_sem = cur["prototype"], proto_sem
-            all_valid, all_tag = proto_valid, proto_tag
-
-        pix_sem = sem.reshape(-1)
-        pix_own = (segs.pixel_segment_ids + img_idx[:, None] * P).reshape(-1)
-        pix_valid = segs.pixel_valid.reshape(-1)
-        metrics = {}
-
-        # ---- semantic annotation: CE on the detached embeddings ----
-        cls_in = common.normalize_embedding(wide(emb)).detach()
-        with halo.sharded(mesh, height):
-            logits = state.cls_model(cls_in, state.generator, rows)
-            logits_up = halo.resize_bilinear(logits, full, rows)
-        ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
-
-        # ---- semantic co-occurrence tags ----
-        # VOC: the dataset-level tags (segsort_softmax.py:146-151).
-        # DensePose: each prototype's tags come from its nearest labelled
-        # prototype of the same image over prototype_with_loc
-        # (segsort_softmax_densepose.py:174-193; top-1, threshold 0.95);
-        # prototypes without one get all ones (unconstrained).
-        if densepose and (use_sem_occ or use_feat_aff):
+            # ---- join the memory bank (snapshots without gradient) ----
+            memory = state.memory
             if mem_size > 0:
-                all_ploc = torch.cat([
-                    cur["prototype_with_loc"],
-                    memory.prototype_with_loc.reshape(
-                        -1, cur["prototype_with_loc"].shape[-1])])
-                all_pbatch = torch.cat(
-                    [proto_batch, memory.batch_index.reshape(-1)])
+                all_protos = torch.cat(
+                    [cur["prototype"], memory.prototype.reshape(-1, D)])
+                all_sem = torch.cat(
+                    [proto_sem, memory.semantic_label.reshape(-1)])
+                all_valid = torch.cat([proto_valid, memory.valid.reshape(-1)])
+                all_tag = torch.cat(
+                    [proto_tag, memory.tag.reshape(-1, memory.tag.shape[-1])])
             else:
-                all_ploc, all_pbatch = cur["prototype_with_loc"], proto_batch
-            with torch.no_grad():
-                nn_tags = knn.nearest_neighbor_multiset_labels(
-                    all_ploc, all_ploc, all_sem, all_pbatch, all_pbatch, C,
-                    top_k=1, threshold=0.95, prototype_mask=all_valid)
-                tagless = nn_tags.amax(dim=1, keepdim=True) == 0
-                occ_proto_tags = torch.where(tagless, 1, nn_tags)
-            occ_pix_tags = occ_proto_tags[pix_own]
-        else:
-            occ_proto_tags = all_tag[:, 1:C]
-            occ_pix_tags = tags[:, 1:C].repeat_interleave(N, dim=0)
+                all_protos, all_sem = cur["prototype"], proto_sem
+                all_valid, all_tag = proto_valid, proto_tag
 
-        # ---- sem_ann (SegSort) and sem_occ (SetSegSort) ----
-        ann_pix_mask = pix_valid & (pix_sem < C)
-        ann_proto_mask = all_valid & (all_sem < C)
-        emb_rows = emb_flat.reshape(-1, D)
-        ann = occ = None
-        if fused and use_sem_ann and use_sem_occ:
-            ann_ll, occ_ll = fused_joint_losses(
-                emb_rows, pix_sem, pix_own, occ_pix_tags, all_protos,
-                torch.where(ann_proto_mask, all_sem, -1), occ_proto_tags,
-                tcfg.sem_ann_concentration, tcfg.sem_occ_concentration,
-                ann_pix_mask, pix_valid, all_valid, reduction="none",
-                operand_dtype=operand_dtype)
-            ann = mean(ann_ll, ann_pix_mask, B)
-            occ = mean(occ_ll, pix_valid, B)
-        else:
-            if use_sem_ann:
-                # the hard-label kernels or the dense loss: one signature
-                ann_loss = functools.partial(
-                    fused_segsort_loss, operand_dtype=operand_dtype) \
-                    if fused else losses.segsort_loss
-                ann_ll = ann_loss(
-                    emb_rows, pix_sem, pix_own, all_protos, all_sem,
-                    tcfg.sem_ann_concentration, ann_pix_mask,
-                    ann_proto_mask, reduction="none")
+            pix_sem = sem.reshape(-1)
+            pix_own = (segs.pixel_segment_ids
+                       + img_idx[:, None] * P).reshape(-1)
+            pix_valid = segs.pixel_valid.reshape(-1)
+            metrics = {}
+
+            # ---- semantic annotation: CE on the detached embeddings ----
+            cls_in = common.normalize_embedding(wide(emb)).detach()
+            with halo.sharded(mesh, height):
+                logits = state.cls_model(cls_in, state.generator, rows)
+                logits_up = halo.resize_bilinear(logits, full, rows)
+            ce = _cross_entropy(logits_up, sem_full, C, _n_groups(B), mesh)
+
+            # ---- semantic co-occurrence tags ----
+            # VOC: the dataset-level tags (segsort_softmax.py:146-151).
+            # DensePose: each prototype's tags come from its nearest labelled
+            # prototype of the same image over prototype_with_loc
+            # (segsort_softmax_densepose.py:174-193; top-1, threshold 0.95);
+            # prototypes without one get all ones (unconstrained).
+            if densepose and (use_sem_occ or use_feat_aff):
+                if mem_size > 0:
+                    all_ploc = torch.cat([
+                        cur["prototype_with_loc"],
+                        memory.prototype_with_loc.reshape(
+                            -1, cur["prototype_with_loc"].shape[-1])])
+                    all_pbatch = torch.cat(
+                        [proto_batch, memory.batch_index.reshape(-1)])
+                else:
+                    all_ploc = cur["prototype_with_loc"]
+                    all_pbatch = proto_batch
+                with torch.no_grad():
+                    nn_tags = knn.nearest_neighbor_multiset_labels(
+                        all_ploc, all_ploc, all_sem, all_pbatch, all_pbatch, C,
+                        top_k=1, threshold=0.95, prototype_mask=all_valid)
+                    tagless = nn_tags.amax(dim=1, keepdim=True) == 0
+                    occ_proto_tags = torch.where(tagless, 1, nn_tags)
+                occ_pix_tags = occ_proto_tags[pix_own]
+            else:
+                occ_proto_tags = all_tag[:, 1:C]
+                occ_pix_tags = tags[:, 1:C].repeat_interleave(N, dim=0)
+
+            # ---- sem_ann (SegSort) and sem_occ (SetSegSort) ----
+            ann_pix_mask = pix_valid & (pix_sem < C)
+            ann_proto_mask = all_valid & (all_sem < C)
+            emb_rows = emb_flat.reshape(-1, D)
+            ann = occ = None
+            if fused and use_sem_ann and use_sem_occ:
+                ann_ll, occ_ll = fused_joint_losses(
+                    emb_rows, pix_sem, pix_own, occ_pix_tags, all_protos,
+                    torch.where(ann_proto_mask, all_sem, -1), occ_proto_tags,
+                    tcfg.sem_ann_concentration, tcfg.sem_occ_concentration,
+                    ann_pix_mask, pix_valid, all_valid, reduction="none",
+                    operand_dtype=operand_dtype)
                 ann = mean(ann_ll, ann_pix_mask, B)
-            if use_sem_occ:
-                # the tag-set kernels or the dense loss: one signature
-                occ_loss = functools.partial(
-                    fused_set_segsort_loss, operand_dtype=operand_dtype) \
-                    if fused else losses.set_segsort_loss
-                occ_ll = occ_loss(
-                    emb_rows, occ_pix_tags, pix_own, all_protos,
-                    occ_proto_tags, tcfg.sem_occ_concentration, pix_valid,
-                    all_valid, reduction="none")
                 occ = mean(occ_ll, pix_valid, B)
+            else:
+                if use_sem_ann:
+                    # the hard-label kernels or the dense loss: one signature
+                    ann_loss = functools.partial(
+                        fused_segsort_loss, operand_dtype=operand_dtype) \
+                        if fused else losses.segsort_loss
+                    ann_ll = ann_loss(
+                        emb_rows, pix_sem, pix_own, all_protos, all_sem,
+                        tcfg.sem_ann_concentration, ann_pix_mask,
+                        ann_proto_mask, reduction="none")
+                    ann = mean(ann_ll, ann_pix_mask, B)
+                if use_sem_occ:
+                    # the tag-set kernels or the dense loss: one signature
+                    occ_loss = functools.partial(
+                        fused_set_segsort_loss, operand_dtype=operand_dtype) \
+                        if fused else losses.set_segsort_loss
+                    occ_ll = occ_loss(
+                        emb_rows, occ_pix_tags, pix_own, all_protos,
+                        occ_proto_tags, tcfg.sem_occ_concentration, pix_valid,
+                        all_valid, reduction="none")
+                    occ = mean(occ_ll, pix_valid, B)
 
-        sem_ann = (ce + ann) * tcfg.sem_ann_loss_weight \
-            if ann is not None else ce
-        metrics["sem_ann_loss"] = sem_ann
-        total = sem_ann
-        if occ is not None:
-            occ = occ * tcfg.sem_occ_loss_weight
-            metrics["sem_occ_loss"] = occ
-            total = total + occ
+            sem_ann = (ce + ann) * tcfg.sem_ann_loss_weight \
+                if ann is not None else ce
+            metrics["sem_ann_loss"] = sem_ann
+            total = sem_ann
+            if occ is not None:
+                occ = occ * tcfg.sem_occ_loss_weight
+                metrics["sem_occ_loss"] = occ
+                total = total + occ
 
-        # ---- low-level image similarity (per image) ----
-        # emb ++ location for VOC (segsort_softmax.py:222), the plain
-        # embeddings for DensePose (segsort_softmax_densepose.py:236)
-        # Height-sharded, an image's mean is its rank's sum over the
-        # image's count over the space group, and the image counts once.
-        if use_img_sim:
-            sim_ll = losses.segsort_loss(
-                emb_flat if densepose else emb_loc, inst.reshape(B, N),
-                segs.pixel_segment_ids, protos if densepose else protos_loc,
-                segs.segment_instance,
-                tcfg.img_sim_concentration, segs.pixel_valid,
-                segs.segment_valid, reduction="none")
-            m = segs.pixel_valid.to(sim_ll.dtype)
-            count = torch.sum(m, dim=-1)
-            if mesh.space > 1:
-                with mesh_lib.collective("other"):
-                    count = mesh_lib.all_reduce(count, mesh.space_group())
-            per_img = torch.sum(sim_ll * m, dim=-1) / torch.clamp(count,
-                                                                   min=1.0)
-            img_sim = _grouped_masked_mean(per_img, count > 0, _n_groups(B),
-                                           mesh, per_image=True)
-            img_sim = img_sim * tcfg.img_sim_loss_weight
-            metrics["img_sim_loss"] = img_sim
-            total = total + img_sim
+            # ---- low-level image similarity (per image) ----
+            # emb ++ location for VOC (segsort_softmax.py:222), the plain
+            # embeddings for DensePose (segsort_softmax_densepose.py:236)
+            # Height-sharded, an image's mean is its rank's sum over the
+            # image's count over the space group, and the image counts once.
+            if use_img_sim:
+                sim_ll = losses.segsort_loss(
+                    emb_flat if densepose else emb_loc, inst.reshape(B, N),
+                    segs.pixel_segment_ids,
+                    protos if densepose else protos_loc,
+                    segs.segment_instance,
+                    tcfg.img_sim_concentration, segs.pixel_valid,
+                    segs.segment_valid, reduction="none")
+                m = segs.pixel_valid.to(sim_ll.dtype)
+                count = torch.sum(m, dim=-1)
+                if mesh.space > 1:
+                    with mesh_lib.collective("other"):
+                        count = mesh_lib.all_reduce(count, mesh.space_group())
+                per_img = torch.sum(sim_ll * m, dim=-1) / torch.clamp(count,
+                                                                       min=1.0)
+                img_sim = _grouped_masked_mean(per_img, count > 0,
+                                               _n_groups(B), mesh,
+                                               per_image=True)
+                img_sim = img_sim * tcfg.img_sim_loss_weight
+                metrics["img_sim_loss"] = img_sim
+                total = total + img_sim
 
-        # ---- feature affinity (DensePose, tpu.apply_feat_aff) ----
-        if use_feat_aff and densepose:
-            aff_ll = losses.set_segsort_loss(
-                emb_rows, occ_pix_tags, pix_own, all_protos, occ_proto_tags,
-                tcfg.feat_aff_concentration, pix_valid, all_valid,
-                reduction="none")
-            aff = mean(aff_ll, pix_valid, B)
-            aff = aff * tcfg.feat_aff_loss_weight
-            metrics["feat_aff_loss"] = aff
-            total = total + aff
+            # ---- feature affinity (DensePose, tpu.apply_feat_aff) ----
+            if use_feat_aff and densepose:
+                aff_ll = losses.set_segsort_loss(
+                    emb_rows, occ_pix_tags, pix_own, all_protos,
+                    occ_proto_tags, tcfg.feat_aff_concentration, pix_valid,
+                    all_valid, reduction="none")
+                aff = mean(aff_ll, pix_valid, B)
+                aff = aff * tcfg.feat_aff_loss_weight
+                metrics["feat_aff_loss"] = aff
+                total = total + aff
 
-        # ---- top-5 prototype retrieval accuracy (logged steps only) ----
-        if compute_metrics:
-            with torch.no_grad():
-                acc = knn.top_k_ranking(all_protos, all_sem, all_protos,
-                                        all_sem, 5, all_valid, all_valid)[0]
-        else:
-            acc = torch.zeros((), device=dev)
-        metrics["accuracy"] = acc
-        metrics["num_segments"] = proto_valid.sum()
-        return total, (metrics, cur)
+            # ---- top-5 prototype retrieval accuracy (logged steps only) ----
+            if compute_metrics:
+                with torch.no_grad():
+                    acc = knn.top_k_ranking(all_protos, all_sem, all_protos,
+                                            all_sem, 5, all_valid,
+                                            all_valid)[0]
+            else:
+                acc = torch.zeros((), device=dev)
+            metrics["accuracy"] = acc
+            metrics["num_segments"] = proto_valid.sum()
+            return total, (metrics, cur)
 
     def train_step(state: TrainState, batch):
-        state.emb_model.train()
-        state.cls_model.train()
-        compute = (not config.tpu.lazy_metrics
-                   or state.step % tcfg.tensorboard_step == 0)
-        total, (metrics, cur) = forward_and_losses(state, batch, compute)
-        params = list(_named_params(state))
-        for _, p in params:
-            p.grad = None
-        total.backward()
-        if world > 1:
-            _sum_gradients(params)
-        lr = schedule(state.step)
-        state = update(params, state, lr)
-        memory = state.memory if softmax else state.memory.push(
-            cur["prototype"].detach(), cur["prototype_with_loc"].detach(),
-            cur["semantic_label"], cur["instance_label"],
-            cur["batch_index"], cur["tag"], cur["valid"],
-            batch["image"].shape[0] * mesh.data)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = total.detach()
-        if world > 1:  # the ranks' shares of each loss sum to its value
-            names = [k for k in metrics if k.endswith("loss")]
-            with mesh_lib.collective("other"):
-                summed = mesh_lib.all_reduce(torch.stack(
-                    [common.at_least_float32(metrics[k]) for k in names]))
-            metrics.update(zip(names, summed))
-        metrics["learning_rate"] = lr
-        return dataclasses.replace(state, step=state.step + 1,
-                                   memory=memory), metrics
+        with span("spml.train.step"):
+            state.emb_model.train()
+            state.cls_model.train()
+            compute = (not config.tpu.lazy_metrics
+                       or state.step % tcfg.tensorboard_step == 0)
+            total, (metrics, cur) = forward_and_losses(state, batch, compute)
+            params = list(_named_params(state))
+            with span("spml.train.backward"):
+                for _, p in params:
+                    p.grad = None
+                total.backward()
+                if world > 1:
+                    _sum_gradients(params)
+            with span("spml.train.update"):
+                lr = schedule(state.step)
+                state = update(params, state, lr)
+                memory = state.memory if softmax else state.memory.push(
+                    cur["prototype"].detach(),
+                    cur["prototype_with_loc"].detach(),
+                    cur["semantic_label"], cur["instance_label"],
+                    cur["batch_index"], cur["tag"], cur["valid"],
+                    batch["image"].shape[0] * mesh.data)
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                metrics["loss"] = total.detach()
+                if world > 1:  # the ranks' shares of each loss sum to it
+                    names = [k for k in metrics if k.endswith("loss")]
+                    with mesh_lib.collective("other"):
+                        summed = mesh_lib.all_reduce(torch.stack(
+                            [common.at_least_float32(metrics[k])
+                             for k in names]))
+                    metrics.update(zip(names, summed))
+            metrics["learning_rate"] = lr
+            return dataclasses.replace(state, step=state.step + 1,
+                                       memory=memory), metrics
 
     return train_step

@@ -10,7 +10,9 @@ checks its own:
 * train_classifier over that snapshot writes its trace too;
 * a run that ends inside its window still writes the trace;
 * an empty profile_dir never starts the profiler, and a traced run's
-  steps equal an untraced one's.
+  steps equal an untraced one's;
+* the traces hold the train step's spans (spml_tpu_torch/utils/spans.py)
+  once for each traced step, and none of the steps outside the window.
 """
 
 import argparse
@@ -77,6 +79,27 @@ def stage1(world):
     resumed.tpu.profile_steps = 1
     driver.train_spml(_args(world, "stage1"), resumed, device="cpu")
     return root
+
+
+def _spans(path) -> dict:
+    """{name: count} of the trace's spml.train.* spans."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if (e.get("cat") == "user_annotation"
+                and e["name"].startswith("spml.train.")):
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("trace,steps", [("trace1/steps_1-3", 2),
+                                         ("trace2/steps_4-5", 1)])
+def test_window_holds_its_steps_spans(stage1, trace, steps):
+    """Steps 1-2 of a 3-step run, and step 4 of the resumed run to 5."""
+    phases = ("forward", "kmeans", "losses", "backward", "update")
+    want = {f"spml.train.{p}": steps for p in ("step",) + phases}
+    assert _spans(stage1 / f"{trace}.pt.trace.json") == want
 
 
 def test_train_spml_writes_its_window(stage1):
