@@ -85,7 +85,8 @@ Phases, each printing one line or more:
       64 x 64, 256 -> 256 at d = 2, 512 -> 512 at d = 4);
  4. main paths, each from random weights of seed 0, 3 warm-up and 10
     timed steps, every loss finite, segments formed, each of its kernels
-    launched once per step and the other families' not at all; then each
+    launched once per step and the other families' not at all, the KNN
+    kernels (the top-5 retrieval accuracy) once a logged step; then each
     kernel timed at the path's own inputs beside the plain version and its
     bound (every SegSort kernel: at the split-TF32 rate its products use,
     with the float32 bound beside it as bound_f32_ms); dE and dP on randn
@@ -112,6 +113,15 @@ Phases, each printing one line or more:
       at its two shapes: K10, then K10 timed at the first shape (res4 d2)
       beside its plain version, cuDNN (F.conv2d, the library yardstick)
       and its bound at the bf16 tensor-core peak;
+    - the KNN kernels of csrc/knn_topk.cu alone at VOC's inference shape
+      (144 unit queries, BANK_SIZE unit prototypes, D 64, top 20, labels
+      the bank index): rows equal to the plain version's (the scores and
+      a stable sort on the card), each differing row's first difference
+      a float64 near-tie, at least KNN_ROWS_EQUAL; CUDA events over 20
+      calls of the kernels, of the plain version and of the library's
+      own top-k (the scores, the mask and torch.topk, whose tie order is
+      unspecified), and the bound as the SegSort kernels' (the products
+      in split TF32, the float32 bound beside it as bound_f32_ms);
  5. remat, the flagship recipe from one seed-0 state and one batch with
     no remat, tpu.remat_backbone (every block of res3-res5 under
     torch.utils.checkpoint; the frozen stem and res2 run plainly) and
@@ -284,9 +294,9 @@ Phases, each printing one line or more:
     stride 64, a 192 x 160 image: 2 x 2 windows): the stitched map within
     STITCH_RTOL, clusters, labels and predictions equal. One [inference]
     line: build and predict ms/image and images/s (CUDA events, 3
-    warm-up and 10 timed images), the split of a prediction (upload,
-    forward, stitch, kmeans, knn, vote), peak memory, the nvidia-smi
-    line. Then (d) batched prediction, predict_semantic_batch over
+    warm-up and 10 timed images; the KNN kernels launched once each an
+    image), the split of a prediction (upload, forward, stitch, kmeans,
+    knn, vote), peak memory, the nvidia-smi line. Then (d) batched prediction, predict_semantic_batch over
     groups of INFER_BATCH 4 of the 8 images (one bucket) against the
     same bank: in bf16 each prediction equals the stages run on its
     group's stitched map, which lies within BF16_STITCH_ATOL of the
@@ -363,7 +373,8 @@ Phases, each printing one line or more:
     the pseudo-label step (forward, affinity, walk, CRF), peak memory,
     the nvidia-smi line;
 11. the kernel list as one JSON line: the nine SegSort kernels in
-    float32 and in bf16 operands (the _bf16 names) and K10;
+    float32 and in bf16 operands (the _bf16 names), K10 and the KNN
+    kernels;
 12. the card's name and power limit (nvidia-smi), then the last line
     {"ok": true, "device": {...}}.
 
@@ -927,6 +938,7 @@ def run_main_path(torch, fused, recipe, operand_dtype="float32"):
     (launch counts, the last call's stats inputs, the cotangent of its
     stats that the last backward handed to the kernels, (ms/step, peak
     GiB))."""
+    from spml_tpu_torch.ops import knn
     from spml_tpu_torch.train import recipes
     from spml_tpu_torch.train import step as step_lib
 
@@ -953,6 +965,7 @@ def run_main_path(torch, fused, recipe, operand_dtype="float32"):
     metrics_log = []
     torch.cuda.reset_peak_memory_stats()
     fused.reset_launch_counts()
+    knn.reset_launch_counts()
     # the last call's inputs, for the timings
     with recording_stats(torch, fused, family) as last:
         try:
@@ -989,6 +1002,11 @@ def run_main_path(torch, fused, recipe, operand_dtype="float32"):
         if launches[key] != want:
             raise AssertionError(f"{recipe}: {key} launched {launches[key]}"
                                  f" times in {steps} steps, want {want}")
+    logged = sum(not cfg.tpu.lazy_metrics
+                 or s % cfg.train.tensorboard_step == 0 for s in range(steps))
+    if knn.LAUNCHES != dict.fromkeys(knn.LAUNCHES, logged):
+        raise AssertionError(f"{recipe}: KNN launches {knn.LAUNCHES} in "
+                             f"{logged} logged steps, want {logged} each")
     ms = start.elapsed_time(end) / 10
     cap = b * cfg.tpu.segment_capacity
     loss = losses["loss"]
@@ -1005,7 +1023,8 @@ def run_main_path(torch, fused, recipe, operand_dtype="float32"):
     log(recipe, f"train step {ms:.2f} ms (CUDA events; host clock "
         f"{host_s * 100:.2f} ms), {b * 1000 / ms:.2f} imgs/s, peak memory "
         f"{peak:.2f} GiB, launches "
-        f"{ {k: v for k, v in launches.items() if v} }, card "
+        f"{ {k: v for k, v in {**launches, **knn.LAUNCHES}.items() if v} }"
+        f", card "
         f"{nvidia_smi_line()}")
     return launches, last["args"], last["grads"], (ms, peak)
 
@@ -4339,6 +4358,87 @@ def time_dilated_conv(torch, dc):
 
 
 # ---------------------------------------------------------------------------
+# KNN top-k (csrc/knn_topk.cu): no Pallas counterpart
+# ---------------------------------------------------------------------------
+
+KNN_KERNEL = ("knn_topk_partial + knn_topk_merge",
+              "none (no Pallas counterpart; ops/knn.py)",
+              "spml_tpu_torch/csrc/knn_topk.cu")
+KNN_QUERIES, KNN_DIM, KNN_TOP_K = 144, 64, 20  # 12 x 12 segments, top 20
+KNN_ROWS_EQUAL = 0.995  # least share of rows whose 20 labels equal the sort's
+
+
+def run_knn_topk(torch):
+    """The two KNN kernels alone at VOC's inference shape (KNN_QUERIES unit
+    queries against BANK_SIZE unit prototypes, D 64, top 20; labels the
+    bank indices): rows equal to the plain version's (the [N, P] scores and
+    a stable sort, on the card), each differing row's first difference a
+    near-tie in float64 (gap < TIE_GAP); then CUDA events over 20 calls of
+    the kernels, of the plain version and of the library's own top-k (the
+    masked scores and torch.topk, whose tie order is unspecified). The
+    bound as the SegSort kernels': the products three times at the TF32
+    rate (split TF32, the form the card's tensor cores offer float32 at),
+    a compare a pair at the float32 rate, or the bytes if more; the
+    float32 bound beside it. Returns the kernel table row, its launches
+    left to the inference phase, which counts them on the main path."""
+    from spml_tpu_torch.ops import knn
+    from spml_tpu_torch.tools.dilated_conv_probe import cuda_ms
+
+    gen = torch.Generator(DEVICE).manual_seed(3)
+    bank = torch.randn(BANK_SIZE, KNN_DIM, device=DEVICE, generator=gen)
+    bank /= bank.norm(dim=1, keepdim=True)
+    queries = torch.randn(KNN_QUERIES, KNN_DIM, device=DEVICE, generator=gen)
+    queries /= queries.norm(dim=1, keepdim=True)
+    index = torch.arange(BANK_SIZE, device=DEVICE)
+    mask = torch.ones(BANK_SIZE, dtype=torch.bool, device=DEVICE)
+    args = (queries, bank, index, KNN_TOP_K, mask)
+    knn.reset_launch_counts()
+    got = knn.top_k_labels(*args)
+    want = knn.top_k_labels_reference(*args)
+    torch.cuda.synchronize()
+    if knn.LAUNCHES != {"knn_topk_partial": 1, "knn_topk_merge": 1}:
+        raise AssertionError(f"knn: launches {knn.LAUNCHES}")
+    equal = (got == want).all(dim=1)
+    aff = queries.double() @ bank.double().T
+    for r in torch.nonzero(~equal).flatten().tolist():
+        j = int(torch.nonzero(got[r] != want[r])[0])
+        gap = abs(float(aff[r, got[r, j]] - aff[r, want[r, j]]))
+        if gap >= TIE_GAP:
+            raise AssertionError(f"knn: row {r} rank {j}: {got[r].tolist()} "
+                                 f"against the sort's {want[r].tolist()}, "
+                                 f"float64 gap {gap:.3e}")
+    share = float(equal.float().mean())
+    if share < KNN_ROWS_EQUAL:
+        raise AssertionError(f"knn: {share:.4f} of rows equal the sort's")
+    del aff
+    ms = cuda_ms(lambda: knn.top_k_labels(*args), 20)
+    plain_ms = cuda_ms(lambda: knn.top_k_labels_reference(*args), 20)
+    library_ms = cuda_ms(lambda: torch.topk(torch.where(
+        mask, queries @ bank.T, knn.NEG_INF), KNN_TOP_K, dim=1)[1], 20)
+    pairs = KNN_QUERIES * BANK_SIZE
+    flops = 2 * KNN_DIM * pairs
+    nbytes = (4 * (BANK_SIZE + KNN_QUERIES) * KNN_DIM + BANK_SIZE
+              + 8 * KNN_QUERIES * KNN_TOP_K)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_f32 = (flops + pairs) / PEAK_F32_FLOPS * 1e3
+    t_ops = (3 * flops / PEAK_TF32_FLOPS + pairs / PEAK_F32_FLOPS) * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log("knn", f"top {KNN_TOP_K} of {BANK_SIZE} x {KNN_DIM} for "
+        f"{KNN_QUERIES} queries: {share:.4f} of rows equal the sort's, the "
+        f"rest near-ties; kernels {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s float32), plain (scores + stable sort) {plain_ms:.3f} ms, "
+        f"library (scores + torch.topk) {library_ms:.3f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}; float32 {max(t_f32, t_bytes):.4f}); "
+        f"card {nvidia_smi_line()}")
+    name, replaces, source = KNN_KERNEL
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "rows_equal": share,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "bound_f32_ms": max(t_f32, t_bytes),
+            "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
 # Inference: the single-scale KNN path at VOC's test geometry
 # ---------------------------------------------------------------------------
 
@@ -4510,7 +4610,11 @@ def check_card_against_cpu(torch):
 
 def time_inference(torch, eng, images, bank):
     """CUDA events around 10 images after 3 warm-up images: (build ms,
-    predict ms, host ms of predict, {stage: ms}, peak bytes of predict)."""
+    predict ms, host ms of predict, {stage: ms}, peak bytes of predict,
+    KNN kernel launches of predict's 13 images, each counter once an
+    image)."""
+    from spml_tpu_torch.ops import knn
+
     order = [images[i % len(images)] for i in range(13)]
 
     def timed(fn):
@@ -4529,9 +4633,14 @@ def time_inference(torch, eng, images, bank):
 
     build_ms, _ = timed(lambda im, lab: eng.build_prototypes(im, lab))
     torch.cuda.reset_peak_memory_stats()
+    knn.reset_launch_counts()
     predict_ms, host_ms = timed(lambda im, lab: eng.predict_semantic(
         im, *bank))
     peak = torch.cuda.max_memory_allocated()
+    if knn.LAUNCHES != dict.fromkeys(knn.LAUNCHES, len(order)):
+        raise AssertionError(f"inference: KNN launches {knn.LAUNCHES} in "
+                             f"{len(order)} images, want one each an image")
+    knn_launches = sum(knn.LAUNCHES.values())
 
     stages = ("upload", "forward", "stitch", "kmeans", "knn", "vote")
     totals = dict.fromkeys(stages, 0.0)
@@ -4555,7 +4664,7 @@ def time_inference(torch, eng, images, bank):
         if n >= 3:
             for i, st in enumerate(stages):
                 totals[st] += ev[i].elapsed_time(ev[i + 1]) / 10
-    return build_ms, predict_ms, host_ms, totals, peak
+    return build_ms, predict_ms, host_ms, totals, peak, knn_launches
 
 
 def run_inference(torch):
@@ -4563,7 +4672,8 @@ def run_inference(torch):
     network from random weights of seed 0 (eval mode, bf16 convs), 12 x 12
     k-means x 10, 21 classes, top 20, crop = stride = 512; memory bank
     entries from 8 images, a bank of BANK_SIZE, prediction of the same 8,
-    the checks and the timings."""
+    the checks and the timings. Returns the KNN kernels' launches in the
+    timed predict_semantic run."""
     import tempfile
 
     from spml_tpu_torch import cli
@@ -4604,15 +4714,16 @@ def run_inference(torch):
         f"as near-ties; card vs CPU float32 (crop 128, stride 64, 192 x "
         f"160, 2 x 2 windows) stitched max_abs_err {stitch_err:.3e} "
         f"(rtol {STITCH_RTOL}), clusters, labels and predictions equal")
-    build_ms, predict_ms, host_ms, stages, peak = time_inference(
-        torch, eng, images, bank)
+    build_ms, predict_ms, host_ms, stages, peak, knn_launches = \
+        time_inference(torch, eng, images, bank)
     log("inference", f"VOC test geometry (panoptic_deeplab_101 bf16, 512 x "
         f"384 / 384 x 512 in a 512 x 512 bucket, 12 x 12 k-means x 10, top "
         f"20 of {BANK_SIZE}): build_prototypes {build_ms:.2f} ms/image; "
         f"predict_semantic {predict_ms:.2f} ms/image (host clock "
         f"{host_ms:.2f}), {1000 / predict_ms:.2f} images/s; split "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f" ms; peak memory {peak / 2**30:.2f} GiB; card "
+        + f" ms; peak memory {peak / 2**30:.2f} GiB; KNN kernel launches "
+        f"{knn_launches} in 13 images; card "
         f"{nvidia_smi_line()}")
     differ, moved, worst = check_batched(torch, eng, images, bank)
     f32_exact = check_batched_float32(torch, images, bank)
@@ -4630,6 +4741,7 @@ def run_inference(torch):
         f"images/s), peak {batch_peak / 2**30:.2f} GiB, against per image "
         f"{predict_ms:.2f} ms/image, peak {peak / 2**30:.2f} GiB; card "
         f"{nvidia_smi_line()}")
+    return knn_launches
 
 
 INFER_BATCH = 4  # images a group of the batched prediction
@@ -5845,11 +5957,12 @@ def main() -> int:
     conv_launches = run_probe_path(torch, dc)
     conv_ms, conv_plain, conv_lib, (conv_bound, conv_by) = \
         time_dilated_conv(torch, dc)
+    knn_row = run_knn_topk(torch)
     run_remat(torch, fused)
     run_dp(torch, fused)
     run_sp(torch)
     run_sp3(torch)
-    run_inference(torch)
+    knn_row["launches"] = run_inference(torch)
     run_driver(torch, fused, dc)
 
     err_name = {"stats": "stats", "grad_emb": "dE", "grad_proto": "dP"}
@@ -5881,6 +5994,7 @@ def main() -> int:
         "max_abs_err": conv_err, "ms": conv_ms, "plain_ms": conv_plain,
         "bound_ms": conv_bound, "bound_by": conv_by,
         "library_ms": conv_lib})
+    table.append(knn_row)
     print(json.dumps({"kernels": table}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

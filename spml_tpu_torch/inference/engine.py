@@ -311,11 +311,12 @@ class InferenceEngine(WindowEngine):
         """Single-scale KNN prediction of a group of (resized) images: each
         padded to the group's largest bucket, every window of the group
         through one forward, then clustering, retrieval and vote per
-        image; per-image [h, w] int32 classes. Retrieval stays per image:
-        its ranking holds ~0.9 GB of float32 scores an image against a
-        VOC-sized bank. An image in the group's own bucket gets
-        predict_semantic's result; a smaller bucket's image sees another
-        window grid (runner.py groups by bucket)."""
+        image; per-image [h, w] int32 classes. Retrieval stays per image,
+        each image's segments one call of knn.top_k_ranking (on the card
+        two kernel launches that write no [segments, bank] score matrix;
+        no path batches it across images). An image in the group's own
+        bucket gets predict_semantic's result; a smaller bucket's image
+        sees another window grid (runner.py groups by bucket)."""
         if not images:
             return []
         shapes = [im.shape[:2] for im in images]

@@ -63,6 +63,14 @@ SIGNATURES = {
         # W, C, O, dilation, stream
         "dilated_conv3x3_bf16": [P] * 3 + [I] * 6 + [P],
     },
+    "knn_topk": {
+        # emb [N, D], bank [P, D], mask [P] (bool) or null, n, p, d, k,
+        # chunks, rows_per_chunk, scratch [2, chunks, N, k], stream
+        "knn_topk_partial": [P] * 3 + [I] * 6 + [P, P],
+        # scratch, labels [P], label bytes, n, p, k, chunks, out [N, k],
+        # stream
+        "knn_topk_merge": [P, P] + [I] * 5 + [P, P],
+    },
 }
 # the SegSort kernels' bf16-operand forms (emb and protos bf16, the rest
 # as the float32 forms')

@@ -144,20 +144,64 @@ def test_batched_segsort_loss_equals_per_image():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
-def test_top_k_ranking_with_ties_and_masks():
+# case -> (k, queries, base prototypes, times the base is repeated, mask):
+# the repeats put exact ties where the card's kernel would cut the bank
+# into tiles and chunks; "few" leaves fewer valid prototypes than k; "nan
+# rows" makes a query and three prototypes NaN, whose scores rank first
+TOP_K_CASES = {
+    "k5 ties": (5, 14, 10, None, "random"),
+    "k1": (1, 9, 40, 1, "random"),
+    "k5 repeated bank": (5, 12, 7, 9, "random"),
+    "k20": (20, 30, 64, 1, "random"),
+    "k20 repeated bank": (20, 16, 5, 12, "random"),
+    "p below k": (20, 6, 11, 1, "random"),
+    "fewer valid than k": (20, 10, 50, 1, "few"),
+    "all masked": (5, 8, 30, 1, "none"),
+    "nan rows": (20, 10, 40, 1, "random"),
+}
+
+
+@pytest.mark.parametrize("case", list(TOP_K_CASES))
+def test_top_k_ranking_with_ties_and_masks(case):
+    k, n, base, repeat, mask = TOP_K_CASES[case]
     rng = np.random.RandomState(5)
-    protos = oracles.normalize(rng.randn(10, 8)).astype(np.float32)
-    protos = np.concatenate([protos, protos[:4]])  # exact ties
-    labels = rng.randint(0, 4, 14).astype(np.int32)
-    qmask = rng.rand(14) > 0.2
-    pmask = rng.rand(14) > 0.3
-    acc, top = knn.top_k_ranking(_t(protos), _t(labels), _t(protos),
-                                 _t(labels), 5, _t(qmask), _t(pmask))
+    if repeat is None:  # the first ten, then four of them again
+        protos = oracles.normalize(rng.randn(base, 8)).astype(np.float32)
+        protos = np.concatenate([protos, protos[:4]])  # exact ties
+    else:
+        protos = oracles.normalize(rng.randn(base, 8)).astype(np.float32)
+        protos = np.tile(protos, (repeat, 1))
+    p = protos.shape[0]
+    queries = (protos[:n] if repeat is None else
+               oracles.normalize(rng.randn(n, 8)).astype(np.float32))
+    if case == "nan rows":
+        queries[1] = np.nan
+        protos[[0, p // 2, p - 1]] = np.nan
+    labels = rng.randint(0, 4, p).astype(np.int32)
+    qlabels = labels[:n] if n <= p else rng.randint(0, 4, n).astype(np.int32)
+    qmask = rng.rand(n) > 0.2
+    if mask == "random":
+        pmask = rng.rand(p) > 0.3
+    else:
+        pmask = np.zeros(p, bool)
+        if mask == "few":
+            pmask[rng.choice(p, 3, replace=False)] = True
+    acc, top = knn.top_k_ranking(_t(queries), _t(qlabels), _t(protos),
+                                 _t(labels), k, _t(qmask), _t(pmask))
     jacc, jtop = jknn.top_k_ranking(
-        jnp.asarray(protos), jnp.asarray(labels), jnp.asarray(protos),
-        jnp.asarray(labels), 5, jnp.asarray(qmask), jnp.asarray(pmask))
+        jnp.asarray(queries), jnp.asarray(qlabels), jnp.asarray(protos),
+        jnp.asarray(labels), k, jnp.asarray(qmask), jnp.asarray(pmask))
+    assert top.shape == (n, min(k, p))
     np.testing.assert_array_equal(top.numpy(), np.asarray(jtop))
     np.testing.assert_allclose(float(acc), float(jacc), **F32)
+    # index for index: the labels the bank index
+    index = np.arange(p, dtype=np.int32)
+    _, top_i = knn.top_k_ranking(_t(queries), _t(qlabels), _t(protos),
+                                 _t(index), k, _t(qmask), _t(pmask))
+    _, jtop_i = jknn.top_k_ranking(
+        jnp.asarray(queries), jnp.asarray(qlabels), jnp.asarray(protos),
+        jnp.asarray(index), k, jnp.asarray(qmask), jnp.asarray(pmask))
+    np.testing.assert_array_equal(top_i.numpy(), np.asarray(jtop_i))
 
 
 @pytest.mark.parametrize("clusters,dims", [((3, 2), (9, 8)),
